@@ -14,17 +14,25 @@ n=24, seed 0, gradient sky probe: 6,924 triangles), then:
 2. computes bounce 0's NEE shadow rays through the port's integrator and
    drives the packet-occlusion path (K3, the counterpart of the JAX
    package's Pallas kernel) on them, checking K3 against its plain version
-   and against K2 on the same rays; checks K1 against its plain version
-   again on bounce 0's incoherent continuation rays;
+   and against K2 on the same rays; checks and times K1 again on bounce 0's
+   incoherent continuation rays, the shape of three of its four launches a
+   frame;
 3. drives the main path, ``Renderer.render`` on ``FRAMES`` 960x540 frames
    after one warm-up frame, counting the
    kernel launches of those frames only, and checks the frame;
 4. renders a small frame on the GPU and on the CPU (the plain versions) and
    requires 99% of the pixels within 1 LSB.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+(with each kernel's registers, local memory and resident blocks per SM),
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
 raises and exits non-zero; there is no CPU fallback.
+
+``--profile`` adds ``FRAMES`` frames under ``torch.profiler``. ``--sweep``
+rebuilds ``csrc/traverse.cu`` with each of ``SWEEP``'s ``-D`` settings and
+times K1/K2 of every build on the main path's shapes (after checking each
+build's answers against the committed build's): the measurement that chose
+the tuning constants of that source.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,25 +57,23 @@ MASK_BYTES = 1  # the active mask, read for every lane
 SLAB_OPS = 21  # per child box: 6 subtracts, 6 multiplies, 6 min/max, 3 tests
 MT_OPS = 40  # per triangle: the Möller-Trumbore arithmetic and range tests
 RAY_SHAPE = "960x540 reference_32_16_8, box_city n=24 seed 0"
+# csrc/traverse.cu builds timed by --sweep, each against the committed one
+SWEEP = {
+    "k1_refill_idle=8": ("-DFOV_K1_REFILL_IDLE=8",),
+    "k1_refill_idle=16": ("-DFOV_K1_REFILL_IDLE=16",),
+    "k2_refill_idle=8": ("-DFOV_K2_REFILL_IDLE=8",),
+    "k2_refill_idle=32": ("-DFOV_K2_REFILL_IDLE=32",),
+    "k1_staged_row=0": ("-DFOV_K1_STAGED_ROW=0",),
+    "k2_staged_row=1": ("-DFOV_K2_STAGED_ROW=1",),
+    "min_blocks=4": ("-DFOV_MIN_BLOCKS=4",),
+    "min_blocks=6": ("-DFOV_MIN_BLOCKS=6",),
+    "local_stack": ("-DFOV_LOCAL_STACK=1",),
+}
+SWEEP_REPS = 10
 
 
 def _line(msg: str) -> None:
     print(msg, flush=True)
-
-
-def _events_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _plain_ms(fn):
@@ -77,6 +84,92 @@ def _plain_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def _kernel_of(name: str):
+    """Which of the port's kernels a device function belongs to, from its
+    name as the profiler or ptxas gives it (plain, templated, namespaced or
+    mangled): "closest_hit", "occluded", "occluded_packets" or None."""
+    for kernel in ("occluded_packets", "closest_hit", "occluded"):
+        if f"{kernel}_kernel" in name:
+            return kernel
+    return None
+
+
+def _ptxas_spills(log: str) -> dict:
+    """Spill-store bytes per kernel from an ``nvcc -Xptxas -v`` log."""
+    out, current = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            current = _kernel_of(ln.split("Function properties for", 1)[1])
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and current:
+            out[current] = int(m.group(1))
+    return out
+
+
+def _k1_agreement(k: dict, p: dict):
+    """K1's answer against its plain version's: (hit equal, tri_id equal,
+    largest t/u/v difference in ulp and in absolute value on the hits)."""
+    import torch
+
+    hm = p["hit"]
+    hit_eq = bool(torch.equal(k["hit"], hm))
+    tri_eq = bool(torch.equal(k["tri_id"], p["tri_id"]))
+    if not hm.any():
+        return hit_eq, tri_eq, 0, 0.0
+    ulp = max(int((k[c][hm].view(torch.int32) - p[c][hm].view(torch.int32))
+                  .abs().max().item()) for c in ("t", "u", "v"))
+    err = max(float((k[c][hm] - p[c][hm]).abs().max().item())
+              for c in ("t", "u", "v"))
+    return hit_eq, tri_eq, ulp, err
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return all(torch.equal(a[c], b[c]) for c in a)
+    return bool(torch.equal(a, b))
+
+
+def _sweep(calls: dict, refs: dict, stack_depth: int) -> dict:
+    """Build every ``SWEEP`` variant of csrc/traverse.cu, require each to
+    give the committed build's answers on the main-path shapes in ``refs``,
+    and time every build on each shape in two rounds (forward, then
+    backward order). Returns {build: {shape: mean ms, ..., resources}}."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    t0 = time.perf_counter()
+    builds = {"committed": kernel_build.library("traverse"),
+              **kernel_build.build_variants("traverse", SWEEP)}
+    _line(f"sweep: {len(SWEEP)} builds in {time.perf_counter() - t0:.1f} s")
+    times = {tag: {shape: [] for shape in refs} for tag in builds}
+    out = {}
+    for order in (list(builds), list(reversed(builds))):
+        for tag in order:
+            with kernel_build.using("traverse", builds[tag]):
+                if tag not in out:
+                    for shape, ref in refs.items():
+                        assert _same(calls[shape](), ref), \
+                            f"sweep build {tag} disagrees on {shape}"
+                    res = kernel_build.resources(stack_depth)
+                    out[tag] = {"resources": {k: res[k] for k in
+                                              ("closest_hit", "occluded")}}
+                for shape in refs:
+                    times[tag][shape].append(
+                        kernel_times.events_ms(calls[shape], SWEEP_REPS))
+    for tag in builds:
+        out[tag].update({shape: sum(v) / len(v)
+                         for shape, v in times[tag].items()})
+        res = out[tag]["resources"]
+        _line(f"sweep {tag}: " + ", ".join(
+            f"{shape} {out[tag][shape]:.4f} ms" for shape in refs)
+            + "; " + ", ".join(
+                f"{k} {r['registers']} regs, {r['local_bytes']} B local, "
+                f"{r['blocks_per_sm']} blocks/SM" for k, r in res.items()))
+    return out
 
 
 def _bound(stats: dict, table, arity: int, leaf_size: int, n_rays: int,
@@ -121,9 +214,12 @@ def _profile_frames(renderer, path: str, results: dict) -> None:
     dev_ms = lambda e: e.self_device_time_total / 1e3 / FRAMES  # noqa: E731
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(dev_ms(e) for e in kernels)
-    ours_ms = sum(dev_ms(e) for e in kernels
-                  if e.key.startswith(("closest_hit_kernel",
-                                       "occluded_kernel")))
+    k1_ms = sum(dev_ms(e) for e in kernels
+                if _kernel_of(e.key) == "closest_hit")
+    k2_ms = sum(dev_ms(e) for e in kernels if _kernel_of(e.key) == "occluded")
+    # a renamed kernel must fail here, not read as 0 ms
+    assert k1_ms > 0 and k2_ms > 0, "K1/K2 not found in the profile"
+    ours_ms = k1_ms + k2_ms
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.key.startswith("aten::")]
     top = sorted(ops, key=dev_ms, reverse=True)[:8]
@@ -135,12 +231,14 @@ def _profile_frames(renderer, path: str, results: dict) -> None:
     results["profile"] = {
         "frames": FRAMES, "device_busy_ms": busy_ms, "frame_ms": wall_ms,
         "idle_share": idle, "traversal_kernels_ms": ours_ms,
+        "k1_ms": k1_ms, "k2_ms": k2_ms,
         "device_launches": launches,
         "top_ops": [(e.key, dev_ms(e), e.count / FRAMES) for e in top],
     }
     _line(f"profile ({FRAMES} frames, per frame): device busy {busy_ms:.1f} "
           f"ms of a {wall_ms:.1f} ms profiled frame (idle share {idle:.2f}); "
-          f"K1+K2 {ours_ms:.2f} ms; {launches:.0f} device launches; top ops: "
+          f"K1+K2 {ours_ms:.3f} ms (K1 {k1_ms:.3f}, K2 {k2_ms:.3f}); "
+          f"{launches:.0f} device launches; top ops: "
           + "; ".join(f"{e.key} {dev_ms(e):.2f} ms x{e.count / FRAMES:.0f}"
                       for e in top))
 
@@ -152,6 +250,9 @@ def main() -> int:
     ap.add_argument("--profile", default=None,
                     help="profile FRAMES more frames; write the op table "
                     "here")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also build and time the SWEEP variants of "
+                    "csrc/traverse.cu")
     args = ap.parse_args()
 
     import torch
@@ -178,15 +279,10 @@ def main() -> int:
         packet_traverse,
         traverse,
     )
-    from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import (
-        fold_in,
-        prng_key,
-    )
-    from fovpathtracing_optixcodelatest_tpu_torch.render import (
-        integrator,
-        raygen,
-    )
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import Renderer
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    _events_ms = kernel_times.events_ms
 
     results = {}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -216,59 +312,37 @@ def main() -> int:
           + " | ".join(ptxas))
     results["build_s"] = build_s
 
-    # -- phase 3: scene ----------------------------------------------------
+    # -- phase 3: scene and the first bounce's rays ---------------------------
     w, h = 960, 540
-    meshes, cam = scenes.box_city(n=24, seed=0)
-    t0 = time.perf_counter()
-    arrays = scene_arrays(meshes, gradient_sky_probe(), legacy8=True)
-    scene = scene_from_arrays(arrays, device="cuda")
+    rays = kernel_times.bench_rays("cuda", width=w, height=h)
+    scene, config = rays["scene"], rays["config"]
+    schedule, camera = rays["schedule"], rays["camera"]
     bvh, leg = scene.bvh, scene.legacy
     _line(f"scene: {scene.num_triangles} tris; packed {bvh.num_rows} rows x "
           f"{bvh.table.shape[1]} cols, stack_depth {bvh.stack_depth}; legacy8 "
           f"{leg.num_rows} rows x {leg.table.shape[1]} cols, stack_depth "
-          f"{leg.stack_depth}; host build {time.perf_counter() - t0:.1f} s")
+          f"{leg.stack_depth}; host build {rays['scene_s']:.1f} s")
     assert scene.num_triangles == 24 * 24 * 12 + 12
-    config = RenderConfig(width=w, height=h)
-    schedule = FoveationSchedule.reference_32_16_8()
-    camera = dataclasses.replace(cam, aspect=w / h)
-    camp = camera.device_params("cuda")
-
-    # the first frame's primary rays (subframe 0 of seed 0)
-    frame_key = fold_in(prng_key(0), 0)
-    rays = [raygen.generate_pass_rays(camp, p, w, h, w // 2, h // 2,
-                                      fold_in(frame_key, 0))
-            for p in schedule.passes]
-    o = torch.cat([r["origin"] for r in rays]).contiguous()
-    d = torch.cat([r["direction"] for r in rays]).contiguous()
-    act = torch.cat([r["active"] for r in rays]).contiguous()
-    ids = torch.cat([r["ray_ids"] for r in rays])
+    o, d, act, _ = rays["primary"]
     n = o.shape[0]
-    assert n == 1_923_984, n
+    assert n == kernel_times.PRIMARY_LANES, n
     tmin, tmax = config.tmin, config.tmax
     kargs = (tmin, tmax, bvh.stack_depth, bvh.arity, bvh.leaf_size)
+    calls = kernel_times.kernel_calls(rays)
     kernels = []
 
     # -- phase 4: K1 / K2 against their plain versions on primary rays -------
-    k1 = traverse.closest_hit(bvh.table, o, d, act, *kargs)
+    k1 = calls["k1_primary"]()
     st1 = {}
     p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
         bvh.table, o, d, act, *kargs, stats=st1))
-    hit_eq = bool(torch.equal(k1["hit"], p1["hit"]))
-    tri_eq = bool(torch.equal(k1["tri_id"], p1["tri_id"]))
-    hm = p1["hit"]
-    ulp = max(
-        int((k1[c][hm].view(torch.int32) - p1[c][hm].view(torch.int32))
-            .abs().max().item()) if hm.any() else 0
-        for c in ("t", "u", "v")
-    )
-    err1 = max(float((k1[c][hm] - p1[c][hm]).abs().max().item())
-               for c in ("t", "u", "v"))
-    k1_ms = _events_ms(lambda: traverse.closest_hit(bvh.table, o, d, act,
-                                                    *kargs), 5)
+    hit_eq, tri_eq, ulp, err1 = _k1_agreement(k1, p1)
+    k1_ms = _events_ms(calls["k1_primary"], 5)
     n_act = int(act.sum().item())
-    _line(f"K1 closest_hit: {n} lanes ({n_act} active, {int(hm.sum())} hits); "
-          f"kernel {k1_ms:.3f} ms, plain {p1_ms:.1f} ms; hit equal {hit_eq}, "
-          f"tri_id equal {tri_eq}, t/u/v max {ulp} ulp; rows fetched {st1}")
+    _line(f"K1 closest_hit: {n} lanes ({n_act} active, "
+          f"{int(p1['hit'].sum())} hits); kernel {k1_ms:.3f} ms, plain "
+          f"{p1_ms:.1f} ms; hit equal {hit_eq}, tri_id equal {tri_eq}, t/u/v "
+          f"max {ulp} ulp; rows fetched {st1}")
     assert hit_eq and tri_eq and ulp == 0, "K1 disagrees with its plain version"
 
     k2p = traverse.occluded(bvh.table, o, d, act, *kargs)
@@ -278,14 +352,7 @@ def main() -> int:
     assert mism2p == 0, "K2 disagrees with its plain version (primary rays)"
 
     # -- phase 5: bounce-0 shadow rays; the packet-occlusion path (K3) -------
-    idx = torch.nonzero(act).squeeze(1)
-    b0 = integrator.bounce(
-        scene, o[idx], d[idx],
-        torch.ones((idx.numel(), 3), dtype=torch.float32, device="cuda"),
-        torch.ones((idx.numel(),), dtype=torch.float32, device="cuda"),
-        ids[idx], fold_in(fold_in(frame_key, 1), 0), True, config,
-    )
-    so, sd, sq = b0["shadow_origin"], b0["shadow_dir"], b0["shadow_query"]
+    so, sd, sq = rays["shadow"]
     ns, nq = so.shape[0], int(sq.sum().item())
     lt = leg.table
     largs = (tmin, tmax, leg.stack_depth, leg.leaf_size)
@@ -297,7 +364,7 @@ def main() -> int:
     st3 = {}
     p3, p3_ms = _plain_ms(lambda: packet_traverse.occluded_packets_plain(
         lt, so, sd, sq, *largs, stats=st3))
-    k2 = traverse.occluded(bvh.table, so, sd, sq, *kargs)
+    k2 = calls["k2_shadow"]()
     st2 = {}
     p2, p2_ms = _plain_ms(lambda: traverse.occluded_plain(
         bvh.table, so, sd, sq, *kargs, stats=st2))
@@ -305,10 +372,8 @@ def main() -> int:
     mism2 = int((k2 != p2).sum().item())
     # a boolean answer's largest absolute error is 1 if any ray disagrees
     err2, err3 = float(min(mism2, 1)), float(min(mism3, 1))
-    k3_ms = _events_ms(
-        lambda: packet_traverse.occluded_packets(lt, so, sd, sq, *largs), 5)
-    k2_ms = _events_ms(
-        lambda: traverse.occluded(bvh.table, so, sd, sq, *kargs), 5)
+    k3_ms = _events_ms(calls["k3_shadow"], 5)
+    k2_ms = _events_ms(calls["k2_shadow"], 5)
     _line(f"shadow rays (bounce 0): {ns} lanes, {nq} queried, "
           f"{int(k2.sum())} occluded")
     _line(f"K2 occluded: kernel {k2_ms:.3f} ms, plain {p2_ms:.1f} ms, "
@@ -321,29 +386,29 @@ def main() -> int:
     assert mism32 == 0, "K3 disagrees with K2 on the same rays"
     del p1, p2, p3, p2p, k2p
 
-    # K1 again on bounce 0's continuation rays: incoherent, off-camera
-    alive = b0["alive"]
-    bo = b0["origin"][alive].contiguous()
-    bd = b0["direction"][alive].contiguous()
-    bact = torch.ones(bo.shape[0], dtype=torch.bool, device="cuda")
-    k1b = traverse.closest_hit(bvh.table, bo, bd, bact, *kargs)
-    p1b = traverse.closest_hit_plain(bvh.table, bo, bd, bact, *kargs)
-    hmb = p1b["hit"]
-    hit_eq_b = bool(torch.equal(k1b["hit"], hmb))
-    tri_eq_b = bool(torch.equal(k1b["tri_id"], p1b["tri_id"]))
-    ulp_b = max(
-        int((k1b[c][hmb].view(torch.int32) - p1b[c][hmb].view(torch.int32))
-            .abs().max().item()) if hmb.any() else 0
-        for c in ("t", "u", "v")
-    )
-    err1 = max([err1] + [float((k1b[c][hmb] - p1b[c][hmb]).abs().max().item())
-                         for c in ("t", "u", "v") if hmb.any()])
+    # K1 again on bounce 0's continuation rays: incoherent, off-camera, the
+    # shape of three of its four launches a frame
+    bo, bd, bact = rays["continuation"]
+    k1b = calls["k1_continuation"]()
+    st1b = {}
+    p1b, p1b_ms = _plain_ms(lambda: traverse.closest_hit_plain(
+        bvh.table, bo, bd, bact, *kargs, stats=st1b))
+    hit_eq_b, tri_eq_b, ulp_b, err1b = _k1_agreement(k1b, p1b)
+    err1 = max(err1, err1b)
+    k1b_ms = _events_ms(calls["k1_continuation"], 5)
     _line(f"K1 closest_hit on bounce-0 continuation rays: {bo.shape[0]} "
-          f"lanes, {int(hmb.sum())} hits; hit equal {hit_eq_b}, tri_id equal "
-          f"{tri_eq_b}, t/u/v max {ulp_b} ulp")
+          f"lanes, {int(p1b['hit'].sum())} hits; kernel {k1b_ms:.3f} ms, "
+          f"plain {p1b_ms:.1f} ms; hit equal {hit_eq_b}, tri_id equal "
+          f"{tri_eq_b}, t/u/v max {ulp_b} ulp; rows fetched {st1b}")
     assert hit_eq_b and tri_eq_b and ulp_b == 0, \
         "K1 disagrees with its plain version (bounce-0 continuation rays)"
-    del k1b, p1b
+    del p1b
+
+    if args.sweep:
+        results["sweep"] = _sweep(
+            calls, {"k1_primary": k1, "k1_continuation": k1b,
+                    "k2_shadow": k2}, bvh.stack_depth)
+    del k1, k1b
 
     # -- phase 6: the main path ----------------------------------------------
     renderer = Renderer(scene, config, schedule, device="cuda")
@@ -409,8 +474,22 @@ def main() -> int:
                            n_act, 16)
     b2, b2_by, f2 = _bound(st2, bvh.table, bvh.arity, bvh.leaf_size, ns, nq, 1)
     b3, b3_by, f3 = _bound(st3, leg.table, 8, leg.leaf_size, ns, nq, 1)
-    _line(f"row fetches (L2 traffic): K1 {f1 / 1e6:.1f} MB, K2 "
-          f"{f2 / 1e6:.1f} MB, K3 {f3 / 1e6:.1f} MB")
+    nb = bo.shape[0]
+    b1b, b1b_by, f1b = _bound(st1b, bvh.table, bvh.arity, bvh.leaf_size, nb,
+                              nb, 16)
+    _line(f"row fetches (L2 traffic): K1 {f1 / 1e6:.1f} MB primary, "
+          f"{f1b / 1e6:.1f} MB continuation, K2 {f2 / 1e6:.1f} MB, K3 "
+          f"{f3 / 1e6:.1f} MB")
+    res = kernel_build.resources(bvh.stack_depth)
+    spills = {}
+    for log in kernel_build.BUILD_INFO["log"].values():
+        spills.update(_ptxas_spills(log))
+    for k, r in res.items():
+        r["spill_bytes"] = spills.get(k)
+    _line("resources: " + "; ".join(
+        f"{k} {r['registers']} regs, {r['spill_bytes']} B spilled, "
+        f"{r['local_bytes']} B local, {r['blocks_per_sm']} blocks/SM"
+        for k, r in res.items()))
     src = "fovpathtracing_optixcodelatest_tpu_torch/csrc/"
     jax_ops = "fovpathtracing_optixcodelatest_tpu/ops/"
     kernels = [
@@ -418,24 +497,27 @@ def main() -> int:
          "replaces": jax_ops + "traverse8.py:795", "launches":
          launches["closest_hit"], "max_abs_err": err1, "ms": k1_ms,
          "plain_ms": p1_ms, "bound_ms": b1, "bound_by": b1_by,
-         "library_ms": None},
+         "library_ms": None, **res["closest_hit"],
+         "continuation": {"lanes": nb, "ms": k1b_ms, "plain_ms": p1b_ms,
+                          "bound_ms": b1b, "bound_by": b1b_by}},
         {"name": "occluded", "route": "cuda", "source": src + "traverse.cu",
          "replaces": jax_ops + "traverse8.py:1367", "launches":
          launches["occluded"], "max_abs_err": err2, "ms": k2_ms,
          "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
-         "library_ms": None},
+         "library_ms": None, **res["occluded"]},
         {"name": "occluded_packets", "route": "cuda",
          "source": src + "packet_traverse.cu",
          "replaces": jax_ops + "pallas_traverse.py:53", "launches":
          k3_launches, "max_abs_err": err3, "ms": k3_ms,
          "plain_ms": p3_ms, "bound_ms": b3, "bound_by": b3_by,
-         "library_ms": None},
+         "library_ms": None, **res["occluded_packets"]},
     ]
     results.update(
         kernels=kernels, frame_ms=frame_ms, traces=traces, mrays_s=mrays,
         peak_bytes=peak, launches_per_frame={k: per_frame(k) for k in launches},
-        rows={"k1": st1, "k2": st2, "k3": st3},
-        row_fetch_bytes={"k1": f1, "k2": f2, "k3": f3},
+        rows={"k1": st1, "k1_continuation": st1b, "k2": st2, "k3": st3},
+        row_fetch_bytes={"k1": f1, "k1_continuation": f1b, "k2": f2,
+                         "k3": f3},
         shadow_rays={"lanes": ns, "queried": nq}, small_share=share,
         workload=RAY_SHAPE,
     )

@@ -102,3 +102,16 @@ extern "C" int fov_occluded_packets(const float* table, int width,
   }
   return (int)cudaGetLastError();
 }
+
+// Registers per thread, local memory per thread (the stack and any spills)
+// and resident blocks per SM of K3 at its launch shape.
+extern "C" int fov_packet_info(int* regs, int* local_bytes,
+                               int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, occluded_packets_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, occluded_packets_kernel, 128, 0);
+}

@@ -1,5 +1,5 @@
-// Closest-hit (K1) and occlusion (K2) traversal of the packed wide BVH, one
-// thread per ray.
+// Closest-hit (K1) and occlusion (K2) traversal of the packed wide BVH:
+// persistent warps that fetch their rays from a global counter.
 //
 // Replaces: the XLA while_loop traversals of the JAX package,
 // ops/traverse8.py closest_hit (:795, reached from the fused bounce through
@@ -14,30 +14,58 @@
 // uint32 at col 3c + a (lo = u & 0xFFFF0000, hi = u << 16) and the child's
 // entry code (row << 2) | kind at col 3A + c (kind 0 node, 1 leaf, 0 =
 // empty). Leaf rows hold L triangles [v0, e1, e2] and, at col 9L + k, the
-// original triangle id of slot k.
+// original triangle id of slot k. The kernels are compiled for the one
+// layout the port builds, A16/L6 (W = 64, 256-byte rows); the wrappers
+// refuse any other.
 //
 // Visit order (K1) is the JAX package's: a stack entry is the packed key
 // (mono(tn) & himask) | code, children are pushed sorted by descending key
 // so the nearest pops first, and a popped entry whose key exceeds
 // mono(min(t, tmax)) | lowmask is stale and skipped. With the same order the
 // first-found triangle among equal-t hits is the same one, so tri_id agrees
-// with the reference even on shared edges.
+// with the reference even on shared edges. K2 pushes its hit children in
+// slot order. A full stack keeps the rule of the plain versions: K1 keeps the
+// largest keys of a node's hit children that fit and drops the rest, K2
+// pushes no more children.
 //
-// What bounds it on this card: table rows fetched per ray. A node row is
-// 4A * 4 = 256 bytes and a leaf row 10L * 4 = 240 bytes (A16/L6); the bench
-// scene's whole table (about 1.5k rows, 376 KB) stays resident in the 50 MB
-// L2, so the fetches are L2 hits and HBM traffic is the ray inputs and
-// outputs. The least time chip_smoke.py reports is the larger of those
-// bytes at the HBM rate and the float32 slab and triangle tests of the rows
-// the rays visit (counted by the plain version) at the non-tensor peak; the
-// latency of each ray's chain of dependent L2 row fetches is what the
-// first design actually waits on.
+// What bounds it on this card: the chain of dependent row fetches of each
+// ray. The bench scene's whole table (about 1.5k rows, 376 KB) stays in the
+// 50 MB L2, so HBM moves only the rays and the answers; the least time
+// chip_smoke.py reports is the larger of those bytes at the HBM rate and the
+// float32 slab and triangle tests of the rows the rays visit at the
+// non-tensor peak. The design works on the latency and on idle lanes:
 //
-// First design: one thread per ray with a private stack in local memory
-// (at most MAX_STACK entries), no shared-memory staging and no ray sorting.
-// The table rows are read through the read-only cache (__ldg). Divergent
-// warps and the local-memory stack are the known costs; a later design can
-// measure warp-cooperative node fetches or a short-stack in registers.
+// - Compile-time shape, whole-row loads. ARITY and LEAF are template
+//   parameters, so every loop over children, axes and triangles unrolls. A
+//   row is read as 16-byte __ldg's (a leaf as the 14 that cover its 54
+//   triangle words) and costs one round of latency: K2 issues them all
+//   before any test; K1 prefetches the row's two 128-byte lines into L1 and
+//   then reads it a group of children or half a leaf at a time from there,
+//   which holds 69 registers instead of 96 and keeps 7 blocks per SM
+//   resident instead of 5. A leaf's triangle ids are read only for a hit
+//   (K1). A node's children are tested in groups of four whose codes share
+//   one uint4; a group with no child is skipped (most nodes of the bench
+//   scene have two children), the rest run without branches.
+// - Persistent warps with dynamic ray fetch (Aila and Laine, "Understanding
+//   the Efficiency of Ray Traversal on GPUs", HPG 2009). The grid is the
+//   SMs times the resident blocks. A warp takes lanes from a global counter
+//   in chunks of 32, writes the miss answer of the inactive ones (coalesced)
+//   and compacts the active ones with __ballot_sync/__popc into a per-warp
+//   queue in shared memory, so an inactive lane never takes a thread. A lane
+//   whose ray is done takes the next queued ray once REFILL_IDLE lanes of
+//   its warp are idle: 16 for K2, whose rays end early and unevenly; 32 (the
+//   whole warp) for K1, which loses its coherence and 25-35% of its speed
+//   when part of a warp refills (at 16 or 8 idle lanes).
+// - K1 computes its children's keys in registers and sorts them there with
+//   a bitonic network (over 4, 8 or 16 keys, as far as the node's children
+//   reach) before pushing the hits.
+// - Each thread's stack lives in shared memory, stack_depth entries (the
+//   table's exact worst case, ops/bvh8.py lifo_stack_bound), strided by 32
+//   so a warp's pushes and pops hit 32 banks.
+//
+// The tuning constants below were chosen by `chip_smoke.py --sweep`, which
+// rebuilds this file with each -D value, checks its answers and times every
+// main-path shape (PERF.md has the numbers).
 //
 // Built with --fmad=false: with no FMA contraction the slab tests and the
 // Möller-Trumbore arithmetic round exactly as the plain PyTorch versions
@@ -47,176 +75,589 @@
 
 #include "tri.cuh"
 
-#define MAX_STACK 128
+// lanes of a warp that must be idle before they take new rays (K1, K2)
+#ifndef FOV_K1_REFILL_IDLE
+#define FOV_K1_REFILL_IDLE 32
+#endif
+#ifndef FOV_K2_REFILL_IDLE
+#define FOV_K2_REFILL_IDLE 16
+#endif
+
+// resident blocks per SM asked of the register allocator
+#ifndef FOV_MIN_BLOCKS
+#define FOV_MIN_BLOCKS 5
+#endif
+// 1: each thread's stack in local memory instead of shared memory
+#ifndef FOV_LOCAL_STACK
+#define FOV_LOCAL_STACK 0
+#endif
+// 1: prefetch a row's two lines into L1, then read it a group of children
+// or half a leaf at a time (fewer registers) instead of all at once (K1, K2)
+#ifndef FOV_K1_STAGED_ROW
+#define FOV_K1_STAGED_ROW 1
+#endif
+#ifndef FOV_K2_STAGED_ROW
+#define FOV_K2_STAGED_ROW 0
+#endif
+
+namespace {
+
+constexpr int kArity = 16, kLeaf = 6;  // ops/bvh8.py ARITY, LEAF_SIZE
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQueue = 64;  // per-warp ray queue; holds at most 63
+constexpr int kMaxStack = 128;  // ops/traverse.py MAX_STACK
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+template <int ARITY, int LEAF>
+struct Layout {
+  static_assert(ARITY % 4 == 0 && LEAF % 3 == 0,
+                "children are read in fours and leaves in threes");
+  static constexpr int kWidth = 4 * ARITY > 10 * LEAF ? 4 * ARITY : 10 * LEAF;
+  static constexpr int kVecs = kWidth / 4;             // uint4 per row
+  static constexpr int kLeafVecs = (9 * LEAF + 3) / 4;  // uint4 of triangles
+  static_assert(kWidth % 4 == 0, "a row must be whole uint4s");
+};
 
 __device__ __forceinline__ uint32_t mono_u32(float x) {
   const uint32_t b = __float_as_uint(x);
   return x < 0.0f ? ~b : (b | 0x80000000u);
 }
 
-__global__ void closest_hit_kernel(
-    const float* __restrict__ table, int width, const float* __restrict__ orig,
-    const float* __restrict__ dir, const unsigned char* __restrict__ active,
-    long long n, float tmin, float tmax, int stack_depth, int arity,
-    int leaf_size, unsigned int lowmask, float* __restrict__ t_out,
-    int* __restrict__ tri_out, float* __restrict__ u_out,
-    float* __restrict__ v_out) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float t = FOV_INF, bu = 0.0f, bv = 0.0f;
-  int best = -1;
-  if (active[i]) {
-    const float o[3] = {orig[3 * i], orig[3 * i + 1], orig[3 * i + 2]};
-    const float d[3] = {dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]};
-    const float inv[3] = {safe_inv(d[0]), safe_inv(d[1]), safe_inv(d[2])};
-    const uint32_t himask = ~lowmask;
-    uint32_t stack[MAX_STACK];
-    stack[0] = 0u;  // the root: code 0 = internal row 0
-    int sp = 1;
-    while (sp > 0) {
-      const uint32_t e = stack[--sp];
-      const float tlimit = fminf(t, tmax);
-      if (e > (mono_u32(tlimit) | lowmask)) continue;  // stale
-      const uint32_t code = e & lowmask;
-      const float* r = table + (long long)(code >> 2) * width;
-      if ((code & 3u) == 0u) {
-        const int base = sp;
-        for (int c = 0; c < arity; ++c) {
-          const uint32_t cc = __float_as_uint(__ldg(r + 3 * arity + c));
-          if (cc == 0u) continue;
-          float lo[3], hi[3];
+// word w of a row held as uint4s (w is a constant after unrolling)
+__device__ __forceinline__ uint32_t word(const uint4* q, int w) {
+  const uint4 v = q[w >> 2];
+  const int c = w & 3;
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Read the row of entry code: all of a node row, the triangle words of a
+// leaf row; every load is issued before the caller tests anything.
+template <int ARITY, int LEAF>
+__device__ __forceinline__ void load_row(const uint4* __restrict__ table,
+                                         uint32_t code,
+                                         uint4 (&q)[Layout<ARITY, LEAF>::kVecs]) {
+  using L = Layout<ARITY, LEAF>;
+  const uint4* r = table + (size_t)(code >> 2) * L::kVecs;
+  const bool node = (code & 3u) == 0u;
 #pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const uint32_t u = __float_as_uint(__ldg(r + 3 * c + a));
-            lo[a] = __uint_as_float(u & 0xFFFF0000u);
-            hi[a] = __uint_as_float(u << 16);
-          }
-          float tn;
-          if (!slab(lo, hi, o, inv, tmin, tlimit, &tn)) continue;
-          const uint32_t key = (mono_u32(tn) & himask) | cc;
-          // keep stack[base..sp) sorted by descending key (nearest on top);
-          // a full stack drops its smallest key, as the reference's push
-          // drops the entries past its depth
-          int j;
-          if (sp < stack_depth) {
-            j = sp++;
-          } else if (sp > base && stack[sp - 1] < key) {
-            j = sp - 1;
-          } else {
-            continue;
-          }
-          while (j > base && stack[j - 1] < key) {
-            stack[j] = stack[j - 1];
-            --j;
-          }
-          stack[j] = key;
-        }
-      } else {
-        for (int k = 0; k < leaf_size; ++k) {
-          float tri[9];
+  for (int j = 0; j < L::kVecs; ++j)
+    if (j < L::kLeafVecs || node) q[j] = __ldg(r + j);
+}
+
+// q[lo..hi] = row r's uint4s lo..hi (constant bounds after unrolling)
+__device__ __forceinline__ void load_vecs(const uint4* __restrict__ r,
+                                          uint4* q, int lo, int hi) {
 #pragma unroll
-          for (int q = 0; q < 9; ++q) tri[q] = __ldg(r + 9 * k + q);
-          const TriHit h =
-              tri_test(tri, o[0], o[1], o[2], d[0], d[1], d[2], tmin, tmax,
-                       false);
-          if (h.hit && h.t < t) {
-            t = h.t;
-            bu = h.u;
-            bv = h.v;
-            best = __float_as_int(__ldg(r + 9 * leaf_size + k));
+  for (int j = lo; j <= hi; ++j) q[j] = __ldg(r + j);
+}
+
+// Start reading the row of entry code: all of it at once, or (staged) a
+// prefetch of its two 128-byte lines and, for a node, its child codes.
+template <int ARITY, int LEAF, bool STAGED>
+__device__ __forceinline__ const uint4* begin_row(
+    const uint4* __restrict__ table, uint32_t code,
+    uint4 (&q)[Layout<ARITY, LEAF>::kVecs]) {
+  using L = Layout<ARITY, LEAF>;
+  const uint4* r = table + (size_t)(code >> 2) * L::kVecs;
+  if (!STAGED) {
+    load_row<ARITY, LEAF>(table, code, q);
+    return r;
+  }
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(r));
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(r + 8));
+  if ((code & 3u) == 0u) load_vecs(r, q, 3 * ARITY / 4, L::kVecs - 1);
+  return r;
+}
+
+// (staged) the box words of group g of four children, before its tests
+template <bool STAGED>
+__device__ __forceinline__ void group_boxes(const uint4* __restrict__ r,
+                                            uint4* q, int g) {
+  if (STAGED) load_vecs(r, q, 3 * g, 3 * g + 2);
+}
+
+// (staged) the words 27h .. 27h + 26 of leaf triangles 3h .. 3h + 2, before
+// their tests
+template <bool STAGED>
+__device__ __forceinline__ void leaf_half(const uint4* __restrict__ r,
+                                          uint4* q, int h) {
+  if (STAGED) load_vecs(r, q, 27 * h / 4, (27 * h + 26) / 4);
+}
+
+// child c's box from a node row
+template <int ARITY>
+__device__ __forceinline__ void child_box(const uint4* q, int c, float lo[3],
+                                          float hi[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const uint32_t u = word(q, 3 * c + a);
+    lo[a] = __uint_as_float(u & 0xFFFF0000u);
+    hi[a] = __uint_as_float(u << 16);
+  }
+}
+
+__device__ __forceinline__ void triangle(const uint4* q, int k, float tri[9]) {
+#pragma unroll
+  for (int j = 0; j < 9; ++j) tri[j] = __uint_as_float(word(q, 9 * k + j));
+}
+
+// Bitonic sort of k[0..N) (N a power of two) into descending order, in
+// registers: every loop has a constant trip count and unrolls.
+template <int N>
+__device__ __forceinline__ void sort_desc(uint32_t* k) {
+  constexpr int kLog = N == 16 ? 4 : N == 8 ? 3 : N == 4 ? 2 : N == 2 ? 1 : 0;
+  static_assert(N == 1 << kLog, "N must be a power of two up to 16");
+#pragma unroll
+  for (int p = 1; p <= kLog; ++p) {
+#pragma unroll
+    for (int s = kLog - 1; s >= 0; --s) {
+      if (s < p) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int j = i ^ (1 << s);
+          if (j > i) {
+            const uint32_t a = k[i], b = k[j];
+            const bool desc = (i & (1 << p)) == 0;
+            k[i] = desc ? max(a, b) : min(a, b);
+            k[j] = desc ? min(a, b) : max(a, b);
           }
         }
       }
     }
   }
-  t_out[i] = t;
-  u_out[i] = bu;
-  v_out[i] = bv;
-  tri_out[i] = best;
 }
 
-__global__ void occluded_kernel(
-    const float* __restrict__ table, int width, const float* __restrict__ orig,
-    const float* __restrict__ dir, const unsigned char* __restrict__ active,
-    long long n, float tmin, float tmax, int stack_depth, int arity,
-    int leaf_size, bool* __restrict__ occ_out) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bool occ = false;
-  if (active[i]) {
-    const float o[3] = {orig[3 * i], orig[3 * i + 1], orig[3 * i + 2]};
-    const float d[3] = {dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]};
-    const float inv[3] = {safe_inv(d[0]), safe_inv(d[1]), safe_inv(d[2])};
-    uint32_t stack[MAX_STACK];
-    stack[0] = 0u;
-    int sp = 1;
-    while (sp > 0 && !occ) {
-      const uint32_t code = stack[--sp];
-      const float* r = table + (long long)(code >> 2) * width;
-      if ((code & 3u) == 0u) {
-        // children pushed in slot order; the order cannot change an
-        // any-hit answer
-        for (int c = 0; c < arity; ++c) {
-          const uint32_t cc = __float_as_uint(__ldg(r + 3 * arity + c));
-          if (cc == 0u) continue;
-          float lo[3], hi[3];
+// whether any of children 4g..4g+3 of a node row exists: their four codes
+// are one uint4
+template <int ARITY>
+__device__ __forceinline__ bool group_used(const uint4* q, int g) {
+  const uint4 c = q[3 * ARITY / 4 + g];
+  return (c.x | c.y | c.z | c.w) != 0u;
+}
+
+// One thread's stack: entry j at base[j * stride].
+struct Stack {
+  uint32_t* base;
+  int stride;
+  __device__ __forceinline__ uint32_t& operator[](int j) const {
+    return base[j * stride];
+  }
+};
+
+// Push the nonzero keys among k[0..N) (cnt of them, distinct) in descending
+// order, so the nearest ends on top; a full stack keeps the largest keys
+// that fit.
+template <int N>
+__device__ __forceinline__ void push_sorted(uint32_t* k, int cnt, int depth,
+                                            const Stack& stk, int& sp) {
+  if (cnt > 1) {
+    sort_desc<N>(k);
+  } else if (cnt == 1) {
 #pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const uint32_t u = __float_as_uint(__ldg(r + 3 * c + a));
-            lo[a] = __uint_as_float(u & 0xFFFF0000u);
-            hi[a] = __uint_as_float(u << 16);
-          }
-          float tn;
-          if (slab(lo, hi, o, inv, tmin, tmax, &tn) && sp < stack_depth)
-            stack[sp++] = cc;
+    for (int c = 1; c < N; ++c) k[0] |= k[c];  // the one hit
+  }
+  const int push = min(cnt, depth - sp);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < push) stk[sp + j] = k[j];
+  sp += push;
+}
+
+struct Ray {
+  float o[3], d[3], inv[3];
+  __device__ __forceinline__ void load(const float* __restrict__ orig,
+                                       const float* __restrict__ dir, int i) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      o[a] = orig[3ll * i + a];
+      d[a] = dir[3ll * i + a];
+      inv[a] = safe_inv(d[a]);
+    }
+  }
+};
+
+template <int ARITY, int LEAF>
+struct OccludedWalk {
+  using L = Layout<ARITY, LEAF>;
+  const uint4* __restrict__ table;
+  const float* __restrict__ orig;
+  const float* __restrict__ dir;
+  bool* __restrict__ out;
+  float tmin, tmax;
+  int depth;
+  Stack stk;
+  Ray ray;
+  int sp;
+  bool occ;
+
+  __device__ __forceinline__ void miss(int i) const { out[i] = false; }
+
+  __device__ __forceinline__ void begin(int i) {
+    ray.load(orig, dir, i);
+    stk[0] = 0u;  // the root: code 0 = internal row 0
+    sp = 1;
+    occ = false;
+  }
+
+  // One pop; true when the ray is done.
+  __device__ __forceinline__ bool step() {
+    const uint32_t code = stk[--sp];
+    uint4 q[L::kVecs];
+    const uint4* r =
+        begin_row<ARITY, LEAF, FOV_K2_STAGED_ROW>(table, code, q);
+    if ((code & 3u) == 0u) {
+      // children in groups of four; a group with no child is skipped
+#pragma unroll
+      for (int g = 0; g < ARITY / 4; ++g) {
+        if (!group_used<ARITY>(q, g)) continue;
+        group_boxes<FOV_K2_STAGED_ROW>(r, q, g);
+#pragma unroll
+        for (int c = 4 * g; c < 4 * g + 4; ++c) {
+          const uint32_t cc = word(q, 3 * ARITY + c);
+          float lo[3], hi[3], tn;
+          child_box<ARITY>(q, c, lo, hi);
+          const bool hit = slab(lo, hi, ray.o, ray.inv, tmin, tmax, &tn);
+          if (cc != 0u && hit && sp < depth) stk[sp++] = cc;
         }
-      } else {
-        for (int k = 0; k < leaf_size && !occ; ++k) {
-          float tri[9];
+      }
+    } else {
 #pragma unroll
-          for (int q = 0; q < 9; ++q) tri[q] = __ldg(r + 9 * k + q);
-          occ = tri_test(tri, o[0], o[1], o[2], d[0], d[1], d[2], tmin, tmax,
-                         true)
-                    .hit;
+      for (int k = 0; k < LEAF; ++k) {
+        if (k % 3 == 0) leaf_half<FOV_K2_STAGED_ROW>(r, q, k / 3);
+        float tri[9];
+        triangle(q, k, tri);
+        occ |= tri_test(tri, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
+                        ray.d[1], ray.d[2], tmin, tmax, true)
+                   .hit;
+      }
+    }
+    return occ || sp == 0;
+  }
+
+  __device__ __forceinline__ void end(int i) const { out[i] = occ; }
+};
+
+template <int ARITY, int LEAF>
+struct ClosestWalk {
+  using L = Layout<ARITY, LEAF>;
+  const uint4* __restrict__ table;
+  const float* __restrict__ orig;
+  const float* __restrict__ dir;
+  float* __restrict__ t_out;
+  int* __restrict__ tri_out;
+  float* __restrict__ u_out;
+  float* __restrict__ v_out;
+  float tmin, tmax;
+  int depth;
+  uint32_t lowmask;
+  Stack stk;
+  Ray ray;
+  int sp, best;
+  float t, u, v;
+
+  __device__ __forceinline__ void miss(int i) const {
+    t_out[i] = FOV_INF;
+    tri_out[i] = -1;
+    u_out[i] = 0.0f;
+    v_out[i] = 0.0f;
+  }
+
+  __device__ __forceinline__ void begin(int i) {
+    ray.load(orig, dir, i);
+    stk[0] = 0u;
+    sp = 1;
+    best = -1;
+    t = FOV_INF;
+    u = v = 0.0f;
+  }
+
+  __device__ __forceinline__ bool step() {
+    const float tlimit = fminf(t, tmax);
+    const uint32_t fresh = mono_u32(tlimit) | lowmask;
+    uint32_t e = stk[--sp];
+    while (e > fresh) {  // stale: its box starts beyond the closest hit
+      if (sp == 0) return true;
+      e = stk[--sp];
+    }
+    const uint32_t code = e & lowmask;
+    uint4 q[L::kVecs];
+    const uint4* r =
+        begin_row<ARITY, LEAF, FOV_K1_STAGED_ROW>(table, code, q);
+    if ((code & 3u) == 0u) {
+      const uint32_t himask = ~lowmask;
+      uint32_t key[ARITY];  // a hit child's key, 0 for a miss or empty slot
+      int cnt = 0;
+      int groups = 1;  // the groups up to the last one that has a child
+      // children in groups of four; a group with no child is skipped
+#pragma unroll
+      for (int g = 0; g < ARITY / 4; ++g) {
+        const bool used = group_used<ARITY>(q, g);
+        if (used) groups = g + 1;
+#pragma unroll
+        for (int c = 4 * g; c < 4 * g + 4; ++c) key[c] = 0u;
+        if (!used) continue;
+        group_boxes<FOV_K1_STAGED_ROW>(r, q, g);
+#pragma unroll
+        for (int c = 4 * g; c < 4 * g + 4; ++c) {
+          const uint32_t cc = word(q, 3 * ARITY + c);
+          float lo[3], hi[3], tn;
+          child_box<ARITY>(q, c, lo, hi);
+          const bool hit =
+              slab(lo, hi, ray.o, ray.inv, tmin, tlimit, &tn) && cc != 0u;
+          key[c] = hit ? (mono_u32(tn) & himask) | cc : 0u;
+          cnt += hit;
+        }
+      }
+      if (groups > 2)
+        push_sorted<ARITY>(key, cnt, depth, stk, sp);
+      else if (groups == 2)
+        push_sorted<8>(key, cnt, depth, stk, sp);
+      else
+        push_sorted<4>(key, cnt, depth, stk, sp);
+    } else {
+      const int* ids = reinterpret_cast<const int*>(r) + 9 * LEAF;
+#pragma unroll
+      for (int k = 0; k < LEAF; ++k) {
+        if (k % 3 == 0) leaf_half<FOV_K1_STAGED_ROW>(r, q, k / 3);
+        float tri[9];
+        triangle(q, k, tri);
+        const TriHit h = tri_test(tri, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
+                                  ray.d[1], ray.d[2], tmin, tmax, false);
+        if (h.hit && h.t < t) {
+          t = h.t;
+          u = h.u;
+          v = h.v;
+          best = __ldg(ids + k);
         }
       }
     }
+    return sp == 0;
   }
-  occ_out[i] = occ;
+
+  __device__ __forceinline__ void end(int i) const {
+    t_out[i] = t;
+    tri_out[i] = best;
+    u_out[i] = u;
+    v_out[i] = v;
+  }
+};
+
+// The persistent loop of one warp. Every branch that decides whether the
+// warp goes on is taken on values that all 32 lanes hold alike (ballots and
+// a broadcast), so the *_sync calls always see the full warp.
+template <int REFILL_IDLE, class Walk>
+__device__ __forceinline__ void walk_rays(Walk& w,
+                                          const unsigned char* __restrict__ active,
+                                          int n, int* __restrict__ counter,
+                                          int* __restrict__ queue) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int mine = -1;  // this lane's ray, -1 = idle
+  int head = 0, queued = 0;  // the warp's queue window [head, head + queued)
+  bool drained = false;      // the counter has passed n
+  while (true) {
+    // fetch chunks of 32 lanes until every idle lane has a ray waiting
+    const unsigned idle = __ballot_sync(kFull, mine < 0);
+    const int want = __popc(idle);
+    while (queued < want && !drained) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(counter, 32);
+      base = __shfl_sync(kFull, base, 0);
+      if (base >= n) {
+        drained = true;
+        break;
+      }
+      const int i = base + lane;
+      const bool act = i < n && active[i];
+      if (i < n && !act) w.miss(i);
+      const unsigned m = __ballot_sync(kFull, act);
+      if (act) queue[(head + queued + __popc(m & below)) & (kQueue - 1)] = i;
+      queued += __popc(m);
+    }
+    __syncwarp();
+    if (mine < 0) {
+      const int r = __popc(idle & below);
+      if (r < queued) {
+        mine = queue[(head + r) & (kQueue - 1)];
+        w.begin(mine);
+      }
+    }
+    const int took = min(want, queued);
+    head += took;
+    queued -= took;
+    __syncwarp();
+    if (__ballot_sync(kFull, mine >= 0) == 0) return;
+    // walk until enough lanes are idle to refill (to the end once no ray
+    // is left to fetch)
+    const int limit = drained && queued == 0 ? 32 : REFILL_IDLE;
+    while (true) {
+      if (mine >= 0 && w.step()) {
+        w.end(mine);
+        mine = -1;
+      }
+      if (__popc(__ballot_sync(kFull, mine < 0)) >= limit) break;
+    }
+  }
 }
 
-static inline unsigned int blocks_for(long long n, int threads) {
-  return (unsigned int)((n + threads - 1) / threads);
+// dynamic shared memory of a block: the warps' queues, then their stacks
+__host__ __device__ constexpr size_t shared_bytes(int depth) {
+  return sizeof(int) * kWarps * kQueue +
+         (FOV_LOCAL_STACK ? 0 : sizeof(uint32_t) * kWarps * 32 * (size_t)depth);
 }
 
-extern "C" int fov_closest_hit(const float* table, int width,
-                               const float* orig, const float* dir,
-                               const unsigned char* active, long long n,
-                               float tmin, float tmax, int stack_depth,
-                               int arity, int leaf_size, unsigned int lowmask,
-                               float* t_out, int* tri_out, float* u_out,
-                               float* v_out, void* stream) {
+__device__ __forceinline__ Stack thread_stack(uint32_t* smem, int depth,
+                                              uint32_t* local) {
+  if (FOV_LOCAL_STACK) return Stack{local, 1};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return Stack{smem + kWarps * kQueue + warp * 32 * depth + lane, 32};
+}
+
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, FOV_MIN_BLOCKS) closest_hit_kernel(
+    const uint4* __restrict__ table, const float* __restrict__ orig,
+    const float* __restrict__ dir, const unsigned char* __restrict__ active,
+    int n, float tmin, float tmax, int depth, unsigned int lowmask,
+    float* __restrict__ t_out, int* __restrict__ tri_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ counter) {
+  extern __shared__ uint32_t smem[];
+  uint32_t local[FOV_LOCAL_STACK ? kMaxStack : 1];
+  ClosestWalk<ARITY, LEAF> w;
+  w.table = table;
+  w.orig = orig;
+  w.dir = dir;
+  w.t_out = t_out;
+  w.tri_out = tri_out;
+  w.u_out = u_out;
+  w.v_out = v_out;
+  w.tmin = tmin;
+  w.tmax = tmax;
+  w.depth = depth;
+  w.lowmask = lowmask;
+  w.stk = thread_stack(smem, depth, local);
+  walk_rays<FOV_K1_REFILL_IDLE>(
+      w, active, n, counter,
+      reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
+}
+
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, FOV_MIN_BLOCKS) occluded_kernel(
+    const uint4* __restrict__ table, const float* __restrict__ orig,
+    const float* __restrict__ dir, const unsigned char* __restrict__ active,
+    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int* __restrict__ counter) {
+  extern __shared__ uint32_t smem[];
+  uint32_t local[FOV_LOCAL_STACK ? kMaxStack : 1];
+  OccludedWalk<ARITY, LEAF> w;
+  w.table = table;
+  w.orig = orig;
+  w.dir = dir;
+  w.out = occ_out;
+  w.tmin = tmin;
+  w.tmax = tmax;
+  w.depth = depth;
+  w.stk = thread_stack(smem, depth, local);
+  walk_rays<FOV_K2_REFILL_IDLE>(
+      w, active, n, counter,
+      reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
+}
+
+const void* kernel_of(int which) {
+  return which == 0 ? (const void*)closest_hit_kernel<kArity, kLeaf>
+                    : (const void*)occluded_kernel<kArity, kLeaf>;
+}
+
+// Resident blocks per SM of a kernel at a shared-memory size, and the grid
+// that fills the card with them; computed once per kernel and size.
+cudaError_t grid_of(int which, size_t smem, int* per_sm, int* blocks) {
+  struct Entry {
+    size_t smem;
+    int per_sm, blocks;
+  };
+  static Entry cache[2] = {{0, 0, 0}, {0, 0, 0}};
+  Entry& e = cache[which];
+  if (e.per_sm == 0 || e.smem != smem) {
+    const void* fn = kernel_of(which);
+    int dev = 0, sms = 0, fit = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, fn, kThreads,
+                                                          smem);
+    if (err != cudaSuccess) return err;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+    e = Entry{smem, fit, sms * fit};
+  }
+  *per_sm = e.per_sm;
+  *blocks = e.blocks;
+  return cudaSuccess;
+}
+
+int launch_grid(int which, int n, int depth, size_t* smem, int* blocks) {
+  *smem = shared_bytes(depth);
+  int per_sm = 0, full = 0;
+  const cudaError_t err = grid_of(which, *smem, &per_sm, &full);
+  if (err != cudaSuccess) return (int)err;
+  const int needed = (n + kThreads - 1) / kThreads;
+  *blocks = full < needed ? full : needed;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" int fov_closest_hit(const float* table, const float* orig,
+                               const float* dir, const unsigned char* active,
+                               int n, float tmin, float tmax, int stack_depth,
+                               unsigned int lowmask, float* t_out,
+                               int* tri_out, float* u_out, float* v_out,
+                               int* counter, void* stream) {
   if (n > 0) {
-    const int threads = 128;
-    closest_hit_kernel<<<blocks_for(n, threads), threads, 0,
-                         (cudaStream_t)stream>>>(
-        table, width, orig, dir, active, n, tmin, tmax, stack_depth, arity,
-        leaf_size, lowmask, t_out, tri_out, u_out, v_out);
+    size_t smem = 0;
+    int blocks = 0;
+    const int rc = launch_grid(0, n, stack_depth, &smem, &blocks);
+    if (rc != 0) return rc;
+    closest_hit_kernel<kArity, kLeaf>
+        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
+            tmax, stack_depth, lowmask, t_out, tri_out, u_out, v_out, counter);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int fov_occluded(const float* table, int width, const float* orig,
+extern "C" int fov_occluded(const float* table, const float* orig,
                             const float* dir, const unsigned char* active,
-                            long long n, float tmin, float tmax,
-                            int stack_depth, int arity, int leaf_size,
-                            bool* occ_out, void* stream) {
+                            int n, float tmin, float tmax, int stack_depth,
+                            bool* occ_out, int* counter, void* stream) {
   if (n > 0) {
-    const int threads = 128;
-    occluded_kernel<<<blocks_for(n, threads), threads, 0,
-                      (cudaStream_t)stream>>>(table, width, orig, dir, active,
-                                              n, tmin, tmax, stack_depth,
-                                              arity, leaf_size, occ_out);
+    size_t smem = 0;
+    int blocks = 0;
+    const int rc = launch_grid(1, n, stack_depth, &smem, &blocks);
+    if (rc != 0) return rc;
+    occluded_kernel<kArity, kLeaf>
+        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
+            tmax, stack_depth, occ_out, counter);
   }
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, local memory per thread (spills and any stack
+// frame) and resident blocks per SM of K1 (which = 0) or K2 (which = 1) at
+// stack_depth.
+extern "C" int fov_traverse_info(int which, int stack_depth, int* regs,
+                                 int* local_bytes, int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel_of(which));
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  int blocks = 0;
+  return (int)grid_of(which, shared_bytes(stack_depth), blocks_per_sm,
+                      &blocks);
 }

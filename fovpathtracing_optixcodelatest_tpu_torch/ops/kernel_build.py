@@ -12,10 +12,13 @@ contraction is what lets the kernels' Möller-Trumbore ``t/u/v`` and
 elementwise op as its own rounded step).
 
 A failed build raises; nothing falls back to the plain versions.
+``build_variants`` compiles one source again with extra ``-D`` flags into
+its own directory, for ``chip_smoke.py --sweep``; nothing else loads them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -40,14 +43,17 @@ LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0}
 
 _P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float, ctypes.c_uint)
-# C entry points: (table, width, origin, direction, active, n, tmin, tmax,
-# stack_depth, ...), each ending in the stream and returning cudaGetLastError
+# C entry points: the launches take (table, [width,] origin, direction,
+# active, n, tmin, tmax, stack_depth, ...), end in the stream and return
+# cudaGetLastError; the *_info queries return a cudaError_t code too
 SIGNATURES = {
-    "fov_closest_hit": (_P, _I, _P, _P, _P, _LL, _F, _F, _I, _I, _I, _U,
-                        _P, _P, _P, _P, _P),
-    "fov_occluded": (_P, _I, _P, _P, _P, _LL, _F, _F, _I, _I, _I, _P, _P),
+    "fov_closest_hit": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P, _P, _P, _P,
+                        _P, _P),
+    "fov_occluded": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P),
     "fov_occluded_packets": (_P, _I, _P, _P, _P, _LL, _F, _F, _I, _I, _P,
                              _P),
+    "fov_traverse_info": (_I, _I, _P, _P, _P),
+    "fov_packet_info": (_P, _P, _P),
 }
 
 _LOCK = threading.Lock()
@@ -76,6 +82,39 @@ def _stale(so: str, src: str) -> bool:
     return os.path.getmtime(so) < max(newest, os.path.getmtime(src))
 
 
+def _start(src: str, so: str, extra=()):
+    tmp = f"{so}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", CSRC, "-o", tmp, src]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so
+
+
+def _finish(procs: dict, log: dict) -> None:
+    """Wait for every started nvcc, keep its log, and raise if any failed."""
+    failed = []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+        else:
+            os.replace(tmp, so)
+            with open(f"{so}.log", "w") as f:
+                f.write(out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for fn, sig in SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = sig
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def _build_all() -> None:
     out_dir = build_dir()
     procs = {}
@@ -83,31 +122,32 @@ def _build_all() -> None:
     for name in SOURCES:
         src = os.path.join(CSRC, f"{name}.cu")
         so = os.path.join(out_dir, f"lib{name}.so")
-        if not _stale(so, src):
-            continue
-        tmp = f"{so}.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, so)
-    failed = []
-    for name, (proc, tmp, so) in procs.items():
-        log, _ = proc.communicate(timeout=600)
-        BUILD_INFO["log"][name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-        else:
-            os.replace(tmp, so)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        if _stale(so, src):
+            procs[name] = _start(src, so)
+        elif os.path.exists(f"{so}.log"):  # the log of the build in use
+            with open(f"{so}.log") as f:
+                BUILD_INFO["log"][name] = f.read()
+    try:
+        _finish(procs, BUILD_INFO["log"])
+    finally:
+        BUILD_INFO["seconds"] = time.perf_counter() - t0
     for name in SOURCES:
-        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
-        for fn, sig in SIGNATURES.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = sig
-                getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[name] = _load(os.path.join(out_dir, f"lib{name}.so"))
+
+
+def build_variants(name: str, variants: dict) -> dict:
+    """Compile ``csrc/<name>.cu`` once per ``{tag: (-D flags, ...)}``, all
+    at once, each into ``build/torch_kernels/variants/<tag>/`` -> ``{tag:
+    library}``."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    procs = {}
+    for tag, flags in variants.items():
+        out_dir = os.path.join(build_dir(), "variants", tag)
+        os.makedirs(out_dir, exist_ok=True)
+        procs[tag] = _start(src, os.path.join(out_dir, f"lib{name}.so"),
+                            flags)
+    _finish(procs, {})
+    return {tag: _load(procs[tag][2]) for tag in variants}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -119,10 +159,42 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+@contextlib.contextmanager
+def using(name: str, lib: ctypes.CDLL):
+    """Route the wrappers of ``csrc/<name>.cu`` to ``lib`` (a
+    ``build_variants`` library) inside the block."""
+    regular = library(name)
+    _LIBS[name] = lib
+    try:
+        yield
+    finally:
+        _LIBS[name] = regular
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError`` code from a launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {rc})")
+
+
+def resources(stack_depth: int) -> dict:
+    """Registers per thread, local memory per thread (spills and stack
+    frames) and resident blocks per SM of each kernel, as the CUDA runtime
+    reports them for the loaded build; K1/K2 at ``stack_depth``."""
+    out = {}
+    queries = (
+        ("closest_hit", "traverse", "fov_traverse_info", (0, stack_depth)),
+        ("occluded", "traverse", "fov_traverse_info", (1, stack_depth)),
+        ("occluded_packets", "packet_traverse", "fov_packet_info", ()),
+    )
+    for kernel, lib, fn, args in queries:
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        rc = getattr(library(lib), fn)(*args, *(ctypes.addressof(v)
+                                                for v in vals))
+        check(rc, fn)
+        out[kernel] = dict(zip(("registers", "local_bytes", "blocks_per_sm"),
+                               (v.value for v in vals)))
+    return out
 
 
 def stream() -> int:

@@ -4,10 +4,13 @@ the JAX package's ``ops/traverse8.py`` ``closest_hit``/``occluded``).
 ``closest_hit`` and ``occluded`` are the kernel wrappers: on a CUDA tensor
 they launch the hand-written kernels of ``csrc/traverse.cu`` (K1, K2) and
 raise if the launch fails; on a CPU tensor they run ``closest_hit_plain`` /
-``occluded_plain``. The plain versions walk every ray's stack as one
-(N, stack_depth) int64 tensor with masked gathers and repeat the kernels'
-arithmetic and visit order operation for operation, so the two agree bit for
-bit.
+``occluded_plain``. The kernels are compiled for the one packed layout the
+port builds, ``bvh8.ARITY`` x ``bvh8.LEAF_SIZE`` (16, 6): on a CUDA tensor
+any other (arity, leaf_size), or a table that is not 16-byte aligned, raises
+``ValueError``. The plain versions take any layout: they walk every ray's
+stack as one (N, stack_depth) int64 tensor with masked gathers and repeat
+the kernels' arithmetic and visit order operation for operation, so the two
+agree bit for bit.
 
 Visit order is the reference's: a closest-hit stack entry is the packed key
 ``(mono(tn) & himask) | code``; a node's hit children are pushed sorted by
@@ -20,10 +23,14 @@ from __future__ import annotations
 import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
-from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import codebits
+from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
+    ARITY,
+    LEAF_SIZE,
+    codebits,
+)
 
 _MASK = 0xFFFFFFFF
-MAX_STACK = 128  # csrc/traverse.cu MAX_STACK
+MAX_STACK = 128  # deepest stack the wrappers take (csrc/traverse.cu kMaxStack)
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +138,22 @@ def _check(table, o, d, active, stack_depth):
         raise ValueError(f"unsupported device {dev}")
 
 
+def _kernel_layout(table, n: int, arity: int, leaf_size: int) -> None:
+    """Refuse what the compiled kernels do not take: another layout than
+    (ARITY, LEAF_SIZE), a table that is not 16-byte aligned (rows are read
+    as uint4), or more rays than an int32 counter can hand out."""
+    if (arity, leaf_size) != (ARITY, LEAF_SIZE):
+        raise ValueError(
+            f"the CUDA kernels take only the ({ARITY}, {LEAF_SIZE}) packed "
+            f"layout, not ({arity}, {leaf_size})")
+    if table.shape[1] != 4 * ARITY:
+        raise ValueError(f"packed rows need {4 * ARITY} columns")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    if n >= 2**31 - 2**20:
+        raise ValueError("too many rays for one launch")
+
+
 # ---------------------------------------------------------------------------
 # closest hit (K1)
 # ---------------------------------------------------------------------------
@@ -205,25 +228,29 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
 def closest_hit(table, o, d, active, tmin: float, tmax: float,
                 stack_depth: int, arity: int, leaf_size: int):
     """Closest hit of each active ray: dict(t, tri_id, u, v, hit) of (N,)
-    tensors (miss: t = inf, tri_id = -1, u = v = 0). CUDA tensors launch K1;
-    CPU tensors run ``closest_hit_plain``."""
+    tensors (miss: t = inf, tri_id = -1, u = v = 0). CUDA tensors launch K1
+    (the (16, 6) layout only); CPU tensors run ``closest_hit_plain``."""
     _check(table, o, d, active, stack_depth)
     if table.device.type == "cpu":
         return closest_hit_plain(table, o, d, active, tmin, tmax,
                                  stack_depth, arity, leaf_size)
+    n, dev = o.shape[0], o.device
+    _kernel_layout(table, n, arity, leaf_size)
     cb = codebits(table.shape[0])
     if cb > 26:
         raise ValueError("table too large for packed tn|code stack entries")
-    n, dev = o.shape[0], o.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:  # nothing to launch
+        return {"t": t, "tri_id": tri, "u": u, "v": v, "hit": tri >= 0}
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     rc = kernel_build.library("traverse").fov_closest_hit(
-        table.data_ptr(), table.shape[1], o.data_ptr(), d.data_ptr(),
-        active.data_ptr(), n, tmin, tmax, stack_depth, arity, leaf_size,
-        (1 << cb) - 1, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-        v.data_ptr(), kernel_build.stream(),
+        table.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(), n,
+        tmin, tmax, stack_depth, (1 << cb) - 1, t.data_ptr(),
+        tri.data_ptr(), u.data_ptr(), v.data_ptr(), counter.data_ptr(),
+        kernel_build.stream(),
     )
     kernel_build.check(rc, "closest_hit")
     kernel_build.LAUNCHES["closest_hit"] += 1
@@ -280,17 +307,22 @@ def occluded_plain(table, o, d, active, tmin: float, tmax: float,
 def occluded(table, o, d, active, tmin: float, tmax: float,
              stack_depth: int, arity: int, leaf_size: int):
     """Any-hit occlusion with back faces culled and first-hit exit -> (N,)
-    bool. CUDA tensors launch K2; CPU tensors run ``occluded_plain``."""
+    bool. CUDA tensors launch K2 (the (16, 6) layout only), which walks only
+    the active lanes; CPU tensors run ``occluded_plain``."""
     _check(table, o, d, active, stack_depth)
     if table.device.type == "cpu":
         return occluded_plain(table, o, d, active, tmin, tmax, stack_depth,
                               arity, leaf_size)
-    n = o.shape[0]
-    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
+    n, dev = o.shape[0], o.device
+    _kernel_layout(table, n, arity, leaf_size)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:  # nothing to launch
+        return occ
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     rc = kernel_build.library("traverse").fov_occluded(
-        table.data_ptr(), table.shape[1], o.data_ptr(), d.data_ptr(),
-        active.data_ptr(), n, tmin, tmax, stack_depth, arity, leaf_size,
-        occ.data_ptr(), kernel_build.stream(),
+        table.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(), n,
+        tmin, tmax, stack_depth, occ.data_ptr(), counter.data_ptr(),
+        kernel_build.stream(),
     )
     kernel_build.check(rc, "occluded")
     kernel_build.LAUNCHES["occluded"] += 1
