@@ -23,16 +23,15 @@ n=24, seed 0, gradient sky probe: 6,924 triangles), then:
 4. renders a small frame on the GPU and on the CPU (the plain versions) and
    requires 99% of the pixels within 1 LSB.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(with each kernel's registers, local memory and resident blocks per SM),
-and as its last line ``{"ok": true, "device": {...}}``. Any failed check
-raises and exits non-zero; there is no CPU fallback.
+Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
+of those shapes (``tools/kernel_times.py``, which times another checkout's
+kernels the same way). Prints the card's name and power limit, one
+``{"kernels": [...]}`` line (with each kernel's registers, local memory and
+resident blocks per SM), and as its last line ``{"ok": true, "device":
+{...}}``. Any failed check raises and exits non-zero; there is no CPU
+fallback.
 
-``--profile`` adds ``FRAMES`` frames under ``torch.profiler``. ``--sweep``
-rebuilds ``csrc/traverse.cu`` with each of ``SWEEP``'s ``-D`` settings and
-times K1/K2 of every build on the main path's shapes (after checking each
-build's answers against the committed build's): the measurement that chose
-the tuning constants of that source.
+``--profile`` adds ``FRAMES`` frames under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -57,19 +56,6 @@ MASK_BYTES = 1  # the active mask, read for every lane
 SLAB_OPS = 21  # per child box: 6 subtracts, 6 multiplies, 6 min/max, 3 tests
 MT_OPS = 40  # per triangle: the Möller-Trumbore arithmetic and range tests
 RAY_SHAPE = "960x540 reference_32_16_8, box_city n=24 seed 0"
-# csrc/traverse.cu builds timed by --sweep, each against the committed one
-SWEEP = {
-    "k1_refill_idle=8": ("-DFOV_K1_REFILL_IDLE=8",),
-    "k1_refill_idle=16": ("-DFOV_K1_REFILL_IDLE=16",),
-    "k2_refill_idle=8": ("-DFOV_K2_REFILL_IDLE=8",),
-    "k2_refill_idle=32": ("-DFOV_K2_REFILL_IDLE=32",),
-    "k1_staged_row=0": ("-DFOV_K1_STAGED_ROW=0",),
-    "k2_staged_row=1": ("-DFOV_K2_STAGED_ROW=1",),
-    "min_blocks=4": ("-DFOV_MIN_BLOCKS=4",),
-    "min_blocks=6": ("-DFOV_MIN_BLOCKS=6",),
-    "local_stack": ("-DFOV_LOCAL_STACK=1",),
-}
-SWEEP_REPS = 10
 
 
 def _line(msg: str) -> None:
@@ -125,66 +111,17 @@ def _k1_agreement(k: dict, p: dict):
     return hit_eq, tri_eq, ulp, err
 
 
-def _same(a, b) -> bool:
-    import torch
-
-    if isinstance(a, dict):
-        return all(torch.equal(a[c], b[c]) for c in a)
-    return bool(torch.equal(a, b))
-
-
-def _sweep(calls: dict, refs: dict, stack_depth: int) -> dict:
-    """Build every ``SWEEP`` variant of csrc/traverse.cu, require each to
-    give the committed build's answers on the main-path shapes in ``refs``,
-    and time every build on each shape in two rounds (forward, then
-    backward order). Returns {build: {shape: mean ms, ..., resources}}."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
-    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
-
-    t0 = time.perf_counter()
-    builds = {"committed": kernel_build.library("traverse"),
-              **kernel_build.build_variants("traverse", SWEEP)}
-    _line(f"sweep: {len(SWEEP)} builds in {time.perf_counter() - t0:.1f} s")
-    times = {tag: {shape: [] for shape in refs} for tag in builds}
-    out = {}
-    for order in (list(builds), list(reversed(builds))):
-        for tag in order:
-            with kernel_build.using("traverse", builds[tag]):
-                if tag not in out:
-                    for shape, ref in refs.items():
-                        assert _same(calls[shape](), ref), \
-                            f"sweep build {tag} disagrees on {shape}"
-                    res = kernel_build.resources(stack_depth)
-                    out[tag] = {"resources": {k: res[k] for k in
-                                              ("closest_hit", "occluded")}}
-                for shape in refs:
-                    times[tag][shape].append(
-                        kernel_times.events_ms(calls[shape], SWEEP_REPS))
-    for tag in builds:
-        out[tag].update({shape: sum(v) / len(v)
-                         for shape, v in times[tag].items()})
-        res = out[tag]["resources"]
-        _line(f"sweep {tag}: " + ", ".join(
-            f"{shape} {out[tag][shape]:.4f} ms" for shape in refs)
-            + "; " + ", ".join(
-                f"{k} {r['registers']} regs, {r['local_bytes']} B local, "
-                f"{r['blocks_per_sm']} blocks/SM" for k, r in res.items()))
-    return out
-
-
-def _bound(stats: dict, table, arity: int, leaf_size: int, n_rays: int,
-           n_active: int, out_bytes: int):
+def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int):
     """Least time for the work: the bytes the call must move (the table, the
     mask of every lane and the ray of each active lane read once, each
-    lane's result written once) at the HBM rate vs the
-    float32 operations this run's rays need (every fetched node row's
-    ``arity`` slab tests and every fetched leaf row's ``leaf_size``
-    triangle tests) at the float32 peak. Returns (ms, "bytes"|"operations",
-    row-fetch bytes)."""
+    lane's result written once) at the HBM rate vs the float32 operations
+    this run's rays need (a slab test of each non-empty child of every
+    fetched node row, a triangle test of each real triangle of every fetched
+    leaf row, as the plain version counted them in ``stats``) at the float32
+    peak. Returns (ms, "bytes"|"operations", row-fetch bytes)."""
     byte_ms = (table.numel() * 4 + n_active * RAY_BYTES
                + n_rays * (MASK_BYTES + out_bytes)) / HBM_BYTES_PER_S * 1e3
-    ops = (stats["node_rows"] * arity * SLAB_OPS
-           + stats["leaf_rows"] * leaf_size * MT_OPS)
+    ops = stats["child_tests"] * SLAB_OPS + stats["tri_tests"] * MT_OPS
     op_ms = ops / F32_OPS_PER_S * 1e3
     fetch = (stats["node_rows"] + stats["leaf_rows"]) * table.shape[1] * 4
     if byte_ms >= op_ms:
@@ -250,9 +187,6 @@ def main() -> int:
     ap.add_argument("--profile", default=None,
                     help="profile FRAMES more frames; write the op table "
                     "here")
-    ap.add_argument("--sweep", action="store_true",
-                    help="also build and time the SWEEP variants of "
-                    "csrc/traverse.cu")
     args = ap.parse_args()
 
     import torch
@@ -281,8 +215,6 @@ def main() -> int:
     )
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import Renderer
     from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
-
-    _events_ms = kernel_times.events_ms
 
     results = {}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -329,7 +261,6 @@ def main() -> int:
     tmin, tmax = config.tmin, config.tmax
     kargs = (tmin, tmax, bvh.stack_depth, bvh.arity, bvh.leaf_size)
     calls = kernel_times.kernel_calls(rays)
-    kernels = []
 
     # -- phase 4: K1 / K2 against their plain versions on primary rays -------
     k1 = calls["k1_primary"]()
@@ -337,12 +268,11 @@ def main() -> int:
     p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
         bvh.table, o, d, act, *kargs, stats=st1))
     hit_eq, tri_eq, ulp, err1 = _k1_agreement(k1, p1)
-    k1_ms = _events_ms(calls["k1_primary"], 5)
     n_act = int(act.sum().item())
     _line(f"K1 closest_hit: {n} lanes ({n_act} active, "
-          f"{int(p1['hit'].sum())} hits); kernel {k1_ms:.3f} ms, plain "
-          f"{p1_ms:.1f} ms; hit equal {hit_eq}, tri_id equal {tri_eq}, t/u/v "
-          f"max {ulp} ulp; rows fetched {st1}")
+          f"{int(p1['hit'].sum())} hits); plain {p1_ms:.1f} ms; hit equal "
+          f"{hit_eq}, tri_id equal {tri_eq}, t/u/v max {ulp} ulp; work "
+          f"{st1}")
     assert hit_eq and tri_eq and ulp == 0, "K1 disagrees with its plain version"
 
     k2p = traverse.occluded(bvh.table, o, d, act, *kargs)
@@ -372,15 +302,12 @@ def main() -> int:
     mism2 = int((k2 != p2).sum().item())
     # a boolean answer's largest absolute error is 1 if any ray disagrees
     err2, err3 = float(min(mism2, 1)), float(min(mism3, 1))
-    k3_ms = _events_ms(calls["k3_shadow"], 5)
-    k2_ms = _events_ms(calls["k2_shadow"], 5)
     _line(f"shadow rays (bounce 0): {ns} lanes, {nq} queried, "
           f"{int(k2.sum())} occluded")
-    _line(f"K2 occluded: kernel {k2_ms:.3f} ms, plain {p2_ms:.1f} ms, "
-          f"{mism2} mismatches; rows fetched {st2}")
-    _line(f"K3 occluded_packets: kernel {k3_ms:.3f} ms, plain {p3_ms:.1f} ms, "
-          f"{mism3} mismatches vs plain, {mism32} vs K2; rows fetched {st3}; "
-          f"path launches {k3_launches}")
+    _line(f"K2 occluded: plain {p2_ms:.1f} ms, {mism2} mismatches; work "
+          f"{st2}")
+    _line(f"K3 occluded_packets: plain {p3_ms:.1f} ms, {mism3} mismatches vs "
+          f"plain, {mism32} vs K2; work {st3}; path launches {k3_launches}")
     assert mism2 == 0, "K2 disagrees with its plain version (shadow rays)"
     assert mism3 == 0, "K3 disagrees with its plain version"
     assert mism32 == 0, "K3 disagrees with K2 on the same rays"
@@ -395,20 +322,17 @@ def main() -> int:
         bvh.table, bo, bd, bact, *kargs, stats=st1b))
     hit_eq_b, tri_eq_b, ulp_b, err1b = _k1_agreement(k1b, p1b)
     err1 = max(err1, err1b)
-    k1b_ms = _events_ms(calls["k1_continuation"], 5)
     _line(f"K1 closest_hit on bounce-0 continuation rays: {bo.shape[0]} "
-          f"lanes, {int(p1b['hit'].sum())} hits; kernel {k1b_ms:.3f} ms, "
-          f"plain {p1b_ms:.1f} ms; hit equal {hit_eq_b}, tri_id equal "
-          f"{tri_eq_b}, t/u/v max {ulp_b} ulp; rows fetched {st1b}")
+          f"lanes, {int(p1b['hit'].sum())} hits; plain {p1b_ms:.1f} ms; hit "
+          f"equal {hit_eq_b}, tri_id equal {tri_eq_b}, t/u/v max {ulp_b} "
+          f"ulp; work {st1b}")
     assert hit_eq_b and tri_eq_b and ulp_b == 0, \
         "K1 disagrees with its plain version (bounce-0 continuation rays)"
-    del p1b
+    del p1b, k1, k1b
 
-    if args.sweep:
-        results["sweep"] = _sweep(
-            calls, {"k1_primary": k1, "k1_continuation": k1b,
-                    "k2_shadow": k2}, bvh.stack_depth)
-    del k1, k1b
+    times = kernel_times.time_kernels(calls)
+    _line(f"kernel times (CUDA events, {kernel_times.REPS} launches each): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
 
     # -- phase 6: the main path ----------------------------------------------
     renderer = Renderer(scene, config, schedule, device="cuda")
@@ -470,13 +394,11 @@ def main() -> int:
 
     # -- phase 8: the kernels line ---------------------------------------------
     per_frame = lambda k: launches[k] / FRAMES  # noqa: E731
-    b1, b1_by, f1 = _bound(st1, bvh.table, bvh.arity, bvh.leaf_size, n,
-                           n_act, 16)
-    b2, b2_by, f2 = _bound(st2, bvh.table, bvh.arity, bvh.leaf_size, ns, nq, 1)
-    b3, b3_by, f3 = _bound(st3, leg.table, 8, leg.leaf_size, ns, nq, 1)
+    b1, b1_by, f1 = _bound(st1, bvh.table, n, n_act, 16)
+    b2, b2_by, f2 = _bound(st2, bvh.table, ns, nq, 1)
+    b3, b3_by, f3 = _bound(st3, leg.table, ns, nq, 1)
     nb = bo.shape[0]
-    b1b, b1b_by, f1b = _bound(st1b, bvh.table, bvh.arity, bvh.leaf_size, nb,
-                              nb, 16)
+    b1b, b1b_by, f1b = _bound(st1b, bvh.table, nb, nb, 16)
     _line(f"row fetches (L2 traffic): K1 {f1 / 1e6:.1f} MB primary, "
           f"{f1b / 1e6:.1f} MB continuation, K2 {f2 / 1e6:.1f} MB, K3 "
           f"{f3 / 1e6:.1f} MB")
@@ -495,27 +417,30 @@ def main() -> int:
     kernels = [
         {"name": "closest_hit", "route": "cuda", "source": src + "traverse.cu",
          "replaces": jax_ops + "traverse8.py:795", "launches":
-         launches["closest_hit"], "max_abs_err": err1, "ms": k1_ms,
+         launches["closest_hit"], "max_abs_err": err1,
+         "ms": times["k1_primary"],
          "plain_ms": p1_ms, "bound_ms": b1, "bound_by": b1_by,
          "library_ms": None, **res["closest_hit"],
-         "continuation": {"lanes": nb, "ms": k1b_ms, "plain_ms": p1b_ms,
+         "continuation": {"lanes": nb, "ms": times["k1_continuation"],
+                          "plain_ms": p1b_ms,
                           "bound_ms": b1b, "bound_by": b1b_by}},
         {"name": "occluded", "route": "cuda", "source": src + "traverse.cu",
          "replaces": jax_ops + "traverse8.py:1367", "launches":
-         launches["occluded"], "max_abs_err": err2, "ms": k2_ms,
+         launches["occluded"], "max_abs_err": err2,
+         "ms": times["k2_shadow"],
          "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
          "library_ms": None, **res["occluded"]},
         {"name": "occluded_packets", "route": "cuda",
          "source": src + "packet_traverse.cu",
          "replaces": jax_ops + "pallas_traverse.py:53", "launches":
-         k3_launches, "max_abs_err": err3, "ms": k3_ms,
+         k3_launches, "max_abs_err": err3, "ms": times["k3_shadow"],
          "plain_ms": p3_ms, "bound_ms": b3, "bound_by": b3_by,
          "library_ms": None, **res["occluded_packets"]},
     ]
     results.update(
         kernels=kernels, frame_ms=frame_ms, traces=traces, mrays_s=mrays,
         peak_bytes=peak, launches_per_frame={k: per_frame(k) for k in launches},
-        rows={"k1": st1, "k1_continuation": st1b, "k2": st2, "k3": st3},
+        work={"k1": st1, "k1_continuation": st1b, "k2": st2, "k3": st3},
         row_fetch_bytes={"k1": f1, "k1_continuation": f1b, "k2": f2,
                          "k3": f3},
         shadow_rays={"lanes": ns, "queried": nq}, small_share=share,

@@ -52,53 +52,30 @@
 //   in chunks of 32, writes the miss answer of the inactive ones (coalesced)
 //   and compacts the active ones with __ballot_sync/__popc into a per-warp
 //   queue in shared memory, so an inactive lane never takes a thread. A lane
-//   whose ray is done takes the next queued ray once REFILL_IDLE lanes of
-//   its warp are idle: 16 for K2, whose rays end early and unevenly; 32 (the
-//   whole warp) for K1, which loses its coherence and 25-35% of its speed
-//   when part of a warp refills (at 16 or 8 idle lanes).
+//   whose ray is done takes the next queued ray once kK2RefillIdle (16)
+//   lanes of its warp are idle in K2, whose rays end early and unevenly, and
+//   kK1RefillIdle (32, the whole warp) in K1, which loses its coherence and
+//   25-35% of its speed when part of a warp refills (at 16 or 8 idle lanes).
 // - K1 computes its children's keys in registers and sorts them there with
 //   a bitonic network (over 4, 8 or 16 keys, as far as the node's children
 //   reach) before pushing the hits.
 // - Each thread's stack lives in shared memory, stack_depth entries (the
 //   table's exact worst case, ops/bvh8.py lifo_stack_bound), strided by 32
-//   so a warp's pushes and pops hit 32 banks.
+//   so a warp's pushes and pops hit 32 banks. A fixed 128-entry stack in
+//   local memory timed the same within noise; shared memory is kept because
+//   it is sized from the argument.
 //
-// The tuning constants below were chosen by `chip_smoke.py --sweep`, which
-// rebuilds this file with each -D value, checks its answers and times every
-// main-path shape (PERF.md has the numbers).
+// The constants below were chosen by timing each alternative build on every
+// main-path shape against the kept one (PERF.md has the numbers).
 //
 // Built with --fmad=false: with no FMA contraction the slab tests and the
 // Möller-Trumbore arithmetic round exactly as the plain PyTorch versions
 // do, so hit/tri_id and t/u/v match them bit for bit.
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 #include "tri.cuh"
-
-// lanes of a warp that must be idle before they take new rays (K1, K2)
-#ifndef FOV_K1_REFILL_IDLE
-#define FOV_K1_REFILL_IDLE 32
-#endif
-#ifndef FOV_K2_REFILL_IDLE
-#define FOV_K2_REFILL_IDLE 16
-#endif
-
-// resident blocks per SM asked of the register allocator
-#ifndef FOV_MIN_BLOCKS
-#define FOV_MIN_BLOCKS 5
-#endif
-// 1: each thread's stack in local memory instead of shared memory
-#ifndef FOV_LOCAL_STACK
-#define FOV_LOCAL_STACK 0
-#endif
-// 1: prefetch a row's two lines into L1, then read it a group of children
-// or half a leaf at a time (fewer registers) instead of all at once (K1, K2)
-#ifndef FOV_K1_STAGED_ROW
-#define FOV_K1_STAGED_ROW 1
-#endif
-#ifndef FOV_K2_STAGED_ROW
-#define FOV_K2_STAGED_ROW 0
-#endif
 
 namespace {
 
@@ -106,8 +83,17 @@ constexpr int kArity = 16, kLeaf = 6;  // ops/bvh8.py ARITY, LEAF_SIZE
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kQueue = 64;  // per-warp ray queue; holds at most 63
-constexpr int kMaxStack = 128;  // ops/traverse.py MAX_STACK
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// lanes of a warp that must be idle before they take new rays
+constexpr int kK1RefillIdle = 32, kK2RefillIdle = 16;
+// resident blocks per SM asked of the register allocator (4 gives K2 109
+// registers, 6 spills)
+constexpr int kMinBlocks = 5;
+// whether a walk prefetches a row's two lines into L1 and then reads it a
+// group of children or half a leaf at a time (fewer registers: K1), or
+// reads it all at once (K2, which gains nothing from staging)
+constexpr bool kK1StagedRow = true, kK2StagedRow = false;
+constexpr int kMaxDevices = 64;  // devices the launch-grid cache tells apart
 
 template <int ARITY, int LEAF>
 struct Layout {
@@ -305,13 +291,13 @@ struct OccludedWalk {
     const uint32_t code = stk[--sp];
     uint4 q[L::kVecs];
     const uint4* r =
-        begin_row<ARITY, LEAF, FOV_K2_STAGED_ROW>(table, code, q);
+        begin_row<ARITY, LEAF, kK2StagedRow>(table, code, q);
     if ((code & 3u) == 0u) {
       // children in groups of four; a group with no child is skipped
 #pragma unroll
       for (int g = 0; g < ARITY / 4; ++g) {
         if (!group_used<ARITY>(q, g)) continue;
-        group_boxes<FOV_K2_STAGED_ROW>(r, q, g);
+        group_boxes<kK2StagedRow>(r, q, g);
 #pragma unroll
         for (int c = 4 * g; c < 4 * g + 4; ++c) {
           const uint32_t cc = word(q, 3 * ARITY + c);
@@ -324,7 +310,7 @@ struct OccludedWalk {
     } else {
 #pragma unroll
       for (int k = 0; k < LEAF; ++k) {
-        if (k % 3 == 0) leaf_half<FOV_K2_STAGED_ROW>(r, q, k / 3);
+        if (k % 3 == 0) leaf_half<kK2StagedRow>(r, q, k / 3);
         float tri[9];
         triangle(q, k, tri);
         occ |= tri_test(tri, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
@@ -383,7 +369,7 @@ struct ClosestWalk {
     const uint32_t code = e & lowmask;
     uint4 q[L::kVecs];
     const uint4* r =
-        begin_row<ARITY, LEAF, FOV_K1_STAGED_ROW>(table, code, q);
+        begin_row<ARITY, LEAF, kK1StagedRow>(table, code, q);
     if ((code & 3u) == 0u) {
       const uint32_t himask = ~lowmask;
       uint32_t key[ARITY];  // a hit child's key, 0 for a miss or empty slot
@@ -397,7 +383,7 @@ struct ClosestWalk {
 #pragma unroll
         for (int c = 4 * g; c < 4 * g + 4; ++c) key[c] = 0u;
         if (!used) continue;
-        group_boxes<FOV_K1_STAGED_ROW>(r, q, g);
+        group_boxes<kK1StagedRow>(r, q, g);
 #pragma unroll
         for (int c = 4 * g; c < 4 * g + 4; ++c) {
           const uint32_t cc = word(q, 3 * ARITY + c);
@@ -419,7 +405,7 @@ struct ClosestWalk {
       const int* ids = reinterpret_cast<const int*>(r) + 9 * LEAF;
 #pragma unroll
       for (int k = 0; k < LEAF; ++k) {
-        if (k % 3 == 0) leaf_half<FOV_K1_STAGED_ROW>(r, q, k / 3);
+        if (k % 3 == 0) leaf_half<kK1StagedRow>(r, q, k / 3);
         float tri[9];
         triangle(q, k, tri);
         const TriHit h = tri_test(tri, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
@@ -504,18 +490,16 @@ __device__ __forceinline__ void walk_rays(Walk& w,
 // dynamic shared memory of a block: the warps' queues, then their stacks
 __host__ __device__ constexpr size_t shared_bytes(int depth) {
   return sizeof(int) * kWarps * kQueue +
-         (FOV_LOCAL_STACK ? 0 : sizeof(uint32_t) * kWarps * 32 * (size_t)depth);
+         sizeof(uint32_t) * kWarps * 32 * (size_t)depth;
 }
 
-__device__ __forceinline__ Stack thread_stack(uint32_t* smem, int depth,
-                                              uint32_t* local) {
-  if (FOV_LOCAL_STACK) return Stack{local, 1};
+__device__ __forceinline__ Stack thread_stack(uint32_t* smem, int depth) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   return Stack{smem + kWarps * kQueue + warp * 32 * depth + lane, 32};
 }
 
 template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(kThreads, FOV_MIN_BLOCKS) closest_hit_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks) closest_hit_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
     int n, float tmin, float tmax, int depth, unsigned int lowmask,
@@ -523,7 +507,6 @@ __global__ void __launch_bounds__(kThreads, FOV_MIN_BLOCKS) closest_hit_kernel(
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ counter) {
   extern __shared__ uint32_t smem[];
-  uint32_t local[FOV_LOCAL_STACK ? kMaxStack : 1];
   ClosestWalk<ARITY, LEAF> w;
   w.table = table;
   w.orig = orig;
@@ -536,20 +519,19 @@ __global__ void __launch_bounds__(kThreads, FOV_MIN_BLOCKS) closest_hit_kernel(
   w.tmax = tmax;
   w.depth = depth;
   w.lowmask = lowmask;
-  w.stk = thread_stack(smem, depth, local);
-  walk_rays<FOV_K1_REFILL_IDLE>(
+  w.stk = thread_stack(smem, depth);
+  walk_rays<kK1RefillIdle>(
       w, active, n, counter,
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
 
 template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(kThreads, FOV_MIN_BLOCKS) occluded_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
     int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
     int* __restrict__ counter) {
   extern __shared__ uint32_t smem[];
-  uint32_t local[FOV_LOCAL_STACK ? kMaxStack : 1];
   OccludedWalk<ARITY, LEAF> w;
   w.table = table;
   w.orig = orig;
@@ -558,8 +540,8 @@ __global__ void __launch_bounds__(kThreads, FOV_MIN_BLOCKS) occluded_kernel(
   w.tmin = tmin;
   w.tmax = tmax;
   w.depth = depth;
-  w.stk = thread_stack(smem, depth, local);
-  walk_rays<FOV_K2_REFILL_IDLE>(
+  w.stk = thread_stack(smem, depth);
+  walk_rays<kK2RefillIdle>(
       w, active, n, counter,
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
@@ -569,21 +551,26 @@ const void* kernel_of(int which) {
                     : (const void*)occluded_kernel<kArity, kLeaf>;
 }
 
-// Resident blocks per SM of a kernel at a shared-memory size, and the grid
-// that fills the card with them; computed once per kernel and size.
+// Resident blocks per SM of a kernel at a shared-memory size on the current
+// device, and the grid that fills that device with them; computed once per
+// device, kernel and size (the shared-memory attribute is set per device).
 cudaError_t grid_of(int which, size_t smem, int* per_sm, int* blocks) {
   struct Entry {
     size_t smem;
     int per_sm, blocks;
   };
-  static Entry cache[2] = {{0, 0, 0}, {0, 0, 0}};
-  Entry& e = cache[which];
+  static std::mutex mu;
+  static Entry cache[kMaxDevices][2] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  Entry& e = cache[dev][which];
   if (e.per_sm == 0 || e.smem != smem) {
     const void* fn = kernel_of(which);
-    int dev = 0, sms = 0, fit = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, fit = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
           fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

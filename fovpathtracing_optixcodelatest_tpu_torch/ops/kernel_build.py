@@ -12,13 +12,10 @@ contraction is what lets the kernels' Möller-Trumbore ``t/u/v`` and
 elementwise op as its own rounded step).
 
 A failed build raises; nothing falls back to the plain versions.
-``build_variants`` compiles one source again with extra ``-D`` flags into
-its own directory, for ``chip_smoke.py --sweep``; nothing else loads them.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import glob
 import os
@@ -82,20 +79,20 @@ def _stale(so: str, src: str) -> bool:
     return os.path.getmtime(so) < max(newest, os.path.getmtime(src))
 
 
-def _start(src: str, so: str, extra=()):
+def _start(src: str, so: str):
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", CSRC, "-o", tmp, src]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so
 
 
-def _finish(procs: dict, log: dict) -> None:
+def _finish(procs: dict) -> None:
     """Wait for every started nvcc, keep its log, and raise if any failed."""
     failed = []
     for name, (proc, tmp, so) in procs.items():
         out, _ = proc.communicate(timeout=600)
-        log[name] = out
+        BUILD_INFO["log"][name] = out
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
         else:
@@ -128,26 +125,11 @@ def _build_all() -> None:
             with open(f"{so}.log") as f:
                 BUILD_INFO["log"][name] = f.read()
     try:
-        _finish(procs, BUILD_INFO["log"])
+        _finish(procs)
     finally:
         BUILD_INFO["seconds"] = time.perf_counter() - t0
     for name in SOURCES:
         _LIBS[name] = _load(os.path.join(out_dir, f"lib{name}.so"))
-
-
-def build_variants(name: str, variants: dict) -> dict:
-    """Compile ``csrc/<name>.cu`` once per ``{tag: (-D flags, ...)}``, all
-    at once, each into ``build/torch_kernels/variants/<tag>/`` -> ``{tag:
-    library}``."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    procs = {}
-    for tag, flags in variants.items():
-        out_dir = os.path.join(build_dir(), "variants", tag)
-        os.makedirs(out_dir, exist_ok=True)
-        procs[tag] = _start(src, os.path.join(out_dir, f"lib{name}.so"),
-                            flags)
-    _finish(procs, {})
-    return {tag: _load(procs[tag][2]) for tag in variants}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -157,18 +139,6 @@ def library(name: str) -> ctypes.CDLL:
         if not _LIBS:
             _build_all()
         return _LIBS[name]
-
-
-@contextlib.contextmanager
-def using(name: str, lib: ctypes.CDLL):
-    """Route the wrappers of ``csrc/<name>.cu`` to ``lib`` (a
-    ``build_variants`` library) inside the block."""
-    regular = library(name)
-    _LIBS[name] = lib
-    try:
-        yield
-    finally:
-        _LIBS[name] = regular
 
 
 def check(rc: int, what: str) -> None:

@@ -17,6 +17,7 @@ import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 from fovpathtracing_optixcodelatest_tpu_torch.ops.traverse import (
+    STATS,
     _check,
     _push,
     safe_inv,
@@ -30,14 +31,16 @@ WIDTH = 8
 def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
                            stack_depth: int, leaf_size: int = 4,
                            stats: dict | None = None):
-    """Plain PyTorch K3 -> (N,) bool; ``stats`` counts the node and
-    leaf rows fetched."""
+    """Plain PyTorch K3 -> (N,) bool; ``stats`` counts the node and leaf
+    rows fetched and the tests done on them, as ``traverse``'s plain
+    versions do (a padding triangle slot is all zero: the legacy rows have
+    no triangle ids)."""
     n, dev = o.shape[0], o.device
     inv = safe_inv(d)
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)  # the root (row 0) sits at depth 0
-    fetched = {"node_rows": 0, "leaf_rows": 0}
+    fetched = dict.fromkeys(STATS, 0)
     while True:
         idx = torch.nonzero((sp > 0) & ~occ).squeeze(1)
         if idx.numel() == 0:
@@ -55,6 +58,7 @@ def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
             meta = nrows[:, 48:64].contiguous().view(torch.int32)
             a_val = meta[:, 0::2].to(torch.int64)
             kind = meta[:, 1::2].to(torch.int64)
+            fetched["child_tests"] += int((kind >= 0).sum())
             hit, _ = slab(boxes[..., 0:3], boxes[..., 3:6], o[ni], inv[ni],
                           tmin, tmax)
             child = torch.where(kind > 0, -(a_val + 1), a_val)
@@ -64,6 +68,8 @@ def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
         fetched["leaf_rows"] += li.numel()
         if li.numel():
             lrows = rows[leaf]
+            tris = lrows[:, : 9 * leaf_size].reshape(-1, leaf_size, 9)
+            fetched["tri_tests"] += int((tris != 0).any(dim=-1).sum())
             hit_any = torch.zeros((li.numel(),), dtype=torch.bool, device=dev)
             for k in range(leaf_size):
                 hk, _, _, _ = tri_test(lrows[:, 9 * k: 9 * k + 9], o[li],

@@ -30,7 +30,10 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
 )
 
 _MASK = 0xFFFFFFFF
-MAX_STACK = 128  # deepest stack the wrappers take (csrc/traverse.cu kMaxStack)
+MAX_STACK = 128  # deepest stack the wrappers take
+# what the plain versions' ``stats`` count: rows fetched, and the tests done
+# on them (non-empty children slab-tested, real triangles tested)
+STATS = ("node_rows", "leaf_rows", "child_tests", "tri_tests")
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +118,12 @@ def _push(stack, sp, who, entries, keep):
     sp[who] = torch.clamp(sp[who] + keep.sum(dim=1), max=stack.shape[1])
 
 
+def _real_triangles(lrows: torch.Tensor, leaf_size: int) -> int:
+    """Triangles in packed leaf rows, padding slots (id -1) left out."""
+    ids = lrows[:, 9 * leaf_size: 10 * leaf_size].contiguous()
+    return int((ids.view(torch.int32) >= 0).sum())
+
+
 def _check(table, o, d, active, stack_depth):
     dev = table.device
     if table.dtype != torch.float32 or table.ndim != 2:
@@ -162,8 +171,11 @@ def _kernel_layout(table, n: int, arity: int, leaf_size: int) -> None:
 def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
                       stack_depth: int, arity: int, leaf_size: int,
                       stats: dict | None = None):
-    """Plain PyTorch K1: dict(t, tri_id, u, v, hit). ``stats`` gets
-    the node and leaf rows fetched (``node_rows``, ``leaf_rows``)."""
+    """Plain PyTorch K1: dict(t, tri_id, u, v, hit). ``stats`` gets the
+    node and leaf rows fetched (``node_rows``, ``leaf_rows``) and the work
+    in them (``child_tests``: slab tests of the fetched nodes' non-empty
+    children; ``tri_tests``: ray-triangle tests of the fetched leaves' real,
+    non-padding triangles)."""
     n, dev = o.shape[0], o.device
     cb = codebits(table.shape[0])
     lowmask = (1 << cb) - 1
@@ -175,7 +187,7 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
     best = torch.full((n,), -1, dtype=torch.int32, device=dev)
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)  # the root (code 0) sits at depth 0
-    fetched = {"node_rows": 0, "leaf_rows": 0}
+    fetched = dict.fromkeys(STATS, 0)
     tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
     while True:
         idx = torch.nonzero(sp > 0).squeeze(1)
@@ -194,6 +206,7 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
         fetched["node_rows"] += ni.numel()
         if ni.numel():
             lo, hi, codes = _node_boxes(rows[node], arity)
+            fetched["child_tests"] += int((codes != 0).sum())
             hit, tn = slab(lo, hi, o[ni], inv[ni], tmin, tlimit[node][:, None])
             hit = hit & (codes != 0)
             keys = torch.where(hit, (mono_u32(tn) & himask) | codes, 0)
@@ -206,6 +219,7 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
         fetched["leaf_rows"] += li.numel()
         if li.numel():
             lrows = rows[~node]
+            fetched["tri_tests"] += _real_triangles(lrows, leaf_size)
             tb, ub, vb, bb = t[li], u[li], v[li], best[li]
             ol, dl = o[li], d[li]
             for k in range(leaf_size):
@@ -265,13 +279,14 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
 def occluded_plain(table, o, d, active, tmin: float, tmax: float,
                    stack_depth: int, arity: int, leaf_size: int,
                    stats: dict | None = None):
-    """Plain PyTorch K2 -> (N,) bool. Children are pushed in slot order."""
+    """Plain PyTorch K2 -> (N,) bool. Children are pushed in slot order.
+    ``stats`` counts as ``closest_hit_plain``'s does."""
     n, dev = o.shape[0], o.device
     inv = safe_inv(d)
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)
-    fetched = {"node_rows": 0, "leaf_rows": 0}
+    fetched = dict.fromkeys(STATS, 0)
     while True:
         idx = torch.nonzero((sp > 0) & ~occ).squeeze(1)
         if idx.numel() == 0:
@@ -285,6 +300,7 @@ def occluded_plain(table, o, d, active, tmin: float, tmax: float,
         fetched["node_rows"] += ni.numel()
         if ni.numel():
             lo, hi, codes = _node_boxes(rows[node], arity)
+            fetched["child_tests"] += int((codes != 0).sum())
             hit, _ = slab(lo, hi, o[ni], inv[ni], tmin, tmax)
             _push(stack, sp, ni, codes, hit & (codes != 0))
 
@@ -292,6 +308,7 @@ def occluded_plain(table, o, d, active, tmin: float, tmax: float,
         fetched["leaf_rows"] += li.numel()
         if li.numel():
             lrows = rows[~node]
+            fetched["tri_tests"] += _real_triangles(lrows, leaf_size)
             hit_any = torch.zeros((li.numel(),), dtype=torch.bool, device=dev)
             for k in range(leaf_size):
                 hk, _, _, _ = tri_test(lrows[:, 9 * k: 9 * k + 9], o[li],

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Time the traversal kernels at the main path's shapes, for one source tree.
+"""The traversal kernels at the main path's shapes, and their timing.
+
+``bench_rays`` builds the bench scene (box_city n=24, seed 0, gradient sky)
+and the first frame's rays at 960x540 ``reference_32_16_8``;
+``kernel_calls`` and ``time_kernels`` time, with CUDA events, K1 on the
+1,923,984 primary lanes and on bounce 0's continuation rays, K2 and K3 on
+bounce 0's shadow lanes. ``chip_smoke.py`` reports these times in its
+kernels line.
 
     python3 fovpathtracing_optixcodelatest_tpu_torch/tools/kernel_times.py \\
-        [--tree DIR] [--reps N] [--out times.json]
+        --tree DIR [--out times.json]
 
-Imports the port from ``DIR`` (default: the checkout this file lies in),
-builds the bench scene (box_city n=24, seed 0, gradient sky) and the first
-frame's rays at 960x540 ``reference_32_16_8``, and times with CUDA events:
-K1 on the 1,923,984 primary lanes and on bounce 0's continuation rays, K2
-and K3 on bounce 0's shadow lanes. It calls only the kernel wrappers'
-public signatures, which every tree of the port shares, so it measures an
-older commit as well. To compare the parent's kernels with the change's on
-one card, unpack ``git archive <parent>`` into a git-ignored directory and
-run, in one chip call: parent, change, change, parent.
-
-``bench_rays`` is the shape builder that ``chip_smoke.py`` uses too.
+prints the same times for the port of another checkout ``DIR``, through
+this file's timing code: it calls only the kernel wrappers' public
+signatures, which every tree of the port shares, so it times an older
+commit at shapes that commit's own ``chip_smoke.py`` does not time. To
+compare the parent's kernels with the change's on one card, unpack ``git
+archive <parent>`` into a git-ignored directory and run, in one chip call,
+each tree's ``chip_smoke.py`` in the order parent, change, change, parent,
+with this script on the parent's tree beside each parent run.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import sys
 import time
 
 PRIMARY_LANES = 1_923_984  # 960x540 reference_32_16_8
+REPS = 20  # timed launches per kernel and shape, after one warm-up
 
 
 def bench_rays(device="cuda", city_n: int = 24, width: int = 960,
@@ -103,8 +108,8 @@ def bench_rays(device="cuda", city_n: int = 24, width: int = 960,
     }
 
 
-def events_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+def events_ms(fn) -> float:
+    """Mean device time of ``fn`` over ``REPS`` back-to-back calls (CUDA
     events, after one warm-up call)."""
     import torch
 
@@ -113,11 +118,11 @@ def events_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
+    for _ in range(REPS):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / REPS
 
 
 def kernel_calls(rays: dict) -> dict:
@@ -146,15 +151,18 @@ def kernel_calls(rays: dict) -> dict:
     }
 
 
+def time_kernels(calls: dict) -> dict:
+    """{shape: mean ms} of every ``kernel_calls`` entry, in its order."""
+    return {name: events_ms(fn) for name, fn in calls.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tree", default=None,
+    ap.add_argument("--tree", required=True,
                     help="root of the checkout whose port is timed")
-    ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
-    tree = os.path.abspath(args.tree or os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
 
     import torch
@@ -169,9 +177,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     rays = bench_rays("cuda")
     assert rays["primary"][0].shape[0] == PRIMARY_LANES
-    times = {name: events_ms(fn, args.reps)
-             for name, fn in kernel_calls(rays).items()}
-    result = {"tree": tree, "device": smi, "reps": args.reps,
+    times = time_kernels(kernel_calls(rays))
+    result = {"tree": tree, "device": smi, "reps": REPS,
               "lanes": {"primary": PRIMARY_LANES,
                         "continuation": rays["continuation"][0].shape[0],
                         "shadow": rays["shadow"][0].shape[0],

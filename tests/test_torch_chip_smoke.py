@@ -66,21 +66,17 @@ def test_k1_agreement_counts_ulps_on_hits():
 
 def test_bound_takes_the_larger_of_bytes_and_operations():
     table = torch.zeros((100, 64))
-    few = {"node_rows": 1, "leaf_rows": 1}
-    ms, by, fetch = chip_smoke._bound(few, table, 16, 6, 10**6, 10**6, 16)
+    few = {"node_rows": 1, "leaf_rows": 1, "child_tests": 2, "tri_tests": 5}
+    ms, by, fetch = chip_smoke._bound(few, table, 10**6, 10**6, 16)
     assert by == "bytes" and fetch == 2 * 64 * 4
-    many = {"node_rows": 10**7, "leaf_rows": 10**7}
-    ms2, by2, _ = chip_smoke._bound(many, table, 16, 6, 10, 10, 16)
-    ops = 10**7 * (16 * chip_smoke.SLAB_OPS + 6 * chip_smoke.MT_OPS)
-    assert by2 == "operations"
+    many = {"node_rows": 10**7, "leaf_rows": 10**7, "child_tests": 3 * 10**7,
+            "tri_tests": 5 * 10**7}
+    ms2, by2, fetch2 = chip_smoke._bound(many, table, 10, 10, 16)
+    # the tests done, not the rows' slots: 3 children and 5 triangles a row
+    ops = 10**7 * (3 * chip_smoke.SLAB_OPS + 5 * chip_smoke.MT_OPS)
+    assert by2 == "operations" and fetch2 == 2 * 10**7 * 64 * 4
     assert abs(ms2 - ops / chip_smoke.F32_OPS_PER_S * 1e3) < 1e-12
     assert ms > 0
-
-
-def test_sweep_builds_differ_only_by_defines():
-    assert chip_smoke.SWEEP
-    for tag, flags in chip_smoke.SWEEP.items():
-        assert flags and all(f.startswith("-DFOV_") for f in flags), tag
 
 
 def test_bench_rays_and_kernel_calls_on_cpu():

@@ -1,5 +1,6 @@
 """The plain K1/K2 at a stack too small for the tree, against the JAX
-package's truncated traversals, and the checks the CUDA wrappers make.
+package's truncated traversals, the checks the CUDA wrappers make, and the
+work (rows, child and triangle tests) the plain K1-K3 count.
 
 ``traverse8.closest_hit`` / ``traverse8.occluded`` with ``stack_cap`` flag
 the rays whose stack overflowed as ``pending`` and leave their result
@@ -31,7 +32,10 @@ from fovpathtracing_optixcodelatest_tpu.models.probe import constant_probe
 from fovpathtracing_optixcodelatest_tpu.models.scene import build_scene as j_build
 from fovpathtracing_optixcodelatest_tpu.ops import traverse8
 from fovpathtracing_optixcodelatest_tpu_torch.models.scene import scene_from_arrays
-from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+    packet_traverse,
+    traverse,
+)
 from test_torch_traverse import T_RTOL, TMAX, TMIN, UV_ATOL, _arrays, _rays
 
 torch.set_num_threads(2)
@@ -117,3 +121,76 @@ def test_kernel_layout_refuses_a_misaligned_table(box_city):
         traverse._kernel_layout(shifted, 10, 16, 6)
     with pytest.raises(ValueError, match="columns"):
         traverse._kernel_layout(table[:, :60], 10, 16, 6)
+
+
+# ---------------------------------------------------------------------------
+# the work the plain versions count for chip_smoke.py's operations bound
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def city_legacy():
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import build_scene
+
+    return build_scene(scenes.box_city(n=4, seed=0)[0], device="cpu",
+                       legacy8=True)
+
+
+def _walk(scene, kind, o, d, active):
+    stats = {}
+    b, leg = scene.bvh, scene.legacy
+    if kind == "occluded_packets":
+        packet_traverse.occluded_packets_plain(
+            leg.table, o, d, active, TMIN, TMAX, leg.stack_depth,
+            leg.leaf_size, stats=stats)
+    else:
+        getattr(traverse, f"{kind}_plain")(
+            b.table, o, d, active, TMIN, TMAX, b.stack_depth, b.arity,
+            b.leaf_size, stats=stats)
+    return stats
+
+
+def _root_children(scene, kind) -> int:
+    """Non-empty child slots of the root row."""
+    if kind == "occluded_packets":
+        meta = scene.legacy.table[0, 48:64].contiguous().view(torch.int32)
+        return int((meta[1::2] >= 0).sum())
+    arity = scene.bvh.arity
+    codes = scene.bvh.table[0, 3 * arity: 4 * arity].contiguous()
+    return int((codes.view(torch.int32) != 0).sum())
+
+
+KINDS = ["closest_hit", "occluded", "occluded_packets"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_counts_the_root_tests_of_rays_that_miss(city_legacy, kind):
+    # rays far outside the city pointing away from it fetch the root only
+    # and slab-test each of its non-empty children once
+    n = 50
+    o = torch.full((n, 3), 1000.0)
+    d = torch.full((n, 3), 3.0 ** -0.5)
+    active = torch.arange(n) % 5 != 0
+    k = int(active.sum())
+    stats = _walk(city_legacy, kind, o, d, active)
+    assert stats == {"node_rows": k, "leaf_rows": 0,
+                     "child_tests": k * _root_children(city_legacy, kind),
+                     "tri_tests": 0}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_counts_only_real_children_and_triangles(city_legacy, kind):
+    o, d, active = (torch.from_numpy(x) for x in _rays(
+        2000, (-35.0, 0.0, -35.0), (35.0, 20.0, 35.0), seed=9))
+    stats = _walk(city_legacy, kind, o, d, active)
+    arity, leaf = ((8, city_legacy.legacy.leaf_size)
+                   if kind == "occluded_packets"
+                   else (city_legacy.bvh.arity, city_legacy.bvh.leaf_size))
+    assert stats["node_rows"] > 0 and stats["leaf_rows"] > 0
+    # every fetched row holds at least one child or triangle, and the city's
+    # tree has nodes with empty slots and leaves with padding
+    assert stats["node_rows"] <= stats["child_tests"]
+    assert stats["child_tests"] < arity * stats["node_rows"]
+    assert stats["leaf_rows"] <= stats["tri_tests"]
+    assert stats["tri_tests"] < leaf * stats["leaf_rows"]
