@@ -7,14 +7,16 @@ Builds the port's CUDA kernels from ``fovpathtracing_optixcodelatest_tpu_torch/
 csrc/`` (into ``build/torch_kernels/``), builds the bench scene (box_city
 n=24, seed 0, gradient sky probe: 6,924 triangles), then:
 
-1. checks the closest-hit (K1) and occlusion (K2) kernels against their plain
-   PyTorch versions on the frame's full primary-ray batch (1,923,984 lanes
-   of the 960x540 reference_32_16_8 schedule): hit, tri_id and occlusion
-   must match exactly and t/u/v bit for bit (0 ulp);
+1. checks the closest-hit (K1) and occlusion (K2, K3) kernels against their
+   plain PyTorch versions on the frame's full primary-ray batch (1,923,984
+   lanes of the 960x540 reference_32_16_8 schedule): hit, tri_id and
+   occlusion must match exactly and t/u/v bit for bit (0 ulp); K3's
+   disagreements with K2 there are reported (they walk different trees);
 2. computes bounce 0's NEE shadow rays through the port's integrator and
-   drives the packet-occlusion path (K3, the counterpart of the JAX
-   package's Pallas kernel) on them, checking K3 against its plain version
-   and against K2 on the same rays; checks and times K1 again on bounce 0's
+   drives the packet-occlusion path (K3, the masked warp-packet walk that
+   replaces the JAX package's Pallas kernel) on them, checking K3 against
+   its plain version and against K2 on the same rays and reading the
+   packets and rows K3 fetched; checks and times K1 again on bounce 0's
    incoherent continuation rays, the shape of three of its four launches a
    frame;
 3. drives the main path, ``Renderer.render`` on ``FRAMES`` 960x540 frames
@@ -56,6 +58,9 @@ MASK_BYTES = 1  # the active mask, read for every lane
 SLAB_OPS = 21  # per child box: 6 subtracts, 6 multiplies, 6 min/max, 3 tests
 MT_OPS = 40  # per triangle: the Möller-Trumbore arithmetic and range tests
 RAY_SHAPE = "960x540 reference_32_16_8, box_city n=24 seed 0"
+# the kernels the main path launches: closest hit (K1) and occlusion (K2),
+# both on the packed table
+PATH_KERNELS = ("closest_hit", "occluded")
 
 
 def _line(msg: str) -> None:
@@ -151,12 +156,12 @@ def _profile_frames(renderer, path: str, results: dict) -> None:
     dev_ms = lambda e: e.self_device_time_total / 1e3 / FRAMES  # noqa: E731
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(dev_ms(e) for e in kernels)
-    k1_ms = sum(dev_ms(e) for e in kernels
-                if _kernel_of(e.key) == "closest_hit")
-    k2_ms = sum(dev_ms(e) for e in kernels if _kernel_of(e.key) == "occluded")
+    path_ms = {k: sum(dev_ms(e) for e in kernels if _kernel_of(e.key) == k)
+               for k in PATH_KERNELS}
     # a renamed kernel must fail here, not read as 0 ms
-    assert k1_ms > 0 and k2_ms > 0, "K1/K2 not found in the profile"
-    ours_ms = k1_ms + k2_ms
+    assert all(v > 0 for v in path_ms.values()), \
+        f"a main-path kernel is missing from the profile: {path_ms}"
+    ours_ms = sum(path_ms.values())
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.key.startswith("aten::")]
     top = sorted(ops, key=dev_ms, reverse=True)[:8]
@@ -168,13 +173,14 @@ def _profile_frames(renderer, path: str, results: dict) -> None:
     results["profile"] = {
         "frames": FRAMES, "device_busy_ms": busy_ms, "frame_ms": wall_ms,
         "idle_share": idle, "traversal_kernels_ms": ours_ms,
-        "k1_ms": k1_ms, "k2_ms": k2_ms,
+        "kernel_ms": path_ms,
         "device_launches": launches,
         "top_ops": [(e.key, dev_ms(e), e.count / FRAMES) for e in top],
     }
     _line(f"profile ({FRAMES} frames, per frame): device busy {busy_ms:.1f} "
           f"ms of a {wall_ms:.1f} ms profiled frame (idle share {idle:.2f}); "
-          f"K1+K2 {ours_ms:.3f} ms (K1 {k1_ms:.3f}, K2 {k2_ms:.3f}); "
+          f"traversal kernels {ours_ms:.3f} ms ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in path_ms.items()) + "); "
           f"{launches:.0f} device launches; top ops: "
           + "; ".join(f"{e.key} {dev_ms(e):.2f} ms x{e.count / FRAMES:.0f}"
                       for e in top))
@@ -262,7 +268,7 @@ def main() -> int:
     kargs = (tmin, tmax, bvh.stack_depth, bvh.arity, bvh.leaf_size)
     calls = kernel_times.kernel_calls(rays)
 
-    # -- phase 4: K1 / K2 against their plain versions on primary rays -------
+    # -- phase 4: K1 / K2 / K3 against their plain versions on primary rays --
     k1 = calls["k1_primary"]()
     st1 = {}
     p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
@@ -281,13 +287,25 @@ def main() -> int:
     _line(f"K2 occluded on primary rays: {mism2p} mismatches of {n}")
     assert mism2p == 0, "K2 disagrees with its plain version (primary rays)"
 
+    lt = leg.table
+    largs = (tmin, tmax, leg.stack_depth, leg.leaf_size)
+    k3p = packet_traverse.occluded_packets(lt, o, d, act, *largs)
+    p3p = packet_traverse.occluded_packets_plain(lt, o, d, act, *largs)
+    mism3p = int((k3p != p3p).sum().item())
+    # K2 and K3 walk different trees, so a grazing ray may fall differently
+    # in the two: reported, not required
+    diff32p = int((k3p != k2p).sum().item())
+    _line(f"K3 occluded_packets on primary rays: {mism3p} mismatches of {n}; "
+          f"{diff32p} answers differ from K2's")
+    assert mism3p == 0, "K3 disagrees with its plain version (primary rays)"
+
     # -- phase 5: bounce-0 shadow rays; the packet-occlusion path (K3) -------
     so, sd, sq = rays["shadow"]
     ns, nq = so.shape[0], int(sq.sum().item())
-    lt = leg.table
-    largs = (tmin, tmax, leg.stack_depth, leg.leaf_size)
     kernel_build.reset_launches()
-    k3 = packet_traverse.occluded_packets(lt, so, sd, sq, *largs)
+    fetched3 = {}
+    k3 = packet_traverse.occluded_packets(lt, so, sd, sq, *largs,
+                                          fetched=fetched3)
     torch.cuda.synchronize()
     k3_launches = kernel_build.LAUNCHES["occluded_packets"]
     assert k3_launches >= 1, "the packet path did not launch K3"
@@ -307,11 +325,13 @@ def main() -> int:
     _line(f"K2 occluded: plain {p2_ms:.1f} ms, {mism2} mismatches; work "
           f"{st2}")
     _line(f"K3 occluded_packets: plain {p3_ms:.1f} ms, {mism3} mismatches vs "
-          f"plain, {mism32} vs K2; work {st3}; path launches {k3_launches}")
+          f"plain, {mism32} vs K2; work {st3}; K3's own walk {fetched3}; "
+          f"path launches {k3_launches}")
     assert mism2 == 0, "K2 disagrees with its plain version (shadow rays)"
     assert mism3 == 0, "K3 disagrees with its plain version"
     assert mism32 == 0, "K3 disagrees with K2 on the same rays"
-    del p1, p2, p3, p2p, k2p
+    check_launches = dict(kernel_build.LAUNCHES)  # of this phase's checks
+    del p1, p2, p3, p2p, k2p, p3p, k3p
 
     # K1 again on bounce 0's continuation rays: incoherent, off-camera, the
     # shape of three of its four launches a frame
@@ -361,8 +381,8 @@ def main() -> int:
           f"{frame.mean():.3f}; finite {finite}; launches {launches}")
     assert frame.shape == (h, w, 3) and finite
     assert 0 < frame.mean() < 255
-    assert launches["closest_hit"] > 0, "main path never launched K1"
-    assert launches["occluded"] > 0, "main path never launched K2"
+    for k in PATH_KERNELS:
+        assert launches[k] > 0, f"main path never launched {k}"
 
     if args.profile:
         _profile_frames(renderer, args.profile, results)
@@ -394,14 +414,21 @@ def main() -> int:
 
     # -- phase 8: the kernels line ---------------------------------------------
     per_frame = lambda k: launches[k] / FRAMES  # noqa: E731
+    # a kernel of the main path reports its launches there, one off it the
+    # launches of its check on the shadow rays (phase 5)
+    path_launches = {k: launches[k] if k in PATH_KERNELS else check_launches[k]
+                     for k in launches}
     b1, b1_by, f1 = _bound(st1, bvh.table, n, n_act, 16)
     b2, b2_by, f2 = _bound(st2, bvh.table, ns, nq, 1)
-    b3, b3_by, f3 = _bound(st3, leg.table, ns, nq, 1)
+    b3, b3_by, _ = _bound(st3, leg.table, ns, nq, 1)
+    # K3 fetches a row once per packet step, not once per ray
+    f3 = ((fetched3["node_rows"] + fetched3["leaf_rows"])
+          * leg.table.shape[1] * 4)
     nb = bo.shape[0]
     b1b, b1b_by, f1b = _bound(st1b, bvh.table, nb, nb, 16)
     _line(f"row fetches (L2 traffic): K1 {f1 / 1e6:.1f} MB primary, "
           f"{f1b / 1e6:.1f} MB continuation, K2 {f2 / 1e6:.1f} MB, K3 "
-          f"{f3 / 1e6:.1f} MB")
+          f"{f3 / 1e6:.1f} MB ({fetched3['packets']} packets)")
     res = kernel_build.resources(bvh.stack_depth)
     spills = {}
     for log in kernel_build.BUILD_INFO["log"].values():
@@ -410,14 +437,15 @@ def main() -> int:
         r["spill_bytes"] = spills.get(k)
     _line("resources: " + "; ".join(
         f"{k} {r['registers']} regs, {r['spill_bytes']} B spilled, "
-        f"{r['local_bytes']} B local, {r['blocks_per_sm']} blocks/SM"
+        f"{r['local_bytes']} B local, {r['shared_bytes']} B shared/block, "
+        f"{r['blocks_per_sm']} blocks/SM"
         for k, r in res.items()))
     src = "fovpathtracing_optixcodelatest_tpu_torch/csrc/"
     jax_ops = "fovpathtracing_optixcodelatest_tpu/ops/"
     kernels = [
         {"name": "closest_hit", "route": "cuda", "source": src + "traverse.cu",
          "replaces": jax_ops + "traverse8.py:795", "launches":
-         launches["closest_hit"], "max_abs_err": err1,
+         path_launches["closest_hit"], "max_abs_err": err1,
          "ms": times["k1_primary"],
          "plain_ms": p1_ms, "bound_ms": b1, "bound_by": b1_by,
          "library_ms": None, **res["closest_hit"],
@@ -426,21 +454,25 @@ def main() -> int:
                           "bound_ms": b1b, "bound_by": b1b_by}},
         {"name": "occluded", "route": "cuda", "source": src + "traverse.cu",
          "replaces": jax_ops + "traverse8.py:1367", "launches":
-         launches["occluded"], "max_abs_err": err2,
+         path_launches["occluded"], "max_abs_err": err2,
          "ms": times["k2_shadow"],
          "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
          "library_ms": None, **res["occluded"]},
         {"name": "occluded_packets", "route": "cuda",
          "source": src + "packet_traverse.cu",
          "replaces": jax_ops + "pallas_traverse.py:53", "launches":
-         k3_launches, "max_abs_err": err3, "ms": times["k3_shadow"],
+         path_launches["occluded_packets"], "max_abs_err": err3,
+         "ms": times["k3_shadow"],
          "plain_ms": p3_ms, "bound_ms": b3, "bound_by": b3_by,
          "library_ms": None, **res["occluded_packets"]},
     ]
+    for k in kernels:
+        k["main_path"] = k["name"] in PATH_KERNELS
     results.update(
         kernels=kernels, frame_ms=frame_ms, traces=traces, mrays_s=mrays,
         peak_bytes=peak, launches_per_frame={k: per_frame(k) for k in launches},
-        work={"k1": st1, "k1_continuation": st1b, "k2": st2, "k3": st3},
+        work={"k1": st1, "k1_continuation": st1b, "k2": st2, "k3": st3,
+              "k3_walk": fetched3},
         row_fetch_bytes={"k1": f1, "k1_continuation": f1b, "k2": f2,
                          "k3": f3},
         shadow_rays={"lanes": ns, "queried": nq}, small_share=share,

@@ -72,9 +72,9 @@
 // Möller-Trumbore arithmetic round exactly as the plain PyTorch versions
 // do, so hit/tri_id and t/u/v match them bit for bit.
 #include <cstdint>
-#include <mutex>
 #include <cuda_runtime.h>
 
+#include "persistent.cuh"
 #include "tri.cuh"
 
 namespace {
@@ -82,8 +82,6 @@ namespace {
 constexpr int kArity = 16, kLeaf = 6;  // ops/bvh8.py ARITY, LEAF_SIZE
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kQueue = 64;  // per-warp ray queue; holds at most 63
-constexpr unsigned kFull = 0xFFFFFFFFu;
 // lanes of a warp that must be idle before they take new rays
 constexpr int kK1RefillIdle = 32, kK2RefillIdle = 16;
 // resident blocks per SM asked of the register allocator (4 gives K2 109
@@ -93,7 +91,6 @@ constexpr int kMinBlocks = 5;
 // group of children or half a leaf at a time (fewer registers: K1), or
 // reads it all at once (K2, which gains nothing from staging)
 constexpr bool kK1StagedRow = true, kK2StagedRow = false;
-constexpr int kMaxDevices = 64;  // devices the launch-grid cache tells apart
 
 template <int ARITY, int LEAF>
 struct Layout {
@@ -446,21 +443,8 @@ __device__ __forceinline__ void walk_rays(Walk& w,
     // fetch chunks of 32 lanes until every idle lane has a ray waiting
     const unsigned idle = __ballot_sync(kFull, mine < 0);
     const int want = __popc(idle);
-    while (queued < want && !drained) {
-      int base = 0;
-      if (lane == 0) base = atomicAdd(counter, 32);
-      base = __shfl_sync(kFull, base, 0);
-      if (base >= n) {
-        drained = true;
-        break;
-      }
-      const int i = base + lane;
-      const bool act = i < n && active[i];
-      if (i < n && !act) w.miss(i);
-      const unsigned m = __ballot_sync(kFull, act);
-      if (act) queue[(head + queued + __popc(m & below)) & (kQueue - 1)] = i;
-      queued += __popc(m);
-    }
+    fill_queue(active, n, counter, queue, head, queued, drained, want,
+               [&](int i) { w.miss(i); });
     __syncwarp();
     if (mine < 0) {
       const int r = __popc(idle & below);
@@ -551,39 +535,11 @@ const void* kernel_of(int which) {
                     : (const void*)occluded_kernel<kArity, kLeaf>;
 }
 
-// Resident blocks per SM of a kernel at a shared-memory size on the current
-// device, and the grid that fills that device with them; computed once per
-// device, kernel and size (the shared-memory attribute is set per device).
+// Resident blocks per SM of K1 (which = 0) or K2 (which = 1) at a
+// shared-memory size on the current device, and the grid that fills it.
 cudaError_t grid_of(int which, size_t smem, int* per_sm, int* blocks) {
-  struct Entry {
-    size_t smem;
-    int per_sm, blocks;
-  };
-  static std::mutex mu;
-  static Entry cache[kMaxDevices][2] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  Entry& e = cache[dev][which];
-  if (e.per_sm == 0 || e.smem != smem) {
-    const void* fn = kernel_of(which);
-    int sms = 0, fit = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, fn, kThreads,
-                                                          smem);
-    if (err != cudaSuccess) return err;
-    if (fit < 1) return cudaErrorInvalidConfiguration;
-    e = Entry{smem, fit, sms * fit};
-  }
-  *per_sm = e.per_sm;
-  *blocks = e.blocks;
-  return cudaSuccess;
+  static GridCache cache[2];
+  return cache[which].get(kernel_of(which), kThreads, smem, per_sm, blocks);
 }
 
 int launch_grid(int which, int n, int depth, size_t* smem, int* blocks) {
@@ -635,15 +591,17 @@ extern "C" int fov_occluded(const float* table, const float* orig,
 }
 
 // Registers per thread, local memory per thread (spills and any stack
-// frame) and resident blocks per SM of K1 (which = 0) or K2 (which = 1) at
-// stack_depth.
+// frame), resident blocks per SM and dynamic shared memory per block of K1
+// (which = 0) or K2 (which = 1) at stack_depth.
 extern "C" int fov_traverse_info(int which, int stack_depth, int* regs,
-                                 int* local_bytes, int* blocks_per_sm) {
+                                 int* local_bytes, int* blocks_per_sm,
+                                 int* shared) {
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel_of(which));
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
+  *shared = (int)shared_bytes(stack_depth);
   int blocks = 0;
   return (int)grid_of(which, shared_bytes(stack_depth), blocks_per_sm,
                       &blocks);

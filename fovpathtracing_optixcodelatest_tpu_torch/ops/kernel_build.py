@@ -38,19 +38,19 @@ NVCC_FLAGS = (
 # launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0}
 
-_P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float, ctypes.c_uint)
-# C entry points: the launches take (table, [width,] origin, direction,
-# active, n, tmin, tmax, stack_depth, ...), end in the stream and return
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+# C entry points: the launches take (table, origin, direction, active, n,
+# tmin, tmax, stack_depth, ...), end in the stream and return
 # cudaGetLastError; the *_info queries return a cudaError_t code too
 SIGNATURES = {
     "fov_closest_hit": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P, _P, _P, _P,
                         _P, _P),
     "fov_occluded": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P),
-    "fov_occluded_packets": (_P, _I, _P, _P, _P, _LL, _F, _F, _I, _I, _P,
+    "fov_occluded_packets": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P,
                              _P),
-    "fov_traverse_info": (_I, _I, _P, _P, _P),
-    "fov_packet_info": (_P, _P, _P),
+    "fov_packet_spill": (_I, _I, _P),
+    "fov_traverse_info": (_I, _I, _P, _P, _P, _P),
+    "fov_packet_info": (_P, _P, _P, _P),
 }
 
 _LOCK = threading.Lock()
@@ -149,21 +149,22 @@ def check(rc: int, what: str) -> None:
 
 def resources(stack_depth: int) -> dict:
     """Registers per thread, local memory per thread (spills and stack
-    frames) and resident blocks per SM of each kernel, as the CUDA runtime
-    reports them for the loaded build; K1/K2 at ``stack_depth``."""
+    frames), resident blocks per SM and dynamic shared memory per block of
+    each kernel, as the CUDA runtime reports them for the loaded build; K1/K2
+    at ``stack_depth`` (K3's shared memory does not depend on it)."""
     out = {}
     queries = (
         ("closest_hit", "traverse", "fov_traverse_info", (0, stack_depth)),
         ("occluded", "traverse", "fov_traverse_info", (1, stack_depth)),
         ("occluded_packets", "packet_traverse", "fov_packet_info", ()),
     )
+    keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes")
     for kernel, lib, fn, args in queries:
-        vals = [ctypes.c_int(0) for _ in range(3)]
+        vals = [ctypes.c_int(0) for _ in keys]
         rc = getattr(library(lib), fn)(*args, *(ctypes.addressof(v)
                                                 for v in vals))
         check(rc, fn)
-        out[kernel] = dict(zip(("registers", "local_bytes", "blocks_per_sm"),
-                               (v.value for v in vals)))
+        out[kernel] = dict(zip(keys, (v.value for v in vals)))
     return out
 
 

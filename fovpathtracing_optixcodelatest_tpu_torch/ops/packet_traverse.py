@@ -2,16 +2,23 @@
 package's Pallas kernel, ``ops/pallas_traverse.py`` ``occluded_packets``).
 
 ``occluded_packets`` is the kernel wrapper: on a CUDA tensor it launches K3
-(``csrc/packet_traverse.cu``) and raises if the launch fails; on a CPU
-tensor it runs ``occluded_packets_plain``, which walks every ray's stack as
-one (N, stack_depth) int64 tensor and repeats the kernel's arithmetic.
+(``csrc/packet_traverse.cu``, a masked warp-packet walk compiled for the
+legacy layout only: 64 columns, leaf size 4) and raises if the launch
+fails; on a CPU tensor it runs ``occluded_packets_plain``, which walks every
+ray's stack as one (N, stack_depth) int64 tensor and repeats the kernel's
+arithmetic. The plain version takes any leaf size.
 
 Same contract as ``traverse.occluded``: back faces culled, tmin <= t <= tmax,
-first-hit exit, inactive rays false. Stack entries are a node row, or
--(row + 1) for a leaf row; children are pushed in slot order.
+first-hit exit, inactive rays false, and each ray's answer that of its own
+walk. Stack entries are a node row, or -(row + 1) for a leaf row; children
+are pushed in slot order; a ray whose stack holds ``stack_depth`` entries
+pushes no more children. The Pallas kernel's union walk may answer
+differently on a ray that grazes a leaf's box (``ROADMAP.md`` §3).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -19,6 +26,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 from fovpathtracing_optixcodelatest_tpu_torch.ops.traverse import (
     STATS,
     _check,
+    _kernel_layout,
     _push,
     safe_inv,
     slab,
@@ -26,6 +34,10 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.traverse import (
 )
 
 WIDTH = 8
+KERNEL_LEAF_SIZE = 4  # the leaf size K3 is compiled for
+# what K3 counts of its own walk (``fetched``): packets, and rows fetched
+# once per packet step
+FETCHES = ("packets", "node_rows", "leaf_rows")
 
 
 def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
@@ -83,22 +95,43 @@ def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
 
 
 def occluded_packets(table, o, d, active, tmin: float, tmax: float,
-                     stack_depth: int, leaf_size: int = 4):
+                     stack_depth: int, leaf_size: int = 4,
+                     fetched: dict | None = None):
     """Any-hit occlusion over the legacy table -> (N,) bool. CUDA tensors
-    launch K3; CPU tensors run ``occluded_packets_plain``."""
+    launch K3; CPU tensors run ``occluded_packets_plain``. On a CUDA tensor,
+    ``fetched`` (a dict) gets K3's own counts added (``FETCHES``: packets
+    walked, node and leaf rows fetched), which synchronises the host."""
     _check(table, o, d, active, stack_depth)
     if table.shape[1] < 64:
         raise ValueError("legacy table rows need 64 columns")
     if table.device.type == "cpu":
+        if fetched is not None:
+            raise ValueError("fetched counts K3's walk: CUDA tensors only")
         return occluded_packets_plain(table, o, d, active, tmin, tmax,
                                       stack_depth, leaf_size)
     n = o.shape[0]
+    _kernel_layout(table, n, WIDTH, leaf_size, want=(WIDTH, KERNEL_LEAF_SIZE),
+                   width=64)
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    rc = kernel_build.library("packet_traverse").fov_occluded_packets(
-        table.data_ptr(), table.shape[1], o.data_ptr(), d.data_ptr(),
-        active.data_ptr(), n, tmin, tmax, stack_depth, leaf_size,
-        occ.data_ptr(), kernel_build.stream(),
+    if n == 0:  # nothing to launch
+        return occ
+    lib = kernel_build.library("packet_traverse")
+    # the packets' stack entries beyond what shared memory holds
+    entries = ctypes.c_longlong(0)
+    kernel_build.check(
+        lib.fov_packet_spill(stack_depth, n, ctypes.addressof(entries)),
+        "occluded_packets")
+    spill = torch.empty((entries.value, 2), dtype=torch.int32,
+                        device=o.device)
+    counter = torch.zeros((4,), dtype=torch.int32, device=o.device)
+    rc = lib.fov_occluded_packets(
+        table.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(), n,
+        tmin, tmax, stack_depth, occ.data_ptr(), spill.data_ptr(),
+        counter.data_ptr(), kernel_build.stream(),
     )
     kernel_build.check(rc, "occluded_packets")
     kernel_build.LAUNCHES["occluded_packets"] += 1
+    if fetched is not None:
+        for name, count in zip(FETCHES, counter[1:].tolist()):
+            fetched[name] = fetched.get(name, 0) + count
     return occ

@@ -147,16 +147,19 @@ def _check(table, o, d, active, stack_depth):
         raise ValueError(f"unsupported device {dev}")
 
 
-def _kernel_layout(table, n: int, arity: int, leaf_size: int) -> None:
-    """Refuse what the compiled kernels do not take: another layout than
-    (ARITY, LEAF_SIZE), a table that is not 16-byte aligned (rows are read
-    as uint4), or more rays than an int32 counter can hand out."""
-    if (arity, leaf_size) != (ARITY, LEAF_SIZE):
+def _kernel_layout(table, n: int, arity: int, leaf_size: int,
+                   want=(ARITY, LEAF_SIZE), width: int = 4 * ARITY) -> None:
+    """Refuse what a compiled kernel does not take: another (arity,
+    leaf_size) layout than ``want`` (K1/K2: the packed (ARITY, LEAF_SIZE)),
+    rows not ``width`` columns wide, a table that is not 16-byte aligned
+    (rows are read as uint4), or more rays than an int32 counter can hand
+    out."""
+    if (arity, leaf_size) != want:
         raise ValueError(
-            f"the CUDA kernels take only the ({ARITY}, {LEAF_SIZE}) packed "
-            f"layout, not ({arity}, {leaf_size})")
-    if table.shape[1] != 4 * ARITY:
-        raise ValueError(f"packed rows need {4 * ARITY} columns")
+            f"the CUDA kernel takes only the {want} layout, not "
+            f"({arity}, {leaf_size})")
+    if table.shape[1] != width:
+        raise ValueError(f"the kernel's rows need {width} columns")
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
     if n >= 2**31 - 2**20:

@@ -14,7 +14,11 @@ kernels line.
 prints the same times for the port of another checkout ``DIR``, through
 this file's timing code: it calls only the kernel wrappers' public
 signatures, which every tree of the port shares, so it times an older
-commit at shapes that commit's own ``chip_smoke.py`` does not time. To
+commit, or a patched copy of the port that tries a design alternative, at
+shapes that commit's own ``chip_smoke.py`` does not time. It also times K3
+three more times (its packets depend on scheduling, so this shows its
+spread within one process) and counts the shadow rays where that tree's K3
+and K2 answer differently. To
 compare the parent's kernels with the change's on one card, unpack ``git
 archive <parent>`` into a git-ignored directory and run, in one chip call,
 each tree's ``chip_smoke.py`` in the order parent, change, change, parent,
@@ -177,13 +181,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     rays = bench_rays("cuda")
     assert rays["primary"][0].shape[0] == PRIMARY_LANES
-    times = time_kernels(kernel_calls(rays))
+    calls = kernel_calls(rays)
+    mismatches = int((calls["k2_shadow"]() != calls["k3_shadow"]()).sum())
+    times = time_kernels(calls)
+    k3_again = [events_ms(calls["k3_shadow"]) for _ in range(3)]
     result = {"tree": tree, "device": smi, "reps": REPS,
               "lanes": {"primary": PRIMARY_LANES,
                         "continuation": rays["continuation"][0].shape[0],
                         "shadow": rays["shadow"][0].shape[0],
                         "shadow_queried": int(rays["shadow"][2].sum())},
-              "ms": times}
+              "ms": times, "k3_again": k3_again,
+              "k3_vs_k2_mismatches": mismatches}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

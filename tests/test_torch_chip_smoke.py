@@ -34,6 +34,10 @@ def test_kernel_of_reads_plain_templated_and_mangled_names():
             "occluded",
         "occluded_packets_kernel(float const*, int, float const*)":
             "occluded_packets",
+        "(anonymous namespace)::occluded_packets_kernel(uint4 const*, "
+        "float const*)": "occluded_packets",
+        "_ZN51_GLOBAL__N__00ab1c48_18_packet_traverse_cu_70e8180a23occluded"
+        "_packets_kernelEPK5uint4PKfS4_PKhiffiPbPi": "occluded_packets",
         "_ZN12_GLOBAL__N_115occluded_kernelILi16ELi6EEEvPK5uint4": "occluded",
         "void at::native::elementwise_kernel<128, 2>(int)": None,
         "aten::mul": None,

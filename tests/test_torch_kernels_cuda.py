@@ -8,11 +8,14 @@ machine that has only PyTorch:
 
 Tolerance: every output exact (hit, tri_id, occlusion, and t/u/v bit for
 bit), since the kernels are built with --fmad=false and repeat the plain
-versions' operations in the same order. K1 and K2 fetch their lanes from a
-counter in chunks of 32 and skip inactive lanes, so they are also held to
-the plain versions at sparse active masks, at lane counts around a chunk's
-edge, and at stacks small enough to overflow (the plain versions pin the
-overflow rule); a layout other than (16, 6) must raise.
+versions' operations in the same order. K1, K2 and K3 fetch their lanes
+from a counter in chunks of 32 and skip inactive lanes, so they are also
+held to the plain versions at sparse active masks, at lane counts around a
+chunk's edge, and at stacks small enough to overflow (the plain versions
+pin the overflow rule); a layout other than (16, 6) for K1/K2, or than 64
+columns and leaf size 4 for K3, must raise. K3 walks packets of 32 rays
+whose makeup depends on scheduling, so two launches on the same rays must
+also agree, and its answer must equal K2's on the same rays.
 """
 
 import numpy as np
@@ -85,7 +88,8 @@ def test_kernels_match_plain_versions(cuda_device, n, seed):
 def city():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    return build_scene(scenes.box_city(n=4, seed=0)[0], device="cuda")
+    return build_scene(scenes.box_city(n=4, seed=0)[0], device="cuda",
+                       legacy8=True)
 
 
 def _k1_k2_against_plain(scene, o, d, act, depth):
@@ -156,3 +160,149 @@ def test_kernels_refuse_other_layouts(city, layout):
     with pytest.raises(ValueError, match="aligned"):
         traverse.occluded(shifted, o, d, act, TMIN, TMAX, b.stack_depth,
                           b.arity, b.leaf_size)
+
+
+# ---------------------------------------------------------------------------
+# K3 (masked warp-packet walk of the legacy table) at the same edges, and
+# what depends on its packets: the shared stack, determinism, K2's answer
+# ---------------------------------------------------------------------------
+
+
+def _k3_against_plain(scene, o, d, act, depth):
+    """Launch K3 once and hold it to its plain version; returns its answer
+    and the counts of its own walk."""
+    leg = scene.legacy
+    args = (leg.table, o, d, act, TMIN, TMAX, depth, leg.leaf_size)
+    kernel_build.reset_launches()
+    fetched = {}
+    occ = packet_traverse.occluded_packets(*args, fetched=fetched)
+    torch.cuda.synchronize()
+    launched = int(o.shape[0] > 0)
+    assert kernel_build.LAUNCHES["occluded_packets"] == launched
+    assert torch.equal(occ, packet_traverse.occluded_packets_plain(*args))
+    assert not occ[~act].any()
+    # one packet per 32 queried rays at least, one row per packet step
+    queried = int(act.sum())
+    if launched:
+        assert fetched["packets"] >= -(-queried // 32)
+        assert fetched["node_rows"] >= fetched["packets"]
+    return occ, fetched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.35, 1.0])
+def test_k3_matches_plain_and_k2_at_active_share(city, share):
+    n = 70_001
+    o, d, _ = _rays(n, 7, city.device)
+    rng = np.random.default_rng(11)
+    act = torch.tensor(rng.random(n) < share, device=city.device)
+    occ, fetched = _k3_against_plain(city, o, d, act,
+                                     city.legacy.stack_depth)
+    b = city.bvh
+    assert torch.equal(occ, traverse.occluded(
+        b.table, o, d, act, TMIN, TMAX, b.stack_depth, b.arity, b.leaf_size))
+    if share > 0:
+        assert occ.any()
+    else:
+        assert fetched["packets"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 70_001])
+def test_k3_matches_plain_and_k2_at_ragged_n(city, n):
+    o, d, act = _rays(n, 3, city.device)
+    occ, _ = _k3_against_plain(city, o, d, act, city.legacy.stack_depth)
+    assert occ.shape == (n,)
+    b = city.bvh
+    assert torch.equal(occ, traverse.occluded(
+        b.table, o, d, act, TMIN, TMAX, b.stack_depth, b.arity, b.leaf_size))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 3])
+def test_k3_keeps_the_overflow_rule(city, depth):
+    # each lane drops its own pushes once its entries fill stack_depth, as
+    # the per-ray walk does; the shared stack (32 x depth) cannot fill
+    o, d, act = _rays(20_000, 5, city.device)
+    occ, _ = _k3_against_plain(city, o, d, act, depth)
+    full, _ = _k3_against_plain(city, o, d, act, city.legacy.stack_depth)
+    assert not torch.equal(occ, full)  # the small stack changed answers
+
+
+def _tall_table(levels=24):
+    """A legacy table whose packet stacks grow by 7 entries a level: node i
+    holds 7 leaves (slot c covers x in [c, c + 1]) and node i + 1 in slot 7
+    (x in [0, 7]). Rays along +z at x in slot c's strip push one leaf a
+    level each, a packet of all 7 strips 7: past level 18 its stack leaves
+    shared memory (128 entries) for the global buffer. Two leaves hold a
+    triangle: slot 3 under the root, and slot 5 at level 20, which only a
+    ray with 21 or more stack entries reaches."""
+    rows = 8 * levels
+    t = np.zeros((rows, 64), np.float32)
+    meta = np.zeros((rows, 16), np.int32)
+    for i in range(levels):
+        for c in range(7):
+            t[i, 6 * c: 6 * c + 6] = (c, -1, -1, c + 1, 1, 1)
+            meta[i, 2 * c: 2 * c + 2] = (levels + 7 * i + c, 1)
+        t[i, 42:48] = (0, -1, -1, 7, 1, 1)
+        meta[i, 14:16] = (i + 1, 0) if i + 1 < levels else (0, -1)
+    t[:, 48:] = meta.view(np.float32)
+    tri = np.array([3, -1, 0, 0, 2, 0, 1, 0, 0], np.float32)  # v0, e1, e2
+    t[levels + 3, :9] = tri
+    tri[0] = 5
+    t[levels + 7 * 20 + 5, :9] = tri
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [10, 64])
+def test_k3_stack_spills_past_shared_memory_exactly(cuda_device, depth):
+    n = 7 * 64
+    rng = np.random.default_rng(2)
+    strip = np.arange(n) % 7  # every packet holds rays of all 7 strips
+    o = np.stack([strip + rng.uniform(0.1, 0.9, n),
+                  rng.uniform(-0.5, 0.5, n), np.full(n, -10.0)], 1)
+    d = np.tile([0.0, 0.0, 1.0], (n, 1))
+    table = torch.tensor(_tall_table(), device=cuda_device)
+    args = (table, torch.tensor(o, dtype=torch.float32, device=cuda_device),
+            torch.tensor(d, dtype=torch.float32, device=cuda_device),
+            torch.ones(n, dtype=torch.bool, device=cuda_device), TMIN, TMAX,
+            depth, 4)
+    occ = packet_traverse.occluded_packets(*args)
+    assert torch.equal(occ, packet_traverse.occluded_packets_plain(*args))
+    hit = occ.cpu().numpy()
+    assert hit[strip == 3].any() and not hit[(strip != 3) & (strip != 5)].any()
+    # slot 5's triangle at level 20 is reached only with room for 21 entries
+    assert hit[strip == 5].any() == (depth > 20)
+
+
+@pytest.mark.cuda
+def test_k3_answers_alike_in_two_launches(city):
+    o, d, act = _rays(200_000, 13, city.device)
+    leg = city.legacy
+    args = (leg.table, o, d, act, TMIN, TMAX, leg.stack_depth, leg.leaf_size)
+    first = packet_traverse.occluded_packets(*args)
+    second = packet_traverse.occluded_packets(*args)
+    assert torch.equal(first, second)
+    assert 0 < int(first.sum()) < int(act.sum())
+
+
+@pytest.mark.cuda
+def test_k3_refuses_other_layouts(city):
+    o, d, act = _rays(64, 0, city.device)
+    leg = city.legacy
+    for leaf_size in (2, 6):
+        with pytest.raises(ValueError, match="layout"):
+            packet_traverse.occluded_packets(leg.table, o, d, act, TMIN, TMAX,
+                                             leg.stack_depth, leaf_size)
+    wide = torch.zeros((leg.table.shape[0], 72), device=city.device)
+    wide[:, :64] = leg.table
+    with pytest.raises(ValueError, match="columns"):
+        packet_traverse.occluded_packets(wide, o, d, act, TMIN, TMAX,
+                                         leg.stack_depth, leg.leaf_size)
+    shifted = torch.empty(leg.table.numel() + 1, dtype=torch.float32,
+                          device=city.device)[1:].view(leg.table.shape)
+    shifted.copy_(leg.table)
+    with pytest.raises(ValueError, match="aligned"):
+        packet_traverse.occluded_packets(shifted, o, d, act, TMIN, TMAX,
+                                         leg.stack_depth, leg.leaf_size)

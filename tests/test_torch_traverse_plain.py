@@ -123,6 +123,28 @@ def test_kernel_layout_refuses_a_misaligned_table(box_city):
         traverse._kernel_layout(table[:, :60], 10, 16, 6)
 
 
+@pytest.mark.parametrize("leaf_size,width,match", [
+    (2, 64, "layout"), (6, 64, "layout"), (4, 72, "columns")])
+def test_k3_layout_refuses_what_it_is_not_compiled_for(box_city, leaf_size,
+                                                       width, match):
+    # K3 takes the legacy table only: 64 columns, leaf size 4
+    want = (packet_traverse.WIDTH, packet_traverse.KERNEL_LEAF_SIZE)
+    table = torch.zeros((10, width))
+    traverse._kernel_layout(table[:, :64].contiguous(), 10, 8, 4, want=want,
+                            width=64)
+    with pytest.raises(ValueError, match=match):
+        traverse._kernel_layout(table, 10, 8, leaf_size, want=want, width=64)
+
+
+def test_k3_walk_counts_need_a_kernel(box_city):
+    # the packets and rows K3 fetched exist only for a launch
+    o = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        packet_traverse.occluded_packets(torch.zeros((10, 64)), o, o + 1.0,
+                                         torch.ones(4, dtype=torch.bool),
+                                         TMIN, TMAX, 5, 4, fetched={})
+
+
 # ---------------------------------------------------------------------------
 # the work the plain versions count for chip_smoke.py's operations bound
 # ---------------------------------------------------------------------------
