@@ -23,7 +23,24 @@ n=24, seed 0, gradient sky probe: 6,924 triangles), then:
    after one warm-up frame, counting the
    kernel launches of those frames only, and checks the frame;
 4. renders a small frame on the GPU and on the CPU (the plain versions) and
-   requires 99% of the pixels within 1 LSB.
+   requires 99% of the pixels within 1 LSB;
+
+and then the other paths a user drives, each with the launch counts set to
+0 just before it and read just after (K1 and K2 must have run):
+
+a. the textured bench frame (``box_city_textured`` n=24: the same geometry,
+   eight 256x256 procedural textures), timed like the main path; the
+   texture sampler on the card against its CPU run on bounce 0's hits
+   (within 1e-6); its subframe 0 differs from the untextured frame's only
+   on pixels where a primary ray hit;
+b. the bench scene under a 4096x2048 procedural HDR probe (NEE through the
+   per-field alias arrays: no sample rows at that size); finite;
+c. the textured cornell box with a shadow catcher (``catcher_cornell``), 2
+   subframes through ``render_aov`` on the GPU and on the CPU: 99% of the
+   pixels within 1 LSB, each AOV and the denoised image within
+   ``AOV_RTOL`` of the CPU's relative to its largest value;
+d. the CLI (``apps/main.py``) in this process at 960x540 with every output
+   (PNG, AOV NPZ, denoised PNG, TSV); prints the TSV's render times.
 
 Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
@@ -33,7 +50,8 @@ resident blocks per SM), and as its last line ``{"ok": true, "device":
 {...}}``. Any failed check raises and exits non-zero; there is no CPU
 fallback.
 
-``--profile`` adds ``FRAMES`` frames under ``torch.profiler``.
+``--profile`` adds ``FRAMES`` frames of the main path, and as many of the
+textured frame, under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -65,6 +83,36 @@ PATH_KERNELS = ("closest_hit", "occluded")
 
 def _line(msg: str) -> None:
     print(msg, flush=True)
+
+
+def catcher_cornell():
+    """The port's cornell box with checkerboard textures on the floor and
+    the back wall and a shadow-catcher plane under the sphere -> (meshes,
+    camera, texture images). Phase (c)'s scene; the CPU tests render it
+    through both packages."""
+    from fovpathtracing_optixcodelatest_tpu_torch.models import (
+        scenes,
+        texture,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
+        MATERIAL_FLAG_SHADOW_CATCHER,
+        Material,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import make_quad
+
+    meshes, cam = scenes.cornell()
+    images = [texture.checkerboard(64, 8),
+              texture.checkerboard(96, 6, c0=(0.9, 0.6, 0.4),
+                                   c1=(0.3, 0.2, 0.1))]
+    meshes[0] = dataclasses.replace(meshes[0], diffuse_texture_id=0)
+    meshes[2] = dataclasses.replace(meshes[2], diffuse_texture_id=1)
+    y = -1.98
+    meshes.append(make_quad(
+        (-1.9, y, 1.8), (0.4, y, 1.8), (0.4, y, -1.6), (-1.9, y, -1.6),
+        Material(color=(1.0, 1.0, 1.0), emission=(0.0, 0.0, 0.0),
+                 metallic=0.0, specular=0.0, roughness=1.0,
+                 transmission=0.0, flags=MATERIAL_FLAG_SHADOW_CATCHER)))
+    return meshes, cam, images
 
 
 def _plain_ms(fn):
@@ -134,7 +182,8 @@ def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int):
     return op_ms, "operations", fetch
 
 
-def _profile_frames(renderer, path: str, results: dict) -> None:
+def _profile_frames(renderer, path: str, results: dict,
+                    name: str = "profile") -> None:
     """``FRAMES`` more frames under torch.profiler. Per frame: the device's
     busy time (the sum of its kernels' times), the wall time of the same
     profiled frames (host clock, ending in a synchronize), the idle share
@@ -170,20 +219,264 @@ def _profile_frames(renderer, path: str, results: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=80))
-    results["profile"] = {
+    results[name] = {
         "frames": FRAMES, "device_busy_ms": busy_ms, "frame_ms": wall_ms,
         "idle_share": idle, "traversal_kernels_ms": ours_ms,
         "kernel_ms": path_ms,
         "device_launches": launches,
         "top_ops": [(e.key, dev_ms(e), e.count / FRAMES) for e in top],
     }
-    _line(f"profile ({FRAMES} frames, per frame): device busy {busy_ms:.1f} "
+    _line(f"{name} ({FRAMES} frames, per frame): device busy {busy_ms:.1f} "
           f"ms of a {wall_ms:.1f} ms profiled frame (idle share {idle:.2f}); "
           f"traversal kernels {ours_ms:.3f} ms ("
           + ", ".join(f"{k} {v:.3f}" for k, v in path_ms.items()) + "); "
           f"{launches:.0f} device launches; top ops: "
           + "; ".join(f"{e.key} {dev_ms(e):.2f} ms x{e.count / FRAMES:.0f}"
                       for e in top))
+
+
+def timed_frames(renderer, frames: int, warm_up: bool = True) -> dict:
+    """``frames`` frames of ``renderer`` (after one warm-up frame), each
+    timed on the host clock up to a device synchronize, with the kernel
+    launches and the peak device memory of those frames only."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    if warm_up:
+        renderer.render()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_build.reset_launches()
+    frame_ms, traces = [], []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        frame = renderer.render()
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        traces.append(renderer.stats["traces"])
+    launches = dict(kernel_build.LAUNCHES)
+    lin = renderer.linear_frame()
+    return {
+        "frame": frame, "frame_ms": frame_ms, "traces": traces,
+        "launches": launches, "peak": torch.cuda.max_memory_allocated(),
+        "finite": bool(torch.isfinite(torch.from_numpy(lin)).all()),
+        "mean_ms": sum(frame_ms) / len(frame_ms),
+        "mrays": sum(traces) / (sum(frame_ms) / 1e3) / 1e6,
+    }
+
+
+def _frames_line(name: str, t: dict) -> str:
+    return (f"{name}: ms/frame " + ", ".join(f"{x:.1f}" for x in t["frame_ms"])
+            + f" (mean {t['mean_ms']:.1f}); traces/frame {t['traces'][-1]}; "
+            f"{t['mrays']:.2f} Mrays/s; peak {t['peak'] / 2**30:.2f} GiB; "
+            f"frame mean {t['frame'].mean():.3f}; finite {t['finite']}; "
+            f"launches {t['launches']}")
+
+
+def textured_phase(untextured_scene, n: int, schedule, width: int,
+                   height: int, frames: int, device="cuda") -> dict:
+    """(a) The textured bench frame: ``box_city_textured(n, seed 0)`` under
+    the gradient sky, timed like the main path. Holds the texture sampler
+    on ``device`` against its CPU run on bounce 0's hit batch (within
+    1e-6), and requires the subframe-0 frame to differ from the untextured
+    scene's only on pixels where a primary ray hit geometry."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        scene_arrays,
+        scene_from_arrays,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
+        TextureArray,
+        hit_uv,
+        sample_bilinear_wrap,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+    from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import (
+        fold_in,
+        prng_key,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render import raygen
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+
+    meshes, cam, images = scenes.box_city_textured(n=n, seed=0)
+    scene = scene_from_arrays(
+        scene_arrays(meshes, gradient_sky_probe(), images), device)
+    tex = scene.textures
+    config = RenderConfig(width=width, height=height)
+    camera = dataclasses.replace(cam, aspect=width / height)
+    renderer = Renderer(scene, config, schedule, device=device)
+    renderer.set_camera(camera)
+    out = timed_frames(renderer, frames)
+    assert out["frame"].shape == (height, width, 3) and out["finite"]
+    out.update(triangles=scene.num_triangles,
+               texel_bytes=tex.data.numel() * 4,
+               textures=tuple(tex.data.shape))
+
+    # the texture sampler on bounce 0's hits of frame 0's primary rays
+    camp = camera.device_params(device)
+    key = fold_in(fold_in(prng_key(0), 0), 0)
+    rays = [raygen.generate_pass_rays(camp, p, width, height, width // 2,
+                                      height // 2, key)
+            for p in schedule.passes]
+    act = torch.cat([r["active"] for r in rays])
+    o = torch.cat([r["origin"] for r in rays])[act].contiguous()
+    d = torch.cat([r["direction"] for r in rays])[act].contiguous()
+    bvh = scene.bvh
+    hit = traverse.closest_hit(bvh.table, o, d, torch.ones_like(act[act]),
+                               config.tmin, config.tmax, bvh.stack_depth,
+                               bvh.arity, bvh.leaf_size)
+    attr = scene.tri_pack[hit["tri_id"][hit["hit"]].to(torch.int64)]
+    tex_id = attr[:, 10].contiguous().view(torch.int32)
+    uv = hit_uv(attr, hit["u"][hit["hit"]], hit["v"][hit["hit"]])
+    on_dev = sample_bilinear_wrap(tex, tex_id, uv)
+    on_cpu = sample_bilinear_wrap(
+        TextureArray(data=tex.data.cpu(), sizes=tex.sizes.cpu()),
+        tex_id.cpu(), uv.cpu())
+    out["sampler_err"] = float((on_dev.cpu() - on_cpu).abs().max())
+    out["sampler_hits"] = int(tex_id.numel())
+    assert int((tex_id >= 0).sum()) == tex_id.numel() > 0
+    assert out["sampler_err"] <= 1e-6, \
+        f"texture sampler on {device} vs CPU: {out['sampler_err']}"
+
+    # subframe 0 of both scenes: the frames may differ only where a primary
+    # ray of the pixel's pass hit (its normal AOV is not 0)
+    shots = {}
+    for name, sc in (("textured", scene), ("untextured", untextured_scene)):
+        r = Renderer(sc, config, schedule, device=device)
+        r.set_camera(camera)
+        frame, aovs = r.render_aov()
+        shots[name] = (frame, aovs["normal"].cpu().numpy())
+    (ft, nt), (fu, nu) = shots["textured"], shots["untextured"]
+    assert (nt == nu).all(), "the two scenes' geometry differs"
+    geometry = (nu != 0).any(axis=-1)
+    differs = (ft != fu).any(axis=-1)
+    out["geometry_pixels"] = int(geometry.sum())
+    out["differing_pixels"] = int(differs.sum())
+    out["differing_off_geometry"] = int((differs & ~geometry).sum())
+    assert out["differing_off_geometry"] == 0, \
+        "textures changed pixels where no primary ray hit"
+    assert out["differing_pixels"] > 0.3 * out["geometry_pixels"] > 0
+    out["renderer"] = renderer
+    return out
+
+
+def large_probe_phase(renderer, width: int, height: int, frames: int) -> dict:
+    """(b) The renderer's scene under a ``width`` x ``height`` procedural HDR
+    probe, too large for the 13-column sample rows, so NEE samples it
+    through the per-field alias arrays. Times ``frames`` frames (no warm-up:
+    the probe is new); the frame must be finite."""
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+
+    t0 = time.perf_counter()
+    probe = gradient_sky_probe(width, height)
+    build_s = time.perf_counter() - t0
+    assert probe.sample_rows is None, "the probe kept its sample rows"
+    renderer.set_probe(probe)
+    assert renderer.scene.probe.sample_rows is None
+    out = timed_frames(renderer, frames, warm_up=False)
+    assert out["finite"]
+    out.update(host_build_s=build_s,
+               texel_bytes=renderer.scene.probe.data.numel() * 4)
+    return out
+
+
+# the card's AOVs and denoised image against the CPU's, relative to the
+# CPU image's largest value (measured on an H100: at most 4.4e-6, the
+# albedo AOV; the per-pixel sums over samples reduce in another order)
+AOV_RTOL = 2e-5
+
+
+def catcher_phase(width: int, height: int, schedule, device="cuda") -> dict:
+    """(c) The textured cornell box with a shadow catcher (``catcher_cornell``):
+    2 subframes through ``Renderer.render_aov`` on ``device`` and on the CPU.
+    At least 99% of the pixels within 1 LSB; each AOV and the
+    ``atrous_denoise`` of the second subframe within ``AOV_RTOL``."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        scene_arrays,
+        scene_from_arrays,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops.denoise import (
+        atrous_denoise,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+
+    meshes, cam, images = catcher_cornell()
+    arrays = scene_arrays(meshes, gradient_sky_probe(64, 32), images)
+    got = {}
+    for dev in (device, "cpu"):
+        scene = scene_from_arrays(arrays, device=dev)
+        assert scene.has_catcher and scene.has_textures
+        r = Renderer(scene, RenderConfig(width=width, height=height),
+                     schedule, device=dev)
+        r.set_camera(dataclasses.replace(cam, aspect=width / height))
+        frames = []
+        for _ in range(2):
+            frame, aovs = r.render_aov()
+            frames.append(frame)
+        aovs["denoised"] = atrous_denoise(aovs["accum"], aovs["normal"],
+                                          aovs["albedo"])
+        got[dev] = (frames, {k: v.cpu() for k, v in aovs.items()},
+                    r.stats["traces"])
+    (fd, ad, td), (fc, ac, tc) = got[device], got["cpu"]
+    share = min(float((abs(a.astype(int) - b.astype(int)).max(-1) <= 1).mean())
+                for a, b in zip(fd, fc))
+    err = {k: float((ad[k] - ac[k]).abs().max() / ac[k].abs().max())
+           for k in ac}
+    assert share >= 0.99, f"catcher frame on {device} vs CPU: {share}"
+    for k, e in err.items():
+        assert e <= AOV_RTOL and torch.isfinite(ad[k]).all(), \
+            f"{k} on {device} vs CPU: {e} relative"
+    return {"share": share, "rel_err": err, "traces": (td, tc)}
+
+
+def cli_phase(width: int, height: int, schedule: str, device="cuda") -> dict:
+    """(d) The command-line entry point in this process, with every output
+    it has: PNG, AOV NPZ, the denoised PNG and the TSV, in a temporary
+    directory. Returns the TSV's per-frame render times."""
+    import tempfile
+
+    from fovpathtracing_optixcodelatest_tpu_torch.apps import main as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "frame.png")
+        files = [out, os.path.join(tmp, "aov.npz"),
+                 os.path.join(tmp, "frame_denoised.png"),
+                 os.path.join(tmp, "run.tsv")]
+        argv = ["--device", device, "--scene", "box_city", "--width",
+                str(width), "--height", str(height), "--frames", "2",
+                "--schedule", schedule, "--sampler", "blue_noise", "--out",
+                out, "--aov-out", files[1], "--denoise", "--tsv", files[3]]
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall_s = time.perf_counter() - t0
+        assert rc == 0, f"the CLI returned {rc}"
+        sizes = {os.path.basename(f): os.path.getsize(f) for f in files}
+        assert all(v > 0 for v in sizes.values()), sizes
+        with open(files[3]) as fh:
+            rows = [ln.rstrip("\n").split("\t") for ln in fh]
+    render_ms = [float(r[rows[0].index("render_ms")]) for r in rows[1:]]
+    assert len(render_ms) == 2
+    return {"argv": " ".join(argv).replace(tmp, "<tmp>"),
+            "render_ms": render_ms, "files": sizes, "wall_s": wall_s}
 
 
 def main() -> int:
@@ -357,29 +650,13 @@ def main() -> int:
     # -- phase 6: the main path ----------------------------------------------
     renderer = Renderer(scene, config, schedule, device="cuda")
     renderer.set_camera(camera)
-    renderer.render()  # warm-up frame
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernel_build.reset_launches()
-    frame_ms, traces = [], []
-    for _ in range(FRAMES):
-        t0 = time.perf_counter()
-        frame = renderer.render()
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        traces.append(renderer.stats["traces"])
-    launches = dict(kernel_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    lin = renderer.linear_frame()
-    finite = bool(torch.isfinite(torch.from_numpy(lin)).all())
-    mean_ms = sum(frame_ms) / len(frame_ms)
-    mrays = sum(traces) / (sum(frame_ms) / 1e3) / 1e6
-    _line(f"main path: {FRAMES} frames {w}x{h} after 1 warm-up; ms/frame "
-          + ", ".join(f"{x:.1f}" for x in frame_ms)
-          + f" (mean {mean_ms:.1f}); traces/frame {traces[-1]}; "
-          f"{mrays:.2f} Mrays/s; peak {peak / 2**30:.2f} GiB; frame mean "
-          f"{frame.mean():.3f}; finite {finite}; launches {launches}")
-    assert frame.shape == (h, w, 3) and finite
+    main_path = timed_frames(renderer, FRAMES)
+    frame, frame_ms = main_path["frame"], main_path["frame_ms"]
+    traces, launches = main_path["traces"], main_path["launches"]
+    peak, mrays = main_path["peak"], main_path["mrays"]
+    _line(_frames_line(f"main path: {FRAMES} frames {w}x{h} after 1 warm-up",
+                       main_path))
+    assert frame.shape == (h, w, 3) and main_path["finite"]
     assert 0 < frame.mean() < 255
     for k in PATH_KERNELS:
         assert launches[k] > 0, f"main path never launched {k}"
@@ -411,6 +688,64 @@ def main() -> int:
     _line(f"small frame {sw}x{sh}, 2 subframes: GPU vs CPU pixels within "
           f"1 LSB {share:.4f}")
     assert share >= 0.99, "GPU frame disagrees with the CPU reference"
+
+    # -- phase a: the textured bench frame (same geometry, 8 textures) -------
+    tex = textured_phase(scene, 24, schedule, w, h, FRAMES)
+    _line(f"textured bench frame: box_city_textured n=24, {tex['triangles']} "
+          f"tris, textures {tex['textures']} ({tex['texel_bytes'] / 1e6:.1f} "
+          f"MB of texels); texture sampler on the card vs CPU on "
+          f"{tex['sampler_hits']} bounce-0 hits: max abs err "
+          f"{tex['sampler_err']:.3g}; subframe 0 differs from the untextured "
+          f"frame on {tex['differing_pixels']} of {tex['geometry_pixels']} "
+          f"geometry pixels, {tex['differing_off_geometry']} elsewhere")
+    _line(_frames_line(f"textured: {FRAMES} frames {w}x{h} after 1 warm-up",
+                       tex))
+    # the untextured frame again, so the host's drift shows beside the
+    # textured frames: untextured, textured, untextured in one run
+    again = timed_frames(renderer, FRAMES, warm_up=False)
+    _line(f"untextured (phase 6, this run): mean {main_path['mean_ms']:.1f} "
+          f"ms/frame, {mrays:.2f} Mrays/s, peak {peak / 2**30:.2f} GiB, "
+          f"launches {launches}")
+    _line(_frames_line("untextured again, after the textured frames", again))
+    for k in PATH_KERNELS:
+        assert tex["launches"][k] > 0, f"the textured frame never launched {k}"
+    tex_renderer = tex.pop("renderer")
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        _profile_frames(tex_renderer, f"{root}_textured{ext}", results,
+                        name="profile_textured")
+    del tex_renderer
+
+    # -- phase b: a 4096x2048 probe, sampled through the alias arrays --------
+    big = large_probe_phase(renderer, 4096, 2048, 2)
+    _line(f"large probe 4096x2048 ({big['texel_bytes'] / 1e6:.1f} MB of "
+          f"texels, host build {big['host_build_s']:.1f} s): "
+          + _frames_line("bench scene, 2 frames", big))
+    for k in PATH_KERNELS:
+        assert big["launches"][k] > 0, f"the large-probe frame never launched {k}"
+
+    # -- phase c: textured catcher frame and AOVs, GPU against the CPU -------
+    kernel_build.reset_launches()
+    cat = catcher_phase(sw, sh, small_sched)
+    cat_launches = dict(kernel_build.LAUNCHES)
+    _line(f"catcher cornell {sw}x{sh}, 2 subframes through render_aov: GPU vs "
+          f"CPU pixels within 1 LSB {cat['share']:.4f}; AOV and denoise max "
+          f"error relative to the CPU image's largest value "
+          + ", ".join(f"{k} {v:.3g}" for k, v in cat["rel_err"].items())
+          + f" (limit {AOV_RTOL:g}); traces {cat['traces']}; launches "
+          f"{cat_launches}")
+    for k in PATH_KERNELS:
+        assert cat_launches[k] > 0, f"the catcher frame never launched {k}"
+
+    # -- phase d: the CLI ---------------------------------------------------
+    kernel_build.reset_launches()
+    cli = cli_phase(w, h, "32_16_8")
+    cli_launches = dict(kernel_build.LAUNCHES)
+    _line(f"CLI: {cli['argv']} -> 0 in {cli['wall_s']:.1f} s; TSV render ms/"
+          "frame " + ", ".join(f"{x:.1f}" for x in cli["render_ms"])
+          + f"; files {cli['files']}; launches {cli_launches}")
+    for k in PATH_KERNELS:
+        assert cli_launches[k] > 0, f"the CLI never launched {k}"
 
     # -- phase 8: the kernels line ---------------------------------------------
     per_frame = lambda k: launches[k] / FRAMES  # noqa: E731
@@ -477,6 +812,11 @@ def main() -> int:
                          "k3": f3},
         shadow_rays={"lanes": ns, "queried": nq}, small_share=share,
         workload=RAY_SHAPE,
+        textured={k: v for k, v in tex.items() if k != "frame"},
+        untextured_again={k: v for k, v in again.items() if k != "frame"},
+        large_probe={k: v for k, v in big.items() if k != "frame"},
+        catcher=dict(cat, launches=cat_launches),
+        cli=dict(cli, launches=cli_launches),
     )
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

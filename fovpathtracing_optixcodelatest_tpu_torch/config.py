@@ -4,9 +4,10 @@ package's ``config.py``).
 The TPU traversal-mechanism knobs of the JAX ``RenderConfig``
 (``compact_bounces``, ``frame_compaction``, ``traversal_phase1_cap*``) have no
 counterpart here: they change how the TPU schedules work, never the result.
-``catcher_passthrough`` and ``dispersion`` come with the catcher and
-spectral paths, which are not ported.
-Features this port does not implement yet raise ``NotImplementedError`` from
+``need_aov`` (which AOVs ride the TPU's compaction sort) has no counterpart
+either: the port's integrator always returns the AOVs. ``dispersion`` comes
+with the spectral path, which is not ported. Features this port does not
+implement yet raise ``NotImplementedError`` from
 ``RenderConfig.check_supported``.
 """
 
@@ -72,6 +73,21 @@ class FoveationSchedule:
         )
 
     @staticmethod
+    def sweep(fovea_spp: int, annulus_spp: int, periphery_spp: int,
+              inner: int = INNER_RADIUS,
+              outer: int = OUTER_RADIUS) -> "FoveationSchedule":
+        """The reference schedule's rings with other spp (the spp-sweep
+        configurations, e.g. 32_2_1 ... 32_16_8)."""
+        base = FoveationSchedule.reference_32_16_8(inner, outer).passes
+        return FoveationSchedule(
+            passes=(
+                dataclasses.replace(base[0], spp=periphery_spp),
+                dataclasses.replace(base[1], spp=annulus_spp),
+                dataclasses.replace(base[2], spp=fovea_spp),
+            )
+        )
+
+    @staticmethod
     def uniform(spp: int = 4) -> "FoveationSchedule":
         """One full-frame launch at stride 1."""
         return FoveationSchedule(
@@ -122,17 +138,18 @@ class RenderConfig:
     exposure_correction: bool = True
     white: float = 1.0
     accumulate: bool = True
-    # AA-jitter generator; only "random" is ported
+    # AA-jitter generator: "random", "stratified" or "blue_noise"
     sampler: str = "random"
+    # bounded rounds of the shadow catcher's secondary-ray pass-through;
+    # 0 disables; read only on scenes with a catcher material
+    catcher_passthrough: int = 2
     # intersection backend; only the BVH traversal is ported
     traversal: str = "bvh"
     spectral: bool = False
 
     def check_supported(self) -> None:
-        if self.sampler != "random":
-            raise NotImplementedError(
-                f"sampler {self.sampler!r}: only 'random' is ported"
-            )
+        if self.sampler not in ("random", "stratified", "blue_noise"):
+            raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.spectral:
             raise NotImplementedError("spectral rendering is not ported")
         if self.traversal != "bvh":

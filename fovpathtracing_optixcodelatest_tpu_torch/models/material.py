@@ -12,6 +12,7 @@ import torch
 
 MATERIAL_FLAG_NONE = 0
 MATERIAL_FLAG_SHADOW_CATCHER = 1 << 0
+MATERIAL_FLAGS_COL = 22  # the packed row's column of the int32 flags
 
 
 @dataclasses.dataclass
@@ -61,7 +62,7 @@ def packed_rows_numpy(materials: Sequence[Material]) -> np.ndarray:
         for j, f in enumerate(SCALAR_FIELDS):
             v = m.index_of_refraction() if f == "eta" else getattr(m, f)
             packed[i, 9 + j] = v
-    packed[:, 22] = np.array(
+    packed[:, MATERIAL_FLAGS_COL] = np.array(
         [m.flags for m in materials], dtype=np.int32
     ).view(np.float32)
     return packed
@@ -94,5 +95,5 @@ def view_rows(g: torch.Tensor) -> MaterialView:
     kw = {"color": g[:, 0:3], "emission": g[:, 3:6], "absorption": g[:, 6:9]}
     for j, f in enumerate(SCALAR_FIELDS):
         kw[f] = g[:, 9 + j]
-    kw["flags"] = g[:, 22].contiguous().view(torch.int32)
+    kw["flags"] = g[:, MATERIAL_FLAGS_COL].contiguous().view(torch.int32)
     return MaterialView(**kw)

@@ -69,6 +69,74 @@ def make_box(pos, extent, material: Material, texture_id: int = -1) -> HostMesh:
     )
 
 
+def make_quad(p0, p1, p2, p3, material: Material,
+              texture_id: int = -1) -> HostMesh:
+    """Two-triangle quad p0->p1->p2->p3 (counter-clockwise) with unit
+    texcoords."""
+    vertex = np.asarray([p0, p1, p2, p3], dtype=np.float32)
+    index = np.asarray([[0, 1, 2], [0, 2, 3]], dtype=np.int32)
+    n = np.cross(vertex[1] - vertex[0], vertex[2] - vertex[0])
+    n = n / max(np.linalg.norm(n), 1e-12)
+    normal = np.tile(n.astype(np.float32), (4, 1))
+    texcoord = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], dtype=np.float32)
+    return HostMesh(vertex=vertex, index=index, normal=normal,
+                    texcoord=texcoord, material=material,
+                    diffuse_texture_id=texture_id)
+
+
+def make_icosphere(center, radius, subdivisions: int,
+                   material: Material) -> HostMesh:
+    """Subdivided icosahedron with smooth normals: 20 * 4^s triangles."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.asarray(
+        [
+            [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+            [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+            [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+        ],
+        dtype=np.float64,
+    )
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = np.asarray(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        dtype=np.int64,
+    )
+    for _ in range(subdivisions):
+        edge_mid: dict = {}
+        verts_list = list(verts)
+        new_faces = []
+
+        def midpoint(a: int, b: int) -> int:
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = verts_list[a] + verts_list[b]
+                m = m / np.linalg.norm(m)
+                edge_mid[key] = len(verts_list)
+                verts_list.append(m)
+            return edge_mid[key]
+
+        for f in faces:
+            a, b, c = int(f[0]), int(f[1]), int(f[2])
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(verts_list)
+        faces = np.asarray(new_faces, dtype=np.int64)
+    center = np.asarray(center, dtype=np.float64)
+    vertex = (center + radius * verts).astype(np.float32)
+    return HostMesh(
+        vertex=vertex,
+        index=faces.astype(np.int32),
+        normal=verts.astype(np.float32),
+        texcoord=np.zeros((len(vertex), 2), dtype=np.float32),
+        material=material,
+    )
+
+
 def flatten_meshes(meshes: Sequence[HostMesh]):
     """Concatenate meshes -> (tri_pack (T, 48) float32, materials list)."""
     v0s, e1s, e2s = [], [], []

@@ -3,7 +3,9 @@ the 13-column one-gather sampling rows (counterpart of the JAX package's
 ``models/probe.py``; the same numpy build, so the tables are bit-identical).
 
 ``ProbeParams`` holds host numpy arrays; ``models/scene.py`` uploads the
-ones shading reads (``data``, ``pdf_x``, ``pdf_y``, ``sample_rows``)."""
+ones shading reads: ``data``, ``pdf_x``, ``pdf_y`` and ``sample_rows``, or,
+for probes above ``SAMPLE_ROWS_MAX_TEXELS`` (which carry no sample rows),
+``alias_prob``, ``alias_idx`` and ``pdf_flat``."""
 
 from __future__ import annotations
 
@@ -61,16 +63,44 @@ def _build_alias(weights: np.ndarray):
     return prob.astype(np.float32), alias.astype(np.int32)
 
 
+# sample rows (13 float32 a texel) are built up to 2048x1024 texels; larger
+# probes keep only the per-field alias arrays
 SAMPLE_ROWS_MAX_TEXELS = 1 << 21
 
 
-def build_cdf(data: np.ndarray) -> ProbeParams:
+def gaussian_prefilter_3x3(intensity: np.ndarray) -> np.ndarray:
+    """3x3 Gaussian (sigma 0.5) prefilter of a lat-long intensity image: x
+    wraps, y clamps to the edge; weights centre 0.619347, edges 0.0838195,
+    corners 0.0113437."""
+    c = intensity
+    left = np.roll(c, 1, axis=1)
+    right = np.roll(c, -1, axis=1)
+    up = np.concatenate([c[:1], c[:-1]], axis=0)
+    down = np.concatenate([c[1:], c[-1:]], axis=0)
+    ul = np.roll(up, 1, axis=1)
+    ur = np.roll(up, -1, axis=1)
+    dl = np.roll(down, 1, axis=1)
+    dr = np.roll(down, -1, axis=1)
+    return (
+        0.619347 * c
+        + 0.0838195 * (left + right + up + down)
+        + 0.0113437 * (ul + ur + dl + dr)
+    ).astype(np.float32)
+
+
+def build_cdf(data: np.ndarray, prefilter: bool = False) -> ProbeParams:
     """pdf_x[j,i] = L[j,i]/sum_i L[j,:], pdf_y[j] = sum_i L[j,:]/sum L over
-    0.3/0.6/0.1 luminance; plus the alias table and sampling rows."""
+    the 0.3/0.6/0.1 luminance, or with ``prefilter`` over the 3x3
+    Gaussian-prefiltered mean intensity; plus the alias table and, up to
+    ``SAMPLE_ROWS_MAX_TEXELS``, the sampling rows."""
     data = np.asarray(data, dtype=np.float32)
-    assert data.ndim == 3 and data.shape[2] >= 3
+    if data.ndim != 3 or data.shape[2] < 3:
+        raise ValueError(f"probe data must be (H, W, >=3), got {data.shape}")
     rgb = data[..., :3]
-    weight = 0.3 * rgb[..., 0] + 0.6 * rgb[..., 1] + 0.1 * rgb[..., 2]
+    if prefilter:
+        weight = gaussian_prefilter_3x3(rgb.mean(axis=2))
+    else:
+        weight = 0.3 * rgb[..., 0] + 0.6 * rgb[..., 1] + 0.1 * rgb[..., 2]
     weight = np.maximum(weight, 0.0)
     row_sum = weight.sum(axis=1)
     safe_row = np.where(row_sum > 0, row_sum, 1.0)

@@ -1,11 +1,16 @@
-"""The device scene: packed BVH table, triangle attribute rows, material rows
-and the probe tables, as tensors on one device (counterpart of the JAX
-package's ``models/scene.py`` for untextured single-level scenes).
+"""The device scene: packed BVH table, triangle attribute rows, material rows,
+textures and the probe tables, as tensors on one device (counterpart of the
+JAX package's ``models/scene.py`` for single-level scenes).
+
+``has_textures`` (a triangle has a texture id >= 0) and ``has_catcher`` (a
+material carries the shadow-catcher flag) are fixed when the scene is built:
+a scene with neither runs the integrator without the texture fetch and
+without the catcher branches.
 
 ``scene_from_arrays`` is the one door between the packages: it builds the
 port's scene from plain numpy arrays (the JAX ``Scene``'s arrays, collected
 with ``np.asarray`` by the tests), so both packages can be fed the same BVH
-table, ``tri_pack``, material rows and probe rows.
+table, ``tri_pack``, material rows, textures and probe tables.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
     MATERIAL_FLAG_SHADOW_CATCHER,
+    MATERIAL_FLAGS_COL,
     packed_rows_numpy,
 )
 from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
@@ -28,6 +34,10 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
 from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
     ProbeParams,
     constant_probe,
+)
+from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
+    TextureArray,
+    texture_arrays,
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native
 
@@ -49,7 +59,12 @@ class DeviceProbe:
     data: torch.Tensor  # (H, W, 3)
     pdf_x: torch.Tensor  # (H, W)
     pdf_y: torch.Tensor  # (H,)
-    sample_rows: torch.Tensor  # (H*W, 13)
+    # (H*W, 13) alias rows, or None above SAMPLE_ROWS_MAX_TEXELS; then the
+    # per-field alias arrays below are set instead
+    sample_rows: Optional[torch.Tensor]
+    alias_prob: Optional[torch.Tensor] = None  # (H*W,) float32
+    alias_idx: Optional[torch.Tensor] = None  # (H*W,) int64
+    pdf_flat: Optional[torch.Tensor] = None  # (H*W,) float32
 
     @property
     def width(self) -> int:
@@ -66,8 +81,15 @@ class Scene:
     tri_pack: torch.Tensor  # (T, 48)
     material_rows: torch.Tensor  # (M, 24)
     probe: DeviceProbe
+    # None on a scene whose triangles carry no texture id
+    textures: Optional[TextureArray] = None
+    has_catcher: bool = False
     # the legacy 8-wide f32 table of the packet kernel (optional)
     legacy: Optional[DeviceBVH] = None
+
+    @property
+    def has_textures(self) -> bool:
+        return self.textures is not None
 
     @property
     def num_triangles(self) -> int:
@@ -84,49 +106,71 @@ class Scene:
 
 
 def _probe_arrays(probe: ProbeParams) -> Dict[str, np.ndarray]:
-    if probe.sample_rows is None:
-        raise NotImplementedError(
-            "probes above SAMPLE_ROWS_MAX_TEXELS (no sample rows) are not ported"
-        )
-    return {
+    arrays = {
         "probe_data": probe.data, "probe_pdf_x": probe.pdf_x,
-        "probe_pdf_y": probe.pdf_y, "probe_sample_rows": probe.sample_rows,
+        "probe_pdf_y": probe.pdf_y,
     }
+    if probe.sample_rows is not None:
+        arrays["probe_sample_rows"] = probe.sample_rows
+    else:
+        arrays.update(probe_alias_prob=probe.alias_prob,
+                      probe_alias_idx=probe.alias_idx,
+                      probe_pdf_flat=probe.pdf_flat)
+    return arrays
 
 
 def _device_probe(arrays, device) -> DeviceProbe:
     t = lambda k: torch.tensor(  # noqa: E731
         np.asarray(arrays[k], dtype=np.float32), device=device
     )
+    if arrays.get("probe_sample_rows") is not None:
+        return DeviceProbe(
+            data=t("probe_data"), pdf_x=t("probe_pdf_x"),
+            pdf_y=t("probe_pdf_y"), sample_rows=t("probe_sample_rows"),
+        )
     return DeviceProbe(
         data=t("probe_data"), pdf_x=t("probe_pdf_x"), pdf_y=t("probe_pdf_y"),
-        sample_rows=t("probe_sample_rows"),
+        sample_rows=None, alias_prob=t("probe_alias_prob"),
+        alias_idx=torch.tensor(np.asarray(arrays["probe_alias_idx"],
+                                          dtype=np.int64), device=device),
+        pdf_flat=t("probe_pdf_flat"),
     )
-
-
-def _check_supported(tri_pack: np.ndarray, material_rows: np.ndarray) -> None:
-    if (tri_pack[:, 10].view(np.int32) >= 0).any():
-        raise NotImplementedError("textured scenes are not ported")
-    if (material_rows[:, 22].view(np.int32) & MATERIAL_FLAG_SHADOW_CATCHER).any():
-        raise NotImplementedError("shadow-catcher materials are not ported")
 
 
 def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> Scene:
     """Build a Scene from numpy arrays. Keys: ``bvh_table``,
     ``bvh_stack_depth``, ``bvh_arity``, ``bvh_leaf_size``, ``tri_pack``,
-    ``material_rows``, ``probe_data``, ``probe_pdf_x``, ``probe_pdf_y``,
-    ``probe_sample_rows``; optionally ``legacy_table`` and
-    ``legacy_stack_depth`` for the packet kernel."""
+    ``material_rows``, ``probe_data``, ``probe_pdf_x``, ``probe_pdf_y`` and
+    either ``probe_sample_rows`` or ``probe_alias_prob``,
+    ``probe_alias_idx`` and ``probe_pdf_flat``; ``texture_data`` (K, H, W,
+    3) and ``texture_sizes`` (K, 2) when a triangle carries a texture id;
+    optionally ``legacy_table`` and ``legacy_stack_depth`` for the packet
+    kernel."""
     if arrays.get("instanced", False):
         raise NotImplementedError("instanced (two-level) scenes are not ported")
     if arrays.get("demand") is not None:
         raise NotImplementedError("demand-loaded textures are not ported")
     tri_pack = np.ascontiguousarray(arrays["tri_pack"], dtype=np.float32)
     mat = np.ascontiguousarray(arrays["material_rows"], dtype=np.float32)
-    _check_supported(tri_pack, mat)
     f32 = lambda a: torch.tensor(  # noqa: E731
         np.asarray(a, dtype=np.float32), device=device
     )
+    textures = None
+    tex_ids = tri_pack[:, 10].view(np.int32)
+    if (tex_ids >= 0).any():
+        if "texture_data" not in arrays:
+            raise ValueError("textured triangles need texture_data")
+        data = np.asarray(arrays["texture_data"], dtype=np.float32)
+        if int(tex_ids.max()) >= data.shape[0]:
+            raise ValueError(
+                f"texture id {int(tex_ids.max())} of {data.shape[0]} textures"
+            )
+        textures = TextureArray(
+            data=f32(data),
+            sizes=torch.tensor(np.asarray(arrays["texture_sizes"],
+                                          dtype=np.int64), device=device),
+        )
+    flags = mat[:, MATERIAL_FLAGS_COL].view(np.int32)
     bvh = DeviceBVH(
         table=f32(arrays["bvh_table"]),
         stack_depth=int(arrays["bvh_stack_depth"]),
@@ -142,23 +186,29 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> Scene:
         )
     return Scene(
         bvh=bvh, tri_pack=f32(tri_pack), material_rows=f32(mat),
-        probe=_device_probe(arrays, device), legacy=legacy,
+        probe=_device_probe(arrays, device), textures=textures,
+        has_catcher=bool((flags & MATERIAL_FLAG_SHADOW_CATCHER).any()),
+        legacy=legacy,
     )
 
 
 def scene_arrays(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,
+                 texture_images: Optional[Sequence[np.ndarray]] = None,
                  legacy8: bool = False) -> Dict[str, np.ndarray]:
     """Host build: flatten, pack the BVH (and optionally the legacy table),
-    build the probe tables -> the ``scene_from_arrays`` dict."""
+    pad the textures, build the probe tables -> the ``scene_from_arrays``
+    dict."""
     tri_pack, materials = flatten_meshes(meshes)
     tris = host_triangles(meshes)
     bvh = bvh_native.build(tris)
     if probe is None:
         probe = constant_probe((2.5, 2.5, 2.5))
+    tex_data, tex_sizes = texture_arrays(texture_images or [])
     arrays = {
         "bvh_table": bvh.table, "bvh_stack_depth": bvh.stack_depth,
         "bvh_arity": bvh.arity, "bvh_leaf_size": bvh.leaf_size,
         "tri_pack": tri_pack, "material_rows": packed_rows_numpy(materials),
+        "texture_data": tex_data, "texture_sizes": tex_sizes,
         **_probe_arrays(probe),
     }
     if legacy8:
@@ -169,10 +219,11 @@ def scene_arrays(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None
 
 
 def build_scene(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,
+                texture_images: Optional[Sequence[np.ndarray]] = None,
                 device="cuda", legacy8: bool = False) -> Scene:
-    """Flatten meshes, build the BVH, attach the probe (default: the constant
-    2.5 ambient probe), upload to ``device``. Textured meshes raise
-    NotImplementedError."""
-    if any(m.diffuse_texture_id >= 0 for m in meshes):
-        raise NotImplementedError("textured scenes are not ported")
-    return scene_from_arrays(scene_arrays(meshes, probe, legacy8), device)
+    """Flatten meshes, build the BVH, pack the textures (a mesh's
+    ``diffuse_texture_id`` indexes ``texture_images``), attach the probe
+    (default: the constant 2.5 ambient probe), upload to ``device``."""
+    return scene_from_arrays(
+        scene_arrays(meshes, probe, texture_images, legacy8), device
+    )

@@ -1,6 +1,8 @@
 """Environment probe lookup, pdf and alias-table sampling over a ray batch
-(counterpart of the JAX package's ``ops/probe_sampling.py``; the alias-row
-sampling path only). ``probe`` is a ``models.scene.DeviceProbe``."""
+(counterpart of the JAX package's ``ops/probe_sampling.py``: the Walker alias
+sampling through the 13-column rows, or through the per-field alias arrays
+on probes too large for the rows). ``probe`` is a
+``models.scene.DeviceProbe``."""
 
 from __future__ import annotations
 
@@ -59,18 +61,29 @@ def probe_pdf(probe, d: torch.Tensor) -> torch.Tensor:
 
 
 def probe_sample(probe, r1: torch.Tensor, r2: torch.Tensor):
-    """Importance-sample the probe through the Walker alias rows: one
-    (13,)-row gather per sample. Returns (dir (N, 3), color (N, 3),
-    pdf (N,))."""
+    """Importance-sample the probe through the Walker alias table: one
+    (13,)-row gather per sample, or, on a probe without sample rows, the
+    alias probability, the alias index, then the chosen texel's color and
+    pdf. Returns (dir (N, 3), color (N, 3), pdf (N,))."""
     w, h = probe.width, probe.height
     k = w * h
     cand = torch.clamp((r1 * k).to(torch.int64), max=k - 1)
-    g = probe.sample_rows[cand]
-    accept = r2 < g[:, 0]
-    u = torch.where(accept, g[:, 1], g[:, 7])
-    v = torch.where(accept, g[:, 2], g[:, 8])
-    pdf = torch.where(accept, g[:, 3], g[:, 9])
-    color = torch.where(accept[:, None], g[:, 4:7], g[:, 10:13])
+    if probe.sample_rows is not None:
+        g = probe.sample_rows[cand]
+        accept = r2 < g[:, 0]
+        u = torch.where(accept, g[:, 1], g[:, 7])
+        v = torch.where(accept, g[:, 2], g[:, 8])
+        pdf = torch.where(accept, g[:, 3], g[:, 9])
+        color = torch.where(accept[:, None], g[:, 4:7], g[:, 10:13])
+    else:
+        accept = r2 < probe.alias_prob[cand]
+        lin = torch.where(accept, cand, probe.alias_idx[cand])
+        row = lin // w
+        col = lin - row * w
+        color = probe.data.reshape(-1, 3)[lin]
+        pdf = probe.pdf_flat[lin]
+        u = col.to(torch.float32) / w
+        v = row.to(torch.float32) / h
     sin_theta = torch.sin(v * PI)
     zero = sin_theta == 0.0
     pdf = torch.where(

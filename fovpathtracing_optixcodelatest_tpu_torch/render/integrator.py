@@ -1,24 +1,39 @@
 """Wavefront path-tracing integrator (counterpart of the JAX package's
-``render/integrator.py`` ``trace_paths`` for untextured, catcher-free,
-single-level, non-spectral scenes).
+``render/integrator.py`` ``trace_paths`` for single-level, non-spectral
+scenes).
 
-The batch advances one bounce at a time: closest hit (K1), one ``tri_pack``
-row gather, probe NEE with MIS, Disney BSDF sampling, occlusion (K2).
+The batch advances one bounce at a time: closest hit (K1), the catcher
+pass-through on secondary rays, one ``tri_pack`` row gather, the texture
+fetch, probe NEE with MIS, Disney BSDF sampling, occlusion (K2).
 Semantics kept from the reference:
 
 - the environment contributes only through NEE; primary misses composite
   the backplate through ``alpha`` in the film stage;
 - a vertex's NEE and emission count only if its BSDF sample succeeds
   (pdf > 0);
-- emission is added on primary hits only; ``alpha`` is set to 1 on a hit;
+- emission is added on primary hits only; ``alpha`` is set to 1 on a hit
+  that is not a shadow catcher;
+- albedo is the texture's bilinear-wrap sample at the hit's uv (K1's
+  barycentrics over ``tri_pack`` cols 3:9) where the triangle has a texture
+  id >= 0 (col 10), else the material color;
+- a shadow catcher adds no NEE radiance; its alpha gathers the throughput
+  times the NEE that its occlusion query found blocked, whether or not its
+  BSDF sample succeeds. On secondary rays a catcher is transparent: the ray
+  re-traces from the hit point, ``config.catcher_passthrough`` rounds at
+  most, and each re-trace counts in ``traces``;
 - eta flips on transmission; MIS weight = sky_pdf / (bsdf_pdf + sky_pdf);
 - the occlusion ray is walked only where its answer can change the result
-  (hit, nonzero NEE, successful BSDF sample).
+  (hit, nonzero NEE, and a successful BSDF sample or a catcher).
+
+The texture fetch and the catcher branches run only on scenes that have
+textures or catchers (``Scene.has_textures``, ``Scene.has_catcher``).
 
 Each bounce works on the rays still alive only (a gather at the start, a
 scatter at the end): dead rays' state never changes, so this is the same
-result as masking every lane. ``traces`` counts alive rays per bounce plus
-the occlusion queries walked.
+result as masking every lane. A catcher lane whose sample failed is alive
+in the bounce that finds it, so its occlusion answer and its alpha come in
+that bounce before it leaves. ``traces`` counts alive rays per bounce, the
+occlusion queries walked and the pass-through re-traces.
 """
 
 from __future__ import annotations
@@ -28,7 +43,15 @@ from typing import Dict
 import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
-from fovpathtracing_optixcodelatest_tpu_torch.models.material import view_rows
+from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
+    MATERIAL_FLAG_SHADOW_CATCHER,
+    MATERIAL_FLAGS_COL,
+    view_rows,
+)
+from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
+    hit_uv,
+    sample_bilinear_wrap,
+)
 from fovpathtracing_optixcodelatest_tpu_torch.ops import bsdf as bsdf_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling as probe_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
@@ -40,23 +63,56 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.sampling import (
 )
 
 
+def _closest(scene, o, d, active, config: RenderConfig):
+    bvh = scene.bvh
+    return traverse.closest_hit(bvh.table, o, d, active, config.tmin,
+                                config.tmax, bvh.stack_depth, bvh.arity,
+                                bvh.leaf_size)
+
+
+def _catcher_passthrough(scene, o, d, hit, config: RenderConfig):
+    """``config.catcher_passthrough`` rounds of the catcher pass-through:
+    lanes whose closest hit is a catcher re-trace (K1, those lanes only)
+    from the hit point along the same direction, and take the new hit.
+    Returns (origin, hit, re-traces walked)."""
+    walked = torch.zeros((), dtype=torch.int64, device=o.device)
+    for _ in range(config.catcher_passthrough):
+        tri = torch.clamp(hit["tri_id"], min=0).to(torch.int64)
+        flags = scene.tri_pack[tri, 12 + MATERIAL_FLAGS_COL].view(torch.int32)
+        thru = hit["hit"] & ((flags & MATERIAL_FLAG_SHADOW_CATCHER) != 0)
+        o = torch.where(thru[:, None], o + hit["t"][:, None] * d, o)
+        o = o.contiguous()
+        again = _closest(scene, o, d, thru, config)
+        hit = {k: torch.where(thru, again[k], hit[k]) for k in hit}
+        walked = walked + thru.sum()
+    return o, hit, walked
+
+
 def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
            config: RenderConfig):
     """One bounce of K alive rays. Returns the per-ray updates, and the
     bounce's shadow rays (``shadow_origin``, ``shadow_dir``, walked where
     ``shadow_query``)."""
-    bvh = scene.bvh
     k = o.shape[0]
     every = torch.ones((k,), dtype=torch.bool, device=o.device)
-    hit = traverse.closest_hit(bvh.table, o, d, every, config.tmin,
-                               config.tmax, bvh.stack_depth, bvh.arity,
-                               bvh.leaf_size)
+    hit = _closest(scene, o, d, every, config)
+    passthrough = torch.zeros((), dtype=torch.int64, device=o.device)
+    if scene.has_catcher and not primary and config.catcher_passthrough > 0:
+        o, hit, passthrough = _catcher_passthrough(scene, o, d, hit, config)
     hit_mask = hit["hit"]
     attr = scene.tri_pack[torch.clamp(hit["tri_id"], min=0).to(torch.int64)]
     p = torch.where(hit_mask[:, None], o + hit["t"][:, None] * d, o)
     nrm = face_forward(attr[:, 0:3], -d)
     m = view_rows(attr[:, 12:36])
-    albedo = m.color
+    if scene.has_textures:
+        # the id's bits go straight from the gathered row to int32: float
+        # arithmetic on them could canonicalise the NaN payload of -1
+        tex_id = attr[:, 10].contiguous().view(torch.int32)
+        uv = hit_uv(attr, hit["u"], hit["v"])
+        tex_col = sample_bilinear_wrap(scene.textures, tex_id, uv)
+        albedo = torch.where((tex_id >= 0)[:, None], tex_col, m.color)
+    else:
+        albedo = m.color
     out_eta = torch.where(eta_in == 1.0, m.eta, 1.0)
 
     # probe NEE with MIS
@@ -80,22 +136,38 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
     )
 
     # BSDF sample, drawn before the occlusion walk: a failed sample voids
-    # the vertex, so its shadow ray is never walked
+    # the vertex, so its shadow ray is walked only where a catcher's alpha
+    # still needs the answer
     u_frame, v_frame = basis_from_vector(nrm)
     l_dir, pdf, _ = bsdf_ops.bsdf_sample(
         m, eta_in, out_eta, u_frame, v_frame, nrm, view, u_all[:, 2:8]
     )
     sample_ok = pdf > 0.0
-    occl_query = hit_mask & (light_val.amax(dim=1) > 0.0) & sample_ok
+    if scene.has_catcher:
+        is_catcher = (m.flags & MATERIAL_FLAG_SHADOW_CATCHER) != 0
+        occl_query = hit_mask & (light_val.amax(dim=1) > 0.0) \
+            & (sample_ok | is_catcher)
+    else:
+        occl_query = hit_mask & (light_val.amax(dim=1) > 0.0) & sample_ok
     p, wi = p.contiguous(), wi.contiguous()
+    bvh = scene.bvh
     occ = traverse.occluded(bvh.table, p, wi,
                             occl_query, config.tmin, config.tmax,
                             bvh.stack_depth, bvh.arity, bvh.leaf_size)
 
     nee_contrib = torch.where((~occ)[:, None], light_val, 0.0)
-    vert_radiance = throughput * nee_contrib + torch.where(
-        hit_mask & primary, 1.0, 0.0
-    )[:, None] * m.emission
+    emitted = torch.where(hit_mask & primary, 1.0, 0.0)[:, None] * m.emission
+    if scene.has_catcher:
+        # a catcher adds no radiance; its alpha gathers the shadowed NEE
+        vert_radiance = torch.where(
+            (~is_catcher)[:, None], throughput * nee_contrib, 0.0) + emitted
+        alpha_set = hit_mask & ~is_catcher
+        alpha_add = torch.where(
+            (hit_mask & is_catcher)[:, None],
+            throughput * torch.where(occ[:, None], light_val, 0.0), 0.0)
+    else:
+        vert_radiance = throughput * nee_contrib + emitted
+        alpha_set, alpha_add = hit_mask, None
 
     f_b = bsdf_ops.bsdf_eval(m, albedo, eta_in, out_eta, nrm, view, l_dir)
     transmitted = dot(l_dir, nrm) <= 0.0
@@ -111,9 +183,12 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
                                   throughput),
         "eta": torch.where(hit_mask & transmitted, out_eta, eta_in),
         "contrib": torch.where(cont[:, None], vert_radiance, 0.0),
+        "alpha_set": alpha_set,
+        "alpha_add": alpha_add,
         "normal": nrm,
         "albedo": albedo,
         "occl_queries": occl_query.sum(),
+        "passthrough_traces": passthrough,
         "shadow_origin": p,
         "shadow_dir": wi,
         "shadow_query": occl_query,
@@ -152,11 +227,15 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
         throughput[idx] = b["throughput"]
         eta[idx] = b["eta"]
         radiance[idx] = radiance[idx] + b["contrib"]
-        alpha[idx] = torch.where(hm[:, None], 1.0, alpha[idx])
+        kept = alpha[idx]
+        if b["alpha_add"] is not None:
+            kept = kept + b["alpha_add"]
+        alpha[idx] = torch.where(b["alpha_set"][:, None], 1.0, kept)
         if depth == 0:
             normal[idx] = torch.where(hm[:, None], b["normal"], 0.0)
             albedo[idx] = torch.where(hm[:, None], b["albedo"], 0.0)
-        traces = traces + idx.numel() + b["occl_queries"]
+        traces = (traces + idx.numel() + b["occl_queries"]
+                  + b["passthrough_traces"])
         idx = idx[b["alive"]]
     return {"radiance": radiance, "alpha": alpha, "normal": normal,
             "albedo": albedo, "traces": traces}

@@ -89,7 +89,7 @@ def generate_pass_rays(camera, p: FoveationPass, width: int, height: int,
     ray_ids = torch.repeat_interleave(frame_pix, k) * RNG_STRIDE + slots
 
     if antialias:
-        jitter = aa_jitter(key, ray_ids, k, sampler)
+        jitter = aa_jitter(key, ray_ids, slots, k, sampler)
     else:
         jitter = torch.zeros((n_pix * k, 2), dtype=torch.float32, device=dev)
     fx = torch.repeat_interleave(idx_x.reshape(-1).to(torch.float32), k)

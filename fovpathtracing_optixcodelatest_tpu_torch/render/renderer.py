@@ -1,8 +1,8 @@
 """The Renderer front end (counterpart of the JAX package's
 ``render/renderer.py``): ``render_frame`` traces every foveation pass as one
 merged wavefront and composites the passes into the accumulation canvas;
-``Renderer`` carries the canvas, the subframe index and the camera between
-frames.
+``render_frame_aov`` adds the normal and albedo AOV images; ``Renderer``
+carries the canvas, the subframe index and the camera between frames.
 
 Keys follow the JAX package's chain: frame key = fold_in(PRNGKey(seed),
 subframe), jitter key = fold_in(frame key, 0), path key = fold_in(frame
@@ -11,6 +11,7 @@ key, 1) (``ops.rng``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -62,12 +63,15 @@ def frame_wavefront(scene, camera, gaze_x: int, gaze_y: int, key,
     return rays_list, out, offsets
 
 
-def render_frame(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
-                 canvas: torch.Tensor, key, config: RenderConfig,
-                 schedule: FoveationSchedule):
-    """One full frame -> (canvas, frame uint8 (H, W, 3), stats). Inner
-    passes composite after outer ones and overwrite the ring overlap. The
-    canvas is updated in place and returned."""
+def _trace_and_composite(scene, camera, gaze_x: int, gaze_y: int,
+                         subframe: int, canvas: torch.Tensor, key,
+                         config: RenderConfig, schedule: FoveationSchedule,
+                         aov_canvas=None):
+    """Trace the frame's wavefront and composite every pass into
+    ``canvas`` (in place), and, where ``aov_canvas`` maps AOV names to
+    canvases, each pass's mean AOV into them, always overwriting. Inner
+    passes composite after outer ones and overwrite the ring overlap.
+    Returns (trace_paths output, rays per frame)."""
     w, h = config.width, config.height
     pad = film.schedule_padding(schedule, w, h)
     rays_list, out, offsets = frame_wavefront(
@@ -87,9 +91,49 @@ def render_frame(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
         )
         film.composite_pass(canvas, accum_color, rays["ring"], p,
                             rays["offset"], subframe, pad, config.accumulate)
+        overwrite = dataclasses.replace(p, redraw=True)
+        for name, target in (aov_canvas or {}).items():
+            img = (out[name][sl].reshape(n_pix, k, 3).sum(1) / p.spp
+                   ).reshape(lh, lw, 3)
+            film.composite_pass(target, img, rays["ring"], overwrite,
+                                rays["offset"], subframe, pad, False)
         total_rays += n_pix * p.spp
+    return out, total_rays
+
+
+def render_frame(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
+                 canvas: torch.Tensor, key, config: RenderConfig,
+                 schedule: FoveationSchedule):
+    """One full frame -> (canvas, frame uint8 (H, W, 3), stats). The canvas
+    is updated in place and returned."""
+    out, total_rays = _trace_and_composite(
+        scene, camera, gaze_x, gaze_y, subframe, canvas, key, config,
+        schedule)
+    pad = film.schedule_padding(schedule, config.width, config.height)
     frame = film.finalize(canvas, pad, config)
     return canvas, frame, {"traces": out["traces"], "rays": total_rays}
+
+
+def render_frame_aov(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
+                     canvas: torch.Tensor, key, config: RenderConfig,
+                     schedule: FoveationSchedule):
+    """``render_frame`` plus full-frame normal and albedo AOV images,
+    composited per pass with the color's block replication, always
+    overwriting (no accumulation). Returns (canvas, frame, aovs dict of
+    (H, W, 3) ``accum``/``normal``/``albedo``, stats)."""
+    w, h = config.width, config.height
+    pad = film.schedule_padding(schedule, w, h)
+    aov_canvas = {name: film.new_canvas(w, h, pad, canvas.device)
+                  for name in ("normal", "albedo")}
+    out, _ = _trace_and_composite(
+        scene, camera, gaze_x, gaze_y, subframe, canvas, key, config,
+        schedule, aov_canvas)
+    frame = film.finalize(canvas, pad, config)
+    crop = lambda c: c[pad: pad + h, pad: pad + w]  # noqa: E731
+    # a copy: later frames write the canvas in place
+    aovs = {"accum": crop(canvas).clone(),
+            **{name: crop(c) for name, c in aov_canvas.items()}}
+    return canvas, frame, aovs, {"traces": out["traces"]}
 
 
 class Renderer:
@@ -108,12 +152,8 @@ class Renderer:
         self.config = config
         self.schedule = schedule or FoveationSchedule.reference_32_16_8()
         self.camera_params = None
-        self.subframe = 0
         self._key = prng_key(seed)
-        self._pad = film.schedule_padding(self.schedule, config.width,
-                                          config.height)
-        self.canvas = film.new_canvas(config.width, config.height, self._pad,
-                                      self.device)
+        self._new_canvas()
         self.last_frame: Optional[torch.Tensor] = None
         self._stats: dict = {}
 
@@ -127,9 +167,26 @@ class Renderer:
         self.scene = self.scene.with_probe(probe)
         self.subframe = 0
 
-    def render(self, gaze: Optional[Tuple[int, int]] = None) -> np.ndarray:
-        """Render one frame (gaze defaults to the frame center) ->
-        (H, W, 3) uint8."""
+    def set_schedule(self, schedule: FoveationSchedule) -> None:
+        """Swap the foveation schedule: re-pad the canvas, restart
+        accumulation."""
+        self.schedule = schedule
+        self._new_canvas()
+
+    def resize(self, size: Tuple[int, int]) -> None:
+        """Change the frame to ``size`` = (width, height): a new canvas,
+        accumulation restarts."""
+        self.config = dataclasses.replace(self.config, width=size[0],
+                                          height=size[1])
+        self._new_canvas()
+
+    def _new_canvas(self) -> None:
+        w, h = self.config.width, self.config.height
+        self._pad = film.schedule_padding(self.schedule, w, h)
+        self.canvas = film.new_canvas(w, h, self._pad, self.device)
+        self.subframe = 0
+
+    def _frame_args(self, gaze):
         if self.camera_params is None:
             raise RuntimeError("set_camera() first")
         w, h = self.config.width, self.config.height
@@ -137,14 +194,28 @@ class Renderer:
             gaze = (w // 2, h // 2)
         gx = int(np.clip(gaze[0], 0, w - 1))
         gy = int(np.clip(gaze[1], 0, h - 1))
-        frame_key = fold_in(self._key, self.subframe)
+        return (self.scene, self.camera_params, gx, gy, self.subframe,
+                self.canvas, fold_in(self._key, self.subframe), self.config,
+                self.schedule)
+
+    def render(self, gaze: Optional[Tuple[int, int]] = None) -> np.ndarray:
+        """Render one frame (gaze defaults to the frame center) ->
+        (H, W, 3) uint8."""
         self.canvas, frame, self._stats = render_frame(
-            self.scene, self.camera_params, gx, gy, self.subframe,
-            self.canvas, frame_key, self.config, self.schedule,
-        )
+            *self._frame_args(gaze))
         self.subframe += 1
         self.last_frame = frame
         return frame.cpu().numpy()
+
+    def render_aov(self, gaze: Optional[Tuple[int, int]] = None):
+        """One frame through ``render_frame_aov``, with ``render``'s
+        accumulation -> (frame (H, W, 3) uint8, dict of the linear
+        ``accum``/``normal``/``albedo`` (H, W, 3) float32 tensors)."""
+        self.canvas, frame, aovs, self._stats = render_frame_aov(
+            *self._frame_args(gaze))
+        self.subframe += 1
+        self.last_frame = frame
+        return frame.cpu().numpy(), aovs
 
     def download_pixels(self) -> np.ndarray:
         if self.last_frame is None:

@@ -1,11 +1,17 @@
-"""The pure helpers of ``chip_smoke.py`` and the shape builder of
-``tools/kernel_times.py``, on the CPU (no card: the wrappers run the plain
-versions)."""
+"""The pure helpers of ``chip_smoke.py``, the shape builder of
+``tools/kernel_times.py``, and a rehearsal of the smoke's phases a-d at a
+small size, on the CPU (no card: the wrappers run the plain versions)."""
 
+import dataclasses
+
+import pytest
 import torch
 
 import chip_smoke
-from fovpathtracing_optixcodelatest_tpu_torch.config import FoveationSchedule
+from fovpathtracing_optixcodelatest_tpu_torch.config import (
+    FoveationPass,
+    FoveationSchedule,
+)
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 
@@ -105,3 +111,72 @@ def test_bench_rays_and_kernel_calls_on_cpu():
     # the two occlusion kernels answer alike on the same shadow rays
     assert torch.equal(out["k2_shadow"], out["k3_shadow"])
     assert not out["k2_shadow"][~sq].any()
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """The smoke's phases on the CPU: the torch.cuda calls they make become
+    no-ops (the wrappers run the plain versions on CPU tensors)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+
+
+def _small_bench(n=4, w=120, h=68):
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        build_scene,
+    )
+
+    meshes, cam = scenes.box_city(n=n, seed=0)
+    scene = build_scene(meshes, gradient_sky_probe(), device="cpu")
+    return scene, dataclasses.replace(cam, aspect=w / h)
+
+
+def test_rehearse_textured_and_large_probe_phases(no_card, monkeypatch):
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+    from fovpathtracing_optixcodelatest_tpu_torch.models import probe
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+
+    w, h = 120, 68
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    scene, cam = _small_bench(w=w, h=h)
+    tex = chip_smoke.textured_phase(scene, 4, sched, w, h, 1, device="cpu")
+    assert tex["finite"] and tex["sampler_err"] == 0.0
+    assert tex["triangles"] == 4 * 4 * 12 + 12
+    assert tex["textures"] == (8, 256, 256, 3)
+    assert tex["differing_off_geometry"] == 0 < tex["differing_pixels"]
+    assert tex["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
+    assert tex["traces"][0] > 0 and tex["frame"].shape == (h, w, 3)
+
+    # the large-probe path at a small size: rows dropped above 1000 texels
+    monkeypatch.setattr(probe, "SAMPLE_ROWS_MAX_TEXELS", 1000)
+    r = Renderer(scene, RenderConfig(width=w, height=h), sched, device="cpu")
+    r.set_camera(cam)
+    big = chip_smoke.large_probe_phase(r, 64, 32, 1)
+    assert big["finite"] and big["texel_bytes"] == 64 * 32 * 3 * 4
+    assert r.scene.probe.alias_idx is not None
+
+
+def test_rehearse_catcher_and_cli_phases(no_card):
+    sched = FoveationSchedule(passes=(
+        FoveationPass(factor=4, spp=2, r_inner=8.0, r_outer=1e9, redraw=False),
+        FoveationPass(factor=1, spp=4, r_inner=0.0, r_outer=9.0, redraw=True,
+                      launch_w=18, launch_h=18, centered=True,
+                      center_offset=9),
+    ))
+    cat = chip_smoke.catcher_phase(32, 24, sched, device="cpu")
+    assert cat["share"] == 1.0
+    assert set(cat["rel_err"]) == {"accum", "normal", "albedo", "denoised"}
+    assert all(v == 0.0 for v in cat["rel_err"].values())
+    cli = chip_smoke.cli_phase(32, 24, "uniform:1", device="cpu")
+    assert len(cli["render_ms"]) == 2 and all(x > 0 for x in cli["render_ms"])
+    assert set(cli["files"]) == {"frame.png", "aov.npz", "frame_denoised.png",
+                                 "run.tsv"}
+    assert "<tmp>" in cli["argv"] and "--device cpu" in cli["argv"]

@@ -140,26 +140,45 @@ def _box(**kw):
 
 
 @pytest.mark.parametrize("case", [
-    "texture", "catcher", "instanced", "demand", "spectral", "sampler",
-    "oracle",
+    "instanced", "demand", "spectral", "oracle",
 ])
 def test_unsupported_features_raise(case):
     with pytest.raises(NotImplementedError):
-        if case == "texture":
-            build_scene([make_box((0, 0, 0), (1, 1, 1), Material(),
-                                  texture_id=0)], device="cpu")
-        elif case == "catcher":
-            build_scene([_box(flags=1)], device="cpu")
-        elif case in ("instanced", "demand"):
+        if case in ("instanced", "demand"):
             arrays = scene_arrays([_box()])
             arrays[case] = True
             scene_from_arrays(arrays, device="cpu")
         elif case == "spectral":
             RenderConfig(spectral=True).check_supported()
-        elif case == "sampler":
-            RenderConfig(sampler="stratified").check_supported()
         else:
             RenderConfig(traversal="oracle").check_supported()
+
+
+@pytest.mark.parametrize("case", ["texture", "catcher", "sampler"])
+def test_formerly_refused_features_build(case):
+    # textures, catchers and the stratified/blue-noise samplers are ported
+    if case == "texture":
+        scene = build_scene([make_box((0, 0, 0), (1, 1, 1), Material(),
+                                      texture_id=0)],
+                            texture_images=[np.ones((4, 4, 3), np.float32)],
+                            device="cpu")
+        assert scene.has_textures and not scene.has_catcher
+        assert scene.textures.data.shape == (1, 4, 4, 3)
+        # a texture id with no image is refused
+        with pytest.raises(ValueError):
+            build_scene([make_box((0, 0, 0), (1, 1, 1), Material(),
+                                  texture_id=1)],
+                        texture_images=[np.ones((4, 4, 3), np.float32)],
+                        device="cpu")
+    elif case == "catcher":
+        scene = build_scene([_box(flags=1)], device="cpu")
+        assert scene.has_catcher and not scene.has_textures
+        assert not build_scene([_box()], device="cpu").has_catcher
+    else:
+        for sampler in ("stratified", "blue_noise"):
+            RenderConfig(sampler=sampler).check_supported()
+        with pytest.raises(ValueError):
+            RenderConfig(sampler="sobol").check_supported()
 
 
 def test_entry_points_default_to_cuda():
@@ -181,6 +200,9 @@ def test_port_imports_nothing_of_jax():
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    # the CLI and the host utilities are covered too
+    for sub in ("apps", "utils"):
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         with open(path) as f:
             src = f.read()
