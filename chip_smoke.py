@@ -40,7 +40,19 @@ c. the textured cornell box with a shadow catcher (``catcher_cornell``), 2
    pixels within 1 LSB, each AOV and the denoised image within
    ``AOV_RTOL`` of the CPU's relative to its largest value;
 d. the CLI (``apps/main.py``) in this process at 960x540 with every output
-   (PNG, AOV NPZ, denoised PNG, TSV); prints the TSV's render times.
+   (PNG, AOV NPZ, denoised PNG, TSV); prints the TSV's render times;
+e. render-time instancing: the 1,000-instance sphere field
+   (``instance_field``: one 320-triangle icosphere, 320,000 world
+   triangles) on its two-level table, timed like the main path at 960x540
+   ``reference_32_16_8``; the instanced K1 and K2 against their plain
+   versions on that frame's primary and bounce-0 shadow lanes (hit, tri_id,
+   inst, occlusion equal, t/u/v 0 ulp); the same subframe from the
+   flattened single-level scene within the JAX package's instancing gate
+   (mean radiance within rtol 0.05, 90% of pixels within 1e-3);
+f. spectral: the untextured bench frame with ``spectral=True``, timed like
+   the main path; the dispersive glass sphere (``glass_sphere``,
+   ``dispersion`` 25000) on the card against the CPU at a small size (99%
+   of the pixels within 1 LSB); the CLI with ``--spectral`` at 960x540.
 
 Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
@@ -51,7 +63,7 @@ resident blocks per SM), and as its last line ``{"ok": true, "device":
 fallback.
 
 ``--profile`` adds ``FRAMES`` frames of the main path, and as many of the
-textured frame, under ``torch.profiler``.
+textured and of the spectral frame, under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -75,6 +87,10 @@ RAY_BYTES = 3 * 4 + 3 * 4  # origin and direction, read for active lanes only
 MASK_BYTES = 1  # the active mask, read for every lane
 SLAB_OPS = 21  # per child box: 6 subtracts, 6 multiplies, 6 min/max, 3 tests
 MT_OPS = 40  # per triangle: the Möller-Trumbore arithmetic and range tests
+# per instance row entered: the object-space origin (9 multiplies, 9 adds)
+# and direction (9 multiplies, 6 adds), and the direction's safe inverse
+# (a compare, two selects and a divide per axis)
+INST_OPS = 45
 RAY_SHAPE = "960x540 reference_32_16_8, box_city n=24 seed 0"
 # the kernels the main path launches: closest hit (K1) and occlusion (K2),
 # both on the packed table
@@ -115,6 +131,60 @@ def catcher_cornell():
     return meshes, cam, images
 
 
+def _translate(x, y, z):
+    import numpy as np
+
+    m = np.eye(4)
+    m[:3, 3] = (x, y, z)
+    return m
+
+
+def instance_field(count: int = 1000):
+    """The JAX package's 1,000-instance field (its instancing test's memory
+    case): one icosphere (radius 0.45, subdivision 2: 320 triangles) placed
+    ``count`` times on a 32 x 8 x 4 lattice, and a camera that frames the
+    whole lattice -> (InstancedScene, camera). Phase (e)'s scene."""
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+    from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
+        instanced,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
+        Material,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        make_icosphere,
+    )
+
+    ball = make_icosphere((0.0, 0.0, 0.0), 0.45, 2,
+                          Material(color=(0.7, 0.7, 0.7), roughness=0.9))
+    placements = [(0, _translate((i % 32) * 1.2, ((i // 32) % 8) * 1.3,
+                                 (i // 256) * 1.4)) for i in range(count)]
+    cam = Camera(eye=(18.6, 16.0, 30.0), lookat=(18.6, 4.5, 2.0), fov_y=45.0)
+    return instanced([ball], placements), cam
+
+
+def glass_sphere():
+    """The JAX package's dispersive glass example (a glass icosphere,
+    subdivision 3, under a sky with a soft sun) -> (meshes, probe,
+    camera). Phase (f)'s dispersive scene."""
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+    from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
+        Material,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        make_icosphere,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+
+    glass = Material(color=(1, 1, 1), emission=(0, 0, 0), metallic=0.0,
+                     roughness=0.05, transmission=1.0, eta=1.5)
+    return ([make_icosphere((0, 0, 0), 1.0, 3, glass)],
+            gradient_sky_probe(sun_power=30.0, sun_sharpness=40.0),
+            Camera(eye=(0, 0.4, 3.4), lookat=(0, 0, 0), fov_y=42.0))
+
+
 def _plain_ms(fn):
     import torch
 
@@ -128,8 +198,10 @@ def _plain_ms(fn):
 def _kernel_of(name: str):
     """Which of the port's kernels a device function belongs to, from its
     name as the profiler or ptxas gives it (plain, templated, namespaced or
-    mangled): "closest_hit", "occluded", "occluded_packets" or None."""
-    for kernel in ("occluded_packets", "closest_hit", "occluded"):
+    mangled): "closest_hit", "occluded", "occluded_packets",
+    "closest_hit_instanced", "occluded_instanced" or None."""
+    for kernel in ("occluded_packets", "closest_hit_instanced",
+                   "occluded_instanced", "closest_hit", "occluded"):
         if f"{kernel}_kernel" in name:
             return kernel
     return None
@@ -170,13 +242,18 @@ def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int):
     lane's result written once) at the HBM rate vs the float32 operations
     this run's rays need (a slab test of each non-empty child of every
     fetched node row, a triangle test of each real triangle of every fetched
-    leaf row, as the plain version counted them in ``stats``) at the float32
-    peak. Returns (ms, "bytes"|"operations", row-fetch bytes)."""
+    leaf row and, on a two-level table, the object-space ray of each
+    instance row entered, as the plain version counted them in ``stats``)
+    at the float32 peak. Returns (ms, "bytes"|"operations", row-fetch
+    bytes; an instance row's 13 words are four 16-byte loads)."""
     byte_ms = (table.numel() * 4 + n_active * RAY_BYTES
                + n_rays * (MASK_BYTES + out_bytes)) / HBM_BYTES_PER_S * 1e3
-    ops = stats["child_tests"] * SLAB_OPS + stats["tri_tests"] * MT_OPS
+    inst = stats.get("inst_rows", 0)
+    ops = (stats["child_tests"] * SLAB_OPS + stats["tri_tests"] * MT_OPS
+           + inst * INST_OPS)
     op_ms = ops / F32_OPS_PER_S * 1e3
-    fetch = (stats["node_rows"] + stats["leaf_rows"]) * table.shape[1] * 4
+    fetch = ((stats["node_rows"] + stats["leaf_rows"]) * table.shape[1] * 4
+             + inst * 64)
     if byte_ms >= op_ms:
         return byte_ms, "bytes", fetch
     return op_ms, "operations", fetch
@@ -448,35 +525,208 @@ def catcher_phase(width: int, height: int, schedule, device="cuda") -> dict:
     return {"share": share, "rel_err": err, "traces": (td, tc)}
 
 
-def cli_phase(width: int, height: int, schedule: str, device="cuda") -> dict:
+def cli_phase(width: int, height: int, schedule: str, device="cuda",
+              spectral: bool = False) -> dict:
     """(d) The command-line entry point in this process, with every output
     it has: PNG, AOV NPZ, the denoised PNG and the TSV, in a temporary
-    directory. Returns the TSV's per-frame render times."""
+    directory; (f) with ``--spectral``, the PNG and the TSV. Returns the
+    TSV's per-frame render times."""
     import tempfile
 
     from fovpathtracing_optixcodelatest_tpu_torch.apps import main as cli
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "frame.png")
-        files = [out, os.path.join(tmp, "aov.npz"),
-                 os.path.join(tmp, "frame_denoised.png"),
-                 os.path.join(tmp, "run.tsv")]
+        tsv = os.path.join(tmp, "run.tsv")
         argv = ["--device", device, "--scene", "box_city", "--width",
                 str(width), "--height", str(height), "--frames", "2",
-                "--schedule", schedule, "--sampler", "blue_noise", "--out",
-                out, "--aov-out", files[1], "--denoise", "--tsv", files[3]]
+                "--schedule", schedule, "--out", out, "--tsv", tsv]
+        files = [out, tsv]
+        if spectral:
+            argv += ["--spectral"]
+        else:
+            files += [os.path.join(tmp, "aov.npz"),
+                      os.path.join(tmp, "frame_denoised.png")]
+            argv += ["--sampler", "blue_noise", "--aov-out", files[2],
+                     "--denoise"]
         t0 = time.perf_counter()
         rc = cli.main(argv)
         wall_s = time.perf_counter() - t0
         assert rc == 0, f"the CLI returned {rc}"
         sizes = {os.path.basename(f): os.path.getsize(f) for f in files}
         assert all(v > 0 for v in sizes.values()), sizes
-        with open(files[3]) as fh:
+        with open(tsv) as fh:
             rows = [ln.rstrip("\n").split("\t") for ln in fh]
     render_ms = [float(r[rows[0].index("render_ms")]) for r in rows[1:]]
     assert len(render_ms) == 2
     return {"argv": " ".join(argv).replace(tmp, "<tmp>"),
             "render_ms": render_ms, "files": sizes, "wall_s": wall_s}
+
+
+# the instanced frame against the flattened one (the JAX package's
+# instancing gate): mean radiance per channel within rtol 0.05 / atol 0.01,
+# and this share of pixels within rtol / atol 1e-3 in every channel
+FLAT_MEAN_RTOL, FLAT_PIXEL_TOL, FLAT_SHARE = 0.05, 1e-3, 0.90
+
+
+def instanced_phase(schedule, width: int, height: int, frames: int,
+                    device="cuda", count: int = 1000) -> dict:
+    """(e) The instance field (``instance_field``) on its two-level table:
+    ``frames`` timed frames through ``Renderer.render``; the instanced K1
+    and K2 against their plain versions on the frame's primary lanes and
+    bounce-0 shadow lanes (exact), timed with CUDA events on ``device``;
+    subframe 0 against the same subframe of the flattened single-level
+    scene (the gate above); the flattened scene's frames timed the same
+    way."""
+    import numpy as np
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        scene_arrays,
+        scene_arrays_instanced,
+        scene_from_arrays,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    sc, cam = instance_field(count)
+    probe = gradient_sky_probe()
+    t0 = time.perf_counter()
+    scene = scene_from_arrays(scene_arrays_instanced(sc, probe), device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = scene_from_arrays(scene_arrays(sc.flatten(), probe), device)
+    flat_build_s = time.perf_counter() - t0
+    b = scene.bvh
+    assert b.num_instances == count and scene.num_triangles == 320
+    assert flat.num_triangles == 320 * count and not flat.bvh.instanced
+    config = RenderConfig(width=width, height=height)
+    camera = dataclasses.replace(cam, aspect=width / height)
+    renderer = Renderer(scene, config, schedule, device=device)
+    renderer.set_camera(camera)
+    out = timed_frames(renderer, frames)
+    assert out["frame"].shape == (height, width, 3) and out["finite"]
+    nbytes = lambda sc_: sc_.bvh.table.numel() * 4  # noqa: E731
+    out.update(instances=count, world_triangles=sc.num_world_triangles,
+               host_build_s=build_s, flat_host_build_s=flat_build_s,
+               table_bytes=nbytes(scene), flat_table_bytes=nbytes(flat),
+               tri_pack_bytes=scene.tri_pack.numel() * 4,
+               flat_tri_pack_bytes=flat.tri_pack.numel() * 4,
+               stack_depth=b.stack_depth, rows=b.num_rows,
+               inst_base=b.inst_base, blas_base=b.blas_base)
+
+    # the instanced kernels against their plain versions on the frame's rays
+    rays = kernel_times.frame_rays(scene, camera, config, schedule, device)
+    o, d, act, _ = rays["primary"]
+    so, sd, sq = rays["shadow"]
+    kargs = (config.tmin, config.tmax, *b.walk_args)
+    kw = b.instance_kwargs
+    k1 = lambda: traverse.closest_hit(b.table, o, d, act, *kargs, **kw)  # noqa: E731
+    k2 = lambda: traverse.occluded(b.table, so, sd, sq, *kargs, **kw)  # noqa: E731
+    got1, got2 = k1(), k2()
+    st1, st2 = {}, {}
+    p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
+        b.table, o, d, act, *kargs, stats=st1, **kw))
+    p2, p2_ms = _plain_ms(lambda: traverse.occluded_plain(
+        b.table, so, sd, sq, *kargs, stats=st2, **kw))
+    hit_eq, tri_eq, ulp, err1 = _k1_agreement(got1, p1)
+    inst_eq = bool(torch.equal(got1["inst"], p1["inst"]))
+    mism2 = int((got2 != p2).sum().item())
+    assert hit_eq and tri_eq and inst_eq and ulp == 0, \
+        "instanced K1 disagrees with its plain version"
+    assert mism2 == 0, "instanced K2 disagrees with its plain version"
+    assert int(p1["hit"].sum()) > 0 and int(p2.sum()) > 0
+    n, n_act, ns, nq = o.shape[0], int(act.sum()), so.shape[0], int(sq.sum())
+    if device == "cuda":
+        ms1, ms2 = kernel_times.events_ms(k1), kernel_times.events_ms(k2)
+    else:  # a rehearsal: no device time
+        ms1 = ms2 = None
+    b1, b1_by, f1 = _bound(st1, b.table, n, n_act, 20)
+    b2, b2_by, f2 = _bound(st2, b.table, ns, nq, 1)
+    out["k1"] = {"lanes": n, "active": n_act, "hits": int(p1["hit"].sum()),
+                 "hit_equal": hit_eq, "tri_id_equal": tri_eq,
+                 "inst_equal": inst_eq, "ulp": ulp, "max_abs_err": err1,
+                 "ms": ms1, "plain_ms": p1_ms, "bound_ms": b1,
+                 "bound_by": b1_by, "fetch_bytes": f1, "work": st1}
+    out["k2"] = {"lanes": ns, "queried": nq, "occluded": int(p2.sum()),
+                 "mismatches": mism2, "max_abs_err": float(min(mism2, 1)),
+                 "ms": ms2, "plain_ms": p2_ms, "bound_ms": b2,
+                 "bound_by": b2_by, "fetch_bytes": f2, "work": st2}
+    del got1, got2, p1, p2, rays
+
+    # subframe 0 against the flattened scene's
+    lin = {}
+    for name, sc_ in (("instanced", scene), ("flattened", flat)):
+        r = Renderer(sc_, config, schedule, device=device)
+        r.set_camera(camera)
+        r.render()
+        lin[name] = r.linear_frame().reshape(-1, 3)
+    li, lf = lin["instanced"], lin["flattened"]
+    mean_i, mean_f = li.mean(0), lf.mean(0)
+    close = np.isclose(li, lf, rtol=FLAT_PIXEL_TOL,
+                       atol=FLAT_PIXEL_TOL).all(1).mean()
+    out.update(mean_radiance=mean_i.tolist(),
+               flat_mean_radiance=mean_f.tolist(), close_share=float(close))
+    assert np.allclose(mean_i, mean_f, rtol=FLAT_MEAN_RTOL, atol=0.01), \
+        f"instanced mean {mean_i} vs flattened {mean_f}"
+    assert close >= FLAT_SHARE, f"instanced vs flattened pixels: {close}"
+    flat_renderer = Renderer(flat, config, schedule, device=device)
+    flat_renderer.set_camera(camera)
+    out["flattened"] = {k: v for k, v in timed_frames(
+        flat_renderer, frames).items() if k != "frame"}
+    return out
+
+
+def spectral_phase(scene, config, schedule, camera, frames: int,
+                   small: int, device="cuda") -> dict:
+    """(f) The hero-wavelength path: ``scene``'s frame with
+    ``spectral=True``, timed like the main path; the dispersive glass
+    sphere (``dispersion`` 25000) at ``small`` x ``small``, 2 subframes of
+    ``uniform(4)`` on ``device`` and on the CPU (99% of the pixels within
+    1 LSB)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.config import (
+        FoveationSchedule,
+        RenderConfig,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        scene_arrays,
+        scene_from_arrays,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+
+    renderer = Renderer(scene, dataclasses.replace(config, spectral=True),
+                        schedule, device=device)
+    renderer.set_camera(camera)
+    out = timed_frames(renderer, frames)
+    assert out["frame"].shape == (config.height, config.width, 3)
+    assert out["finite"] and 0 < out["frame"].mean() < 255
+
+    meshes, probe, cam = glass_sphere()
+    arrays = scene_arrays(meshes, probe)
+    glass_cfg = RenderConfig(width=small, height=small, spectral=True,
+                             dispersion=25000.0)
+    frames_of = {}
+    for dev in (device, "cpu"):
+        r = Renderer(scene_from_arrays(arrays, device=dev), glass_cfg,
+                     FoveationSchedule.uniform(4), device=dev)
+        r.set_camera(dataclasses.replace(cam, aspect=1.0))
+        frames_of[dev] = [r.render() for _ in range(2)]
+    share = min(
+        float((abs(a.astype(int) - b.astype(int)).max(-1) <= 1).mean())
+        for a, b in zip(frames_of[device], frames_of["cpu"]))
+    out["glass_share"] = share
+    assert share >= 0.99, f"dispersive glass on {device} vs CPU: {share}"
+    out["renderer"] = renderer
+    return out
 
 
 def main() -> int:
@@ -747,6 +997,66 @@ def main() -> int:
     for k in PATH_KERNELS:
         assert cli_launches[k] > 0, f"the CLI never launched {k}"
 
+    # -- phase e: render-time instancing (two-level table) ------------------
+    inst = instanced_phase(schedule, w, h, FRAMES)
+    inst_launches = inst["launches"]  # of its timed frames only
+    ik1, ik2 = inst["k1"], inst["k2"]
+    _line(f"instanced: {inst['instances']} instances of one 320-tri sphere "
+          f"({inst['world_triangles']} world tris); table {inst['rows']} rows "
+          f"(instances [{inst['inst_base']}, {inst['blas_base']})), "
+          f"stack_depth {inst['stack_depth']}, {inst['table_bytes'] / 1e6:.3f} "
+          f"MB + tri_pack {inst['tri_pack_bytes'] / 1e6:.3f} MB against the "
+          f"flattened {inst['flat_table_bytes'] / 1e6:.1f} MB + "
+          f"{inst['flat_tri_pack_bytes'] / 1e6:.1f} MB; host build "
+          f"{inst['host_build_s']:.2f} s (flattened "
+          f"{inst['flat_host_build_s']:.2f} s)")
+    _line(f"instanced K1 on {ik1['lanes']} primary lanes ({ik1['hits']} hits):"
+          f" hit/tri_id/inst equal {ik1['hit_equal']}/{ik1['tri_id_equal']}/"
+          f"{ik1['inst_equal']}, t/u/v max {ik1['ulp']} ulp; {ik1['ms']:.4f} "
+          f"ms (plain {ik1['plain_ms']:.1f}); work {ik1['work']}")
+    _line(f"instanced K2 on {ik2['lanes']} shadow lanes ({ik2['queried']} "
+          f"queried, {ik2['occluded']} occluded): {ik2['mismatches']} "
+          f"mismatches; {ik2['ms']:.4f} ms (plain {ik2['plain_ms']:.1f}); "
+          f"work {ik2['work']}")
+    _line(f"instanced vs flattened subframe 0: mean radiance "
+          f"{[round(x, 5) for x in inst['mean_radiance']]} vs "
+          f"{[round(x, 5) for x in inst['flat_mean_radiance']]}, pixels within "
+          f"{FLAT_PIXEL_TOL:g} {inst['close_share']:.4f}")
+    _line(_frames_line(f"instanced: {FRAMES} frames {w}x{h} after 1 warm-up",
+                       inst))
+    flat_t = inst["flattened"]
+    _line(f"flattened (320,000 tris, single level): ms/frame "
+          + ", ".join(f"{x:.1f}" for x in flat_t["frame_ms"])
+          + f" (mean {flat_t['mean_ms']:.1f}); {flat_t['mrays']:.2f} Mrays/s;"
+          f" peak {flat_t['peak'] / 2**30:.2f} GiB; launches "
+          f"{flat_t['launches']}")
+    for k in ("closest_hit_instanced", "occluded_instanced"):
+        assert inst["launches"][k] > 0, f"the instanced frame never launched {k}"
+
+    # -- phase f: spectral (hero wavelengths) --------------------------------
+    spec = spectral_phase(scene, config, schedule, camera, FRAMES, sw)
+    _line(_frames_line(f"spectral: {FRAMES} frames {w}x{h} after 1 warm-up",
+                       spec))
+    _line(f"dispersive glass {sw}x{sw} (dispersion 25000), 2 subframes: GPU "
+          f"vs CPU pixels within 1 LSB {spec['glass_share']:.4f}")
+    for k in PATH_KERNELS:
+        assert spec["launches"][k] > 0, f"the spectral frame never launched {k}"
+    spec_renderer = spec.pop("renderer")
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        _profile_frames(spec_renderer, f"{root}_spectral{ext}", results,
+                        name="profile_spectral")
+    del spec_renderer
+    kernel_build.reset_launches()
+    spec_cli = cli_phase(w, h, "32_16_8", spectral=True)
+    spec_cli_launches = dict(kernel_build.LAUNCHES)
+    _line(f"CLI: {spec_cli['argv']} -> 0 in {spec_cli['wall_s']:.1f} s; TSV "
+          "render ms/frame " + ", ".join(f"{x:.1f}"
+                                         for x in spec_cli["render_ms"])
+          + f"; files {spec_cli['files']}; launches {spec_cli_launches}")
+    for k in PATH_KERNELS:
+        assert spec_cli_launches[k] > 0, f"the spectral CLI never launched {k}"
+
     # -- phase 8: the kernels line ---------------------------------------------
     per_frame = lambda k: launches[k] / FRAMES  # noqa: E731
     # a kernel of the main path reports its launches there, one off it the
@@ -786,13 +1096,27 @@ def main() -> int:
          "library_ms": None, **res["closest_hit"],
          "continuation": {"lanes": nb, "ms": times["k1_continuation"],
                           "plain_ms": p1b_ms,
-                          "bound_ms": b1b, "bound_by": b1b_by}},
+                          "bound_ms": b1b, "bound_by": b1b_by},
+         "instanced": {"lanes": ik1["lanes"], "ms": ik1["ms"],
+                       "plain_ms": ik1["plain_ms"],
+                       "bound_ms": ik1["bound_ms"],
+                       "bound_by": ik1["bound_by"],
+                       "launches": inst_launches["closest_hit_instanced"],
+                       "max_abs_err": ik1["max_abs_err"],
+                       **res["closest_hit_instanced"]}},
         {"name": "occluded", "route": "cuda", "source": src + "traverse.cu",
          "replaces": jax_ops + "traverse8.py:1367", "launches":
          path_launches["occluded"], "max_abs_err": err2,
          "ms": times["k2_shadow"],
          "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
-         "library_ms": None, **res["occluded"]},
+         "library_ms": None, **res["occluded"],
+         "instanced": {"lanes": ik2["lanes"], "ms": ik2["ms"],
+                       "plain_ms": ik2["plain_ms"],
+                       "bound_ms": ik2["bound_ms"],
+                       "bound_by": ik2["bound_by"],
+                       "launches": inst_launches["occluded_instanced"],
+                       "max_abs_err": ik2["max_abs_err"],
+                       **res["occluded_instanced"]}},
         {"name": "occluded_packets", "route": "cuda",
          "source": src + "packet_traverse.cu",
          "replaces": jax_ops + "pallas_traverse.py:53", "launches":
@@ -817,6 +1141,9 @@ def main() -> int:
         large_probe={k: v for k, v in big.items() if k != "frame"},
         catcher=dict(cat, launches=cat_launches),
         cli=dict(cli, launches=cli_launches),
+        instanced={k: v for k, v in inst.items() if k != "frame"},
+        spectral={k: v for k, v in spec.items() if k != "frame"},
+        spectral_cli=dict(spec_cli, launches=spec_cli_launches),
     )
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -7,8 +7,9 @@ telemetry and checkpoints.
     python -m fovpathtracing_optixcodelatest_tpu_torch.apps.main \\
         --scene box_city --width 960 --height 540 --frames 8 --out frame.png
 
-It renders on ``cuda`` unless ``--device cpu`` is given. ``--viewer``,
-``--multichip``, ``--demand-textures`` and ``--spectral`` are not ported:
+It renders on ``cuda`` unless ``--device cpu`` is given; ``--spectral``
+(with ``--dispersion``) renders the hero-wavelength spectral path.
+``--viewer``, ``--multichip`` and ``--demand-textures`` are not ported:
 they exit with status 2 and name the ROADMAP item that will port them.
 """
 
@@ -29,8 +30,6 @@ NOT_PORTED = {
                  "ROADMAP item 19",
     "demand_textures": "demand-loaded textures (--demand-textures) are not "
                        "ported: ROADMAP item 17",
-    "spectral": "spectral rendering (--spectral) is not ported: ROADMAP "
-                "item 13",
 }
 
 
@@ -72,7 +71,8 @@ def parse_args(argv=None):
                    choices=["random", "stratified", "blue_noise"],
                    help="AA sample generator")
     p.add_argument("--spectral", action="store_true",
-                   help="hero-wavelength spectral path tracing (not ported)")
+                   help="hero-wavelength spectral path tracing (dispersive "
+                   "refraction, CIE-integrated to sRGB)")
     p.add_argument("--dispersion", type=float, default=4200.0,
                    help="Cauchy B coefficient (nm^2) for --spectral")
     p.add_argument("--viewer", action="store_true",
@@ -172,6 +172,7 @@ def main(argv=None) -> int:
     config = RenderConfig(**{
         "width": args.width, "height": args.height,
         "accumulate": not args.no_accumulate, "sampler": args.sampler,
+        "spectral": args.spectral, "dispersion": args.dispersion,
         **overrides,
     })
     schedule = build_schedule(args.schedule)

@@ -5,9 +5,8 @@ The TPU traversal-mechanism knobs of the JAX ``RenderConfig``
 (``compact_bounces``, ``frame_compaction``, ``traversal_phase1_cap*``) have no
 counterpart here: they change how the TPU schedules work, never the result.
 ``need_aov`` (which AOVs ride the TPU's compaction sort) has no counterpart
-either: the port's integrator always returns the AOVs. ``dispersion`` comes
-with the spectral path, which is not ported. Features this port does not
-implement yet raise ``NotImplementedError`` from
+either: the port's integrator always returns the AOVs. Features this port
+does not implement yet raise ``NotImplementedError`` from
 ``RenderConfig.check_supported``.
 """
 
@@ -145,13 +144,16 @@ class RenderConfig:
     catcher_passthrough: int = 2
     # intersection backend; only the BVH traversal is ported
     traversal: str = "bvh"
+    # hero-wavelength spectral path tracing: a NUM_HERO-wavelength
+    # throughput, CIE-integrated each bounce (render/integrator.py)
     spectral: bool = False
+    # Cauchy B coefficient (nm^2) of dispersive transmission in spectral
+    # mode; 0 = achromatic refraction (render/spectral.py cauchy_eta)
+    dispersion: float = 4200.0
 
     def check_supported(self) -> None:
         if self.sampler not in ("random", "stratified", "blue_noise"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
-        if self.spectral:
-            raise NotImplementedError("spectral rendering is not ported")
         if self.traversal != "bvh":
             raise NotImplementedError(
                 f"traversal {self.traversal!r}: only 'bvh' is ported"

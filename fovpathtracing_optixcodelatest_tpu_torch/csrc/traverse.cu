@@ -68,6 +68,25 @@
 // The constants below were chosen by timing each alternative build on every
 // main-path shape against the kept one (PERF.md has the numbers).
 //
+// Two-level tables (ops/tlas.py; the instance steps of traverse8.py
+// _ch_step :524-632 and of the occlusion loop :1487-1580):
+// closest_hit_instanced_kernel and occluded_instanced_kernel are the same
+// walks with INSTANCED set, compiled for (16, 6) only (the single-level
+// kernels compile as without the flag).
+// Rows [inst_base, blas_base) are instance rows [root code, A (3x3
+// row-major), b (3)]; popping an instance code (kind 2, the instance id in
+// the row bits) reads its 13 words as four 16-byte loads, sets the lane's
+// object-space ray x_obj = A x + b (direction A d left unnormalised, so t
+// stays in world units; its safe inverse) and its current instance, and
+// pushes the BLAS root with the instance entry's key bits. A node row below
+// blas_base is a TLAS row, tested in world space (and the lane leaves its
+// instance); BLAS nodes and leaves are tested in object space. Each sum is
+// evaluated left to right as ops/traverse.py inv_transform writes it, so
+// the object rays, and with them t/u/v, match the plain versions bit for
+// bit. K1 also writes the hit's instance (-1 on a miss). A simple walk: a
+// lane carries the object ray, cur and the best hit's instance in
+// registers and resets them when it takes a new ray.
+//
 // Built with --fmad=false: with no FMA contraction the slab tests and the
 // Möller-Trumbore arithmetic round exactly as the plain PyTorch versions
 // do, so hit/tri_id and t/u/v match them bit for bit.
@@ -80,6 +99,7 @@
 namespace {
 
 constexpr int kArity = 16, kLeaf = 6;  // ops/bvh8.py ARITY, LEAF_SIZE
+constexpr uint32_t kKindInst = 2u;     // ops/bvh8.py KIND_INST
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 // lanes of a warp that must be idle before they take new rays
@@ -260,7 +280,97 @@ struct Ray {
   }
 };
 
-template <int ARITY, int LEAF>
+// The two-level walk's per-lane state: nothing on a single-level walk.
+template <bool INSTANCED>
+struct Instancing {};
+
+template <>
+struct Instancing<true> {
+  int inst_base, blas_base;
+  float o[3], d[3], inv[3];  // the object-space ray of instance cur
+  int cur;                   // the lane's instance, -1 in world space
+
+  __device__ __forceinline__ void reset(const Ray& ray) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      o[a] = ray.o[a];
+      d[a] = ray.d[a];
+      inv[a] = ray.inv[a];
+    }
+    cur = -1;
+  }
+
+  // Enter the instance of code (kind 2): its row's root code, and the
+  // object-space ray from the row's A and b.
+  template <int VECS>
+  __device__ __forceinline__ uint32_t enter(const uint4* __restrict__ table,
+                                            uint32_t code, const Ray& ray) {
+    const uint4* r = table + (size_t)(inst_base + (int)(code >> 2)) * VECS;
+    uint4 q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q[j] = __ldg(r + j);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float r0 = __uint_as_float(word(q, 1 + 3 * a));
+      const float r1 = __uint_as_float(word(q, 2 + 3 * a));
+      const float r2 = __uint_as_float(word(q, 3 + 3 * a));
+      o[a] = r0 * ray.o[0] + r1 * ray.o[1] + r2 * ray.o[2] +
+             __uint_as_float(word(q, 10 + a));
+      d[a] = r0 * ray.d[0] + r1 * ray.d[1] + r2 * ray.d[2];
+      inv[a] = safe_inv(d[a]);
+    }
+    cur = (int)(code >> 2);
+    return q[0].x;
+  }
+
+  // The ray a node row's children are tested with: world space on a TLAS
+  // row (the lane leaves its instance), object space on a BLAS row.
+  __device__ __forceinline__ void node_ray(uint32_t code, const Ray& ray,
+                                           float no[3], float ninv[3]) {
+    const bool world = (int)(code >> 2) < blas_base;
+    if (world) cur = -1;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      no[a] = world ? ray.o[a] : o[a];
+      ninv[a] = world ? ray.inv[a] : inv[a];
+    }
+  }
+};
+
+// The ray of a node row's slab tests (no) and of a leaf row's triangle
+// tests (lo, ld): the world ray, or on a two-level walk the space's.
+template <bool INSTANCED>
+__device__ __forceinline__ void node_ray(Instancing<INSTANCED>& in,
+                                         uint32_t code, const Ray& ray,
+                                         float no[3], float ninv[3]) {
+  if constexpr (INSTANCED) {
+    in.node_ray(code, ray, no, ninv);
+  } else {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      no[a] = ray.o[a];
+      ninv[a] = ray.inv[a];
+    }
+  }
+}
+
+template <bool INSTANCED>
+__device__ __forceinline__ void leaf_ray(const Instancing<INSTANCED>& in,
+                                         const Ray& ray, float lo[3],
+                                         float ld[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if constexpr (INSTANCED) {
+      lo[a] = in.o[a];
+      ld[a] = in.d[a];
+    } else {
+      lo[a] = ray.o[a];
+      ld[a] = ray.d[a];
+    }
+  }
+}
+
+template <int ARITY, int LEAF, bool INSTANCED = false>
 struct OccludedWalk {
   using L = Layout<ARITY, LEAF>;
   const uint4* __restrict__ table;
@@ -273,6 +383,7 @@ struct OccludedWalk {
   Ray ray;
   int sp;
   bool occ;
+  Instancing<INSTANCED> in;
 
   __device__ __forceinline__ void miss(int i) const { out[i] = false; }
 
@@ -281,15 +392,25 @@ struct OccludedWalk {
     stk[0] = 0u;  // the root: code 0 = internal row 0
     sp = 1;
     occ = false;
+    if constexpr (INSTANCED) in.reset(ray);
   }
 
   // One pop; true when the ray is done.
   __device__ __forceinline__ bool step() {
     const uint32_t code = stk[--sp];
+    if constexpr (INSTANCED) {
+      if ((code & 3u) == kKindInst) {
+        const uint32_t root = in.template enter<L::kVecs>(table, code, ray);
+        if (sp < depth) stk[sp++] = root;
+        return sp == 0;
+      }
+    }
     uint4 q[L::kVecs];
     const uint4* r =
         begin_row<ARITY, LEAF, kK2StagedRow>(table, code, q);
     if ((code & 3u) == 0u) {
+      float o[3], inv[3];
+      node_ray<INSTANCED>(in, code, ray, o, inv);
       // children in groups of four; a group with no child is skipped
 #pragma unroll
       for (int g = 0; g < ARITY / 4; ++g) {
@@ -300,18 +421,20 @@ struct OccludedWalk {
           const uint32_t cc = word(q, 3 * ARITY + c);
           float lo[3], hi[3], tn;
           child_box<ARITY>(q, c, lo, hi);
-          const bool hit = slab(lo, hi, ray.o, ray.inv, tmin, tmax, &tn);
+          const bool hit = slab(lo, hi, o, inv, tmin, tmax, &tn);
           if (cc != 0u && hit && sp < depth) stk[sp++] = cc;
         }
       }
     } else {
+      float lo[3], ld[3];
+      leaf_ray<INSTANCED>(in, ray, lo, ld);
 #pragma unroll
       for (int k = 0; k < LEAF; ++k) {
         if (k % 3 == 0) leaf_half<kK2StagedRow>(r, q, k / 3);
         float tri[9];
         triangle(q, k, tri);
-        occ |= tri_test(tri, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
-                        ray.d[1], ray.d[2], tmin, tmax, true)
+        occ |= tri_test(tri, lo[0], lo[1], lo[2], ld[0], ld[1], ld[2], tmin,
+                        tmax, true)
                    .hit;
       }
     }
@@ -321,7 +444,7 @@ struct OccludedWalk {
   __device__ __forceinline__ void end(int i) const { out[i] = occ; }
 };
 
-template <int ARITY, int LEAF>
+template <int ARITY, int LEAF, bool INSTANCED = false>
 struct ClosestWalk {
   using L = Layout<ARITY, LEAF>;
   const uint4* __restrict__ table;
@@ -338,12 +461,16 @@ struct ClosestWalk {
   Ray ray;
   int sp, best;
   float t, u, v;
+  Instancing<INSTANCED> in;
+  int* __restrict__ inst_out;  // (instanced) the hit's instance
+  int best_inst;
 
   __device__ __forceinline__ void miss(int i) const {
     t_out[i] = FOV_INF;
     tri_out[i] = -1;
     u_out[i] = 0.0f;
     v_out[i] = 0.0f;
+    if constexpr (INSTANCED) inst_out[i] = -1;
   }
 
   __device__ __forceinline__ void begin(int i) {
@@ -353,6 +480,10 @@ struct ClosestWalk {
     best = -1;
     t = FOV_INF;
     u = v = 0.0f;
+    if constexpr (INSTANCED) {
+      in.reset(ray);
+      best_inst = -1;
+    }
   }
 
   __device__ __forceinline__ bool step() {
@@ -364,10 +495,20 @@ struct ClosestWalk {
       e = stk[--sp];
     }
     const uint32_t code = e & lowmask;
+    if constexpr (INSTANCED) {
+      if ((code & 3u) == kKindInst) {
+        // the BLAS root, keyed by the instance's entry
+        const uint32_t root = in.template enter<L::kVecs>(table, code, ray);
+        if (sp < depth) stk[sp++] = (e & ~lowmask) | root;
+        return sp == 0;
+      }
+    }
     uint4 q[L::kVecs];
     const uint4* r =
         begin_row<ARITY, LEAF, kK1StagedRow>(table, code, q);
     if ((code & 3u) == 0u) {
+      float o[3], inv[3];
+      node_ray<INSTANCED>(in, code, ray, o, inv);
       const uint32_t himask = ~lowmask;
       uint32_t key[ARITY];  // a hit child's key, 0 for a miss or empty slot
       int cnt = 0;
@@ -387,7 +528,7 @@ struct ClosestWalk {
           float lo[3], hi[3], tn;
           child_box<ARITY>(q, c, lo, hi);
           const bool hit =
-              slab(lo, hi, ray.o, ray.inv, tmin, tlimit, &tn) && cc != 0u;
+              slab(lo, hi, o, inv, tmin, tlimit, &tn) && cc != 0u;
           key[c] = hit ? (mono_u32(tn) & himask) | cc : 0u;
           cnt += hit;
         }
@@ -400,18 +541,21 @@ struct ClosestWalk {
         push_sorted<4>(key, cnt, depth, stk, sp);
     } else {
       const int* ids = reinterpret_cast<const int*>(r) + 9 * LEAF;
+      float lo[3], ld[3];
+      leaf_ray<INSTANCED>(in, ray, lo, ld);
 #pragma unroll
       for (int k = 0; k < LEAF; ++k) {
         if (k % 3 == 0) leaf_half<kK1StagedRow>(r, q, k / 3);
         float tri[9];
         triangle(q, k, tri);
-        const TriHit h = tri_test(tri, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
-                                  ray.d[1], ray.d[2], tmin, tmax, false);
+        const TriHit h = tri_test(tri, lo[0], lo[1], lo[2], ld[0], ld[1],
+                                  ld[2], tmin, tmax, false);
         if (h.hit && h.t < t) {
           t = h.t;
           u = h.u;
           v = h.v;
           best = __ldg(ids + k);
+          if constexpr (INSTANCED) best_inst = in.cur;
         }
       }
     }
@@ -423,6 +567,7 @@ struct ClosestWalk {
     tri_out[i] = best;
     u_out[i] = u;
     v_out[i] = v;
+    if constexpr (INSTANCED) inst_out[i] = best_inst;
   }
 };
 
@@ -530,15 +675,84 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_kernel(
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
 
-const void* kernel_of(int which) {
-  return which == 0 ? (const void*)closest_hit_kernel<kArity, kLeaf>
-                    : (const void*)occluded_kernel<kArity, kLeaf>;
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    closest_hit_instanced_kernel(
+        const uint4* __restrict__ table, const float* __restrict__ orig,
+        const float* __restrict__ dir,
+        const unsigned char* __restrict__ active, int n, float tmin,
+        float tmax, int depth, unsigned int lowmask,
+        float* __restrict__ t_out, int* __restrict__ tri_out,
+        float* __restrict__ u_out, float* __restrict__ v_out,
+        int* __restrict__ counter, int inst_base, int blas_base,
+        int* __restrict__ inst_out) {
+  extern __shared__ uint32_t smem[];
+  ClosestWalk<ARITY, LEAF, true> w;
+  w.table = table;
+  w.orig = orig;
+  w.dir = dir;
+  w.t_out = t_out;
+  w.tri_out = tri_out;
+  w.u_out = u_out;
+  w.v_out = v_out;
+  w.tmin = tmin;
+  w.tmax = tmax;
+  w.depth = depth;
+  w.lowmask = lowmask;
+  w.stk = thread_stack(smem, depth);
+  w.in.inst_base = inst_base;
+  w.in.blas_base = blas_base;
+  w.inst_out = inst_out;
+  walk_rays<kK1RefillIdle>(
+      w, active, n, counter,
+      reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
 
-// Resident blocks per SM of K1 (which = 0) or K2 (which = 1) at a
-// shared-memory size on the current device, and the grid that fills it.
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    occluded_instanced_kernel(
+        const uint4* __restrict__ table, const float* __restrict__ orig,
+        const float* __restrict__ dir,
+        const unsigned char* __restrict__ active, int n, float tmin,
+        float tmax, int depth, bool* __restrict__ occ_out,
+        int* __restrict__ counter, int inst_base, int blas_base) {
+  extern __shared__ uint32_t smem[];
+  OccludedWalk<ARITY, LEAF, true> w;
+  w.table = table;
+  w.orig = orig;
+  w.dir = dir;
+  w.out = occ_out;
+  w.tmin = tmin;
+  w.tmax = tmax;
+  w.depth = depth;
+  w.stk = thread_stack(smem, depth);
+  w.in.inst_base = inst_base;
+  w.in.blas_base = blas_base;
+  walk_rays<kK2RefillIdle>(
+      w, active, n, counter,
+      reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
+}
+
+// K1 (which = 0), K2 (1) and their instanced variants (2, 3)
+constexpr int kKernels = 4;
+
+const void* kernel_of(int which) {
+  switch (which) {
+    case 0:
+      return (const void*)closest_hit_kernel<kArity, kLeaf>;
+    case 1:
+      return (const void*)occluded_kernel<kArity, kLeaf>;
+    case 2:
+      return (const void*)closest_hit_instanced_kernel<kArity, kLeaf>;
+    default:
+      return (const void*)occluded_instanced_kernel<kArity, kLeaf>;
+  }
+}
+
+// Resident blocks per SM of kernel ``which`` at a shared-memory size on the
+// current device, and the grid that fills it.
 cudaError_t grid_of(int which, size_t smem, int* per_sm, int* blocks) {
-  static GridCache cache[2];
+  static GridCache cache[kKernels];
   return cache[which].get(kernel_of(which), kThreads, smem, per_sm, blocks);
 }
 
@@ -590,12 +804,54 @@ extern "C" int fov_occluded(const float* table, const float* orig,
   return (int)cudaGetLastError();
 }
 
+extern "C" int fov_closest_hit_instanced(
+    const float* table, const float* orig, const float* dir,
+    const unsigned char* active, int n, float tmin, float tmax,
+    int stack_depth, unsigned int lowmask, float* t_out, int* tri_out,
+    float* u_out, float* v_out, int* counter, int inst_base, int blas_base,
+    int* inst_out, void* stream) {
+  if (n > 0) {
+    size_t smem = 0;
+    int blocks = 0;
+    const int rc = launch_grid(2, n, stack_depth, &smem, &blocks);
+    if (rc != 0) return rc;
+    closest_hit_instanced_kernel<kArity, kLeaf>
+        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
+            tmax, stack_depth, lowmask, t_out, tri_out, u_out, v_out, counter,
+            inst_base, blas_base, inst_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fov_occluded_instanced(const float* table, const float* orig,
+                                      const float* dir,
+                                      const unsigned char* active, int n,
+                                      float tmin, float tmax, int stack_depth,
+                                      bool* occ_out, int* counter,
+                                      int inst_base, int blas_base,
+                                      void* stream) {
+  if (n > 0) {
+    size_t smem = 0;
+    int blocks = 0;
+    const int rc = launch_grid(3, n, stack_depth, &smem, &blocks);
+    if (rc != 0) return rc;
+    occluded_instanced_kernel<kArity, kLeaf>
+        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
+            tmax, stack_depth, occ_out, counter, inst_base, blas_base);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Registers per thread, local memory per thread (spills and any stack
-// frame), resident blocks per SM and dynamic shared memory per block of K1
-// (which = 0) or K2 (which = 1) at stack_depth.
+// frame), resident blocks per SM and dynamic shared memory per block of
+// kernel ``which`` (K1 0, K2 1, instanced K1 2, instanced K2 3) at
+// stack_depth.
 extern "C" int fov_traverse_info(int which, int stack_depth, int* regs,
                                  int* local_bytes, int* blocks_per_sm,
                                  int* shared) {
+  if (which < 0 || which >= kKernels) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel_of(which));
   if (err != cudaSuccess) return (int)err;

@@ -1,6 +1,9 @@
 """The device scene: packed BVH table, triangle attribute rows, material rows,
 textures and the probe tables, as tensors on one device (counterpart of the
-JAX package's ``models/scene.py`` for single-level scenes).
+JAX package's ``models/scene.py``). ``build_scene`` packs a single-level
+table of the world-space triangles; ``build_scene_instanced`` the two-level
+table of an ``InstancedScene`` (``ops/tlas.py``), whose ``tri_pack`` holds
+the unique meshes' object-space triangles only.
 
 ``has_textures`` (a triangle has a texture id >= 0) and ``has_catcher`` (a
 material carries the shadow-catcher flag) are fixed when the scene is built:
@@ -39,7 +42,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
     TextureArray,
     texture_arrays,
 )
-from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native
+from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native, tlas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +51,29 @@ class DeviceBVH:
     stack_depth: int
     arity: int
     leaf_size: int
+    # two-level tables: instance rows [inst_base, blas_base) (ops/tlas.py)
+    num_instances: int = 0
+    inst_base: int = 0
+    blas_base: int = 0
 
     @property
     def num_rows(self) -> int:
         return self.table.shape[0]
+
+    @property
+    def instanced(self) -> bool:
+        return self.num_instances > 0
+
+    @property
+    def walk_args(self) -> tuple:
+        """The traversal wrappers' static arguments after tmin and tmax."""
+        return (self.stack_depth, self.arity, self.leaf_size)
+
+    @property
+    def instance_kwargs(self) -> dict:
+        """The traversal wrappers' instance arguments."""
+        return {"num_instances": self.num_instances,
+                "inst_base": self.inst_base, "blas_base": self.blas_base}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,9 +167,8 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> Scene:
     ``probe_alias_idx`` and ``probe_pdf_flat``; ``texture_data`` (K, H, W,
     3) and ``texture_sizes`` (K, 2) when a triangle carries a texture id;
     optionally ``legacy_table`` and ``legacy_stack_depth`` for the packet
-    kernel."""
-    if arrays.get("instanced", False):
-        raise NotImplementedError("instanced (two-level) scenes are not ported")
+    kernel; ``bvh_num_instances``, ``bvh_inst_base`` and ``bvh_blas_base``
+    for a two-level table."""
     if arrays.get("demand") is not None:
         raise NotImplementedError("demand-loaded textures are not ported")
     tri_pack = np.ascontiguousarray(arrays["tri_pack"], dtype=np.float32)
@@ -176,6 +197,9 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> Scene:
         stack_depth=int(arrays["bvh_stack_depth"]),
         arity=int(arrays["bvh_arity"]),
         leaf_size=int(arrays["bvh_leaf_size"]),
+        num_instances=int(arrays.get("bvh_num_instances", 0)),
+        inst_base=int(arrays.get("bvh_inst_base", 0)),
+        blas_base=int(arrays.get("bvh_blas_base", 0)),
     )
     legacy = None
     if "legacy_table" in arrays:
@@ -198,24 +222,58 @@ def scene_arrays(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None
     """Host build: flatten, pack the BVH (and optionally the legacy table),
     pad the textures, build the probe tables -> the ``scene_from_arrays``
     dict."""
-    tri_pack, materials = flatten_meshes(meshes)
     tris = host_triangles(meshes)
-    bvh = bvh_native.build(tris)
-    if probe is None:
-        probe = constant_probe((2.5, 2.5, 2.5))
-    tex_data, tex_sizes = texture_arrays(texture_images or [])
-    arrays = {
-        "bvh_table": bvh.table, "bvh_stack_depth": bvh.stack_depth,
-        "bvh_arity": bvh.arity, "bvh_leaf_size": bvh.leaf_size,
-        "tri_pack": tri_pack, "material_rows": packed_rows_numpy(materials),
-        "texture_data": tex_data, "texture_sizes": tex_sizes,
-        **_probe_arrays(probe),
-    }
+    arrays = _host_arrays(meshes, bvh_native.build(tris), probe,
+                          texture_images)
     if legacy8:
         leg = bvh_native.build_legacy8(tris)
         arrays["legacy_table"] = leg.table
         arrays["legacy_stack_depth"] = leg.stack_depth
     return arrays
+
+
+def _host_arrays(meshes, bvh, probe, texture_images) -> Dict[str, np.ndarray]:
+    tri_pack, materials = flatten_meshes(meshes)
+    if probe is None:
+        probe = constant_probe((2.5, 2.5, 2.5))
+    tex_data, tex_sizes = texture_arrays(texture_images or [])
+    return {
+        "bvh_table": bvh.table, "bvh_stack_depth": bvh.stack_depth,
+        "bvh_arity": bvh.arity, "bvh_leaf_size": bvh.leaf_size,
+        "bvh_num_instances": bvh.num_instances,
+        "bvh_inst_base": bvh.inst_base, "bvh_blas_base": bvh.blas_base,
+        "tri_pack": tri_pack, "material_rows": packed_rows_numpy(materials),
+        "texture_data": tex_data, "texture_sizes": tex_sizes,
+        **_probe_arrays(probe),
+    }
+
+
+def scene_arrays_instanced(instanced_scene,
+                           probe: Optional[ProbeParams] = None,
+                           texture_images: Optional[Sequence[np.ndarray]] = None
+                           ) -> Dict[str, np.ndarray]:
+    """Host build of an ``InstancedScene``: the two-level table
+    (``ops/tlas.py``) and the unique meshes' ``tri_pack`` -> the
+    ``scene_from_arrays`` dict. Textures default to the scene's own."""
+    unique_tris, mesh_ids, mats = tlas.scene_tables_from_instanced(
+        instanced_scene)
+    bvh = tlas.build_instanced(unique_tris, mesh_ids, mats)
+    if texture_images is None:
+        texture_images = instanced_scene.textures
+    return _host_arrays(instanced_scene.unique, bvh, probe, texture_images)
+
+
+def build_scene_instanced(instanced_scene,
+                          probe: Optional[ProbeParams] = None,
+                          texture_images: Optional[Sequence[np.ndarray]] = None,
+                          device="cuda") -> Scene:
+    """Render-time instancing: device geometry and table scale with the
+    unique meshes; the instances live as a TLAS and transform rows in the
+    one table K1 and K2 walk. ``build_scene(instanced_scene.flatten())``
+    builds the same scene single-level."""
+    return scene_from_arrays(
+        scene_arrays_instanced(instanced_scene, probe, texture_images), device
+    )
 
 
 def build_scene(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,

@@ -1,5 +1,6 @@
-"""Packed wide BVH tables (counterpart of the JAX package's ``ops/bvh8.py``,
-single-level layout only; host numpy, bit-identical output).
+"""Packed wide BVH tables (counterpart of the JAX package's ``ops/bvh8.py``:
+the single-level layout, and the node and region writers the two-level
+table of ``ops/tlas.py`` shares; host numpy, bit-identical output).
 
 Packed (default A16/L6) layout, W = max(4A, 10L) float32 columns:
 
@@ -7,8 +8,8 @@ Packed (default A16/L6) layout, W = max(4A, 10L) float32 columns:
   conservative bf16 pair in one uint32, ``lo = u & 0xFFFF0000`` (rounded
   toward -inf) and ``hi = u << 16`` (rounded toward +inf); cols [3A + c]
   hold the child's entry code ("ucode") ``(row << 2) | kind`` as int32
-  (kind 0 internal, 1 leaf; 0 = empty slot, since the root is nobody's
-  child).
+  (kind 0 internal, 1 leaf, 2 instance in a TLAS row, ``ops/tlas.py``;
+  0 = empty slot, since the root is nobody's child).
 - leaf rows: L triangles ``[v0, e1, e2]`` (9 floats each; unused slots all
   zero, so det == 0 never hits), then cols [9L + k] the ORIGINAL triangle id
   of slot k as int32 (-1 pad).
@@ -27,7 +28,7 @@ import numpy as np
 
 ARITY = 16
 LEAF_SIZE = 6
-KIND_NODE, KIND_LEAF = 0, 1
+KIND_NODE, KIND_LEAF, KIND_INST = 0, 1, 2
 EMPTY = np.int32(0)
 
 WIDTH8 = 8
@@ -45,6 +46,10 @@ class WideBVH:
     packed: bool = True
     # exact worst-case stack occupancy (+1 safety entry)
     stack_depth: int = 28
+    # two-level tables (ops/tlas.py): instance rows [inst_base, blas_base)
+    num_instances: int = 0
+    inst_base: int = 0
+    blas_base: int = 0
 
     @property
     def num_rows(self) -> int:
@@ -100,6 +105,56 @@ def _leaf_triangles(meta, tris, order_slots, leaf_size):
     return lw, ls, tid, packed
 
 
+def pack_boxes_into(table: np.ndarray, row0: int, boxes: np.ndarray,
+                    entry: np.ndarray, arity: int) -> None:
+    """Write node rows (conservative bf16-pair boxes and entry codes) into
+    ``table`` rows ``row0 .. row0 + M``: the single-level packing and the
+    TLAS builder (``ops/tlas.py``) both go through here."""
+    m = boxes.shape[0]
+    lo = boxes[..., 0:3]
+    hi = boxes[..., 3:6]
+    finite = np.isfinite(lo) & np.isfinite(hi)
+    lo_b = np.where(finite, _bf16_down_bits(np.where(finite, lo, 0.0)),
+                    np.float32(np.inf).view(np.uint32) & np.uint32(0xFFFF0000))
+    hi_b = np.where(finite, _bf16_up_bits(np.where(finite, hi, 0.0)),
+                    (-np.float32(np.inf)).view(np.uint32) & np.uint32(0xFFFF0000))
+    pair = (lo_b & np.uint32(0xFFFF0000)) | (hi_b >> np.uint32(16))
+    table[row0: row0 + m, : 3 * arity] = (
+        pair.astype(np.uint32).reshape(m, 3 * arity).view(np.float32)
+    )
+    table[row0: row0 + m, 3 * arity: 4 * arity] = (
+        entry.astype(np.int32).view(np.float32)
+    )
+
+
+def pack_region_into(table, leaf_perm, row0, tri_base, boxes, meta, tris,
+                     order_slots, leaf_size, arity):
+    """Pack one collapsed wide BVH (node rows, then leaf rows) into ``table``
+    from row ``row0``, entry codes offset by ``row0`` and triangle ids by
+    ``tri_base`` -> (rows used, entry (M, A) absolute child codes)."""
+    m = boxes.shape[0]
+    counts = meta[..., 1]
+    a_vals = meta[..., 0]
+    entry = np.full((m, arity), EMPTY, dtype=np.int32)
+    entry[counts == 0] = (a_vals[counts == 0] + row0) << 2
+    lw, ls, tid, packed = _leaf_triangles(meta, tris, order_slots, leaf_size)
+    if len(lw):
+        lr0 = row0 + m
+        table[lr0: lr0 + len(lw), : 9 * leaf_size] = packed.reshape(
+            len(lw), 9 * leaf_size
+        )
+        gid = np.where(tid >= 0, tid + tri_base, -1).astype(np.int32)
+        table[lr0: lr0 + len(lw), 9 * leaf_size: 10 * leaf_size] = (
+            gid.view(np.float32)
+        )
+        leaf_perm[lr0: lr0 + len(lw)] = gid
+        entry[lw, ls] = (
+            (lr0 + np.arange(len(lw), dtype=np.int32)) << 2
+        ) | KIND_LEAF
+    pack_boxes_into(table, row0, boxes, entry, arity)
+    return m + len(lw), entry
+
+
 def pack_wide(boxes: np.ndarray, meta: np.ndarray, tris: np.ndarray,
               order_slots: np.ndarray, leaf_size: int,
               arity: int | None = None) -> WideBVH:
@@ -109,9 +164,7 @@ def pack_wide(boxes: np.ndarray, meta: np.ndarray, tris: np.ndarray,
     m, a_width = boxes.shape[0], boxes.shape[1]
     arity = a_width if arity is None else arity
     assert a_width == arity
-    counts = meta[..., 1]
-    a_vals = meta[..., 0]
-    num_leaves = max(int((counts > 0).sum()), 1)
+    num_leaves = max(int((meta[..., 1] > 0).sum()), 1)
     u = m + num_leaves
     width = max(4 * arity, 10 * leaf_size)
 
@@ -120,47 +173,25 @@ def pack_wide(boxes: np.ndarray, meta: np.ndarray, tris: np.ndarray,
         np.int32(-1).view(np.float32)
     )
     leaf_perm = np.full((u, leaf_size), -1, dtype=np.int32)
-    entry = np.full((m, arity), EMPTY, dtype=np.int32)
-    entry[counts == 0] = a_vals[counts == 0] << 2
-    lw, ls, tid, packed = _leaf_triangles(meta, tris, order_slots, leaf_size)
-    if len(lw):
-        table[m: m + len(lw), : 9 * leaf_size] = packed.reshape(
-            len(lw), 9 * leaf_size
-        )
-        gid = np.where(tid >= 0, tid, -1).astype(np.int32)
-        table[m: m + len(lw), 9 * leaf_size: 10 * leaf_size] = (
-            gid.view(np.float32)
-        )
-        leaf_perm[m: m + len(lw)] = gid
-        entry[lw, ls] = ((m + np.arange(len(lw), dtype=np.int32)) << 2) | KIND_LEAF
-
-    lo = boxes[..., 0:3]
-    hi = boxes[..., 3:6]
-    finite = np.isfinite(lo) & np.isfinite(hi)
-    lo_b = np.where(finite, _bf16_down_bits(np.where(finite, lo, 0.0)),
-                    np.float32(np.inf).view(np.uint32) & np.uint32(0xFFFF0000))
-    hi_b = np.where(finite, _bf16_up_bits(np.where(finite, hi, 0.0)),
-                    (-np.float32(np.inf)).view(np.uint32) & np.uint32(0xFFFF0000))
-    pair = (lo_b & np.uint32(0xFFFF0000)) | (hi_b >> np.uint32(16))
-    table[:m, : 3 * arity] = (
-        pair.astype(np.uint32).reshape(m, 3 * arity).view(np.float32)
-    )
-    table[:m, 3 * arity: 4 * arity] = entry.view(np.float32)
+    _, entry = pack_region_into(table, leaf_perm, 0, 0, boxes, meta, tris,
+                                order_slots, leaf_size, arity)
     return WideBVH(
         table=table, leaf_perm=leaf_perm, leaf_size=leaf_size, arity=arity,
         packed=True, stack_depth=lifo_stack_bound(entry) + 1,
     )
 
 
-def lifo_stack_bound(entry: np.ndarray) -> int:
+def lifo_stack_bound(entry: np.ndarray, row0: int = 0) -> int:
     """Exact worst-case stack occupancy of the wide tree with child codes
-    ``entry`` (M, A): g(v) = c(v) - 1 + max(1, max over internal children u
-    of g(u)), answer max(1, g(root))."""
+    ``entry`` (M, A), whose internal codes address absolute rows from
+    ``row0``: g(v) = c(v) - 1 + max(1, max over internal children u of
+    g(u)), answer max(1, g(root)). An instance code takes a slot but has no
+    subtree here (``ops/tlas.py`` adds the BLAS separately)."""
     m = entry.shape[0]
     if m == 0:
         return 1
     internal = (entry != EMPTY) & ((entry & 3) == KIND_NODE)
-    child = np.where(internal, entry >> 2, 0).astype(np.int64)
+    child = np.where(internal, (entry >> 2) - row0, 0).astype(np.int64)
     valid = internal & (child >= 0) & (child < m)
     c = (entry != EMPTY).sum(axis=1).astype(np.int64)
     levels = []

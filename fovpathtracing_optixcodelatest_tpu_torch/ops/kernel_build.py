@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel wrapper; each wrapper adds one where it launches
-LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0}
+LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0,
+            "closest_hit_instanced": 0, "occluded_instanced": 0}
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points: the launches take (table, origin, direction, active, n,
@@ -46,6 +47,11 @@ SIGNATURES = {
     "fov_closest_hit": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P, _P, _P, _P,
                         _P, _P),
     "fov_occluded": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P),
+    # the instanced variants add (inst_base, blas_base[, inst_out])
+    "fov_closest_hit_instanced": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P,
+                                  _P, _P, _P, _P, _I, _I, _P, _P),
+    "fov_occluded_instanced": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _I,
+                               _I, _P),
     "fov_occluded_packets": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P,
                              _P),
     "fov_packet_spill": (_I, _I, _P),
@@ -151,12 +157,17 @@ def resources(stack_depth: int) -> dict:
     """Registers per thread, local memory per thread (spills and stack
     frames), resident blocks per SM and dynamic shared memory per block of
     each kernel, as the CUDA runtime reports them for the loaded build; K1/K2
-    at ``stack_depth`` (K3's shared memory does not depend on it)."""
+    and their instanced variants at ``stack_depth`` (K3's shared memory does
+    not depend on it)."""
     out = {}
     queries = (
         ("closest_hit", "traverse", "fov_traverse_info", (0, stack_depth)),
         ("occluded", "traverse", "fov_traverse_info", (1, stack_depth)),
         ("occluded_packets", "packet_traverse", "fov_packet_info", ()),
+        ("closest_hit_instanced", "traverse", "fov_traverse_info",
+         (2, stack_depth)),
+        ("occluded_instanced", "traverse", "fov_traverse_info",
+         (3, stack_depth)),
     )
     keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes")
     for kernel, lib, fn, args in queries:

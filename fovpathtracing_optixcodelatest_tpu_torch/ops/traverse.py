@@ -16,6 +16,17 @@ Visit order is the reference's: a closest-hit stack entry is the packed key
 ``(mono(tn) & himask) | code``; a node's hit children are pushed sorted by
 descending key (the nearest ends on top); a popped entry whose key exceeds
 ``mono(min(t, tmax)) | lowmask`` is stale and skipped.
+
+Two-level tables (``ops/tlas.py``, ``num_instances > 0``) walk as the
+reference's ``_ch_step`` and occlusion loop do: popping an instance code
+reads the instance row, sets the lane's object-space ray (``inv_transform``:
+the direction left unnormalised, so t stays in world units) and the lane's
+instance ``cur``, and pushes the BLAS root with the instance's key bits;
+popping a TLAS node row (``row < blas_base``) moves the lane back to world
+space; BLAS nodes and leaves are tested in object space. ``closest_hit``
+then also returns ``inst``, the hit's instance (-1 on a miss). The kernels
+have an instanced variant each (compiled for (16, 6) only), chosen by the
+wrappers from ``num_instances``.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
     ARITY,
+    KIND_INST,
     LEAF_SIZE,
     codebits,
 )
@@ -32,8 +44,10 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
 _MASK = 0xFFFFFFFF
 MAX_STACK = 128  # deepest stack the wrappers take
 # what the plain versions' ``stats`` count: rows fetched, and the tests done
-# on them (non-empty children slab-tested, real triangles tested)
+# on them (non-empty children slab-tested, real triangles tested); on a
+# two-level table also the instance rows fetched (``INST_STATS``)
 STATS = ("node_rows", "leaf_rows", "child_tests", "tri_tests")
+INST_STATS = STATS + ("inst_rows",)
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +112,53 @@ def tri_test(tri, o, d, tmin, tmax, cull: bool):
     return hit, t, u, v
 
 
+def inv_transform(irows: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """The object-space ray of (K, >= 13) instance rows [root code, A (3x3
+    row-major), b (3)] -> (origin A o + b, direction A d, its safe
+    inverse), each sum left to right as the reference's
+    ``_apply_inv_transform`` writes it."""
+    op, dp = [], []
+    for a in range(3):
+        r0, r1, r2 = irows[:, 1 + 3 * a], irows[:, 2 + 3 * a], irows[:, 3 + 3 * a]
+        op.append(r0 * o[:, 0] + r1 * o[:, 1] + r2 * o[:, 2] + irows[:, 10 + a])
+        dp.append(r0 * d[:, 0] + r1 * d[:, 1] + r2 * d[:, 2])
+    dp = torch.stack(dp, dim=1)
+    return torch.stack(op, dim=1), dp, safe_inv(dp)
+
+
+class _Spaces:
+    """Per-lane space state of a two-level walk: the object-space ray and
+    the current instance (-1 = world space)."""
+
+    def __init__(self, o, d, inv):
+        self.o, self.d, self.inv = o.clone(), d.clone(), inv.clone()
+        self.cur = torch.full((o.shape[0],), -1, dtype=torch.int32,
+                              device=o.device)
+
+    def enter(self, lanes, irows, o_world, d_world, inst_ids):
+        """Lanes that popped an instance code take its object-space ray."""
+        op, dp, ip = inv_transform(irows, o_world, d_world)
+        self.o[lanes], self.d[lanes], self.inv[lanes] = op, dp, ip
+        self.cur[lanes] = inst_ids.to(torch.int32)
+
+    def node_ray(self, lanes, world, o, inv):
+        """The ray node lanes test their children with: world space on a
+        TLAS row (which also leaves the instance), object space below."""
+        self.cur[lanes[world]] = -1
+        w = world[:, None]
+        return (torch.where(w, o[lanes], self.o[lanes]),
+                torch.where(w, inv[lanes], self.inv[lanes]))
+
+
+def _rows_of(table, code, instanced: bool, inst_base: int):
+    """The rows popped codes address, and which codes are instances."""
+    row = code >> 2
+    if not instanced:
+        return table[row], None
+    is_inst = (code & 3) == KIND_INST
+    return table[torch.where(is_inst, row + inst_base, row)], is_inst
+
+
 def _node_boxes(rows: torch.Tensor, arity: int):
     """Decode the bf16-pair boxes and child codes of packed node rows ->
     lo, hi (K, A, 3) float32 and codes (K, A) int64."""
@@ -124,8 +185,14 @@ def _real_triangles(lrows: torch.Tensor, leaf_size: int) -> int:
     return int((ids.view(torch.int32) >= 0).sum())
 
 
-def _check(table, o, d, active, stack_depth):
+def _check(table, o, d, active, stack_depth, num_instances=0, inst_base=0,
+           blas_base=0):
     dev = table.device
+    if num_instances and not (
+            0 < inst_base and inst_base + num_instances == blas_base
+            < table.shape[0] and table.shape[1] >= 13):
+        raise ValueError("instance rows must lie in [inst_base, blas_base) "
+                         "of a table with BLAS rows after them")
     if table.dtype != torch.float32 or table.ndim != 2:
         raise ValueError("table must be a 2-D float32 tensor")
     for name, x in (("origin", o), ("direction", d)):
@@ -173,13 +240,16 @@ def _kernel_layout(table, n: int, arity: int, leaf_size: int,
 
 def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
                       stack_depth: int, arity: int, leaf_size: int,
-                      stats: dict | None = None):
-    """Plain PyTorch K1: dict(t, tri_id, u, v, hit). ``stats`` gets the
-    node and leaf rows fetched (``node_rows``, ``leaf_rows``) and the work
-    in them (``child_tests``: slab tests of the fetched nodes' non-empty
+                      stats: dict | None = None, *, num_instances: int = 0,
+                      inst_base: int = 0, blas_base: int = 0):
+    """Plain PyTorch K1: dict(t, tri_id, u, v, hit), and ``inst`` on a
+    two-level table. ``stats`` gets the node, leaf and instance rows
+    fetched (``node_rows``, ``leaf_rows``, ``inst_rows``) and the work in
+    them (``child_tests``: slab tests of the fetched nodes' non-empty
     children; ``tri_tests``: ray-triangle tests of the fetched leaves' real,
     non-padding triangles)."""
     n, dev = o.shape[0], o.device
+    instanced = num_instances > 0
     cb = codebits(table.shape[0])
     lowmask = (1 << cb) - 1
     himask = _MASK & ~lowmask
@@ -188,9 +258,12 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
     u = torch.zeros((n,), dtype=torch.float32, device=dev)
     v = torch.zeros((n,), dtype=torch.float32, device=dev)
     best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if instanced:
+        space = _Spaces(o, d, inv)
+        best_inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)  # the root (code 0) sits at depth 0
-    fetched = dict.fromkeys(STATS, 0)
+    fetched = dict.fromkeys(INST_STATS if instanced else STATS, 0)
     tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
     while True:
         idx = torch.nonzero(sp > 0).squeeze(1)
@@ -202,15 +275,31 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
         fresh = e <= (mono_u32(tlimit) | lowmask)
         idx, e, tlimit = idx[fresh], e[fresh], tlimit[fresh]
         code = e & lowmask
-        rows = table[code >> 2]
+        rows, is_inst = _rows_of(table, code, instanced, inst_base)
         node = (code & 3) == 0
+
+        if instanced:
+            ii = idx[is_inst]
+            fetched["inst_rows"] += ii.numel()
+            if ii.numel():
+                irows = rows[is_inst]
+                space.enter(ii, irows, o[ii], d[ii], code[is_inst] >> 2)
+                # the BLAS root, keyed by the instance's entry
+                key = (e[is_inst] & himask) | _bits(irows[:, 0])
+                _push(stack, sp, ii, key[:, None],
+                      torch.ones_like(key[:, None], dtype=torch.bool))
 
         ni = idx[node]
         fetched["node_rows"] += ni.numel()
         if ni.numel():
             lo, hi, codes = _node_boxes(rows[node], arity)
             fetched["child_tests"] += int((codes != 0).sum())
-            hit, tn = slab(lo, hi, o[ni], inv[ni], tmin, tlimit[node][:, None])
+            if instanced:
+                o_n, inv_n = space.node_ray(ni, (code[node] >> 2) < blas_base,
+                                            o, inv)
+            else:
+                o_n, inv_n = o[ni], inv[ni]
+            hit, tn = slab(lo, hi, o_n, inv_n, tmin, tlimit[node][:, None])
             hit = hit & (codes != 0)
             keys = torch.where(hit, (mono_u32(tn) & himask) | codes, 0)
             keys = torch.sort(keys, dim=1, descending=True).values
@@ -218,13 +307,18 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
             keep = torch.arange(arity, device=dev)[None, :] < cnt[:, None]
             _push(stack, sp, ni, keys, keep)
 
-        li = idx[~node]
+        leaf = ~node if is_inst is None else ~node & ~is_inst
+        li = idx[leaf]
         fetched["leaf_rows"] += li.numel()
         if li.numel():
-            lrows = rows[~node]
+            lrows = rows[leaf]
             fetched["tri_tests"] += _real_triangles(lrows, leaf_size)
             tb, ub, vb, bb = t[li], u[li], v[li], best[li]
-            ol, dl = o[li], d[li]
+            if instanced:
+                ol, dl = space.o[li], space.d[li]
+                ib, cur = best_inst[li], space.cur[li]
+            else:
+                ol, dl = o[li], d[li]
             for k in range(leaf_size):
                 hk, tk, uk, vk = tri_test(
                     lrows[:, 9 * k: 9 * k + 9], ol, dl, tmin, tmax, cull=False
@@ -235,22 +329,35 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
                 vb = torch.where(better, vk, vb)
                 tid = lrows[:, 9 * leaf_size + k].contiguous().view(torch.int32)
                 bb = torch.where(better, tid, bb)
+                if instanced:
+                    ib = torch.where(better, cur, ib)
             t[li], u[li], v[li], best[li] = tb, ub, vb, bb
+            if instanced:
+                best_inst[li] = ib
     if stats is not None:
         for name, count in fetched.items():
             stats[name] = stats.get(name, 0) + count
-    return {"t": t, "tri_id": best, "u": u, "v": v, "hit": best >= 0}
+    out = {"t": t, "tri_id": best, "u": u, "v": v, "hit": best >= 0}
+    if instanced:
+        out["inst"] = best_inst
+    return out
 
 
 def closest_hit(table, o, d, active, tmin: float, tmax: float,
-                stack_depth: int, arity: int, leaf_size: int):
+                stack_depth: int, arity: int, leaf_size: int, *,
+                num_instances: int = 0, inst_base: int = 0,
+                blas_base: int = 0):
     """Closest hit of each active ray: dict(t, tri_id, u, v, hit) of (N,)
-    tensors (miss: t = inf, tri_id = -1, u = v = 0). CUDA tensors launch K1
-    (the (16, 6) layout only); CPU tensors run ``closest_hit_plain``."""
-    _check(table, o, d, active, stack_depth)
+    tensors (miss: t = inf, tri_id = -1, u = v = 0), and ``inst`` (-1 on a
+    miss) on a two-level table. CUDA tensors launch K1, or its instanced
+    variant where ``num_instances > 0`` (the (16, 6) layout only); CPU
+    tensors run ``closest_hit_plain``."""
+    inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
+               "blas_base": blas_base}
+    _check(table, o, d, active, stack_depth, **inst_kw)
     if table.device.type == "cpu":
         return closest_hit_plain(table, o, d, active, tmin, tmax,
-                                 stack_depth, arity, leaf_size)
+                                 stack_depth, arity, leaf_size, **inst_kw)
     n, dev = o.shape[0], o.device
     _kernel_layout(table, n, arity, leaf_size)
     cb = codebits(table.shape[0])
@@ -260,18 +367,28 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:  # nothing to launch
-        return {"t": t, "tri_id": tri, "u": u, "v": v, "hit": tri >= 0}
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-    rc = kernel_build.library("traverse").fov_closest_hit(
-        table.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(), n,
-        tmin, tmax, stack_depth, (1 << cb) - 1, t.data_ptr(),
-        tri.data_ptr(), u.data_ptr(), v.data_ptr(), counter.data_ptr(),
-        kernel_build.stream(),
-    )
-    kernel_build.check(rc, "closest_hit")
-    kernel_build.LAUNCHES["closest_hit"] += 1
-    return {"t": t, "tri_id": tri, "u": u, "v": v, "hit": tri >= 0}
+    out = {"t": t, "tri_id": tri, "u": u, "v": v}
+    if num_instances:
+        out["inst"] = torch.empty_like(tri)
+    if n > 0:  # else nothing to launch
+        counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+        args = (table.data_ptr(), o.data_ptr(), d.data_ptr(),
+                active.data_ptr(), n, tmin, tmax, stack_depth, (1 << cb) - 1,
+                t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+                counter.data_ptr())
+        lib = kernel_build.library("traverse")
+        if num_instances:
+            rc = lib.fov_closest_hit_instanced(
+                *args, inst_base, blas_base, out["inst"].data_ptr(),
+                kernel_build.stream())
+            name = "closest_hit_instanced"
+        else:
+            rc = lib.fov_closest_hit(*args, kernel_build.stream())
+            name = "closest_hit"
+        kernel_build.check(rc, name)
+        kernel_build.LAUNCHES[name] += 1
+    out["hit"] = tri >= 0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -281,41 +398,65 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
 
 def occluded_plain(table, o, d, active, tmin: float, tmax: float,
                    stack_depth: int, arity: int, leaf_size: int,
-                   stats: dict | None = None):
+                   stats: dict | None = None, *, num_instances: int = 0,
+                   inst_base: int = 0, blas_base: int = 0):
     """Plain PyTorch K2 -> (N,) bool. Children are pushed in slot order.
     ``stats`` counts as ``closest_hit_plain``'s does."""
     n, dev = o.shape[0], o.device
+    instanced = num_instances > 0
     inv = safe_inv(d)
+    if instanced:
+        space = _Spaces(o, d, inv)
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)
-    fetched = dict.fromkeys(STATS, 0)
+    fetched = dict.fromkeys(INST_STATS if instanced else STATS, 0)
     while True:
         idx = torch.nonzero((sp > 0) & ~occ).squeeze(1)
         if idx.numel() == 0:
             break
         sp[idx] -= 1
         code = stack[idx, sp[idx]]
-        rows = table[code >> 2]
+        rows, is_inst = _rows_of(table, code, instanced, inst_base)
         node = (code & 3) == 0
+
+        if instanced:
+            ii = idx[is_inst]
+            fetched["inst_rows"] += ii.numel()
+            if ii.numel():
+                irows = rows[is_inst]
+                space.enter(ii, irows, o[ii], d[ii], code[is_inst] >> 2)
+                root = _bits(irows[:, 0])[:, None]
+                _push(stack, sp, ii, root,
+                      torch.ones_like(root, dtype=torch.bool))
 
         ni = idx[node]
         fetched["node_rows"] += ni.numel()
         if ni.numel():
             lo, hi, codes = _node_boxes(rows[node], arity)
             fetched["child_tests"] += int((codes != 0).sum())
-            hit, _ = slab(lo, hi, o[ni], inv[ni], tmin, tmax)
+            if instanced:
+                o_n, inv_n = space.node_ray(ni, (code[node] >> 2) < blas_base,
+                                            o, inv)
+            else:
+                o_n, inv_n = o[ni], inv[ni]
+            hit, _ = slab(lo, hi, o_n, inv_n, tmin, tmax)
             _push(stack, sp, ni, codes, hit & (codes != 0))
 
-        li = idx[~node]
+        leaf = ~node if is_inst is None else ~node & ~is_inst
+        li = idx[leaf]
         fetched["leaf_rows"] += li.numel()
         if li.numel():
-            lrows = rows[~node]
+            lrows = rows[leaf]
             fetched["tri_tests"] += _real_triangles(lrows, leaf_size)
+            if instanced:  # back faces culled by the object-space winding
+                ol, dl = space.o[li], space.d[li]
+            else:
+                ol, dl = o[li], d[li]
             hit_any = torch.zeros((li.numel(),), dtype=torch.bool, device=dev)
             for k in range(leaf_size):
-                hk, _, _, _ = tri_test(lrows[:, 9 * k: 9 * k + 9], o[li],
-                                       d[li], tmin, tmax, cull=True)
+                hk, _, _, _ = tri_test(lrows[:, 9 * k: 9 * k + 9], ol, dl,
+                                       tmin, tmax, cull=True)
                 hit_any |= hk
             occ[li] = hit_any
     if stats is not None:
@@ -325,25 +466,34 @@ def occluded_plain(table, o, d, active, tmin: float, tmax: float,
 
 
 def occluded(table, o, d, active, tmin: float, tmax: float,
-             stack_depth: int, arity: int, leaf_size: int):
+             stack_depth: int, arity: int, leaf_size: int, *,
+             num_instances: int = 0, inst_base: int = 0, blas_base: int = 0):
     """Any-hit occlusion with back faces culled and first-hit exit -> (N,)
-    bool. CUDA tensors launch K2 (the (16, 6) layout only), which walks only
-    the active lanes; CPU tensors run ``occluded_plain``."""
-    _check(table, o, d, active, stack_depth)
+    bool. CUDA tensors launch K2, or its instanced variant where
+    ``num_instances > 0`` (the (16, 6) layout only), which walks only the
+    active lanes; CPU tensors run ``occluded_plain``."""
+    inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
+               "blas_base": blas_base}
+    _check(table, o, d, active, stack_depth, **inst_kw)
     if table.device.type == "cpu":
         return occluded_plain(table, o, d, active, tmin, tmax, stack_depth,
-                              arity, leaf_size)
+                              arity, leaf_size, **inst_kw)
     n, dev = o.shape[0], o.device
     _kernel_layout(table, n, arity, leaf_size)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:  # nothing to launch
         return occ
     counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-    rc = kernel_build.library("traverse").fov_occluded(
-        table.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(), n,
-        tmin, tmax, stack_depth, occ.data_ptr(), counter.data_ptr(),
-        kernel_build.stream(),
-    )
-    kernel_build.check(rc, "occluded")
-    kernel_build.LAUNCHES["occluded"] += 1
+    args = (table.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(),
+            n, tmin, tmax, stack_depth, occ.data_ptr(), counter.data_ptr())
+    lib = kernel_build.library("traverse")
+    if num_instances:
+        rc = lib.fov_occluded_instanced(*args, inst_base, blas_base,
+                                        kernel_build.stream())
+        name = "occluded_instanced"
+    else:
+        rc = lib.fov_occluded(*args, kernel_build.stream())
+        name = "occluded"
+    kernel_build.check(rc, name)
+    kernel_build.LAUNCHES[name] += 1
     return occ

@@ -1,6 +1,5 @@
 """Wavefront path-tracing integrator (counterpart of the JAX package's
-``render/integrator.py`` ``trace_paths`` for single-level, non-spectral
-scenes).
+``render/integrator.py`` ``trace_paths``).
 
 The batch advances one bounce at a time: closest hit (K1), the catcher
 pass-through on secondary rays, one ``tri_pack`` row gather, the texture
@@ -26,7 +25,20 @@ Semantics kept from the reference:
   (hit, nonzero NEE, and a successful BSDF sample or a catcher).
 
 The texture fetch and the catcher branches run only on scenes that have
-textures or catchers (``Scene.has_textures``, ``Scene.has_catcher``).
+textures or catchers (``Scene.has_textures``, ``Scene.has_catcher``). On a
+two-level (instanced) scene K1 also returns each hit's instance, and the
+geometric normal, which ``tri_pack`` holds in object space, goes to world
+space through the instance row's inverse transform (A^T n, normalised).
+
+Spectral mode (``config.spectral``, the hero-wavelength estimator) runs the
+same bounce with an (N, ``NUM_HERO``) throughput: the wavelengths come from
+``fold_in(key, 7919)``, RGB light, emission and BSDF values are lifted
+through the RGB basis at them (``_rgb_eval_at``), transmissive materials
+get the Cauchy eta(lambda) of the hero wavelength (``config.dispersion``),
+the first dispersive transmission of a path collapses its other
+wavelengths (``lam_alive``), and each bounce's spectral contribution is
+CIE-integrated to linear sRGB on the spot (``_cie_rgb_matrix``), so the
+film's carry stays RGB.
 
 Each bounce works on the rays still alive only (a gather at the start, a
 scatter at the end): dead rays' state never changes, so this is the same
@@ -54,8 +66,10 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import bsdf as bsdf_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling as probe_ops
+from fovpathtracing_optixcodelatest_tpu_torch.ops import spectrum as sp
 from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import fold_in, ray_uniforms
+from fovpathtracing_optixcodelatest_tpu_torch.render.spectral import cauchy_eta
 from fovpathtracing_optixcodelatest_tpu_torch.ops.sampling import (
     basis_from_vector,
     dot,
@@ -63,11 +77,58 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.sampling import (
 )
 
 
+_SPAN = sp.LAMBDA_MAX - sp.LAMBDA_MIN
+
+
+def _rgb_eval_at(rgb: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """The spectral lift of (N, 3) linear RGB read at (N, K) wavelengths:
+    sum_c rgb_c * basis_c(lambda), without forming the 81-bin spectra."""
+    basis = torch.as_tensor(sp.RGB_BASIS, dtype=torch.float32,
+                            device=rgb.device)
+    t = (lam - sp.LAMBDA_MIN) / _SPAN * (sp.NUM_BINS - 1)
+    t = torch.clamp(t, 0.0, sp.NUM_BINS - 1)
+    i0 = torch.clamp(t.to(torch.int64), max=sp.NUM_BINS - 2)
+    frac = t - i0
+    out = torch.zeros_like(lam)
+    for c in range(3):
+        row = basis[c]
+        out = out + rgb[:, c: c + 1] * (row[i0] * (1 - frac)
+                                        + row[i0 + 1] * frac)
+    return torch.clamp(out, min=0.0)
+
+
+def _cie_rgb_matrix(lam: torch.Tensor) -> torch.Tensor:
+    """Per-ray linear map (N, 3, K) from a ray's K spectral samples to
+    linear sRGB: each wavelength a uniform sample of the visible span,
+    averaged over the K, Y-normalised as ``spectrum_to_xyz``."""
+    xbar, ybar, zbar = sp.cie_xyz_bar_torch(lam)
+    scale = _SPAN / lam.shape[1] / sp._Y_NORM
+    xyz = torch.stack([xbar, ybar, zbar], dim=1) * scale
+    m = torch.as_tensor(sp.XYZ_TO_SRGB, dtype=torch.float32, device=lam.device)
+    return torch.einsum("rc,nck->nrk", m, xyz)
+
+
 def _closest(scene, o, d, active, config: RenderConfig):
     bvh = scene.bvh
     return traverse.closest_hit(bvh.table, o, d, active, config.tmin,
-                                config.tmax, bvh.stack_depth, bvh.arity,
-                                bvh.leaf_size)
+                                config.tmax, *bvh.walk_args,
+                                **bvh.instance_kwargs)
+
+
+def _world_normal(scene, ng, inst):
+    """An instanced hit's object-space geometric normal in world space:
+    A^T n normalised (A the instance row's inverse transform,
+    ``ops/tlas.py``)."""
+    bvh = scene.bvh
+    a_m = bvh.table[bvh.inst_base + torch.clamp(inst, min=0).to(torch.int64),
+                    1:10]
+    ngw = torch.stack([
+        a_m[:, 0] * ng[:, 0] + a_m[:, 3] * ng[:, 1] + a_m[:, 6] * ng[:, 2],
+        a_m[:, 1] * ng[:, 0] + a_m[:, 4] * ng[:, 1] + a_m[:, 7] * ng[:, 2],
+        a_m[:, 2] * ng[:, 0] + a_m[:, 5] * ng[:, 1] + a_m[:, 8] * ng[:, 2],
+    ], dim=1)
+    return ngw / torch.clamp(torch.linalg.vector_norm(ngw, dim=1,
+                                                      keepdim=True), min=1e-20)
 
 
 def _catcher_passthrough(scene, o, d, hit, config: RenderConfig):
@@ -89,11 +150,18 @@ def _catcher_passthrough(scene, o, d, hit, config: RenderConfig):
 
 
 def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
-           config: RenderConfig):
+           config: RenderConfig, lam=None, lam_alive=None):
     """One bounce of K alive rays. Returns the per-ray updates, and the
     bounce's shadow rays (``shadow_origin``, ``shadow_dir``, walked where
-    ``shadow_query``)."""
+    ``shadow_query``). Spectral mode passes the rays' hero wavelengths
+    ``lam`` and ``lam_alive`` (K, NUM_HERO) and gets ``lam_alive`` back."""
     k = o.shape[0]
+    if lam is not None:
+        cie_t = _cie_rgb_matrix(lam)
+        lift = lambda rgb: _rgb_eval_at(rgb, lam)  # noqa: E731
+        to_rgb = lambda spec: torch.einsum("nrk,nk->nr", cie_t, spec)  # noqa: E731
+    else:
+        lift = to_rgb = lambda x: x  # noqa: E731
     every = torch.ones((k,), dtype=torch.bool, device=o.device)
     hit = _closest(scene, o, d, every, config)
     passthrough = torch.zeros((), dtype=torch.int64, device=o.device)
@@ -102,7 +170,10 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
     hit_mask = hit["hit"]
     attr = scene.tri_pack[torch.clamp(hit["tri_id"], min=0).to(torch.int64)]
     p = torch.where(hit_mask[:, None], o + hit["t"][:, None] * d, o)
-    nrm = face_forward(attr[:, 0:3], -d)
+    ng = attr[:, 0:3]
+    if scene.bvh.instanced:
+        ng = _world_normal(scene, ng, hit["inst"])
+    nrm = face_forward(ng, -d)
     m = view_rows(attr[:, 12:36])
     if scene.has_textures:
         # the id's bits go straight from the gathered row to int32: float
@@ -113,7 +184,14 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
         albedo = torch.where((tex_id >= 0)[:, None], tex_col, m.color)
     else:
         albedo = m.color
-    out_eta = torch.where(eta_in == 1.0, m.eta, 1.0)
+    if lam is not None and config.dispersion != 0.0:
+        # the hero wavelength disperses a transmissive material's IOR
+        eta_mat = torch.where(
+            m.transmission > 0.0,
+            cauchy_eta(m.eta, lam[:, 0], config.dispersion), m.eta)
+    else:
+        eta_mat = m.eta
+    out_eta = torch.where(eta_in == 1.0, eta_mat, 1.0)
 
     # probe NEE with MIS
     u_all = ray_uniforms(key, ray_ids, 8)
@@ -151,20 +229,22 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
         occl_query = hit_mask & (light_val.amax(dim=1) > 0.0) & sample_ok
     p, wi = p.contiguous(), wi.contiguous()
     bvh = scene.bvh
-    occ = traverse.occluded(bvh.table, p, wi,
-                            occl_query, config.tmin, config.tmax,
-                            bvh.stack_depth, bvh.arity, bvh.leaf_size)
+    occ = traverse.occluded(bvh.table, p, wi, occl_query, config.tmin,
+                            config.tmax, *bvh.walk_args,
+                            **bvh.instance_kwargs)
 
-    nee_contrib = torch.where((~occ)[:, None], light_val, 0.0)
-    emitted = torch.where(hit_mask & primary, 1.0, 0.0)[:, None] * m.emission
+    light_c = lift(light_val)
+    nee_contrib = torch.where((~occ)[:, None], light_c, 0.0)
+    emitted = (torch.where(hit_mask & primary, 1.0, 0.0)[:, None]
+               * lift(m.emission))
     if scene.has_catcher:
         # a catcher adds no radiance; its alpha gathers the shadowed NEE
         vert_radiance = torch.where(
             (~is_catcher)[:, None], throughput * nee_contrib, 0.0) + emitted
         alpha_set = hit_mask & ~is_catcher
-        alpha_add = torch.where(
+        alpha_add = to_rgb(torch.where(
             (hit_mask & is_catcher)[:, None],
-            throughput * torch.where(occ[:, None], light_val, 0.0), 0.0)
+            throughput * torch.where(occ[:, None], light_c, 0.0), 0.0))
     else:
         vert_radiance = throughput * nee_contrib + emitted
         alpha_set, alpha_add = hit_mask, None
@@ -172,17 +252,34 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
     f_b = bsdf_ops.bsdf_eval(m, albedo, eta_in, out_eta, nrm, view, l_dir)
     transmitted = dot(l_dir, nrm) <= 0.0
     cont = hit_mask & sample_ok
-    thr_scale = (f_b * dot(nrm, l_dir).abs()[:, None]
+    thr_scale = (lift(f_b) * dot(nrm, l_dir).abs()[:, None]
                  / torch.clamp(pdf, min=1e-20)[:, None])
+    if lam is not None:
+        # a dispersive transmission collapses the non-hero wavelengths:
+        # their refracted paths would differ from the hero's
+        dispersive = (hit_mask & transmitted & (m.transmission > 0.0)
+                      & ((eta_mat - m.eta).abs() > 1e-6))
+        keep = torch.cat([torch.ones_like(dispersive)[:, None],
+                          (~dispersive)[:, None].expand(k, sp.NUM_HERO - 1)],
+                         dim=1)
+        new_lam_alive = lam_alive & keep
+        new_throughput = torch.where(
+            cont[:, None] & new_lam_alive, throughput * thr_scale,
+            torch.where(cont[:, None], 0.0, throughput))
+        vert_radiance = torch.where(lam_alive, vert_radiance, 0.0)
+    else:
+        new_lam_alive = None
+        new_throughput = torch.where(cont[:, None], throughput * thr_scale,
+                                     throughput)
     return {
         "hit_mask": hit_mask,
         "alive": cont,
         "origin": p,
         "direction": torch.where(hit_mask[:, None], l_dir, d),
-        "throughput": torch.where(cont[:, None], throughput * thr_scale,
-                                  throughput),
+        "throughput": new_throughput,
+        "lam_alive": new_lam_alive,
         "eta": torch.where(hit_mask & transmitted, out_eta, eta_in),
-        "contrib": torch.where(cont[:, None], vert_radiance, 0.0),
+        "contrib": to_rgb(torch.where(cont[:, None], vert_radiance, 0.0)),
         "alpha_set": alpha_set,
         "alpha_add": alpha_add,
         "normal": nrm,
@@ -211,7 +308,14 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
     f3 = lambda v: torch.full((n, 3), v, dtype=torch.float32, device=dev)  # noqa: E731
     o = origin.contiguous().clone()
     d = direction.contiguous().clone()
-    throughput = f3(1.0)
+    lam = lam_alive = None
+    if config.spectral:
+        lam = sp.sample_hero_wavelengths(
+            ray_uniforms(fold_in(key, 7919), ray_ids, 1)[:, 0])
+        lam_alive = torch.ones_like(lam, dtype=torch.bool)
+        throughput = torch.ones_like(lam)
+    else:
+        throughput = f3(1.0)
     eta = torch.ones((n,), dtype=torch.float32, device=dev)
     radiance, alpha, normal, albedo = f3(0.0), f3(0.0), f3(0.0), f3(0.0)
     traces = torch.zeros((), dtype=torch.int64, device=dev)
@@ -219,12 +323,16 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
     for depth in range(config.max_depth):
         if idx.numel() == 0:
             break
+        spec = () if lam is None else (lam[idx], lam_alive[idx])
         b = bounce(scene, o[idx], d[idx], throughput[idx], eta[idx],
-                   ray_ids[idx], fold_in(key, depth), depth == 0, config)
+                   ray_ids[idx], fold_in(key, depth), depth == 0, config,
+                   *spec)
         hm = b["hit_mask"]
         o[idx] = b["origin"]
         d[idx] = b["direction"]
         throughput[idx] = b["throughput"]
+        if lam is not None:
+            lam_alive[idx] = b["lam_alive"]
         eta[idx] = b["eta"]
         radiance[idx] = radiance[idx] + b["contrib"]
         kept = alpha[idx]

@@ -46,8 +46,6 @@ def bench_rays(device="cuda", city_n: int = 24, width: int = 960,
     of frame 0's passes), bounce 0 of the active lanes (``bounce0``, the
     integrator's dict), its ``shadow`` rays (origin, direction, query) and
     its ``continuation`` rays (origin, direction, all active)."""
-    import torch
-
     from fovpathtracing_optixcodelatest_tpu_torch.config import (
         FoveationSchedule,
         RenderConfig,
@@ -60,14 +58,6 @@ def bench_rays(device="cuda", city_n: int = 24, width: int = 960,
         scene_arrays,
         scene_from_arrays,
     )
-    from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import (
-        fold_in,
-        prng_key,
-    )
-    from fovpathtracing_optixcodelatest_tpu_torch.render import (
-        integrator,
-        raygen,
-    )
 
     meshes, cam = scenes.box_city(n=city_n, seed=0)
     t0 = time.perf_counter()
@@ -78,8 +68,27 @@ def bench_rays(device="cuda", city_n: int = 24, width: int = 960,
     if schedule is None:
         schedule = FoveationSchedule.reference_32_16_8()
     camera = dataclasses.replace(cam, aspect=width / height)
-    camp = camera.device_params(device)
+    return dict(frame_rays(scene, camera, config, schedule, device),
+                scene_s=scene_s)
 
+
+def frame_rays(scene, camera, config, schedule, device="cuda") -> dict:
+    """The rays ``scene``'s kernels see on the first bounce of subframe 0
+    (seed 0) of a frame of ``camera`` at ``config``'s size (``bench_rays``'
+    keys but ``scene_s``)."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import (
+        fold_in,
+        prng_key,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render import (
+        integrator,
+        raygen,
+    )
+
+    width, height = config.width, config.height
+    camp = camera.device_params(device)
     frame_key = fold_in(prng_key(0), 0)  # subframe 0 of seed 0
     rays = [raygen.generate_pass_rays(camp, p, width, height, width // 2,
                                       height // 2, fold_in(frame_key, 0))
@@ -100,7 +109,7 @@ def bench_rays(device="cuda", city_n: int = 24, width: int = 960,
     alive = b0["alive"]
     bo = b0["origin"][alive].contiguous()
     return {
-        "scene": scene, "scene_s": scene_s, "config": config,
+        "scene": scene, "config": config,
         "schedule": schedule, "camera": camera,
         "primary": (o, d, act, ids),
         "bounce0": b0,

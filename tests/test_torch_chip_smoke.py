@@ -1,5 +1,5 @@
 """The pure helpers of ``chip_smoke.py``, the shape builder of
-``tools/kernel_times.py``, and a rehearsal of the smoke's phases a-d at a
+``tools/kernel_times.py``, and a rehearsal of the smoke's phases a-f at a
 small size, on the CPU (no card: the wrappers run the plain versions)."""
 
 import dataclasses
@@ -45,6 +45,10 @@ def test_kernel_of_reads_plain_templated_and_mangled_names():
         "_ZN51_GLOBAL__N__00ab1c48_18_packet_traverse_cu_70e8180a23occluded"
         "_packets_kernelEPK5uint4PKfS4_PKhiffiPbPi": "occluded_packets",
         "_ZN12_GLOBAL__N_115occluded_kernelILi16ELi6EEEvPK5uint4": "occluded",
+        "void (anonymous namespace)::closest_hit_instanced_kernel<16, 6>("
+        "uint4 const*)": "closest_hit_instanced",
+        "_ZN12_GLOBAL__N_125occluded_instanced_kernelILi16ELi6EEEvPK5uint4":
+            "occluded_instanced",
         "void at::native::elementwise_kernel<128, 2>(int)": None,
         "aten::mul": None,
     }
@@ -87,6 +91,12 @@ def test_bound_takes_the_larger_of_bytes_and_operations():
     assert by2 == "operations" and fetch2 == 2 * 10**7 * 64 * 4
     assert abs(ms2 - ops / chip_smoke.F32_OPS_PER_S * 1e3) < 1e-12
     assert ms > 0
+    # a two-level walk adds each instance row's transform and its 4 loads
+    inst = dict(many, inst_rows=10**7)
+    ms3, by3, fetch3 = chip_smoke._bound(inst, table, 10, 10, 20)
+    ops += 10**7 * chip_smoke.INST_OPS
+    assert by3 == "operations" and fetch3 == fetch2 + 10**7 * 64
+    assert abs(ms3 - ops / chip_smoke.F32_OPS_PER_S * 1e3) < 1e-12
 
 
 def test_bench_rays_and_kernel_calls_on_cpu():
@@ -180,3 +190,40 @@ def test_rehearse_catcher_and_cli_phases(no_card):
     assert set(cli["files"]) == {"frame.png", "aov.npz", "frame_denoised.png",
                                  "run.tsv"}
     assert "<tmp>" in cli["argv"] and "--device cpu" in cli["argv"]
+
+
+def test_rehearse_instanced_phase(no_card):
+    # phase e at 120x68 on a 96-instance field: the plain versions stand in
+    # for the instanced kernels (no device time), the flattened scene's
+    # subframe passes the JAX package's instancing gate
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    out = chip_smoke.instanced_phase(sched, 120, 68, 1, device="cpu",
+                                     count=96)
+    assert out["finite"] and out["frame"].shape == (68, 120, 3)
+    assert out["world_triangles"] == 96 * 320
+    assert out["table_bytes"] * 10 < out["flat_table_bytes"]
+    assert out["tri_pack_bytes"] * 96 == out["flat_tri_pack_bytes"]
+    k1, k2 = out["k1"], out["k2"]
+    assert k1["hit_equal"] and k1["inst_equal"] and k1["ulp"] == 0
+    assert k1["hits"] > 0 and k1["work"]["inst_rows"] > 0
+    assert k2["mismatches"] == 0 and k2["queried"] > 0
+    assert k1["ms"] is None and k1["bound_ms"] > 0
+    assert out["close_share"] >= chip_smoke.FLAT_SHARE
+    assert out["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
+    assert out["flattened"]["finite"]
+
+
+def test_rehearse_spectral_phases(no_card):
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+
+    w, h = 120, 68
+    scene, cam = _small_bench(w=w, h=h)
+    out = chip_smoke.spectral_phase(scene, RenderConfig(width=w, height=h),
+                                    sched, cam, 1, 16, device="cpu")
+    assert out["finite"] and out["glass_share"] == 1.0
+    assert out["frame"].shape == (h, w, 3) and out["traces"][0] > 0
+    cli = chip_smoke.cli_phase(32, 24, "uniform:1", device="cpu",
+                               spectral=True)
+    assert "--spectral" in cli["argv"] and len(cli["render_ms"]) == 2
+    assert set(cli["files"]) == {"frame.png", "run.tsv"}

@@ -75,12 +75,29 @@ def test_cli_writes_every_file(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--viewer"], "18"), (["--multichip", "samples"], "19"),
-    (["--demand-textures"], "17"), (["--spectral"], "13"),
+    (["--demand-textures"], "17"),
 ])
 def test_cli_refuses_what_is_not_ported(flag, item, capsys):
     assert cli.main(BASE + flag) == 2
     err = capsys.readouterr().err
     assert "not ported" in err and f"ROADMAP item {item}" in err
+
+
+def test_cli_spectral_renders(tmp_path):
+    # --spectral (formerly refused) renders the hero-wavelength path: the
+    # same frame as the Renderer's with spectral=True and the dispersion
+    out = tmp_path / "spec.png"
+    assert cli.main(BASE + ["--frames", "1", "--spectral", "--dispersion",
+                            "9000", "--out", str(out)]) == 0
+    meshes, cam = scenes.cornell()
+    r = Renderer(build_scene(meshes, constant_probe((2.5,) * 3), device="cpu"),
+                 RenderConfig(width=W, height=H, spectral=True,
+                              dispersion=9000.0),
+                 FoveationSchedule.uniform(2), device="cpu")
+    r.set_camera(dataclasses.replace(cam, aspect=W / H))
+    frame = r.render()
+    assert np.array_equal(jimage.load_png(str(out)),
+                          frame[::-1].astype(np.float32) / 255.0)
 
 
 def test_cli_schedules_and_flags_match_jax():

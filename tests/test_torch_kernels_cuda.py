@@ -16,6 +16,13 @@ pin the overflow rule); a layout other than (16, 6) for K1/K2, or than 64
 columns and leaf size 4 for K3, must raise. K3 walks packets of 32 rays
 whose makeup depends on scheduling, so two launches on the same rays must
 also agree, and its answer must equal K2's on the same rays.
+
+The instanced K1 and K2 (two-level tables, ``ops/tlas.py``) are held to
+their plain versions the same way, ``inst`` included: on a rotated grid of
+box and ball instances with a mirrored one, at sparse masks, ragged lane
+counts, the stack depth the TLAS+BLAS bound gives (without its safety
+entry: no ray may overflow it) and a small one that overflows; a mirrored
+one-sided quad shows occlusion culling by the object-space winding.
 """
 
 import numpy as np
@@ -23,7 +30,17 @@ import pytest
 import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
-from fovpathtracing_optixcodelatest_tpu_torch.models.scene import build_scene
+from fovpathtracing_optixcodelatest_tpu_torch.models.instance import instanced
+from fovpathtracing_optixcodelatest_tpu_torch.models.material import Material
+from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+    make_box,
+    make_icosphere,
+    make_quad,
+)
+from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+    build_scene,
+    build_scene_instanced,
+)
 from fovpathtracing_optixcodelatest_tpu_torch.ops import (
     kernel_build,
     packet_traverse,
@@ -31,6 +48,11 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops import (
 )
 
 TMIN, TMAX = 0.01, 1e16
+
+
+def _launched(**counts):
+    """The launch counters with ``counts`` and every other kernel at 0."""
+    return {k: counts.get(k, 0) for k in kernel_build.LAUNCHES}
 
 
 @pytest.fixture
@@ -74,8 +96,8 @@ def test_kernels_match_plain_versions(cuda_device, n, seed):
                        packet_traverse.occluded_packets_plain(*largs))
     assert torch.equal(packet_traverse.occluded_packets(*largs), occ)
     torch.cuda.synchronize()
-    assert kernel_build.LAUNCHES == {"closest_hit": 1, "occluded": 1,
-                                     "occluded_packets": 2}
+    assert kernel_build.LAUNCHES == _launched(closest_hit=1, occluded=1,
+                                              occluded_packets=2)
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +124,8 @@ def _k1_k2_against_plain(scene, o, d, act, depth):
     occ = traverse.occluded(*args)
     torch.cuda.synchronize()
     launched = int(o.shape[0] > 0)
-    assert kernel_build.LAUNCHES == {"closest_hit": launched,
-                                     "occluded": launched,
-                                     "occluded_packets": 0}
+    assert kernel_build.LAUNCHES == _launched(closest_hit=launched,
+                                              occluded=launched)
     p = traverse.closest_hit_plain(*args)
     for c in ("t", "u", "v", "tri_id", "hit"):
         assert torch.equal(k[c], p[c]), c
@@ -306,3 +327,157 @@ def test_k3_refuses_other_layouts(city):
     with pytest.raises(ValueError, match="aligned"):
         packet_traverse.occluded_packets(shifted, o, d, act, TMIN, TMAX,
                                          leg.stack_depth, leg.leaf_size)
+
+
+# ---------------------------------------------------------------------------
+# the instanced K1/K2 (two-level tables)
+# ---------------------------------------------------------------------------
+
+
+def _translate(x, y, z):
+    m = np.eye(4)
+    m[:3, 3] = (x, y, z)
+    return m
+
+
+def _rot_y(deg):
+    a = np.radians(deg)
+    m = np.eye(4)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = (np.cos(a), np.sin(a), -np.sin(a),
+                                          np.cos(a))
+    return m
+
+
+@pytest.fixture(scope="module")
+def grid():
+    """The JAX package's rotated grid of boxes and balls (5 x 5, every third
+    instance turned 35 degrees), with a mirrored box beside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    box = make_box((-0.4, 0.0, -0.4), (0.4, 0.8, 0.4),
+                   Material(color=(0.8, 0.6, 0.4), roughness=0.8))
+    ball = make_icosphere((0.0, 1.1, 0.0), 0.25, 1,
+                          Material(color=(0.3, 0.5, 0.9), roughness=0.4))
+    placements = []
+    for k in range(25):
+        m = _translate((k // 5) * 1.5, 0.0, (k % 5) * 1.5)
+        if k % 3 == 1:
+            m = m @ _rot_y(35.0)
+        placements.append((k % 2, m))
+    placements.append((0, _translate(3.0, 0.0, 8.0) @ np.diag([-1, 1, 1, 1])))
+    return build_scene_instanced(instanced([box, ball], placements),
+                                 device="cuda")
+
+
+def _grid_rays(n, seed, dev, extent=9.0):
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-1.0, extent, n), np.full(n, 5.0),
+                  rng.uniform(-1.0, extent, n)], 1)
+    d = rng.normal(size=(n, 3))
+    d[:, 1] = -np.abs(d[:, 1]) - 1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device=dev),
+            torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+def _instanced_against_plain(scene, o, d, act, depth):
+    """Launch the instanced K1 and K2 once each and hold them to the plain
+    versions; returns (K1 answer, K2 answer)."""
+    b = scene.bvh
+    args = (b.table, o, d, act, TMIN, TMAX, depth, b.arity, b.leaf_size)
+    kw = b.instance_kwargs
+    kernel_build.reset_launches()
+    k = traverse.closest_hit(*args, **kw)
+    occ = traverse.occluded(*args, **kw)
+    torch.cuda.synchronize()
+    launched = int(o.shape[0] > 0)
+    assert kernel_build.LAUNCHES == _launched(
+        closest_hit_instanced=launched, occluded_instanced=launched)
+    p = traverse.closest_hit_plain(*args, **kw)
+    for c in ("t", "u", "v", "tri_id", "hit", "inst"):
+        assert torch.equal(k[c], p[c]), c
+    assert torch.equal(occ, traverse.occluded_plain(*args, **kw))
+    assert not occ[~act].any() and not k["hit"][~act].any()
+    assert bool(((k["inst"] >= 0) == k["hit"]).all())
+    return k, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.01, 0.35, 1.0])
+def test_instanced_kernels_match_plain_at_active_share(grid, share):
+    n = 8192
+    o, d = _grid_rays(n, 3, grid.device)
+    rng = np.random.default_rng(5)
+    act = torch.tensor(rng.random(n) < share, device=grid.device)
+    k, occ = _instanced_against_plain(grid, o, d, act, grid.bvh.stack_depth)
+    assert k["hit"].any() and occ.any()
+    # every instance of the grid is hit somewhere when every lane walks
+    if share == 1.0:
+        assert len(torch.unique(k["inst"][k["hit"]])) == 26
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 70_001])
+def test_instanced_kernels_match_plain_at_ragged_n(grid, n):
+    o, d = _grid_rays(n, 7, grid.device)
+    act = torch.ones(n, dtype=torch.bool, device=grid.device)
+    k, occ = _instanced_against_plain(grid, o, d, act, grid.bvh.stack_depth)
+    assert k["t"].shape == occ.shape == (n,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", ["bound", 3])
+def test_instanced_kernels_at_the_stack_bound(grid, depth):
+    o, d = _grid_rays(20_000, 9, grid.device)
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=grid.device)
+    b = grid.bvh
+    full = _instanced_against_plain(grid, o, d, act, b.stack_depth)
+    if depth == "bound":
+        # the exact TLAS+BLAS bound, without the safety entry, overflows for
+        # no ray: the answers equal the full stack's
+        k, occ = _instanced_against_plain(grid, o, d, act,
+                                          b.stack_depth - 1)
+        for c in ("t", "tri_id", "inst"):
+            assert torch.equal(k[c], full[0][c]), c
+        assert torch.equal(occ, full[1])
+    else:
+        k, _ = _instanced_against_plain(grid, o, d, act, depth)
+        assert not torch.equal(k["tri_id"], full[0]["tri_id"])
+
+
+@pytest.mark.cuda
+def test_instanced_occlusion_culls_by_object_space_winding(cuda_device):
+    # one one-sided quad, placed as is and mirrored in y: in object space
+    # the mirrored copy is seen from its other side, so exactly one of the
+    # two occludes rays from above (the reference's documented caveat)
+    quad = make_quad((-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1),
+                     Material(color=(1, 1, 1), roughness=1.0))
+    mirror = _translate(5.0, 0.0, 0.0) @ np.diag([1.0, -1.0, 1.0, 1.0])
+    scene = build_scene_instanced(
+        instanced([quad], [(0, np.eye(4)), (0, mirror)]), device=cuda_device)
+    n = 256
+    rng = np.random.default_rng(1)
+    x = np.where(np.arange(n) < n // 2, 0.0, 5.0) + rng.uniform(-0.5, 0.5, n)
+    o = torch.tensor(np.stack([x, np.full(n, 3.0), rng.uniform(-0.5, 0.5, n)],
+                              1), dtype=torch.float32, device=cuda_device)
+    d = torch.tensor(np.tile([0.0, -1.0, 0.0], (n, 1)), dtype=torch.float32,
+                     device=cuda_device)
+    act = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    k, occ = _instanced_against_plain(scene, o, d, act,
+                                      scene.bvh.stack_depth)
+    assert bool(k["hit"].all())
+    first, second = occ[: n // 2], occ[n // 2:]
+    assert bool((first != second[0]).all()) and bool((second == second[0]).all())
+    assert bool((first == first[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(8, 4), (16, 4)])
+def test_instanced_kernels_refuse_other_layouts(grid, layout):
+    o, d = _grid_rays(64, 0, grid.device)
+    act = torch.ones(64, dtype=torch.bool, device=grid.device)
+    b = grid.bvh
+    for fn in (traverse.closest_hit, traverse.occluded):
+        with pytest.raises(ValueError, match="layout"):
+            fn(b.table, o, d, act, TMIN, TMAX, b.stack_depth, *layout,
+               **b.instance_kwargs)

@@ -139,25 +139,45 @@ def _box(**kw):
     return make_box((0, 0, 0), (1, 1, 1), Material(**kw))
 
 
-@pytest.mark.parametrize("case", [
-    "instanced", "demand", "spectral", "oracle",
-])
+@pytest.mark.parametrize("case", ["demand", "oracle"])
 def test_unsupported_features_raise(case):
     with pytest.raises(NotImplementedError):
-        if case in ("instanced", "demand"):
+        if case == "demand":
             arrays = scene_arrays([_box()])
             arrays[case] = True
             scene_from_arrays(arrays, device="cpu")
-        elif case == "spectral":
-            RenderConfig(spectral=True).check_supported()
         else:
             RenderConfig(traversal="oracle").check_supported()
 
 
-@pytest.mark.parametrize("case", ["texture", "catcher", "sampler"])
+@pytest.mark.parametrize("case", ["texture", "catcher", "sampler",
+                                  "instanced", "spectral"])
 def test_formerly_refused_features_build(case):
-    # textures, catchers and the stratified/blue-noise samplers are ported
-    if case == "texture":
+    # textures, catchers, the stratified/blue-noise samplers, two-level
+    # (instanced) scenes and the spectral path are ported
+    if case == "instanced":
+        from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
+            instanced,
+        )
+        from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+            build_scene_instanced,
+        )
+
+        m = np.eye(4)
+        m[:3, 3] = (3.0, 0.0, 0.0)
+        scene = build_scene_instanced(
+            instanced([_box()], [(0, np.eye(4)), (0, m)]), device="cpu")
+        b = scene.bvh
+        assert b.instanced and b.num_instances == 2
+        assert 0 < b.inst_base < b.blas_base == b.inst_base + 2 < b.num_rows
+        assert scene.num_triangles == 12
+        # a single-level scene has no instance rows
+        flat = build_scene([_box()], device="cpu")
+        assert not flat.bvh.instanced and flat.bvh.blas_base == 0
+    elif case == "spectral":
+        RenderConfig(spectral=True).check_supported()
+        RenderConfig(spectral=True, dispersion=0.0).check_supported()
+    elif case == "texture":
         scene = build_scene([make_box((0, 0, 0), (1, 1, 1), Material(),
                                       texture_id=0)],
                             texture_images=[np.ones((4, 4, 3), np.float32)],

@@ -55,6 +55,9 @@ def jax_scene_arrays(jscene) -> dict:
         "bvh_stack_depth": jscene.bvh.stack_depth,
         "bvh_arity": jscene.bvh.arity,
         "bvh_leaf_size": jscene.bvh.leaf_size,
+        "bvh_num_instances": jscene.bvh.num_instances,
+        "bvh_inst_base": jscene.bvh.inst_base,
+        "bvh_blas_base": jscene.bvh.blas_base,
         "tri_pack": np.asarray(jscene.geom.tri_pack),
         "material_rows": np.asarray(jscene.materials.packed),
         "texture_data": np.asarray(jscene.textures.data),
