@@ -53,6 +53,30 @@ f. spectral: the untextured bench frame with ``spectral=True``, timed like
    the main path; the dispersive glass sphere (``glass_sphere``,
    ``dispersion`` 25000) on the card against the CPU at a small size (99%
    of the pixels within 1 LSB); the CLI with ``--spectral`` at 960x540.
+g. deep scenes: ``box_city_fast`` n=180 (388,812 triangles, 4 timed
+   frames) and n=913 (10,002,840 triangles, 2 timed frames) at 960x540
+   ``reference_32_16_8``: the host build phase by phase, the warm start
+   from the npz BVH cache the cold build wrote (bit-identical table), the
+   scene's memory report and the peak device memory; K1 and K2 at the
+   scene's stack depth against their plain versions on 65,536 lanes of
+   the frame's primary and bounce-0 shadow rays (exact), timed there and
+   on all the frame's lanes, with the resources at that depth;
+h. the brute-force oracle and the golden images on the card: cornell
+   64x48 ``uniform(4)`` through K1/K2 against ``traversal="oracle"`` (SSIM
+   >= 0.98, mean abs < 5e-3; a stack cut to depth 1 must fall below SSIM
+   0.9), the open scene against ``tests/golden/open_scene_48x36_u4.npz``
+   (SSIM > 0.98, mean < 4 LSB), the equal-spp fovea against the uniform
+   frame (bit-identical), and the 04 raycast (``render/simple.py``), whose
+   shadow rays launch K2's non-culling instantiation: the JAX test's
+   assertions, every pixel within 1 LSB of the CPU's, and that kernel exact
+   against its plain version on the raycast's and on the bench's bounce-0
+   shadow rays;
+i. demand-loaded textures: ``box_city_textured`` n=24 through a
+   ``DemandLoader`` at ``max_pages`` 1024 (every tile fits: requests, loads,
+   none open, none left by frame 3) and 64 (the LRU evicts, at most 64
+   resident), three frames each; a small frame after paging in, card
+   against CPU (every pixel within 1 LSB); the CLI with
+   ``--demand-textures`` on a textured OBJ.
 
 Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
@@ -63,7 +87,8 @@ resident blocks per SM), and as its last line ``{"ok": true, "device":
 fallback.
 
 ``--profile`` adds ``FRAMES`` frames of the main path, and as many of the
-textured and of the spectral frame, under ``torch.profiler``.
+textured, the spectral, the two deep and the paged-in demand frames, under
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -95,6 +120,9 @@ RAY_SHAPE = "960x540 reference_32_16_8, box_city n=24 seed 0"
 # the kernels the main path launches: closest hit (K1) and occlusion (K2),
 # both on the packed table
 PATH_KERNELS = ("closest_hit", "occluded")
+# phase g's deep scenes: (box_city_fast n, timed frames after one warm-up):
+# 388,812 and 10,002,840 triangles
+DEEP_SCENES = ((180, 4), (913, 2))
 
 
 def _line(msg: str) -> None:
@@ -185,6 +213,12 @@ def glass_sphere():
             Camera(eye=(0, 0.4, 3.4), lookat=(0, 0, 0), fov_y=42.0))
 
 
+def _share_within_1lsb(a, b) -> float:
+    """The share of pixels of two uint8 frames within 1 LSB in every
+    channel."""
+    return float((abs(a.astype(int) - b.astype(int)).max(-1) <= 1).mean())
+
+
 def _plain_ms(fn):
     import torch
 
@@ -199,9 +233,11 @@ def _kernel_of(name: str):
     """Which of the port's kernels a device function belongs to, from its
     name as the profiler or ptxas gives it (plain, templated, namespaced or
     mangled): "closest_hit", "occluded", "occluded_packets",
-    "closest_hit_instanced", "occluded_instanced" or None."""
+    "closest_hit_instanced", "occluded_instanced", "occluded_nocull" or
+    None."""
     for kernel in ("occluded_packets", "closest_hit_instanced",
-                   "occluded_instanced", "closest_hit", "occluded"):
+                   "occluded_instanced", "occluded_nocull", "closest_hit",
+                   "occluded"):
         if f"{kernel}_kernel" in name:
             return kernel
     return None
@@ -237,16 +273,19 @@ def _k1_agreement(k: dict, p: dict):
 
 
 def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int):
-    """Least time for the work: the bytes the call must move (the table, the
-    mask of every lane and the ray of each active lane read once, each
-    lane's result written once) at the HBM rate vs the float32 operations
+    """Least time for the work: the bytes the call must move (each distinct
+    table row this run's rays fetch, the mask of every lane and the ray of
+    each active lane read once, each lane's result written once; rows no
+    ray needs are not counted, so a subset of lanes is not charged the
+    whole table) at the HBM rate vs the float32 operations
     this run's rays need (a slab test of each non-empty child of every
     fetched node row, a triangle test of each real triangle of every fetched
     leaf row and, on a two-level table, the object-space ray of each
     instance row entered, as the plain version counted them in ``stats``)
     at the float32 peak. Returns (ms, "bytes"|"operations", row-fetch
     bytes; an instance row's 13 words are four 16-byte loads)."""
-    byte_ms = (table.numel() * 4 + n_active * RAY_BYTES
+    byte_ms = (stats["distinct_rows"] * table.shape[1] * 4
+               + n_active * RAY_BYTES
                + n_rays * (MASK_BYTES + out_bytes)) / HBM_BYTES_PER_S * 1e3
     inst = stats.get("inst_rows", 0)
     ops = (stats["child_tests"] * SLAB_OPS + stats["tri_tests"] * MT_OPS
@@ -514,8 +553,7 @@ def catcher_phase(width: int, height: int, schedule, device="cuda") -> dict:
         got[dev] = (frames, {k: v.cpu() for k, v in aovs.items()},
                     r.stats["traces"])
     (fd, ad, td), (fc, ac, tc) = got[device], got["cpu"]
-    share = min(float((abs(a.astype(int) - b.astype(int)).max(-1) <= 1).mean())
-                for a, b in zip(fd, fc))
+    share = min(_share_within_1lsb(a, b) for a, b in zip(fd, fc))
     err = {k: float((ad[k] - ac[k]).abs().max() / ac[k].abs().max())
            for k in ac}
     assert share >= 0.99, f"catcher frame on {device} vs CPU: {share}"
@@ -720,12 +758,639 @@ def spectral_phase(scene, config, schedule, camera, frames: int,
                      FoveationSchedule.uniform(4), device=dev)
         r.set_camera(dataclasses.replace(cam, aspect=1.0))
         frames_of[dev] = [r.render() for _ in range(2)]
-    share = min(
-        float((abs(a.astype(int) - b.astype(int)).max(-1) <= 1).mean())
-        for a, b in zip(frames_of[device], frames_of["cpu"]))
+    share = min(_share_within_1lsb(a, b)
+                for a, b in zip(frames_of[device], frames_of["cpu"]))
     out["glass_share"] = share
     assert share >= 0.99, f"dispersive glass on {device} vs CPU: {share}"
     out["renderer"] = renderer
+    return out
+
+def _subset(mask, count: int):
+    """``count`` lanes of the set lanes of ``mask``, evenly spread over
+    them (all of them where there are fewer)."""
+    import torch
+
+    lanes = torch.nonzero(mask).squeeze(1)
+    step = max(1, lanes.numel() // count)
+    return lanes[::step][:count]
+
+
+def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
+               device="cuda", subset: int = 65536, profile=None,
+               results=None) -> dict:
+    """(g) A deep scene, ``box_city_fast(city_n)`` under the gradient sky:
+    the host build phase by phase (scene, triangles, collapse, pack, the
+    npz cache's write) and its warm start from that cache (key, load and
+    upload of the table; bit-identical to the cold build), ``frames``
+    timed frames after one warm-up, and K1 and K2 on ``subset`` lanes of
+    the frame's primary and bounce-0 shadow rays against their plain
+    versions (exact), timed there and on all of the frame's lanes. With
+    ``profile``, ``FRAMES`` more frames under the profiler."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        host_triangles,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        scene_arrays,
+        scene_from_arrays,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        bvh_native,
+        kernel_build,
+        traverse,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    out = {"city_n": city_n}
+    t0 = time.perf_counter()
+    meshes, cam = scenes.box_city_fast(n=city_n, seed=0)
+    out["scene_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tris = host_triangles(meshes)
+    out["triangles_s"] = time.perf_counter() - t0
+    saved = os.environ.get("FOVTPU_BVH_CACHE")
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["FOVTPU_BVH_CACHE"] = cache
+        try:
+            cold, warm = {}, {}
+            t0 = time.perf_counter()
+            bvh = bvh_native.build(tris, timings=cold)
+            out["cold_build_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = bvh_native.build(tris, timings=warm)
+            table = torch.tensor(again.table, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out["warm_start_s"] = time.perf_counter() - t0
+            out["cache_files"] = len(os.listdir(cache))
+        finally:
+            if saved is None:
+                del os.environ["FOVTPU_BVH_CACHE"]
+            else:
+                os.environ["FOVTPU_BVH_CACHE"] = saved
+    out.update(cold=cold, warm=warm)
+    bits = lambda a: a.view(np.uint32)  # noqa: E731 (ids are NaN floats)
+    assert np.array_equal(bits(again.table), bits(bvh.table)) and \
+        np.array_equal(again.leaf_perm, bvh.leaf_perm) and \
+        again.stack_depth == bvh.stack_depth, \
+        "the cached table differs from the cold build"
+    del again, table
+    t0 = time.perf_counter()
+    arrays = scene_arrays(meshes, gradient_sky_probe(), bvh=bvh)
+    out["arrays_s"] = time.perf_counter() - t0
+    del meshes, tris
+    t0 = time.perf_counter()
+    scene = scene_from_arrays(arrays, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["upload_s"] = time.perf_counter() - t0
+    del arrays
+    b = scene.bvh
+    out.update(triangles=scene.num_triangles, rows=b.num_rows,
+               table_bytes=b.table.numel() * 4, stack_depth=b.stack_depth,
+               memory=scene.memory_bytes())
+    config = RenderConfig(width=width, height=height, max_depth=4)
+    camera = dataclasses.replace(cam, aspect=width / height)
+    renderer = Renderer(scene, config, schedule, device=device)
+    renderer.set_camera(camera)
+    out.update(timed_frames(renderer, frames))
+    lin = renderer.linear_frame()
+    out["mean_radiance"] = float(lin.mean())
+    assert out["frame"].shape == (height, width, 3) and out["finite"]
+    assert out["mean_radiance"] > 0, "the deep frame is black"
+    out["memory_report"] = scene.memory_report(
+        n_rays=kernel_times.PRIMARY_LANES)
+    if profile:
+        root, ext = os.path.splitext(profile)
+        _profile_frames(renderer, f"{root}_deep{city_n}{ext}", results,
+                        name=f"profile_deep{city_n}")
+    del renderer
+
+    # K1 and K2 at this depth: exact on a lane subset, timed there and on
+    # the whole frame's lanes
+    rays = kernel_times.frame_rays(scene, camera, config, schedule, device)
+    o, d, act, _ = rays["primary"]
+    so, sd, sq = rays["shadow"]
+    sel1, sel2 = _subset(act, subset), _subset(sq, subset)
+    po, pd = o[sel1].contiguous(), d[sel1].contiguous()
+    qo, qd = so[sel2].contiguous(), sd[sel2].contiguous()
+    ones1 = torch.ones((sel1.numel(),), dtype=torch.bool, device=device)
+    ones2 = torch.ones((sel2.numel(),), dtype=torch.bool, device=device)
+    kargs = (config.tmin, config.tmax, *b.walk_args)
+    calls = {
+        "k1_subset": lambda: traverse.closest_hit(b.table, po, pd, ones1,
+                                                  *kargs),
+        "k2_subset": lambda: traverse.occluded(b.table, qo, qd, ones2,
+                                               *kargs),
+        "k1_frame": lambda: traverse.closest_hit(b.table, o, d, act, *kargs),
+        "k2_frame": lambda: traverse.occluded(b.table, so, sd, sq, *kargs),
+    }
+    got1, got2 = calls["k1_subset"](), calls["k2_subset"]()
+    st1, st2 = {}, {}
+    p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
+        b.table, po, pd, ones1, *kargs, stats=st1))
+    p2, p2_ms = _plain_ms(lambda: traverse.occluded_plain(
+        b.table, qo, qd, ones2, *kargs, stats=st2))
+    hit_eq, tri_eq, ulp, err1 = _k1_agreement(got1, p1)
+    mism2 = int((got2 != p2).sum().item())
+    assert hit_eq and tri_eq and ulp == 0, \
+        f"K1 disagrees with its plain version at depth {b.stack_depth}"
+    assert mism2 == 0, \
+        f"K2 disagrees with its plain version at depth {b.stack_depth}"
+    assert int(p1["hit"].sum()) > 0 and int(p2.sum()) > 0
+    if device == "cuda":
+        times = kernel_times.time_kernels(calls)
+        res = kernel_build.resources(b.stack_depth)
+        res = {k: res[k] for k in PATH_KERNELS}
+    else:  # a rehearsal: no device time
+        times, res = dict.fromkeys(calls), None
+    n1, n2 = sel1.numel(), sel2.numel()
+    b1, b1_by, f1 = _bound(st1, b.table, n1, n1, 16)
+    b2, b2_by, f2 = _bound(st2, b.table, n2, n2, 1)
+    out["k1"] = {"lanes": n1, "hits": int(p1["hit"].sum()),
+                 "hit_equal": hit_eq, "tri_id_equal": tri_eq, "ulp": ulp,
+                 "max_abs_err": err1, "ms": times["k1_subset"],
+                 "frame_ms": times["k1_frame"], "frame_lanes": o.shape[0],
+                 "plain_ms": p1_ms, "bound_ms": b1, "bound_by": b1_by,
+                 "fetch_bytes": f1, "work": st1,
+                 "rows_per_lane": (st1["node_rows"] / n1,
+                                   st1["leaf_rows"] / n1)}
+    out["k2"] = {"lanes": n2, "occluded": int(p2.sum()),
+                 "mismatches": mism2, "max_abs_err": float(min(mism2, 1)),
+                 "ms": times["k2_subset"], "frame_ms": times["k2_frame"],
+                 "frame_lanes": so.shape[0], "frame_queried": int(sq.sum()),
+                 "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
+                 "fetch_bytes": f2, "work": st2,
+                 "rows_per_lane": (st2["node_rows"] / n2,
+                                   st2["leaf_rows"] / n2)}
+    out["resources"] = res
+    return out
+
+
+def _deep_record(g: dict, k: str, kernel: str) -> dict:
+    """The kernels line's record of K1 or K2 on the deep scene ``g``."""
+    r = g[k]
+    return {"triangles": g["triangles"], "stack_depth": g["stack_depth"],
+            "lanes": r["lanes"], "ms": r["ms"], "frame_ms": r["frame_ms"],
+            "frame_lanes": r["frame_lanes"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "launches": g["launches"][kernel],
+            "max_abs_err": r["max_abs_err"],
+            "rows_per_lane": r["rows_per_lane"], **g["resources"][kernel]}
+
+
+def _deep_lines(name: str, g: dict) -> None:
+    c, w = g["cold"], g["warm"]
+    _line(f"{name}: box_city_fast(n={g['city_n']}), {g['triangles']} tris, "
+          f"{g['rows']} rows, table {g['table_bytes'] / 1e6:.1f} MB, "
+          f"stack_depth {g['stack_depth']}; host build: scene "
+          f"{g['scene_s']:.2f} s, triangles {g['triangles_s']:.2f} s, cold "
+          f"BVH {g['cold_build_s']:.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in c.items())
+          + f"), scene arrays {g['arrays_s']:.2f} s, upload "
+          f"{g['upload_s']:.2f} s; warm start from the npz cache "
+          f"{g['warm_start_s']:.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in w.items())
+          + " + upload)")
+    _line(f"{name} memory_report: {g['memory_report']}")
+    _line(_frames_line(f"{name}: {len(g['frame_ms'])} frames after 1 warm-up",
+                       g) + f"; mean radiance {g['mean_radiance']:.4f}")
+    for k in ("k1", "k2"):
+        r = g[k]
+        ms = "not timed" if r["ms"] is None else (
+            f"{r['ms']:.4f} ms on the subset, {r['frame_ms']:.4f} ms on the "
+            f"frame's {r['frame_lanes']} lanes")
+        _line(f"{name} {k.upper()} at depth {g['stack_depth']} on "
+              f"{r['lanes']} lanes: exact vs plain; {ms}; plain "
+              f"{r['plain_ms']:.1f} ms; bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}); node/leaf rows a lane "
+              f"{r['rows_per_lane'][0]:.2f}/{r['rows_per_lane'][1]:.2f}")
+    if g["resources"]:
+        _line(f"{name} resources at depth {g['stack_depth']}: " + "; ".join(
+            f"{k} {r['registers']} regs, {r['shared_bytes']} B shared/block, "
+            f"{r['blocks_per_sm']} blocks/SM"
+            for k, r in g["resources"].items()))
+
+
+def open_scene():
+    """The JAX package's golden-image scene (``tests/test_golden.py``): an
+    open-air floor, a sphere and a box under the constant ambient probe ->
+    (meshes, camera). Phase (h)'s golden scene."""
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+    from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
+        Material,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        make_box,
+        make_icosphere,
+        make_quad,
+    )
+
+    def matte(c):
+        return Material(color=c, emission=(0, 0, 0), metallic=0.0,
+                        roughness=1.0, transmission=0.0, specular=0.3,
+                        specular_tint=0.0)
+
+    meshes = [
+        make_quad((-20, 0, 20), (20, 0, 20), (20, 0, -20), (-20, 0, -20),
+                  matte((0.7, 0.7, 0.7))),
+        make_icosphere((0, 1.0, 0), 1.0, 1, matte((0.8, 0.3, 0.2))),
+        make_box((2.5, 0.75, -1), (0.75, 0.75, 0.75), matte((0.2, 0.4, 0.8))),
+    ]
+    return meshes, Camera(eye=(0, 3.5, 7), lookat=(0, 0.8, 0), fov_y=45.0)
+
+
+def raycast_scene():
+    """The JAX package's 04 raycast scene (``tests/test_features.py``): a
+    white floor and a textured red wall -> (meshes, images, camera, light
+    position)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+    from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
+        Material,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import make_quad
+    from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
+        checkerboard,
+    )
+
+    floor = make_quad((-5, 0, 5), (5, 0, 5), (5, 0, -5), (-5, 0, -5),
+                      Material(color=(1.0, 1.0, 1.0), emission=(0, 0, 0)))
+    wall = make_quad((-1, 0, 0), (1, 0, 0), (1, 2, 0), (-1, 2, 0),
+                     Material(color=(1.0, 0.2, 0.2), emission=(0, 0, 0)),
+                     texture_id=0)
+    cam = Camera(eye=(0, 3, 8), lookat=(0, 0.5, 0), fov_y=50.0, aspect=4 / 3)
+    return [floor, wall], [checkerboard(16, 4)], cam, (0.0, 10.0, 2.0)
+
+
+def golden_frame(scene, cam, config, schedule, seed: int = 0,
+                 subframes: int = 1, fold: bool = True):
+    """``subframes`` frames of ``render_frame`` at the frame centre, as the
+    JAX golden tests render them: subframe ``sf`` keyed by fold_in(key(seed),
+    sf), or by key(seed) itself (``fold=False``, the oracle test's one
+    frame) -> the last uint8 frame (numpy)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import (
+        fold_in,
+        prng_key,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render import film
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        render_frame,
+    )
+
+    w, h = config.width, config.height
+    camp = dataclasses.replace(cam, aspect=w / h).device_params(scene.device)
+    pad = film.schedule_padding(schedule, w, h)
+    canvas = film.new_canvas(w, h, pad, scene.device)
+    key = prng_key(seed)
+    for sf in range(subframes):
+        canvas, frame, _ = render_frame(
+            scene, camp, w // 2, h // 2, sf, canvas,
+            fold_in(key, sf) if fold else key, config, schedule)
+    return frame.cpu().numpy()
+
+
+def fovea_schedule(r: int = 12, spp: int = 16):
+    """The JAX golden test's two-pass schedule: a 4x periphery at 2 spp and
+    an ``spp`` fovea of radius ``r``."""
+    from fovpathtracing_optixcodelatest_tpu_torch.config import (
+        FoveationPass,
+        FoveationSchedule,
+    )
+
+    return FoveationSchedule(passes=(
+        FoveationPass(factor=4, spp=2, r_inner=float(r), r_outer=1e9,
+                      redraw=False),
+        FoveationPass(factor=1, spp=spp, r_inner=0.0, r_outer=float(r + 1),
+                      redraw=True, launch_w=2 * (r + 1), launch_h=2 * (r + 1),
+                      centered=True, center_offset=r + 1),
+    ))
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "open_scene_48x36_u4.npz")
+# the JAX package's thresholds (tests/test_oracle_ssim.py,
+# tests/test_golden.py): the BVH frame against the oracle's, the frame
+# against the golden image
+ORACLE_SSIM, ORACLE_MEAN_ABS = 0.98, 5e-3
+GOLDEN_SSIM, GOLDEN_MEAN_LSB = 0.98, 4.0
+
+
+def oracle_phase(device="cuda") -> dict:
+    """(h) The brute-force oracle and the golden images on ``device``: the
+    cornell box at 64x48 ``uniform(4)`` through K1/K2 against the oracle
+    (SSIM and mean abs), a stack cut to depth 1 against the oracle at 48x36
+    (SSIM must crater); the open scene at 48x36 ``uniform(4)`` against
+    ``tests/golden/open_scene_48x36_u4.npz``; the equal-spp fovea against
+    the uniform frame (bit-identical); the 04 raycast, whose shadow rays
+    launch the non-culling K2, with the JAX test's assertions and against
+    its CPU run (every pixel within 1 LSB), and that kernel against its
+    plain version on the raycast's shadow rays (exact)."""
+    import numpy as np
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.config import (
+        FoveationSchedule,
+        RenderConfig,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        constant_probe,
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        build_scene,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render import simple
+    from fovpathtracing_optixcodelatest_tpu_torch.utils.metrics import ssim
+
+    out = {}
+    meshes, cam = scenes.cornell(sphere_subdiv=1)
+    scene = build_scene(meshes, gradient_sky_probe(width=64, height=32),
+                        device=device)
+    base = RenderConfig(width=64, height=48)
+    oracle = dataclasses.replace(base, traversal="oracle")
+    u4 = FoveationSchedule.uniform(4)
+    img_bvh = golden_frame(scene, cam, base, u4, fold=False) / 255.0
+    img_orc = golden_frame(scene, cam, oracle, u4, fold=False) / 255.0
+    out["oracle_ssim"] = ssim(img_bvh, img_orc)
+    out["oracle_mean_abs"] = float(np.abs(img_bvh - img_orc).mean())
+    assert out["oracle_ssim"] >= ORACLE_SSIM, out
+    assert out["oracle_mean_abs"] < ORACLE_MEAN_ABS, out
+    small = RenderConfig(width=48, height=36)
+    u2 = FoveationSchedule.uniform(2)
+    broken = dataclasses.replace(
+        scene, bvh=dataclasses.replace(scene.bvh, stack_depth=1))
+    out["broken_ssim"] = ssim(
+        golden_frame(scene, cam, dataclasses.replace(small,
+                                                     traversal="oracle"),
+                     u2, fold=False) / 255.0,
+        golden_frame(broken, cam, small, u2, fold=False) / 255.0)
+    assert out["broken_ssim"] < 0.9, "a cut stack passed the oracle check"
+
+    meshes, cam = open_scene()
+    scene = build_scene(meshes, constant_probe((2.5, 2.5, 2.5)),
+                        device=device)
+    frame = golden_frame(scene, cam, small, u4)
+    golden = np.load(GOLDEN)["frame"]
+    out["golden_ssim"] = ssim(frame / 255.0, golden / 255.0)
+    out["golden_mean_lsb"] = float(
+        np.abs(frame.astype(int) - golden.astype(int)).mean())
+    assert out["golden_ssim"] > GOLDEN_SSIM, out
+    assert out["golden_mean_lsb"] < GOLDEN_MEAN_LSB, out
+    cx, cy, rr = 24, 18, 8
+    fovea = golden_frame(scene, cam, small, fovea_schedule(), seed=2)
+    uniform = golden_frame(scene, cam, small, FoveationSchedule.uniform(16),
+                           seed=2)
+    crop = np.s_[cy - rr: cy + rr, cx - rr: cx + rr]
+    out["fovea_identical"] = bool(np.array_equal(fovea[crop], uniform[crop]))
+    assert out["fovea_identical"], "the equal-spp fovea differs from uniform"
+
+    meshes, images, cam, light = raycast_scene()
+    frames = {}
+    for dev in (device, "cpu"):
+        sc = build_scene(meshes, texture_images=images, device=dev,
+                         shading_normals=True)
+        kernel_build.reset_launches()
+        frames[dev] = simple.raycast(sc, cam.device_params(dev), 64, 48,
+                                     light_pos=light).cpu().numpy()
+        if dev == device:
+            out["raycast_launches"] = dict(kernel_build.LAUNCHES)
+            scene = sc
+    frame = frames[device]
+    r, g = frame[..., 0].astype(int), frame[..., 1].astype(int)
+    bl = frame[..., 2].astype(int)
+    assert frame.shape == (48, 64, 3) and frame.max() > 60
+    assert (frame[-1] == 0).all(), "sky rows are not black"
+    floor = (abs(r - g) < 3) & (abs(g - bl) < 3) & (r > 10)
+    vals = r[floor].astype(float)
+    out["raycast_floor_ratio"] = float(
+        np.percentile(vals, 95) / max(np.percentile(vals, 5), 1.0))
+    assert len(vals) > 100 and out["raycast_floor_ratio"] > 1.5
+    assert ((r > g + 30) & (r > 20)).sum() > 20, "the red wall is missing"
+    out["raycast_share"] = _share_within_1lsb(frame, frames["cpu"])
+    assert out["raycast_share"] == 1.0, \
+        f"raycast on {device} vs CPU: {out['raycast_share']}"
+
+    so, sd, q = simple.shadow_rays(scene, cam.device_params(device), 64, 48,
+                                   light_pos=light)
+    b = scene.bvh
+    got = traverse.occluded(b.table, so, sd, q, 1e-3, 1.0 - 1e-3,
+                            *b.walk_args, cull_backface=False)
+    want = traverse.occluded_plain(b.table, so, sd, q, 1e-3, 1.0 - 1e-3,
+                                   *b.walk_args, cull_backface=False)
+    culled = traverse.occluded_plain(b.table, so, sd, q, 1e-3, 1.0 - 1e-3,
+                                     *b.walk_args)
+    out["raycast_shadow"] = {
+        "lanes": so.shape[0], "queried": int(q.sum()),
+        "occluded": int(want.sum()), "occluded_culling": int(culled.sum()),
+        "mismatches": int((got != want).sum())}
+    assert out["raycast_shadow"]["mismatches"] == 0, \
+        "the non-culling K2 disagrees with its plain version (raycast)"
+    assert int(want.sum()) > 0
+    return out
+
+
+def nocull_check(bvh, so, sd, sq, tmin: float, tmax: float,
+                 device="cuda") -> dict:
+    """The non-culling K2 against its plain version on shadow rays (exact),
+    its CUDA-event time, the plain version's time and the bound."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    kargs = (tmin, tmax, *bvh.walk_args)
+    call = lambda: traverse.occluded(  # noqa: E731
+        bvh.table, so, sd, sq, *kargs, cull_backface=False)
+    got = call()
+    st = {}
+    want, plain_ms = _plain_ms(lambda: traverse.occluded_plain(
+        bvh.table, so, sd, sq, *kargs, stats=st, cull_backface=False))
+    culled = traverse.occluded(bvh.table, so, sd, sq, *kargs)
+    mism = int((got != want).sum().item())
+    assert mism == 0, "the non-culling K2 disagrees with its plain version"
+    bound, by, fetch = _bound(st, bvh.table, so.shape[0], int(sq.sum()), 1)
+    return {"lanes": so.shape[0], "queried": int(sq.sum()),
+            "occluded": int(want.sum()),
+            "occluded_culling": int(culled.sum()),
+            "only_without_culling": int((want & ~culled).sum()),
+            "mismatches": mism, "max_abs_err": float(min(mism, 1)),
+            "ms": kernel_times.events_ms(call) if device == "cuda" else None,
+            "culling_ms": (kernel_times.events_ms(
+                lambda: traverse.occluded(bvh.table, so, sd, sq, *kargs))
+                if device == "cuda" else None),
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "fetch_bytes": fetch, "work": st}
+
+
+def _write_textured_obj(directory: str) -> str:
+    """A 10 x 10 floor quad with a checkerboard ``map_Kd`` (an OBJ, its MTL
+    and a PNG in ``directory``) -> the OBJ's path."""
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.utils.image import save_png
+
+    tex = np.zeros((256, 256, 3), dtype=np.float32)
+    tex[(np.arange(256)[:, None] // 32 + np.arange(256)[None, :] // 32)
+        % 2 == 0] = 1.0
+    save_png(os.path.join(directory, "checker.png"), tex)
+    with open(os.path.join(directory, "scene.mtl"), "w") as f:
+        f.write("newmtl ground\nKd 1 1 1\nmap_Kd checker.png\n")
+    obj = ["mtllib scene.mtl"]
+    for p in [(-5, 0, 5), (5, 0, 5), (5, 0, -5), (-5, 0, -5)]:
+        obj.append(f"v {p[0]} {p[1]} {p[2]}")
+    obj += ["vt 0 0", "vt 1 0", "vt 1 1", "vt 0 1", "usemtl ground",
+            "f 1/1 2/2 3/3 4/4"]
+    path = os.path.join(directory, "scene.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(obj))
+    return path
+
+
+def demand_phase(city_n: int, schedule, width: int, height: int,
+                 small_size, small_schedule, pages=(1024, 64),
+                 cli_size=None, cli_schedule="32_16_8", device="cuda",
+                 profile=None, results=None) -> dict:
+    """(i) Demand-loaded textures: ``box_city_textured(city_n)`` with its
+    textures paged through a ``DemandLoader`` of each atlas size in
+    ``pages``, three frames each with ``process_demand_requests`` after
+    each: pages requested, tiles loaded, requests still open, resident
+    pages, evictions and ms/frame. The first size must hold every tile
+    (requests, then loads, then none open, none left by frame 3), the
+    others must stay within their size while the LRU evicts. After the
+    pages are in, a ``small_size`` frame on ``device`` against the CPU
+    (every pixel within 1 LSB); the CLI with ``--demand-textures`` on an
+    OBJ at ``cli_size``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.apps import main as cli
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.demand import (
+        DemandLoader,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        scene_arrays,
+        scene_from_arrays,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    meshes, cam, images = scenes.box_city_textured(n=city_n, seed=0)
+    arrays = scene_arrays(meshes, gradient_sky_probe())
+
+    def renderer(dev, max_pages, size, sched):
+        loader = DemandLoader(max_pages=max_pages, device=dev)
+        for img in images:
+            loader.create_texture(img)
+        scene = scene_from_arrays(arrays, dev, demand=loader.launch_prepare())
+        r = Renderer(scene, RenderConfig(width=size[0], height=size[1]),
+                     sched, device=dev, demand_loader=loader)
+        r.set_camera(dataclasses.replace(cam, aspect=size[0] / size[1]))
+        return r, loader
+
+    out = {"runs": {}}
+    for max_pages in pages:
+        r, loader = renderer(device, max_pages, (width, height), schedule)
+        rows = []
+        for _ in range(3):
+            kernel_build.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            r.render()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(kernel_build.LAUNCHES)
+            loaded = loader.num_tiles_loaded
+            req = r._stats["demand_requests"].cpu().numpy()
+            requested = r.process_demand_requests()
+            rows.append({
+                "ms": ms, "requested": requested,
+                "loaded": loader.num_tiles_loaded - loaded,
+                "open": int((req & (loader.page_table < 0)).sum()),
+                "resident": loader.resident_pages,
+                "evicted": loader.num_tiles_evicted, "launches": launches,
+                "traces": r.stats["traces"]})
+            assert loader.resident_pages <= max_pages
+        lin = r.linear_frame()
+        assert np.isfinite(lin).all() and lin.mean() > 0
+        out["runs"][max_pages] = {"total_pages": loader.total_pages,
+                                  "frames": rows}
+        if max_pages >= loader.total_pages:
+            assert rows[0]["requested"] > 0
+            assert all(x["loaded"] == x["requested"] and x["open"] == 0
+                       for x in rows), rows
+            assert rows[2]["requested"] == 0, rows
+            if profile:
+                root, ext = os.path.splitext(profile)
+                _profile_frames(r, f"{root}_demand{ext}", results,
+                                name="profile_demand")
+        else:
+            assert rows[-1]["evicted"] > 0, "the LRU never evicted"
+        del r, loader
+
+    # the card against the CPU after the pages are in: two frames page the
+    # tiles in, then a fresh renderer renders subframe 0 again
+    frames = {}
+    for dev in (device, "cpu"):
+        r, loader = renderer(dev, pages[0], small_size, small_schedule)
+        for _ in range(2):
+            r.render()
+            r.process_demand_requests()
+        fresh = Renderer(r.scene, r.config, small_schedule, device=dev,
+                         demand_loader=loader)
+        fresh.set_camera(dataclasses.replace(
+            cam, aspect=small_size[0] / small_size[1]))
+        frames[dev] = fresh.render()
+        assert fresh.process_demand_requests() == 0, \
+            "the small frame still requested pages"
+    out["small_share"] = _share_within_1lsb(frames[device], frames["cpu"])
+    assert out["small_share"] == 1.0, \
+        f"demand frame on {device} vs CPU: {out['small_share']}"
+
+    cw, ch = cli_size or (width, height)
+    with tempfile.TemporaryDirectory() as tmp:
+        png, tsv = os.path.join(tmp, "frame.png"), os.path.join(tmp, "run.tsv")
+        argv = ["--device", device, "--obj", _write_textured_obj(tmp),
+                "--width", str(cw), "--height", str(ch), "--frames", "2",
+                "--schedule", cli_schedule, "--demand-textures",
+                "--demand-pages", "4", "--out", png, "--tsv", tsv]
+        kernel_build.reset_launches()
+        rc = cli.main(argv)
+        assert rc == 0, f"the demand CLI returned {rc}"
+        sizes = {os.path.basename(f): os.path.getsize(f) for f in (png, tsv)}
+        assert all(v > 0 for v in sizes.values()), sizes
+        out["cli"] = {"argv": " ".join(argv).replace(tmp, "<tmp>"),
+                      "files": sizes,
+                      "launches": dict(kernel_build.LAUNCHES)}
     return out
 
 
@@ -931,10 +1596,8 @@ def main() -> int:
                      device=dev)
         r.set_camera(dataclasses.replace(small[1], aspect=sw / sh))
         frames[dev] = [r.render() for _ in range(2)]
-    share = min(
-        float(((a.astype(int) - b.astype(int)).__abs__().max(-1) <= 1).mean())
-        for a, b in zip(frames["cuda"], frames["cpu"])
-    )
+    share = min(_share_within_1lsb(a, b)
+                for a, b in zip(frames["cuda"], frames["cpu"]))
     _line(f"small frame {sw}x{sh}, 2 subframes: GPU vs CPU pixels within "
           f"1 LSB {share:.4f}")
     assert share >= 0.99, "GPU frame disagrees with the CPU reference"
@@ -1057,6 +1720,67 @@ def main() -> int:
     for k in PATH_KERNELS:
         assert spec_cli_launches[k] > 0, f"the spectral CLI never launched {k}"
 
+    # -- phase g: deep scenes (388,812 and 10,002,840 triangles) -------------
+    deep = {}
+    for city_n, deep_frames in DEEP_SCENES:
+        g = deep_phase(city_n, deep_frames, schedule, w, h,
+                       profile=args.profile, results=results)
+        deep[city_n] = g
+        _deep_lines(f"deep n={city_n}", g)
+        for k in PATH_KERNELS:
+            assert g["launches"][k] > 0, f"the deep frame never launched {k}"
+        del g["frame"]
+        torch.cuda.empty_cache()
+    g10 = deep[DEEP_SCENES[-1][0]]
+
+    # -- phase h: the oracle, the golden images and the 04 raycast ----------
+    orc = oracle_phase()
+    raycast_launches = orc["raycast_launches"]
+    _line(f"oracle: cornell 64x48 uniform(4), K1/K2 vs the brute-force "
+          f"oracle: SSIM {orc['oracle_ssim']:.5f} (>= {ORACLE_SSIM}), mean "
+          f"abs {orc['oracle_mean_abs']:.6f} (< {ORACLE_MEAN_ABS}); stack "
+          f"cut to 1 vs oracle: SSIM {orc['broken_ssim']:.4f} (< 0.9)")
+    _line(f"golden: open scene 48x36 uniform(4) vs "
+          f"tests/golden/open_scene_48x36_u4.npz: SSIM "
+          f"{orc['golden_ssim']:.5f} (> {GOLDEN_SSIM}), mean "
+          f"{orc['golden_mean_lsb']:.4f} LSB (< {GOLDEN_MEAN_LSB}); "
+          f"equal-spp fovea vs uniform bit-identical "
+          f"{orc['fovea_identical']}")
+    _line(f"raycast 64x48 (04): card vs CPU pixels within 1 LSB "
+          f"{orc['raycast_share']:.4f}; floor lit/shadowed "
+          f"{orc['raycast_floor_ratio']:.2f}; shadow rays "
+          f"{orc['raycast_shadow']}; launches {raycast_launches}")
+    assert raycast_launches["occluded_nocull"] > 0, \
+        "the raycast never launched the non-culling K2"
+    nocull = nocull_check(bvh, so, sd, sq, tmin, tmax)
+    _line(f"non-culling K2 on the bench's bounce-0 shadow lanes: "
+          f"{nocull['lanes']} lanes, {nocull['queried']} queried, "
+          f"{nocull['occluded']} occluded ({nocull['occluded_culling']} "
+          f"culling, {nocull['only_without_culling']} only without); "
+          f"{nocull['mismatches']} mismatches; {nocull['ms']:.4f} ms "
+          f"(culling K2 {nocull['culling_ms']:.4f} ms); plain "
+          f"{nocull['plain_ms']:.1f} ms; work {nocull['work']}")
+
+    # -- phase i: demand-loaded textures -------------------------------------
+    dem = demand_phase(24, schedule, w, h, (sw, sh), small_sched,
+                       profile=args.profile, results=results)
+    for max_pages, run in dem["runs"].items():
+        _line(f"demand textures, max_pages {max_pages} ({run['total_pages']} "
+              f"tiles): " + "; ".join(
+                  f"frame {i + 1}: {x['requested']} requested, {x['loaded']} "
+                  f"loaded, {x['open']} open, {x['resident']} resident, "
+                  f"{x['evicted']} evicted, {x['ms']:.1f} ms"
+                  for i, x in enumerate(run["frames"]))
+              + f"; launches {run['frames'][-1]['launches']}")
+        for x in run["frames"]:
+            for k in PATH_KERNELS:
+                assert x["launches"][k] > 0, \
+                    f"the demand frame never launched {k}"
+    _line(f"demand small frame {sw}x{sh} after paging in: card vs CPU pixels "
+          f"within 1 LSB {dem['small_share']:.4f}; CLI "
+          f"{dem['cli']['argv']} -> 0, files {dem['cli']['files']}, launches "
+          f"{dem['cli']['launches']}")
+
     # -- phase 8: the kernels line ---------------------------------------------
     per_frame = lambda k: launches[k] / FRAMES  # noqa: E731
     # a kernel of the main path reports its launches there, one off it the
@@ -1080,6 +1804,8 @@ def main() -> int:
         spills.update(_ptxas_spills(log))
     for k, r in res.items():
         r["spill_bytes"] = spills.get(k)
+    for k, r in (g10["resources"] or {}).items():
+        r["spill_bytes"] = spills.get(k)
     _line("resources: " + "; ".join(
         f"{k} {r['registers']} regs, {r['spill_bytes']} B spilled, "
         f"{r['local_bytes']} B local, {r['shared_bytes']} B shared/block, "
@@ -1097,6 +1823,7 @@ def main() -> int:
          "continuation": {"lanes": nb, "ms": times["k1_continuation"],
                           "plain_ms": p1b_ms,
                           "bound_ms": b1b, "bound_by": b1b_by},
+         "deep": _deep_record(g10, "k1", "closest_hit"),
          "instanced": {"lanes": ik1["lanes"], "ms": ik1["ms"],
                        "plain_ms": ik1["plain_ms"],
                        "bound_ms": ik1["bound_ms"],
@@ -1110,6 +1837,7 @@ def main() -> int:
          "ms": times["k2_shadow"],
          "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
          "library_ms": None, **res["occluded"],
+         "deep": _deep_record(g10, "k2", "occluded"),
          "instanced": {"lanes": ik2["lanes"], "ms": ik2["ms"],
                        "plain_ms": ik2["plain_ms"],
                        "bound_ms": ik2["bound_ms"],
@@ -1117,6 +1845,16 @@ def main() -> int:
                        "launches": inst_launches["occluded_instanced"],
                        "max_abs_err": ik2["max_abs_err"],
                        **res["occluded_instanced"]}},
+        {"name": "occluded_nocull", "route": "cuda",
+         "source": src + "traverse.cu",
+         "replaces": jax_ops + "traverse8.py:1376", "launches":
+         raycast_launches["occluded_nocull"],
+         "max_abs_err": max(nocull["max_abs_err"],
+                            float(min(orc["raycast_shadow"]["mismatches"],
+                                      1))),
+         "ms": nocull["ms"], "plain_ms": nocull["plain_ms"],
+         "bound_ms": nocull["bound_ms"], "bound_by": nocull["bound_by"],
+         "library_ms": None, **res["occluded_nocull"]},
         {"name": "occluded_packets", "route": "cuda",
          "source": src + "packet_traverse.cu",
          "replaces": jax_ops + "pallas_traverse.py:53", "launches":
@@ -1144,6 +1882,7 @@ def main() -> int:
         instanced={k: v for k, v in inst.items() if k != "frame"},
         spectral={k: v for k, v in spec.items() if k != "frame"},
         spectral_cli=dict(spec_cli, launches=spec_cli_launches),
+        deep=deep, oracle=orc, nocull=nocull, demand=dem,
     )
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

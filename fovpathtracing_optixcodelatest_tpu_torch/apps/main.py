@@ -8,9 +8,11 @@ telemetry and checkpoints.
         --scene box_city --width 960 --height 540 --frames 8 --out frame.png
 
 It renders on ``cuda`` unless ``--device cpu`` is given; ``--spectral``
-(with ``--dispersion``) renders the hero-wavelength spectral path.
-``--viewer``, ``--multichip`` and ``--demand-textures`` are not ported:
-they exit with status 2 and name the ROADMAP item that will port them.
+(with ``--dispersion``) renders the hero-wavelength spectral path;
+``--demand-textures`` pages an OBJ's textures in through a ``DemandLoader``
+of ``--demand-pages`` 64x64 tiles as the frames request them. ``--viewer``
+and ``--multichip`` are not ported: they exit with status 2 and name the
+ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -28,8 +30,6 @@ NOT_PORTED = {
     "viewer": "the browser viewer (--viewer) is not ported: ROADMAP item 18",
     "multichip": "multi-device rendering (--multichip) is not ported: "
                  "ROADMAP item 19",
-    "demand_textures": "demand-loaded textures (--demand-textures) are not "
-                       "ported: ROADMAP item 17",
 }
 
 
@@ -81,8 +81,10 @@ def parse_args(argv=None):
     p.add_argument("--viewer-host", default="127.0.0.1")
     p.add_argument("--viewer-schedules", default="")
     p.add_argument("--demand-textures", action="store_true",
-                   help="page textures on demand (not ported)")
-    p.add_argument("--demand-pages", type=int, default=1024)
+                   help="page textures on demand (64-texel tile atlas + "
+                   "request feedback)")
+    p.add_argument("--demand-pages", type=int, default=1024,
+                   help="demand-texture atlas capacity in 64x64 tiles")
     p.add_argument("--multichip", default=None, choices=["samples", "scene"],
                    help="render across all visible devices (not ported)")
     p.add_argument("--no-progressive", action="store_true")
@@ -113,6 +115,9 @@ def main(argv=None) -> int:
     from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
     from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
     from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+    from fovpathtracing_optixcodelatest_tpu_torch.models.demand import (
+        DemandLoader,
+    )
     from fovpathtracing_optixcodelatest_tpu_torch.models.obj_loader import (
         load_obj,
     )
@@ -177,12 +182,22 @@ def main(argv=None) -> int:
     })
     schedule = build_schedule(args.schedule)
 
+    demand_loader = demand = None
+    if args.demand_textures and textures:
+        # the textures page in through the loader as frames sample them
+        demand_loader = DemandLoader(max_pages=args.demand_pages,
+                                     device=args.device)
+        for img in textures:
+            demand_loader.create_texture(img)
+        textures = []  # no resident copies
+        demand = demand_loader.launch_prepare()
     scene = build_scene(meshes, probe=probe, texture_images=textures,
-                        device=args.device)
+                        device=args.device, demand=demand)
     print(f"scene: {scene.num_triangles} tris, bvh rows {scene.bvh.num_rows}",
           file=sys.stderr)
     renderer = Renderer(scene, config=config, schedule=schedule,
-                        seed=args.seed, device=args.device)
+                        seed=args.seed, device=args.device,
+                        demand_loader=demand_loader)
     renderer.set_camera(cam)
     if args.resume:
         ckpt.resume_renderer(renderer, args.resume)
@@ -229,6 +244,13 @@ def _frame_loop(args, renderer, cam, timers, tsv, save_image, ckpt) -> None:
 
         timers.begin("render")
         frame = renderer.render(gaze=gaze)  # a host array: the frame is done
+        if renderer.demand_loader is not None:
+            n_req = renderer.process_demand_requests()
+            if n_req:
+                print(f"demand: +{n_req} tiles "
+                      f"({renderer.demand_loader.num_tiles_loaded} loaded, "
+                      f"{renderer.demand_loader.num_tiles_evicted} evicted)",
+                      file=sys.stderr)
         timers.end("render")
 
         timers.begin("display")

@@ -5,9 +5,9 @@ The TPU traversal-mechanism knobs of the JAX ``RenderConfig``
 (``compact_bounces``, ``frame_compaction``, ``traversal_phase1_cap*``) have no
 counterpart here: they change how the TPU schedules work, never the result.
 ``need_aov`` (which AOVs ride the TPU's compaction sort) has no counterpart
-either: the port's integrator always returns the AOVs. Features this port
-does not implement yet raise ``NotImplementedError`` from
-``RenderConfig.check_supported``.
+either: the port's integrator always returns the AOVs. An intersection
+backend other than ``"bvh"`` and ``"oracle"`` raises ``NotImplementedError``
+from ``RenderConfig.check_supported``.
 """
 
 from __future__ import annotations
@@ -142,7 +142,8 @@ class RenderConfig:
     # bounded rounds of the shadow catcher's secondary-ray pass-through;
     # 0 disables; read only on scenes with a catcher material
     catcher_passthrough: int = 2
-    # intersection backend; only the BVH traversal is ported
+    # intersection backend: "bvh" (K1/K2, ops/traverse.py) or "oracle" (the
+    # brute-force intersector of ops/intersect.py, O(rays x triangles))
     traversal: str = "bvh"
     # hero-wavelength spectral path tracing: a NUM_HERO-wavelength
     # throughput, CIE-integrated each bounce (render/integrator.py)
@@ -154,7 +155,8 @@ class RenderConfig:
     def check_supported(self) -> None:
         if self.sampler not in ("random", "stratified", "blue_noise"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
-        if self.traversal != "bvh":
+        if self.traversal not in ("bvh", "oracle"):
             raise NotImplementedError(
-                f"traversal {self.traversal!r}: only 'bvh' is ported"
+                f"traversal {self.traversal!r}: only 'bvh' and 'oracle' "
+                "are ported"
             )

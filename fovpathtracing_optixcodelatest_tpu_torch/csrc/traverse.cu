@@ -68,6 +68,13 @@
 // The constants below were chosen by timing each alternative build on every
 // main-path shape against the kept one (PERF.md has the numbers).
 //
+// K2 without back-face culling (traverse8.py occluded(cull_backface=False)
+// :1376, its leaf test :247; the 04 raycast's shadow ray): the occlusion
+// walk has a compile-time CULL flag, and occluded_nocull_kernel is its
+// CULL = false instantiation for single-level (16, 6) tables, in which a
+// triangle occludes where |det| > 1e-9. The culling kernels compile as
+// without the flag.
+//
 // Two-level tables (ops/tlas.py; the instance steps of traverse8.py
 // _ch_step :524-632 and of the occlusion loop :1487-1580):
 // closest_hit_instanced_kernel and occluded_instanced_kernel are the same
@@ -370,7 +377,7 @@ __device__ __forceinline__ void leaf_ray(const Instancing<INSTANCED>& in,
   }
 }
 
-template <int ARITY, int LEAF, bool INSTANCED = false>
+template <int ARITY, int LEAF, bool INSTANCED = false, bool CULL = true>
 struct OccludedWalk {
   using L = Layout<ARITY, LEAF>;
   const uint4* __restrict__ table;
@@ -434,7 +441,7 @@ struct OccludedWalk {
         float tri[9];
         triangle(q, k, tri);
         occ |= tri_test(tri, lo[0], lo[1], lo[2], ld[0], ld[1], ld[2], tmin,
-                        tmax, true)
+                        tmax, CULL)
                    .hit;
       }
     }
@@ -654,14 +661,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) closest_hit_kernel(
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
 
-template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_kernel(
+// The single-level K2 of both kernels below.
+template <int ARITY, int LEAF, bool CULL>
+__device__ __forceinline__ void occluded_walk(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
     int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
     int* __restrict__ counter) {
   extern __shared__ uint32_t smem[];
-  OccludedWalk<ARITY, LEAF> w;
+  OccludedWalk<ARITY, LEAF, false, CULL> w;
   w.table = table;
   w.orig = orig;
   w.dir = dir;
@@ -673,6 +681,26 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_kernel(
   walk_rays<kK2RefillIdle>(
       w, active, n, counter,
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
+}
+
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_kernel(
+    const uint4* __restrict__ table, const float* __restrict__ orig,
+    const float* __restrict__ dir, const unsigned char* __restrict__ active,
+    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int* __restrict__ counter) {
+  occluded_walk<ARITY, LEAF, true>(table, orig, dir, active, n, tmin, tmax,
+                                   depth, occ_out, counter);
+}
+
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_nocull_kernel(
+    const uint4* __restrict__ table, const float* __restrict__ orig,
+    const float* __restrict__ dir, const unsigned char* __restrict__ active,
+    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int* __restrict__ counter) {
+  occluded_walk<ARITY, LEAF, false>(table, orig, dir, active, n, tmin, tmax,
+                                    depth, occ_out, counter);
 }
 
 template <int ARITY, int LEAF>
@@ -733,8 +761,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
 
-// K1 (which = 0), K2 (1) and their instanced variants (2, 3)
-constexpr int kKernels = 4;
+// K1 (which = 0), K2 (1), their instanced variants (2, 3) and the
+// non-culling K2 (4)
+constexpr int kKernels = 5;
 
 const void* kernel_of(int which) {
   switch (which) {
@@ -744,8 +773,10 @@ const void* kernel_of(int which) {
       return (const void*)occluded_kernel<kArity, kLeaf>;
     case 2:
       return (const void*)closest_hit_instanced_kernel<kArity, kLeaf>;
-    default:
+    case 3:
       return (const void*)occluded_instanced_kernel<kArity, kLeaf>;
+    default:
+      return (const void*)occluded_nocull_kernel<kArity, kLeaf>;
   }
 }
 
@@ -804,6 +835,25 @@ extern "C" int fov_occluded(const float* table, const float* orig,
   return (int)cudaGetLastError();
 }
 
+extern "C" int fov_occluded_nocull(const float* table, const float* orig,
+                                   const float* dir,
+                                   const unsigned char* active, int n,
+                                   float tmin, float tmax, int stack_depth,
+                                   bool* occ_out, int* counter,
+                                   void* stream) {
+  if (n > 0) {
+    size_t smem = 0;
+    int blocks = 0;
+    const int rc = launch_grid(4, n, stack_depth, &smem, &blocks);
+    if (rc != 0) return rc;
+    occluded_nocull_kernel<kArity, kLeaf>
+        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
+            tmax, stack_depth, occ_out, counter);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int fov_closest_hit_instanced(
     const float* table, const float* orig, const float* dir,
     const unsigned char* active, int n, float tmin, float tmax,
@@ -846,8 +896,8 @@ extern "C" int fov_occluded_instanced(const float* table, const float* orig,
 
 // Registers per thread, local memory per thread (spills and any stack
 // frame), resident blocks per SM and dynamic shared memory per block of
-// kernel ``which`` (K1 0, K2 1, instanced K1 2, instanced K2 3) at
-// stack_depth.
+// kernel ``which`` (K1 0, K2 1, instanced K1 2, instanced K2 3, non-culling
+// K2 4) at stack_depth.
 extern "C" int fov_traverse_info(int which, int stack_depth, int* regs,
                                  int* local_bytes, int* blocks_per_sm,
                                  int* shared) {

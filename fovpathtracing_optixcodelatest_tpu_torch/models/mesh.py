@@ -190,6 +190,23 @@ def flatten_meshes(meshes: Sequence[HostMesh]):
     return tri_pack, materials
 
 
+def shading_normal_rows(meshes: Sequence[HostMesh]) -> np.ndarray:
+    """(T, 10) float32: each triangle's corner shading normals n0, n1, n2
+    and 1.0 where its mesh has normals (zeros and 0.0 where it has none),
+    as the JAX package's ``tri_n0..2`` and ``has_shading_normals``."""
+    rows = []
+    for mesh in meshes:
+        idx = mesh.index.astype(np.int64)
+        r = np.zeros((len(idx), 10), dtype=np.float32)
+        if mesh.normal is not None and len(mesh.normal):
+            n = mesh.normal.astype(np.float32)
+            r[:, 0:9] = np.concatenate(
+                [n[idx[:, 0]], n[idx[:, 1]], n[idx[:, 2]]], axis=1)
+            r[:, 9] = 1.0
+        rows.append(r)
+    return np.concatenate(rows, axis=0)
+
+
 def host_triangles(meshes: Sequence[HostMesh]) -> np.ndarray:
     """(T, 3, 3) float32 triangle corners: the BVH build input."""
     tris = []

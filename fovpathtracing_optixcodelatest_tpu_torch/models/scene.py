@@ -8,7 +8,13 @@ the unique meshes' object-space triangles only.
 ``has_textures`` (a triangle has a texture id >= 0) and ``has_catcher`` (a
 material carries the shadow-catcher flag) are fixed when the scene is built:
 a scene with neither runs the integrator without the texture fetch and
-without the catcher branches.
+without the catcher branches. ``Scene.with_demand`` attaches a demand-loaded
+texture context (``models/demand.py``): the integrator then point-samples
+its tile atlas for every textured hit and reports the pages it missed.
+
+A scene built with ``shading_normals=True`` also carries each triangle's
+corner shading normals (``shading_normals``), which only the 04 raycast
+(``render/simple.py``) reads; the path tracer never uploads them.
 
 ``scene_from_arrays`` is the one door between the packages: it builds the
 port's scene from plain numpy arrays (the JAX ``Scene``'s arrays, collected
@@ -33,6 +39,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
     HostMesh,
     flatten_meshes,
     host_triangles,
+    shading_normal_rows,
 )
 from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
     ProbeParams,
@@ -108,6 +115,11 @@ class Scene:
     has_catcher: bool = False
     # the legacy 8-wide f32 table of the packet kernel (optional)
     legacy: Optional[DeviceBVH] = None
+    # (T, 10) corner shading normals n0, n1, n2 and a has-normals flag
+    # (1.0 / 0.0), where the scene was built with them
+    shading_normals: Optional[torch.Tensor] = None
+    # the demand-loaded texture context (models/demand.DemandContext)
+    demand: object = None
 
     @property
     def has_textures(self) -> bool:
@@ -125,6 +137,52 @@ class Scene:
         return dataclasses.replace(
             self, probe=_device_probe(_probe_arrays(probe), self.device)
         )
+
+    def with_demand(self, demand) -> "Scene":
+        """This scene with the demand-texture context ``demand`` (None
+        detaches it), which must lie on the scene's device and know every
+        texture id the triangles carry."""
+        if demand is not None:
+            if demand.device != self.device:
+                raise ValueError(f"demand context on {demand.device}, "
+                                 f"scene on {self.device}")
+            top = int(self.tri_pack[:, 10].contiguous().view(torch.int32)
+                      .max())
+            if top >= demand.tex_meta.shape[0]:
+                raise ValueError(f"texture id {top} of "
+                                 f"{demand.tex_meta.shape[0]} textures")
+        return dataclasses.replace(self, demand=demand)
+
+    def memory_bytes(self) -> Dict[str, int]:
+        """Device bytes of each scene array (the legacy table and the
+        demand context left out, as the JAX package's report leaves them
+        out)."""
+        nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts if t is not None)
+        return {
+            "bvh.table": nbytes([self.bvh.table]),
+            "geom.tri_pack": nbytes([self.tri_pack]),
+            "geom.shading_normals": nbytes([self.shading_normals]),
+            "textures": nbytes([] if self.textures is None else
+                               [self.textures.data, self.textures.sizes]),
+            "probe": nbytes(
+                getattr(self.probe, f.name)
+                for f in dataclasses.fields(self.probe)),
+        }
+
+    def memory_report(self, n_rays: int = 0) -> str:
+        """The scene's device footprint, array by array, and with
+        ``n_rays`` an estimate of the frame state on top: the JAX package's
+        (46 float32 a ray, doubled for temporaries)."""
+        parts = self.memory_bytes()
+        total = sum(parts.values())
+        txt = " + ".join(f"{k} {v / 1e6:.0f}MB" for k, v in parts.items())
+        if n_rays:
+            frame = n_rays * 46 * 4 * 2
+            return (f"scene {total / 1e9:.2f} GB ({txt}); frame state "
+                    f"~{frame / 1e9:.2f} GB at {n_rays} rays "
+                    f"=> ~{(total + frame) / 1e9:.2f} GB of device memory")
+        return f"scene {total / 1e9:.2f} GB ({txt})"
 
 
 def _probe_arrays(probe: ProbeParams) -> Dict[str, np.ndarray]:
@@ -159,7 +217,8 @@ def _device_probe(arrays, device) -> DeviceProbe:
     )
 
 
-def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> Scene:
+def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda",
+                      demand=None) -> Scene:
     """Build a Scene from numpy arrays. Keys: ``bvh_table``,
     ``bvh_stack_depth``, ``bvh_arity``, ``bvh_leaf_size``, ``tri_pack``,
     ``material_rows``, ``probe_data``, ``probe_pdf_x``, ``probe_pdf_y`` and
@@ -168,9 +227,9 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> Scene:
     3) and ``texture_sizes`` (K, 2) when a triangle carries a texture id;
     optionally ``legacy_table`` and ``legacy_stack_depth`` for the packet
     kernel; ``bvh_num_instances``, ``bvh_inst_base`` and ``bvh_blas_base``
-    for a two-level table."""
-    if arrays.get("demand") is not None:
-        raise NotImplementedError("demand-loaded textures are not ported")
+    for a two-level table; optionally ``shading_normals`` (T, 10). A demand
+    texture context ``demand`` stands in for ``texture_data``: the
+    triangles' texture ids then index its textures."""
     tri_pack = np.ascontiguousarray(arrays["tri_pack"], dtype=np.float32)
     mat = np.ascontiguousarray(arrays["material_rows"], dtype=np.float32)
     f32 = lambda a: torch.tensor(  # noqa: E731
@@ -178,7 +237,7 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> Scene:
     )
     textures = None
     tex_ids = tri_pack[:, 10].view(np.int32)
-    if (tex_ids >= 0).any():
+    if (tex_ids >= 0).any() and demand is None:
         if "texture_data" not in arrays:
             raise ValueError("textured triangles need texture_data")
         data = np.asarray(arrays["texture_data"], dtype=np.float32)
@@ -208,23 +267,31 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> Scene:
             stack_depth=int(arrays["legacy_stack_depth"]),
             arity=8, leaf_size=4,
         )
-    return Scene(
+    normals = arrays.get("shading_normals")
+    scene = Scene(
         bvh=bvh, tri_pack=f32(tri_pack), material_rows=f32(mat),
         probe=_device_probe(arrays, device), textures=textures,
         has_catcher=bool((flags & MATERIAL_FLAG_SHADOW_CATCHER).any()),
         legacy=legacy,
+        shading_normals=None if normals is None else f32(normals),
     )
+    return scene if demand is None else scene.with_demand(demand)
 
 
 def scene_arrays(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,
                  texture_images: Optional[Sequence[np.ndarray]] = None,
-                 legacy8: bool = False) -> Dict[str, np.ndarray]:
-    """Host build: flatten, pack the BVH (and optionally the legacy table),
-    pad the textures, build the probe tables -> the ``scene_from_arrays``
-    dict."""
+                 legacy8: bool = False, bvh=None,
+                 shading_normals: bool = False) -> Dict[str, np.ndarray]:
+    """Host build: flatten, pack the BVH (and optionally the legacy table
+    and the corner shading normals), pad the textures, build the probe
+    tables -> the ``scene_from_arrays`` dict. ``bvh`` is the packed
+    ``WideBVH`` of these meshes where it is built already."""
     tris = host_triangles(meshes)
-    arrays = _host_arrays(meshes, bvh_native.build(tris), probe,
-                          texture_images)
+    if bvh is None:
+        bvh = bvh_native.build(tris)
+    arrays = _host_arrays(meshes, bvh, probe, texture_images)
+    if shading_normals:
+        arrays["shading_normals"] = shading_normal_rows(meshes)
     if legacy8:
         leg = bvh_native.build_legacy8(tris)
         arrays["legacy_table"] = leg.table
@@ -278,10 +345,14 @@ def build_scene_instanced(instanced_scene,
 
 def build_scene(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,
                 texture_images: Optional[Sequence[np.ndarray]] = None,
-                device="cuda", legacy8: bool = False) -> Scene:
+                device="cuda", legacy8: bool = False, demand=None,
+                shading_normals: bool = False) -> Scene:
     """Flatten meshes, build the BVH, pack the textures (a mesh's
-    ``diffuse_texture_id`` indexes ``texture_images``), attach the probe
-    (default: the constant 2.5 ambient probe), upload to ``device``."""
+    ``diffuse_texture_id`` indexes ``texture_images``, or the textures of
+    the demand context ``demand``), attach the probe (default: the constant
+    2.5 ambient probe), upload to ``device``; ``shading_normals`` adds the
+    corner normals the 04 raycast reads."""
     return scene_from_arrays(
-        scene_arrays(meshes, probe, texture_images, legacy8), device
+        scene_arrays(meshes, probe, texture_images, legacy8,
+                     shading_normals=shading_normals), device, demand
     )

@@ -1,5 +1,6 @@
-"""Where the port builds its native and CUDA libraries: ``build/torch_kernels/``
-at the root of the checkout (listed in ``.gitignore``)."""
+"""Where the port builds its native and CUDA libraries, and caches packed
+BVH tables: ``build/torch_kernels/`` and ``build/bvh_cache/`` at the root of
+the checkout (``build/`` is listed in ``.gitignore``)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ _ROOT = os.path.dirname(
 )
 
 
-def build_dir() -> str:
-    path = os.path.join(_ROOT, "build", "torch_kernels")
+def build_dir(name: str = "torch_kernels") -> str:
+    path = os.path.join(_ROOT, "build", name)
     os.makedirs(path, exist_ok=True)
     return path

@@ -1,9 +1,31 @@
 """Wide BVH build through the native binned-SAH collapse (counterpart of the
-JAX package's ``ops/bvh_native.py`` for single-level scenes)."""
+JAX package's ``ops/bvh_native.py`` for single-level scenes), with its npz
+cache of packed tables.
+
+Every scene, whatever its size, gets the (``ARITY``, ``LEAF_SIZE``) = (16, 6)
+table that K1 and K2 are compiled for. The JAX package's deep-scene
+packings (L12/A32 and L24/A32 tables in DFS order with treelets past 1M
+triangles) serve the TPU's windowed gathers and are not part of the port.
+
+The cache: the native build of a 10M-triangle scene takes tens of seconds
+on the host, and the packed table is a deterministic function of the
+triangles, the packing parameters and the packing code. ``build`` keys
+scenes of at least ``BVH_CACHE_MIN_TRIS`` triangles by a SHA-1 of those
+(the code as the digest of its sources, ``packing_digest``),
+stores the packed ``WideBVH`` as one npz file, and on a hit returns it
+bit for bit from one ``np.load``. The directory is ``FOVTPU_BVH_CACHE``
+(the JAX package's variable; its keys and the port's never collide), by
+default ``build/bvh_cache/`` in the checkout; "" disables the cache.
+"""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import time
 
 import numpy as np
 
@@ -15,11 +37,25 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
     pack_wide,
     pack_wide_legacy8,
 )
+from fovpathtracing_optixcodelatest_tpu_torch.ops.build_dir import build_dir
 from fovpathtracing_optixcodelatest_tpu_torch.ops.native import load_library
 
-# scenes at or past this size use the deep-scene packing (L12/A32, DFS,
-# treelets) in the JAX package, which this port does not implement yet
-DEEP_TRIS_THRESHOLD = 1_000_000
+# caching tiny builds costs more in hashing than it saves
+BVH_CACHE_MIN_TRIS = 200_000
+_HERE = os.path.dirname(os.path.abspath(__file__))
+# the sources whose code decides the packed table: the native collapse, the
+# packing and this module
+PACKING_SOURCES = tuple(os.path.join(_HERE, f) for f in (
+    "native/bvh_builder.cpp", "bvh8.py", "bvh_native.py"))
+
+
+def cache_dir() -> str:
+    """The cache directory ("" = no cache): ``FOVTPU_BVH_CACHE``, read at
+    each build, else ``build/bvh_cache/`` in the checkout."""
+    path = os.environ.get("FOVTPU_BVH_CACHE")
+    if path is None:
+        return build_dir("bvh_cache")
+    return path
 
 
 def collapse(tris: np.ndarray, leaf_size: int, arity: int):
@@ -52,15 +88,83 @@ def collapse(tris: np.ndarray, leaf_size: int, arity: int):
     return boxes, meta, perm.astype(np.int64)
 
 
+@functools.lru_cache(maxsize=1)
+def packing_digest() -> str:
+    """SHA-1 of ``PACKING_SOURCES``: any edit of the packing code gives new
+    cache keys, so a stale table is never returned."""
+    h = hashlib.sha1()
+    for path in PACKING_SOURCES:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def _cache_key(tris: np.ndarray, leaf_size: int, arity: int) -> str:
+    h = hashlib.sha1()
+    h.update(f"torch-{packing_digest()}|{tris.shape[0]}|{leaf_size}|"
+             f"{arity}|".encode())
+    h.update(np.ascontiguousarray(tris, dtype=np.float32).tobytes())
+    return h.hexdigest()
+
+
+_FIELDS = [f.name for f in dataclasses.fields(WideBVH)]
+
+
+def _cache_load(path: str) -> WideBVH | None:
+    try:
+        with np.load(path) as z:
+            return WideBVH(**{
+                k: z[k] if k in ("table", "leaf_perm") else z[k].item()
+                for k in _FIELDS
+            })
+    except (OSError, KeyError, ValueError):
+        return None
+
+
+def _cache_save(path: str, bvh: WideBVH) -> None:
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + f".tmp{os.getpid()}.npz"
+        np.savez(tmp, **{k: getattr(bvh, k) for k in _FIELDS})
+        os.replace(tmp, path)
+    except OSError:
+        pass  # the cache is best-effort
+
+
 def build(tris: np.ndarray, leaf_size: int = LEAF_SIZE,
-          arity: int = ARITY) -> WideBVH:
-    """Packed single-level WideBVH from (T, 3, 3) float32 corners."""
-    if tris.shape[0] >= DEEP_TRIS_THRESHOLD:
-        raise NotImplementedError(
-            "deep-scene packing (>= 1M triangles) is not ported"
-        )
+          arity: int = ARITY, timings: dict | None = None) -> WideBVH:
+    """Packed single-level WideBVH from (T, 3, 3) float32 corners, through
+    the npz cache for scenes of ``BVH_CACHE_MIN_TRIS`` triangles or more.
+    ``timings`` gets the host seconds of each step taken: ``key_s`` and
+    ``load_s`` on a cache hit, else ``collapse_s``, ``pack_s`` and, where
+    the scene is cached, ``key_s`` and ``save_s``."""
+    clock = {} if timings is None else timings
+    t0 = time.perf_counter()
+    path = None
+    directory = cache_dir() if tris.shape[0] >= BVH_CACHE_MIN_TRIS else ""
+    if directory:
+        path = os.path.join(directory,
+                            _cache_key(tris, leaf_size, arity) + ".npz")
+        t0 = _lap(clock, "key_s", t0)
+        cached = _cache_load(path)
+        if cached is not None:
+            _lap(clock, "load_s", t0)
+            return cached
+        t0 = time.perf_counter()
     boxes, meta, perm = collapse(tris, leaf_size, arity)
-    return pack_wide(boxes, meta, tris, perm, leaf_size, arity)
+    t0 = _lap(clock, "collapse_s", t0)
+    bvh = pack_wide(boxes, meta, tris, perm, leaf_size, arity)
+    t0 = _lap(clock, "pack_s", t0)
+    if path is not None:
+        _cache_save(path, bvh)
+        _lap(clock, "save_s", t0)
+    return bvh
+
+
+def _lap(clock: dict, name: str, t0: float) -> float:
+    now = time.perf_counter()
+    clock[name] = now - t0
+    return now
 
 
 def build_legacy8(tris: np.ndarray, leaf_size: int = LEAF_SIZE8) -> WideBVH:

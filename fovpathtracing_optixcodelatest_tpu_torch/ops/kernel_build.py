@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 
 # launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0,
-            "closest_hit_instanced": 0, "occluded_instanced": 0}
+            "closest_hit_instanced": 0, "occluded_instanced": 0,
+            "occluded_nocull": 0}
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points: the launches take (table, origin, direction, active, n,
@@ -47,6 +48,8 @@ SIGNATURES = {
     "fov_closest_hit": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P, _P, _P, _P,
                         _P, _P),
     "fov_occluded": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P),
+    # K2 with back faces occluding: fov_occluded's arguments
+    "fov_occluded_nocull": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P),
     # the instanced variants add (inst_base, blas_base[, inst_out])
     "fov_closest_hit_instanced": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P,
                                   _P, _P, _P, _P, _I, _I, _P, _P),
@@ -157,8 +160,8 @@ def resources(stack_depth: int) -> dict:
     """Registers per thread, local memory per thread (spills and stack
     frames), resident blocks per SM and dynamic shared memory per block of
     each kernel, as the CUDA runtime reports them for the loaded build; K1/K2
-    and their instanced variants at ``stack_depth`` (K3's shared memory does
-    not depend on it)."""
+    and their instanced and non-culling variants at ``stack_depth`` (K3's
+    shared memory does not depend on it)."""
     out = {}
     queries = (
         ("closest_hit", "traverse", "fov_traverse_info", (0, stack_depth)),
@@ -168,6 +171,8 @@ def resources(stack_depth: int) -> dict:
          (2, stack_depth)),
         ("occluded_instanced", "traverse", "fov_traverse_info",
          (3, stack_depth)),
+        ("occluded_nocull", "traverse", "fov_traverse_info",
+         (4, stack_depth)),
     )
     keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes")
     for kernel, lib, fn, args in queries:

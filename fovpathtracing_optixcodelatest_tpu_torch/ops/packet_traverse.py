@@ -25,9 +25,11 @@ import torch
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 from fovpathtracing_optixcodelatest_tpu_torch.ops.traverse import (
     STATS,
+    _add_stats,
     _check,
     _kernel_layout,
     _push,
+    _seen_rows,
     safe_inv,
     slab,
     tri_test,
@@ -53,6 +55,7 @@ def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)  # the root (row 0) sits at depth 0
     fetched = dict.fromkeys(STATS, 0)
+    seen = _seen_rows(table, stats)
     while True:
         idx = torch.nonzero((sp > 0) & ~occ).squeeze(1)
         if idx.numel() == 0:
@@ -60,7 +63,10 @@ def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
         sp[idx] -= 1
         e = stack[idx, sp[idx]]
         leaf = e < 0
-        rows = table[torch.where(leaf, -e - 1, e)]
+        row = torch.where(leaf, -e - 1, e)
+        if seen is not None:
+            seen[row] = True
+        rows = table[row]
 
         ni = idx[~leaf]
         fetched["node_rows"] += ni.numel()
@@ -88,9 +94,7 @@ def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
                                        d[li], tmin, tmax, cull=True)
                 hit_any |= hk
             occ[li] = hit_any
-    if stats is not None:
-        for name, count in fetched.items():
-            stats[name] = stats.get(name, 0) + count
+    _add_stats(stats, fetched, seen)
     return occ
 
 

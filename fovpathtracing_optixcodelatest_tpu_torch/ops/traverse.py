@@ -27,6 +27,10 @@ space; BLAS nodes and leaves are tested in object space. ``closest_hit``
 then also returns ``inst``, the hit's instance (-1 on a miss). The kernels
 have an instanced variant each (compiled for (16, 6) only), chosen by the
 wrappers from ``num_instances``.
+
+``occluded(..., cull_backface=False)`` lets back faces occlude too (the 04
+raycast's shadow ray, ``render/simple.py``): on a CUDA tensor it launches
+K2's non-culling instantiation, compiled for single-level (16, 6) tables.
 """
 
 from __future__ import annotations
@@ -43,10 +47,13 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
 
 _MASK = 0xFFFFFFFF
 MAX_STACK = 128  # deepest stack the wrappers take
-# what the plain versions' ``stats`` count: rows fetched, and the tests done
-# on them (non-empty children slab-tested, real triangles tested); on a
-# two-level table also the instance rows fetched (``INST_STATS``)
-STATS = ("node_rows", "leaf_rows", "child_tests", "tri_tests")
+# what the plain versions' ``stats`` count: rows fetched, the distinct rows
+# among them (each call's, summed over calls: what the calls must read from
+# memory at least once), and the tests done on them (non-empty children
+# slab-tested, real triangles tested); on a two-level table also the
+# instance rows fetched (``INST_STATS``)
+STATS = ("node_rows", "leaf_rows", "distinct_rows", "child_tests",
+         "tri_tests")
 INST_STATS = STATS + ("inst_rows",)
 
 
@@ -150,13 +157,34 @@ class _Spaces:
                 torch.where(w, inv[lanes], self.inv[lanes]))
 
 
-def _rows_of(table, code, instanced: bool, inst_base: int):
-    """The rows popped codes address, and which codes are instances."""
+def _rows_of(table, code, instanced: bool, inst_base: int, seen=None):
+    """The rows popped codes address, and which codes are instances; marks
+    the rows' indices in ``seen`` (a (rows,) bool tensor) where given."""
     row = code >> 2
-    if not instanced:
-        return table[row], None
-    is_inst = (code & 3) == KIND_INST
-    return table[torch.where(is_inst, row + inst_base, row)], is_inst
+    is_inst = None
+    if instanced:
+        is_inst = (code & 3) == KIND_INST
+        row = torch.where(is_inst, row + inst_base, row)
+    if seen is not None:
+        seen[row] = True
+    return table[row], is_inst
+
+
+def _seen_rows(table, stats):
+    """The (rows,) bool tensor of rows a walk fetched, where ``stats`` is
+    asked for."""
+    if stats is None:
+        return None
+    return torch.zeros((table.shape[0],), dtype=torch.bool,
+                       device=table.device)
+
+
+def _add_stats(stats, fetched: dict, seen) -> None:
+    if stats is None:
+        return
+    fetched["distinct_rows"] = int(seen.sum())
+    for name, count in fetched.items():
+        stats[name] = stats.get(name, 0) + count
 
 
 def _node_boxes(rows: torch.Tensor, arity: int):
@@ -244,7 +272,8 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
                       inst_base: int = 0, blas_base: int = 0):
     """Plain PyTorch K1: dict(t, tri_id, u, v, hit), and ``inst`` on a
     two-level table. ``stats`` gets the node, leaf and instance rows
-    fetched (``node_rows``, ``leaf_rows``, ``inst_rows``) and the work in
+    fetched (``node_rows``, ``leaf_rows``, ``inst_rows``), how many distinct
+    rows of the table they were (``distinct_rows``) and the work in
     them (``child_tests``: slab tests of the fetched nodes' non-empty
     children; ``tri_tests``: ray-triangle tests of the fetched leaves' real,
     non-padding triangles)."""
@@ -264,6 +293,7 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)  # the root (code 0) sits at depth 0
     fetched = dict.fromkeys(INST_STATS if instanced else STATS, 0)
+    seen = _seen_rows(table, stats)
     tmax_t = torch.tensor(tmax, dtype=torch.float32, device=dev)
     while True:
         idx = torch.nonzero(sp > 0).squeeze(1)
@@ -275,7 +305,7 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
         fresh = e <= (mono_u32(tlimit) | lowmask)
         idx, e, tlimit = idx[fresh], e[fresh], tlimit[fresh]
         code = e & lowmask
-        rows, is_inst = _rows_of(table, code, instanced, inst_base)
+        rows, is_inst = _rows_of(table, code, instanced, inst_base, seen)
         node = (code & 3) == 0
 
         if instanced:
@@ -334,9 +364,7 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
             t[li], u[li], v[li], best[li] = tb, ub, vb, bb
             if instanced:
                 best_inst[li] = ib
-    if stats is not None:
-        for name, count in fetched.items():
-            stats[name] = stats.get(name, 0) + count
+    _add_stats(stats, fetched, seen)
     out = {"t": t, "tri_id": best, "u": u, "v": v, "hit": best >= 0}
     if instanced:
         out["inst"] = best_inst
@@ -399,9 +427,11 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
 def occluded_plain(table, o, d, active, tmin: float, tmax: float,
                    stack_depth: int, arity: int, leaf_size: int,
                    stats: dict | None = None, *, num_instances: int = 0,
-                   inst_base: int = 0, blas_base: int = 0):
+                   inst_base: int = 0, blas_base: int = 0,
+                   cull_backface: bool = True):
     """Plain PyTorch K2 -> (N,) bool. Children are pushed in slot order.
-    ``stats`` counts as ``closest_hit_plain``'s does."""
+    Back faces do not occlude unless ``cull_backface`` is False. ``stats``
+    counts as ``closest_hit_plain``'s does."""
     n, dev = o.shape[0], o.device
     instanced = num_instances > 0
     inv = safe_inv(d)
@@ -411,13 +441,14 @@ def occluded_plain(table, o, d, active, tmin: float, tmax: float,
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)
     fetched = dict.fromkeys(INST_STATS if instanced else STATS, 0)
+    seen = _seen_rows(table, stats)
     while True:
         idx = torch.nonzero((sp > 0) & ~occ).squeeze(1)
         if idx.numel() == 0:
             break
         sp[idx] -= 1
         code = stack[idx, sp[idx]]
-        rows, is_inst = _rows_of(table, code, instanced, inst_base)
+        rows, is_inst = _rows_of(table, code, instanced, inst_base, seen)
         node = (code & 3) == 0
 
         if instanced:
@@ -456,30 +487,34 @@ def occluded_plain(table, o, d, active, tmin: float, tmax: float,
             hit_any = torch.zeros((li.numel(),), dtype=torch.bool, device=dev)
             for k in range(leaf_size):
                 hk, _, _, _ = tri_test(lrows[:, 9 * k: 9 * k + 9], ol, dl,
-                                       tmin, tmax, cull=True)
+                                       tmin, tmax, cull=cull_backface)
                 hit_any |= hk
             occ[li] = hit_any
-    if stats is not None:
-        for name, count in fetched.items():
-            stats[name] = stats.get(name, 0) + count
+    _add_stats(stats, fetched, seen)
     return occ
 
 
 def occluded(table, o, d, active, tmin: float, tmax: float,
              stack_depth: int, arity: int, leaf_size: int, *,
-             num_instances: int = 0, inst_base: int = 0, blas_base: int = 0):
-    """Any-hit occlusion with back faces culled and first-hit exit -> (N,)
-    bool. CUDA tensors launch K2, or its instanced variant where
-    ``num_instances > 0`` (the (16, 6) layout only), which walks only the
-    active lanes; CPU tensors run ``occluded_plain``."""
+             num_instances: int = 0, inst_base: int = 0, blas_base: int = 0,
+             cull_backface: bool = True):
+    """Any-hit occlusion with first-hit exit -> (N,) bool; back faces do not
+    occlude unless ``cull_backface`` is False. CUDA tensors launch K2 (the
+    (16, 6) layout only, walking only the active lanes): its instanced
+    variant where ``num_instances > 0``, its non-culling instantiation
+    where ``cull_backface`` is False (single-level tables only); CPU
+    tensors run ``occluded_plain``."""
     inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
                "blas_base": blas_base}
     _check(table, o, d, active, stack_depth, **inst_kw)
     if table.device.type == "cpu":
         return occluded_plain(table, o, d, active, tmin, tmax, stack_depth,
-                              arity, leaf_size, **inst_kw)
+                              arity, leaf_size, cull_backface=cull_backface,
+                              **inst_kw)
     n, dev = o.shape[0], o.device
     _kernel_layout(table, n, arity, leaf_size)
+    if num_instances and not cull_backface:
+        raise ValueError("the non-culling K2 takes single-level tables only")
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:  # nothing to launch
         return occ
@@ -491,6 +526,9 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
         rc = lib.fov_occluded_instanced(*args, inst_base, blas_base,
                                         kernel_build.stream())
         name = "occluded_instanced"
+    elif not cull_backface:
+        rc = lib.fov_occluded_nocull(*args, kernel_build.stream())
+        name = "occluded_nocull"
     else:
         rc = lib.fov_occluded(*args, kernel_build.stream())
         name = "occluded"

@@ -30,6 +30,17 @@ two-level (instanced) scene K1 also returns each hit's instance, and the
 geometric normal, which ``tri_pack`` holds in object space, goes to world
 space through the instance row's inverse transform (A^T n, normalised).
 
+On a scene with a demand-texture context (``Scene.demand``) a textured
+hit's albedo is instead the point sample of the context's tile atlas
+(``models/demand.py``), the tile's mean where the tile is not resident, and
+``trace_paths`` returns the frame's page-request bitmap
+(``demand_requests``).
+
+``config.traversal == "oracle"`` sends both queries, and the catcher
+re-traces, through the brute-force intersector of ``ops/intersect.py`` on
+``tri_pack`` columns 36:45 (single-level tables only), masked to the walked
+lanes as K1 and K2 answer: an independent check of the kernels.
+
 Spectral mode (``config.spectral``, the hero-wavelength estimator) runs the
 same bounce with an (N, ``NUM_HERO``) throughput: the wavelengths come from
 ``fold_in(key, 7919)``, RGB light, emission and BSDF values are lifted
@@ -55,6 +66,10 @@ from typing import Dict
 import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+from fovpathtracing_optixcodelatest_tpu_torch.models.demand import (
+    demand_tex2d,
+    fold_requests,
+)
 from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
     MATERIAL_FLAG_SHADOW_CATCHER,
     MATERIAL_FLAGS_COL,
@@ -65,6 +80,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
     sample_bilinear_wrap,
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import bsdf as bsdf_ops
+from fovpathtracing_optixcodelatest_tpu_torch.ops import intersect
 from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling as probe_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import spectrum as sp
 from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
@@ -108,11 +124,35 @@ def _cie_rgb_matrix(lam: torch.Tensor) -> torch.Tensor:
     return torch.einsum("rc,nck->nrk", m, xyz)
 
 
+def _oracle_triangles(scene):
+    if scene.bvh.instanced:
+        raise ValueError("oracle traversal needs a single-level table")
+    tp = scene.tri_pack
+    return tp[:, 36:39], tp[:, 39:42], tp[:, 42:45]
+
+
 def _closest(scene, o, d, active, config: RenderConfig):
+    if config.traversal == "oracle":
+        out = intersect.brute_force_closest_hit(
+            *_oracle_triangles(scene), o, d, config.tmin, config.tmax)
+        out["hit"] = out["hit"] & active
+        out["tri_id"] = torch.where(out["hit"], out["tri_id"], -1)
+        return out
     bvh = scene.bvh
     return traverse.closest_hit(bvh.table, o, d, active, config.tmin,
                                 config.tmax, *bvh.walk_args,
                                 **bvh.instance_kwargs)
+
+
+def _occluded(scene, p, wi, query, config: RenderConfig):
+    if config.traversal == "oracle":
+        return intersect.brute_force_occluded(
+            *_oracle_triangles(scene), p, wi, config.tmin, config.tmax
+        ) & query
+    bvh = scene.bvh
+    return traverse.occluded(bvh.table, p, wi, query, config.tmin,
+                             config.tmax, *bvh.walk_args,
+                             **bvh.instance_kwargs)
 
 
 def _world_normal(scene, ng, inst):
@@ -175,7 +215,16 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
         ng = _world_normal(scene, ng, hit["inst"])
     nrm = face_forward(ng, -d)
     m = view_rows(attr[:, 12:36])
-    if scene.has_textures:
+    demand_page = demand_missing = None
+    if scene.demand is not None:
+        tex_id = attr[:, 10].contiguous().view(torch.int32)
+        uv = hit_uv(attr, hit["u"], hit["v"])
+        textured = tex_id >= 0
+        tex_col, resident, demand_page = demand_tex2d(
+            scene.demand, torch.clamp(tex_id, min=0), uv[:, 0], uv[:, 1])
+        demand_missing = hit_mask & textured & ~resident
+        albedo = torch.where(textured[:, None], tex_col, m.color)
+    elif scene.has_textures:
         # the id's bits go straight from the gathered row to int32: float
         # arithmetic on them could canonicalise the NaN payload of -1
         tex_id = attr[:, 10].contiguous().view(torch.int32)
@@ -228,10 +277,7 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
     else:
         occl_query = hit_mask & (light_val.amax(dim=1) > 0.0) & sample_ok
     p, wi = p.contiguous(), wi.contiguous()
-    bvh = scene.bvh
-    occ = traverse.occluded(bvh.table, p, wi, occl_query, config.tmin,
-                            config.tmax, *bvh.walk_args,
-                            **bvh.instance_kwargs)
+    occ = _occluded(scene, p, wi, occl_query, config)
 
     light_c = lift(light_val)
     nee_contrib = torch.where((~occ)[:, None], light_c, 0.0)
@@ -289,6 +335,8 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
         "shadow_origin": p,
         "shadow_dir": wi,
         "shadow_query": occl_query,
+        "demand_page": demand_page,
+        "demand_missing": demand_missing,
     }
 
 
@@ -300,7 +348,9 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
     ``key`` is a (2,) uint32 key (``ops.rng``); bounce ``depth`` draws its
     uniforms from ``fold_in(key, depth)`` keyed by ``ray_ids`` (default
     arange). Returns radiance, alpha, normal, albedo (N, 3) and ``traces``
-    (0-dim int64 tensor)."""
+    (0-dim int64 tensor), and on a scene with a demand-texture context
+    ``demand_requests``, the (total_pages,) bool bitmap of the pages its
+    textured hits sampled while not resident."""
     config.check_supported()
     n, dev = origin.shape[0], origin.device
     if ray_ids is None:
@@ -319,6 +369,9 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
     eta = torch.ones((n,), dtype=torch.float32, device=dev)
     radiance, alpha, normal, albedo = f3(0.0), f3(0.0), f3(0.0), f3(0.0)
     traces = torch.zeros((), dtype=torch.int64, device=dev)
+    if scene.demand is not None:
+        demand_req = torch.zeros((scene.demand.total_pages,),
+                                 dtype=torch.uint8, device=dev)
     idx = torch.nonzero(active).squeeze(1)
     for depth in range(config.max_depth):
         if idx.numel() == 0:
@@ -344,6 +397,11 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
             albedo[idx] = torch.where(hm[:, None], b["albedo"], 0.0)
         traces = (traces + idx.numel() + b["occl_queries"]
                   + b["passthrough_traces"])
+        if scene.demand is not None:
+            fold_requests(demand_req, b["demand_page"], b["demand_missing"])
         idx = idx[b["alive"]]
-    return {"radiance": radiance, "alpha": alpha, "normal": normal,
-            "albedo": albedo, "traces": traces}
+    out = {"radiance": radiance, "alpha": alpha, "normal": normal,
+           "albedo": albedo, "traces": traces}
+    if scene.demand is not None:
+        out["demand_requests"] = demand_req > 0
+    return out

@@ -2,7 +2,9 @@
 ``render/renderer.py``): ``render_frame`` traces every foveation pass as one
 merged wavefront and composites the passes into the accumulation canvas;
 ``render_frame_aov`` adds the normal and albedo AOV images; ``Renderer``
-carries the canvas, the subframe index and the camera between frames.
+carries the canvas, the subframe index and the camera between frames, and,
+given a ``DemandLoader``, pages the textures its frames request in between
+frames (``process_demand_requests``).
 
 Keys follow the JAX package's chain: frame key = fold_in(PRNGKey(seed),
 subframe), jitter key = fold_in(frame key, 0), path key = fold_in(frame
@@ -111,7 +113,10 @@ def render_frame(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
         schedule)
     pad = film.schedule_padding(schedule, config.width, config.height)
     frame = film.finalize(canvas, pad, config)
-    return canvas, frame, {"traces": out["traces"], "rays": total_rays}
+    stats = {"traces": out["traces"], "rays": total_rays}
+    if "demand_requests" in out:
+        stats["demand_requests"] = out["demand_requests"]
+    return canvas, frame, stats
 
 
 def render_frame_aov(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
@@ -137,17 +142,22 @@ def render_frame_aov(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
 
 
 class Renderer:
-    """Stateful shell over ``render_frame``: camera, canvas, subframe."""
+    """Stateful shell over ``render_frame``: camera, canvas, subframe, and
+    an optional ``demand_loader`` (``models/demand.DemandLoader``) whose
+    context the scene samples its textures through."""
 
     def __init__(self, scene, config: RenderConfig = RenderConfig(),
                  schedule: Optional[FoveationSchedule] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", demand_loader=None):
         config.check_supported()
         self.device = torch.device(device)
         if scene.device.type != self.device.type:
             raise ValueError(
                 f"scene lies on {scene.device}, renderer on {self.device}"
             )
+        self.demand_loader = demand_loader
+        if demand_loader is not None:
+            scene = scene.with_demand(demand_loader.launch_prepare())
         self.scene = scene
         self.config = config
         self.schedule = schedule or FoveationSchedule.reference_32_16_8()
@@ -228,6 +238,27 @@ class Renderer:
         return self.canvas[p: p + self.config.height,
                            p: p + self.config.width].cpu().numpy()
 
+    def process_demand_requests(self) -> int:
+        """Between frames: fill the tiles the last frame requested (on the
+        loader's worker pool), upload them and swap the new context into the
+        scene. Returns the number of pages requested; 0 without a demand
+        loader."""
+        if self.demand_loader is None:
+            return 0
+        req = self._stats.get("demand_requests")
+        if req is None:
+            return 0
+        req = req.cpu().numpy()
+        n = int(req.sum())
+        if n:
+            self.demand_loader.process_requests(req).wait()
+        self.scene = self.scene.with_demand(
+            self.demand_loader.launch_prepare())
+        return n
+
     @property
     def stats(self) -> dict:
-        return {k: int(v) for k, v in self._stats.items()}
+        """The last frame's scalar stats (``traces``, ``rays``); the
+        request bitmap ``demand_requests`` stays out."""
+        return {k: int(v) for k, v in self._stats.items()
+                if not isinstance(v, torch.Tensor) or v.ndim == 0}

@@ -1,5 +1,6 @@
-"""Telemetry: per-phase frame timers, FPS stats, TSV logging (the port's own
-copy of the JAX package's ``utils/metrics.py``, without its SSIM).
+"""Telemetry: per-phase frame timers, FPS stats, TSV logging, and the SSIM
+of the golden-image checks (the port's own copy of the JAX package's
+``utils/metrics.py``).
 
 Twin of the reference's observability stack (SURVEY.md §5.1/§5.5):
 - ``FrameTimers`` — the state-update / render / display chrono accumulation of
@@ -99,3 +100,36 @@ class TsvLogger:
 
     def close(self) -> None:
         self._fh.close()
+
+
+def _uniform_filter(x: np.ndarray, size: int) -> np.ndarray:
+    """Separable box filter via cumsum (valid region handled by edge pad)."""
+    pad = size // 2
+    xp = np.pad(x, ((pad, pad), (pad, pad)) + ((0, 0),) * (x.ndim - 2),
+                mode="edge")
+    c = np.cumsum(xp, axis=0)
+    c = np.concatenate([c[size - 1: size], c[size:] - c[:-size]], axis=0)
+    c2 = np.cumsum(c, axis=1)
+    c2 = np.concatenate([c2[:, size - 1: size], c2[:, size:] - c2[:, :-size]],
+                        axis=1)
+    return c2 / (size * size)
+
+
+def ssim(a: np.ndarray, b: np.ndarray, window: int = 7,
+         data_range: float = 1.0) -> float:
+    """Mean SSIM between two images (H, W[, C]) in [0, data_range]."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    if a.ndim == 2:
+        a = a[..., None]
+        b = b[..., None]
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    mu_a = _uniform_filter(a, window)
+    mu_b = _uniform_filter(b, window)
+    var_a = _uniform_filter(a * a, window) - mu_a**2
+    var_b = _uniform_filter(b * b, window) - mu_b**2
+    cov = _uniform_filter(a * b, window) - mu_a * mu_b
+    num = (2 * mu_a * mu_b + c1) * (2 * cov + c2)
+    den = (mu_a**2 + mu_b**2 + c1) * (var_a + var_b + c2)
+    return float(np.mean(num / den))

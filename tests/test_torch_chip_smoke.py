@@ -1,5 +1,5 @@
 """The pure helpers of ``chip_smoke.py``, the shape builder of
-``tools/kernel_times.py``, and a rehearsal of the smoke's phases a-f at a
+``tools/kernel_times.py``, and a rehearsal of the smoke's phases a-i at a
 small size, on the CPU (no card: the wrappers run the plain versions)."""
 
 import dataclasses
@@ -49,6 +49,10 @@ def test_kernel_of_reads_plain_templated_and_mangled_names():
         "uint4 const*)": "closest_hit_instanced",
         "_ZN12_GLOBAL__N_125occluded_instanced_kernelILi16ELi6EEEvPK5uint4":
             "occluded_instanced",
+        "void (anonymous namespace)::occluded_nocull_kernel<16, 6>("
+        "uint4 const*)": "occluded_nocull",
+        "_ZN12_GLOBAL__N_122occluded_nocull_kernelILi16ELi6EEEvPK5uint4":
+            "occluded_nocull",
         "void at::native::elementwise_kernel<128, 2>(int)": None,
         "aten::mul": None,
     }
@@ -80,11 +84,12 @@ def test_k1_agreement_counts_ulps_on_hits():
 
 def test_bound_takes_the_larger_of_bytes_and_operations():
     table = torch.zeros((100, 64))
-    few = {"node_rows": 1, "leaf_rows": 1, "child_tests": 2, "tri_tests": 5}
+    few = {"node_rows": 1, "leaf_rows": 1, "distinct_rows": 2,
+           "child_tests": 2, "tri_tests": 5}
     ms, by, fetch = chip_smoke._bound(few, table, 10**6, 10**6, 16)
     assert by == "bytes" and fetch == 2 * 64 * 4
-    many = {"node_rows": 10**7, "leaf_rows": 10**7, "child_tests": 3 * 10**7,
-            "tri_tests": 5 * 10**7}
+    many = {"node_rows": 10**7, "leaf_rows": 10**7, "distinct_rows": 100,
+            "child_tests": 3 * 10**7, "tri_tests": 5 * 10**7}
     ms2, by2, fetch2 = chip_smoke._bound(many, table, 10, 10, 16)
     # the tests done, not the rows' slots: 3 children and 5 triangles a row
     ops = 10**7 * (3 * chip_smoke.SLAB_OPS + 5 * chip_smoke.MT_OPS)
@@ -97,6 +102,23 @@ def test_bound_takes_the_larger_of_bytes_and_operations():
     ops += 10**7 * chip_smoke.INST_OPS
     assert by3 == "operations" and fetch3 == fetch2 + 10**7 * 64
     assert abs(ms3 - ops / chip_smoke.F32_OPS_PER_S * 1e3) < 1e-12
+
+
+def test_bound_reads_only_the_rows_the_walk_fetched():
+    # a subset of lanes on a large table is charged the distinct rows its
+    # walk fetched, each once, not the whole table nor every fetch
+    table = torch.zeros((10**4, 64))
+    st = {"node_rows": 5000, "leaf_rows": 4000, "distinct_rows": 300,
+          "child_tests": 1, "tri_tests": 1}
+    n, n_act = 1000, 900
+    ms, by, fetch = chip_smoke._bound(st, table, n, n_act, 1)
+    want = (300 * 64 * 4 + n_act * chip_smoke.RAY_BYTES
+            + n * (chip_smoke.MASK_BYTES + 1))
+    assert by == "bytes"
+    assert abs(ms - want / chip_smoke.HBM_BYTES_PER_S * 1e3) < 1e-15
+    assert fetch == 9000 * 64 * 4  # the L2 traffic still counts every fetch
+    more = dict(st, distinct_rows=600)
+    assert chip_smoke._bound(more, table, n, n_act, 1)[0] > ms
 
 
 def test_bench_rays_and_kernel_calls_on_cpu():
@@ -227,3 +249,69 @@ def test_rehearse_spectral_phases(no_card):
                                spectral=True)
     assert "--spectral" in cli["argv"] and len(cli["render_ms"]) == 2
     assert set(cli["files"]) == {"frame.png", "run.tsv"}
+
+
+def test_rehearse_deep_phase(no_card, monkeypatch):
+    # phase g on box_city_fast(6) at 120x68 (444 triangles), the npz cache
+    # forced on: a cold build that writes it, a warm start that reads it
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native
+
+    monkeypatch.setattr(bvh_native, "BVH_CACHE_MIN_TRIS", 1)
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    g = chip_smoke.deep_phase(6, 1, sched, 120, 68, device="cpu", subset=500)
+    assert g["triangles"] == 444 and g["cache_files"] == 1
+    assert set(g["cold"]) == {"key_s", "collapse_s", "pack_s", "save_s"}
+    assert set(g["warm"]) == {"key_s", "load_s"}
+    assert g["finite"] and g["mean_radiance"] > 0
+    assert g["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
+    assert g["table_bytes"] == g["rows"] * 64 * 4
+    for k in ("k1", "k2"):
+        assert g[k]["lanes"] == 500 and g[k]["max_abs_err"] == 0.0
+        assert g[k]["ms"] is None and g[k]["bound_ms"] > 0
+    assert g["k1"]["hit_equal"] and g["k1"]["ulp"] == 0
+    assert 0 < g["k2"]["occluded"] < 500
+    assert "frame state" in g["memory_report"]
+    chip_smoke._deep_lines("deep", dict(g, resources=None))
+
+
+def test_rehearse_oracle_phase_and_nocull_check(no_card):
+    orc = chip_smoke.oracle_phase(device="cpu")
+    assert orc["oracle_ssim"] >= chip_smoke.ORACLE_SSIM
+    assert orc["oracle_mean_abs"] < chip_smoke.ORACLE_MEAN_ABS
+    assert orc["broken_ssim"] < 0.9 and orc["fovea_identical"]
+    assert orc["golden_ssim"] > chip_smoke.GOLDEN_SSIM
+    assert orc["golden_mean_lsb"] < chip_smoke.GOLDEN_MEAN_LSB
+    assert orc["raycast_share"] == 1.0
+    rs = orc["raycast_shadow"]
+    # back faces occlude the raycast's shadow rays only without culling
+    assert rs["mismatches"] == 0 and rs["occluded"] > rs["occluded_culling"]
+
+    sched = FoveationSchedule.reference_32_16_8().scaled(10)
+    rays = kernel_times.bench_rays("cpu", city_n=4, width=96, height=54,
+                                   schedule=sched)
+    so, sd, sq = rays["shadow"]
+    cfg = rays["config"]
+    out = chip_smoke.nocull_check(rays["scene"].bvh, so, sd, sq, cfg.tmin,
+                                  cfg.tmax, device="cpu")
+    assert out["mismatches"] == 0 and out["ms"] is None
+    assert out["occluded"] >= out["occluded_culling"]
+    assert out["bound_ms"] > 0 and out["queried"] == int(sq.sum())
+
+
+def test_rehearse_demand_phase(no_card):
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    small = FoveationSchedule.uniform(2)
+    d = chip_smoke.demand_phase(24, sched, 120, 68, (32, 24), small,
+                                cli_size=(32, 24), cli_schedule="uniform:1",
+                                device="cpu")
+    full, lru = d["runs"][1024]["frames"], d["runs"][64]["frames"]
+    assert d["runs"][1024]["total_pages"] == 128
+    # every tile fits: requests, loads, nothing open, nothing by frame 3
+    assert full[0]["requested"] == full[0]["loaded"] > 64
+    assert all(x["open"] == 0 for x in full) and full[2]["requested"] == 0
+    # 64 pages: the atlas stays full and the LRU evicts
+    assert all(x["resident"] <= 64 for x in lru) and lru[-1]["evicted"] > 0
+    assert lru[0]["open"] == lru[0]["requested"] - 64
+    assert d["small_share"] == 1.0
+    assert set(d["cli"]["files"]) == {"frame.png", "run.tsv"}
+    assert "--demand-textures" in d["cli"]["argv"]

@@ -75,7 +75,6 @@ def test_cli_writes_every_file(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--viewer"], "18"), (["--multichip", "samples"], "19"),
-    (["--demand-textures"], "17"),
 ])
 def test_cli_refuses_what_is_not_ported(flag, item, capsys):
     assert cli.main(BASE + flag) == 2
@@ -111,3 +110,46 @@ def test_cli_schedules_and_flags_match_jax():
     pv = vars(cli.parse_args([]))
     assert pv.pop("device") == "cuda"
     assert pv == jv
+
+
+def test_cli_demand_textures_renders(tmp_path, capsys):
+    # --demand-textures (formerly refused) pages an OBJ's textures in
+    # through a DemandLoader: the frame the Renderer gives with the same
+    # loader, processing the requests after every frame
+    import chip_smoke
+    from fovpathtracing_optixcodelatest_tpu_torch.models.demand import (
+        DemandLoader,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.obj_loader import (
+        load_obj,
+    )
+
+    obj = chip_smoke._write_textured_obj(str(tmp_path))
+    out = tmp_path / "demand.png"
+    assert cli.main(["--device", "cpu", "--obj", obj, "--width", str(W),
+                     "--height", str(H), "--frames", "3", "--schedule",
+                     "uniform:1", "--demand-textures", "--demand-pages", "4",
+                     "--out", str(out)]) == 0
+    assert "demand: +" in capsys.readouterr().err
+    meshes, textures = load_obj(obj)
+    loader = DemandLoader(max_pages=4, device="cpu")
+    for img in textures:
+        loader.create_texture(img)
+    scene = build_scene(meshes, constant_probe((2.5,) * 3), device="cpu",
+                        demand=loader.launch_prepare())
+    r = Renderer(scene, RenderConfig(width=W, height=H),
+                 FoveationSchedule.uniform(1), device="cpu",
+                 demand_loader=loader)
+    lo = min(float(m.vertex.min()) for m in meshes)
+    hi = max(float(m.vertex.max()) for m in meshes)
+    span = hi - lo
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+
+    r.set_camera(Camera(eye=(span, span * 0.4, span), lookat=(0.0, 0.0, 0.0),
+                        fov_y=45.0, aspect=W / H))
+    for _ in range(3):
+        frame = r.render()
+        r.process_demand_requests()
+    assert loader.num_tiles_evicted > 0  # 16 tiles through a 4-page atlas
+    assert np.array_equal(jimage.load_png(str(out)),
+                          frame[::-1].astype(np.float32) / 255.0)

@@ -23,6 +23,11 @@ box and ball instances with a mirrored one, at sparse masks, ragged lane
 counts, the stack depth the TLAS+BLAS bound gives (without its safety
 entry: no ray may overflow it) and a small one that overflows; a mirrored
 one-sided quad shows occlusion culling by the object-space winding.
+
+K2's non-culling instantiation (``occluded(..., cull_backface=False)``, the
+04 raycast's shadow ray) is held to its plain version at the same sparse
+masks, ragged lane counts and small stacks; it must find the back faces
+the culling K2 skips, and refuse two-level tables and other layouts.
 """
 
 import numpy as np
@@ -481,3 +486,71 @@ def test_instanced_kernels_refuse_other_layouts(grid, layout):
         with pytest.raises(ValueError, match="layout"):
             fn(b.table, o, d, act, TMIN, TMAX, b.stack_depth, *layout,
                **b.instance_kwargs)
+
+
+# ---------------------------------------------------------------------------
+# K2 without back-face culling (the 04 raycast's shadow rays)
+# ---------------------------------------------------------------------------
+
+
+def _nocull_against_plain(scene, o, d, act, depth):
+    """Launch the non-culling K2 once and hold it to its plain version;
+    returns its answer."""
+    b = scene.bvh
+    args = (b.table, o, d, act, TMIN, TMAX, depth, b.arity, b.leaf_size)
+    kernel_build.reset_launches()
+    occ = traverse.occluded(*args, cull_backface=False)
+    torch.cuda.synchronize()
+    assert kernel_build.LAUNCHES == _launched(
+        occluded_nocull=int(o.shape[0] > 0))
+    assert torch.equal(occ, traverse.occluded_plain(*args,
+                                                    cull_backface=False))
+    assert not occ[~act].any()
+    return occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.35, 1.0])
+def test_nocull_k2_matches_plain_at_active_share(city, share):
+    n = 70_001
+    o, d, _ = _rays(n, 7, city.device)
+    rng = np.random.default_rng(11)
+    act = torch.tensor(rng.random(n) < share, device=city.device)
+    occ = _nocull_against_plain(city, o, d, act, city.bvh.stack_depth)
+    b = city.bvh
+    culled = traverse.occluded(b.table, o, d, act, TMIN, TMAX,
+                               *b.walk_args)
+    # a culled answer is also an answer without culling; back faces add more
+    assert not (culled & ~occ).any()
+    if share >= 0.35:
+        assert (occ & ~culled).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 70_001])
+def test_nocull_k2_matches_plain_at_ragged_n(city, n):
+    o, d, act = _rays(n, 3, city.device)
+    assert _nocull_against_plain(city, o, d, act,
+                                 city.bvh.stack_depth).shape == (n,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 3])
+def test_nocull_k2_keeps_the_overflow_rule(city, depth):
+    o, d, act = _rays(20_000, 5, city.device)
+    occ = _nocull_against_plain(city, o, d, act, depth)
+    full = _nocull_against_plain(city, o, d, act, city.bvh.stack_depth)
+    assert not torch.equal(occ, full)  # the small stack changed answers
+
+
+@pytest.mark.cuda
+def test_nocull_k2_refuses_two_level_tables_and_other_layouts(city, grid):
+    o, d, act = _rays(64, 0, city.device)
+    b = city.bvh
+    with pytest.raises(ValueError, match="layout"):
+        traverse.occluded(b.table, o, d, act, TMIN, TMAX, b.stack_depth,
+                          8, 4, cull_backface=False)
+    gb = grid.bvh
+    with pytest.raises(ValueError, match="single-level"):
+        traverse.occluded(gb.table, o, d, act, TMIN, TMAX, *gb.walk_args,
+                          cull_backface=False, **gb.instance_kwargs)

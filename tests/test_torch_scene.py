@@ -139,23 +139,74 @@ def _box(**kw):
     return make_box((0, 0, 0), (1, 1, 1), Material(**kw))
 
 
-@pytest.mark.parametrize("case", ["demand", "oracle"])
-def test_unsupported_features_raise(case):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("case, error", [("demand", ValueError),
+                                         ("oracle", NotImplementedError)],
+                         ids=["demand", "oracle"])
+def test_unsupported_features_raise(case, error):
+    # demand textures and the oracle are ported: what stays refused is a
+    # demand context that lacks a triangle's texture id (ValueError), any
+    # intersection backend but "bvh" and "oracle" (NotImplementedError), and
+    # the oracle on a two-level table
+    with pytest.raises(error):
         if case == "demand":
-            arrays = scene_arrays([_box()])
-            arrays[case] = True
-            scene_from_arrays(arrays, device="cpu")
+            from fovpathtracing_optixcodelatest_tpu_torch.models.demand import (
+                DemandLoader,
+            )
+
+            loader = DemandLoader(max_pages=2, device="cpu")
+            loader.create_texture(np.ones((8, 8, 3), np.float32))
+            scene_from_arrays(scene_arrays([_box(), make_box(
+                (3, 0, 0), (1, 1, 1), Material(), texture_id=1)]),
+                device="cpu", demand=loader.launch_prepare())
         else:
-            RenderConfig(traversal="oracle").check_supported()
+            RenderConfig(traversal="treelet").check_supported()
 
 
 @pytest.mark.parametrize("case", ["texture", "catcher", "sampler",
-                                  "instanced", "spectral"])
+                                  "instanced", "spectral", "demand",
+                                  "oracle"])
 def test_formerly_refused_features_build(case):
     # textures, catchers, the stratified/blue-noise samplers, two-level
-    # (instanced) scenes and the spectral path are ported
-    if case == "instanced":
+    # (instanced) scenes, the spectral path, demand-loaded textures and the
+    # brute-force oracle are ported
+    if case == "demand":
+        from fovpathtracing_optixcodelatest_tpu_torch.models.demand import (
+            DemandLoader,
+        )
+
+        loader = DemandLoader(max_pages=2, device="cpu")
+        loader.create_texture(np.ones((8, 8, 3), np.float32))
+        scene = build_scene([make_box((0, 0, 0), (1, 1, 1), Material(),
+                                      texture_id=0)], device="cpu",
+                            demand=loader.launch_prepare())
+        assert scene.demand is not None and scene.textures is None
+        assert scene.with_demand(None).demand is None
+    elif case == "oracle":
+        from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
+            instanced,
+        )
+        from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+            build_scene_instanced,
+        )
+        from fovpathtracing_optixcodelatest_tpu_torch.render.integrator import (
+            trace_paths,
+        )
+        from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import prng_key
+
+        cfg = RenderConfig(traversal="oracle")
+        cfg.check_supported()
+        o = torch.tensor([[0.0, 0.0, 5.0]])
+        d = torch.tensor([[0.0, 0.0, -1.0]])
+        act = torch.ones(1, dtype=torch.bool)
+        out = trace_paths(build_scene([_box()], device="cpu"), o, d, act,
+                          prng_key(0), cfg)
+        assert float(out["alpha"][0, 0]) == 1.0  # the box was hit
+        # the oracle walks flattened geometry only
+        inst = build_scene_instanced(instanced([_box()], [(0, np.eye(4))]),
+                                     device="cpu")
+        with pytest.raises(ValueError):
+            trace_paths(inst, o, d, act, prng_key(0), cfg)
+    elif case == "instanced":
         from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
             instanced,
         )

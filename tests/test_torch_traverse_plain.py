@@ -196,7 +196,7 @@ def test_plain_counts_the_root_tests_of_rays_that_miss(city_legacy, kind):
     active = torch.arange(n) % 5 != 0
     k = int(active.sum())
     stats = _walk(city_legacy, kind, o, d, active)
-    assert stats == {"node_rows": k, "leaf_rows": 0,
+    assert stats == {"node_rows": k, "leaf_rows": 0, "distinct_rows": 1,
                      "child_tests": k * _root_children(city_legacy, kind),
                      "tri_tests": 0}
 
@@ -216,3 +216,9 @@ def test_plain_counts_only_real_children_and_triangles(city_legacy, kind):
     assert stats["child_tests"] < arity * stats["node_rows"]
     assert stats["leaf_rows"] <= stats["tri_tests"]
     assert stats["tri_tests"] < leaf * stats["leaf_rows"]
+    # 2,000 rays share rows: fewer distinct rows than fetches, and no more
+    # than the table holds
+    table = city_legacy.legacy.table if kind == "occluded_packets" \
+        else city_legacy.bvh.table
+    assert 1 < stats["distinct_rows"] <= table.shape[0]
+    assert stats["distinct_rows"] < stats["node_rows"] + stats["leaf_rows"]
