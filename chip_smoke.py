@@ -42,13 +42,15 @@ c. the textured cornell box with a shadow catcher (``catcher_cornell``), 2
 d. the CLI (``apps/main.py``) in this process at 960x540 with every output
    (PNG, AOV NPZ, denoised PNG, TSV); prints the TSV's render times;
 e. render-time instancing: the 1,000-instance sphere field
-   (``instance_field``: one 320-triangle icosphere, 320,000 world
-   triangles) on its two-level table, timed like the main path at 960x540
-   ``reference_32_16_8``; the instanced K1 and K2 against their plain
-   versions on that frame's primary and bounce-0 shadow lanes (hit, tri_id,
-   inst, occlusion equal, t/u/v 0 ulp); the same subframe from the
-   flattened single-level scene within the JAX package's instancing gate
-   (mean radiance within rtol 0.05, 90% of pixels within 1e-3);
+   (``kernel_times.instance_field``: one 320-triangle icosphere, 320,000
+   world triangles) on its two-level table, timed like the main path at
+   960x540 ``reference_32_16_8``; the instanced K1 and K2 against their
+   plain versions on that frame's primary and bounce-0 shadow lanes (hit,
+   tri_id, inst, occlusion equal, t/u/v 0 ulp), timed there beside the
+   single-level K1 and K2 on the same rays against the flattened table;
+   the same subframe from the flattened single-level scene within the JAX
+   package's instancing gate (mean radiance within rtol 0.05, 90% of
+   pixels within 1e-3);
 f. spectral: the untextured bench frame with ``spectral=True``, timed like
    the main path; the dispersive glass sphere (``glass_sphere``,
    ``dispersion`` 25000) on the card against the CPU at a small size (99%
@@ -87,8 +89,8 @@ resident blocks per SM), and as its last line ``{"ok": true, "device":
 fallback.
 
 ``--profile`` adds ``FRAMES`` frames of the main path, and as many of the
-textured, the spectral, the two deep and the paged-in demand frames, under
-``torch.profiler``.
+textured, the instanced, the spectral, the two deep and the paged-in
+demand frames, under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -117,9 +119,13 @@ MT_OPS = 40  # per triangle: the Möller-Trumbore arithmetic and range tests
 # (a compare, two selects and a divide per axis)
 INST_OPS = 45
 RAY_SHAPE = "960x540 reference_32_16_8, box_city n=24 seed 0"
+KERNEL_SRC = "fovpathtracing_optixcodelatest_tpu_torch/csrc/"
+JAX_OPS = "fovpathtracing_optixcodelatest_tpu/ops/"
 # the kernels the main path launches: closest hit (K1) and occlusion (K2),
-# both on the packed table
+# both on the packed table, and their two-level variants on an instanced
+# scene's
 PATH_KERNELS = ("closest_hit", "occluded")
+INSTANCED_KERNELS = ("closest_hit_instanced", "occluded_instanced")
 # phase g's deep scenes: (box_city_fast n, timed frames after one warm-up):
 # 388,812 and 10,002,840 triangles
 DEEP_SCENES = ((180, 4), (913, 2))
@@ -157,38 +163,6 @@ def catcher_cornell():
                  metallic=0.0, specular=0.0, roughness=1.0,
                  transmission=0.0, flags=MATERIAL_FLAG_SHADOW_CATCHER)))
     return meshes, cam, images
-
-
-def _translate(x, y, z):
-    import numpy as np
-
-    m = np.eye(4)
-    m[:3, 3] = (x, y, z)
-    return m
-
-
-def instance_field(count: int = 1000):
-    """The JAX package's 1,000-instance field (its instancing test's memory
-    case): one icosphere (radius 0.45, subdivision 2: 320 triangles) placed
-    ``count`` times on a 32 x 8 x 4 lattice, and a camera that frames the
-    whole lattice -> (InstancedScene, camera). Phase (e)'s scene."""
-    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
-    from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
-        instanced,
-    )
-    from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
-        Material,
-    )
-    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
-        make_icosphere,
-    )
-
-    ball = make_icosphere((0.0, 0.0, 0.0), 0.45, 2,
-                          Material(color=(0.7, 0.7, 0.7), roughness=0.9))
-    placements = [(0, _translate((i % 32) * 1.2, ((i // 32) % 8) * 1.3,
-                                 (i // 256) * 1.4)) for i in range(count)]
-    cam = Camera(eye=(18.6, 16.0, 30.0), lookat=(18.6, 4.5, 2.0), fov_y=45.0)
-    return instanced([ball], placements), cam
 
 
 def glass_sphere():
@@ -299,12 +273,13 @@ def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int):
 
 
 def _profile_frames(renderer, path: str, results: dict,
-                    name: str = "profile") -> None:
+                    name: str = "profile", path_kernels=PATH_KERNELS) -> None:
     """``FRAMES`` more frames under torch.profiler. Per frame: the device's
     busy time (the sum of its kernels' times), the wall time of the same
     profiled frames (host clock, ending in a synchronize), the idle share
-    of one in the other, the kernel launches, and the ops that take the
-    most device time."""
+    of one in the other, the kernel launches, the device time and launches
+    of each of ``path_kernels`` (and its time a launch, which is a bounce),
+    and the ops that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -322,7 +297,9 @@ def _profile_frames(renderer, path: str, results: dict,
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(dev_ms(e) for e in kernels)
     path_ms = {k: sum(dev_ms(e) for e in kernels if _kernel_of(e.key) == k)
-               for k in PATH_KERNELS}
+               for k in path_kernels}
+    path_n = {k: sum(e.count for e in kernels if _kernel_of(e.key) == k)
+              / FRAMES for k in path_kernels}
     # a renamed kernel must fail here, not read as 0 ms
     assert all(v > 0 for v in path_ms.values()), \
         f"a main-path kernel is missing from the profile: {path_ms}"
@@ -338,14 +315,16 @@ def _profile_frames(renderer, path: str, results: dict,
     results[name] = {
         "frames": FRAMES, "device_busy_ms": busy_ms, "frame_ms": wall_ms,
         "idle_share": idle, "traversal_kernels_ms": ours_ms,
-        "kernel_ms": path_ms,
+        "kernel_ms": path_ms, "kernel_launches": path_n,
+        "kernel_ms_per_launch": {k: path_ms[k] / path_n[k] for k in path_ms},
         "device_launches": launches,
         "top_ops": [(e.key, dev_ms(e), e.count / FRAMES) for e in top],
     }
     _line(f"{name} ({FRAMES} frames, per frame): device busy {busy_ms:.1f} "
           f"ms of a {wall_ms:.1f} ms profiled frame (idle share {idle:.2f}); "
           f"traversal kernels {ours_ms:.3f} ms ("
-          + ", ".join(f"{k} {v:.3f}" for k, v in path_ms.items()) + "); "
+          + ", ".join(f"{k} {v:.3f} in {path_n[k]:.0f} launches"
+                      for k, v in path_ms.items()) + "); "
           f"{launches:.0f} device launches; top ops: "
           + "; ".join(f"{e.key} {dev_ms(e):.2f} ms x{e.count / FRAMES:.0f}"
                       for e in top))
@@ -608,96 +587,92 @@ FLAT_MEAN_RTOL, FLAT_PIXEL_TOL, FLAT_SHARE = 0.05, 1e-3, 0.90
 
 
 def instanced_phase(schedule, width: int, height: int, frames: int,
-                    device="cuda", count: int = 1000) -> dict:
-    """(e) The instance field (``instance_field``) on its two-level table:
-    ``frames`` timed frames through ``Renderer.render``; the instanced K1
-    and K2 against their plain versions on the frame's primary lanes and
-    bounce-0 shadow lanes (exact), timed with CUDA events on ``device``;
-    subframe 0 against the same subframe of the flattened single-level
-    scene (the gate above); the flattened scene's frames timed the same
-    way."""
+                    device="cuda", count: int = 1000, profile=None,
+                    results=None) -> dict:
+    """(e) The instance field (``kernel_times.instance_field``) on its
+    two-level table: ``frames`` timed frames through ``Renderer.render``
+    (with ``profile``, ``FRAMES`` more under the profiler); the instanced
+    K1 and K2 against their plain versions on the frame's primary lanes
+    and bounce-0 shadow lanes (exact), timed with CUDA events on
+    ``device``, and the single-level K1 and K2 timed on the same rays
+    against the flattened single-level table; subframe 0 against the same
+    subframe of the flattened scene (the gate above); the flattened
+    scene's frames timed the same way."""
     import numpy as np
-    import torch
 
-    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
-    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
-        gradient_sky_probe,
-    )
-    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
-        scene_arrays,
-        scene_arrays_instanced,
-        scene_from_arrays,
-    )
     from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
         Renderer,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 
-    sc, cam = instance_field(count)
-    probe = gradient_sky_probe()
-    t0 = time.perf_counter()
-    scene = scene_from_arrays(scene_arrays_instanced(sc, probe), device)
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flat = scene_from_arrays(scene_arrays(sc.flatten(), probe), device)
-    flat_build_s = time.perf_counter() - t0
+    rays = kernel_times.field_rays(device, count, width, height, schedule)
+    scene, flat, sc = rays["scene"], rays["flat"], rays["field"]
+    config, camera = rays["config"], rays["camera"]
     b = scene.bvh
     assert b.num_instances == count and scene.num_triangles == 320
     assert flat.num_triangles == 320 * count and not flat.bvh.instanced
-    config = RenderConfig(width=width, height=height)
-    camera = dataclasses.replace(cam, aspect=width / height)
     renderer = Renderer(scene, config, schedule, device=device)
     renderer.set_camera(camera)
     out = timed_frames(renderer, frames)
     assert out["frame"].shape == (height, width, 3) and out["finite"]
+    if profile:
+        root, ext = os.path.splitext(profile)
+        _profile_frames(renderer, f"{root}_instanced{ext}", results,
+                        name="profile_instanced",
+                        path_kernels=INSTANCED_KERNELS)
+    del renderer
     nbytes = lambda sc_: sc_.bvh.table.numel() * 4  # noqa: E731
     out.update(instances=count, world_triangles=sc.num_world_triangles,
-               host_build_s=build_s, flat_host_build_s=flat_build_s,
+               host_build_s=rays["build_s"],
+               flat_host_build_s=rays["flat_build_s"],
                table_bytes=nbytes(scene), flat_table_bytes=nbytes(flat),
                tri_pack_bytes=scene.tri_pack.numel() * 4,
                flat_tri_pack_bytes=flat.tri_pack.numel() * 4,
                stack_depth=b.stack_depth, rows=b.num_rows,
+               flat_stack_depth=flat.bvh.stack_depth,
                inst_base=b.inst_base, blas_base=b.blas_base)
 
-    # the instanced kernels against their plain versions on the frame's rays
-    rays = kernel_times.frame_rays(scene, camera, config, schedule, device)
+    # the instanced kernels against their plain versions on the frame's
+    # rays; the single-level kernels on the same rays, flattened
     o, d, act, _ = rays["primary"]
     so, sd, sq = rays["shadow"]
     kargs = (config.tmin, config.tmax, *b.walk_args)
     kw = b.instance_kwargs
-    k1 = lambda: traverse.closest_hit(b.table, o, d, act, *kargs, **kw)  # noqa: E731
-    k2 = lambda: traverse.occluded(b.table, so, sd, sq, *kargs, **kw)  # noqa: E731
-    got1, got2 = k1(), k2()
+    calls = kernel_times.field_calls(rays)
     st1, st2 = {}, {}
     p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
         b.table, o, d, act, *kargs, stats=st1, **kw))
     p2, p2_ms = _plain_ms(lambda: traverse.occluded_plain(
         b.table, so, sd, sq, *kargs, stats=st2, **kw))
-    hit_eq, tri_eq, ulp, err1 = _k1_agreement(got1, p1)
-    inst_eq = bool(torch.equal(got1["inst"], p1["inst"]))
-    mism2 = int((got2 != p2).sum().item())
-    assert hit_eq and tri_eq and inst_eq and ulp == 0, \
-        "instanced K1 disagrees with its plain version"
+    mism = kernel_times.field_mismatches(rays, calls, plain=(p1, p2))
+    mism2 = mism.pop("occluded")
+    assert not any(mism.values()), \
+        f"instanced K1 disagrees with its plain version: {mism}"
     assert mism2 == 0, "instanced K2 disagrees with its plain version"
     assert int(p1["hit"].sum()) > 0 and int(p2.sum()) > 0
     n, n_act, ns, nq = o.shape[0], int(act.sum()), so.shape[0], int(sq.sum())
     if device == "cuda":
-        ms1, ms2 = kernel_times.events_ms(k1), kernel_times.events_ms(k2)
+        times = kernel_times.time_kernels(calls)
     else:  # a rehearsal: no device time
-        ms1 = ms2 = None
+        times = dict.fromkeys(calls)
     b1, b1_by, f1 = _bound(st1, b.table, n, n_act, 20)
     b2, b2_by, f2 = _bound(st2, b.table, ns, nq, 1)
     out["k1"] = {"lanes": n, "active": n_act, "hits": int(p1["hit"].sum()),
-                 "hit_equal": hit_eq, "tri_id_equal": tri_eq,
-                 "inst_equal": inst_eq, "ulp": ulp, "max_abs_err": err1,
-                 "ms": ms1, "plain_ms": p1_ms, "bound_ms": b1,
-                 "bound_by": b1_by, "fetch_bytes": f1, "work": st1}
+                 "mismatches": mism,
+                 "max_abs_err": float(min(mism["t"] + mism["u"] + mism["v"],
+                                          1)),
+                 "ms": times["ik1_primary"],
+                 "flat_ms": times["flat_k1_primary"], "plain_ms": p1_ms,
+                 "bound_ms": b1, "bound_by": b1_by, "fetch_bytes": f1,
+                 "work": st1}
     out["k2"] = {"lanes": ns, "queried": nq, "occluded": int(p2.sum()),
                  "mismatches": mism2, "max_abs_err": float(min(mism2, 1)),
-                 "ms": ms2, "plain_ms": p2_ms, "bound_ms": b2,
-                 "bound_by": b2_by, "fetch_bytes": f2, "work": st2}
-    del got1, got2, p1, p2, rays
+                 "ms": times["ik2_shadow"],
+                 "flat_ms": times["flat_k2_shadow"], "plain_ms": p2_ms,
+                 "bound_ms": b2, "bound_by": b2_by, "fetch_bytes": f2,
+                 "work": st2}
+    del p1, p2, rays, calls
 
     # subframe 0 against the flattened scene's
     lin = {}
@@ -949,6 +924,21 @@ def _deep_record(g: dict, k: str, kernel: str) -> dict:
             "launches": g["launches"][kernel],
             "max_abs_err": r["max_abs_err"],
             "rows_per_lane": r["rows_per_lane"], **g["resources"][kernel]}
+
+
+def _instanced_record(name: str, replaces: str, r: dict, launches: dict,
+                      res: dict) -> dict:
+    """The kernels line's entry of an instanced kernel: its phase-e record
+    ``r`` (``flat_ms``: the single-level kernel on the same rays against
+    the flattened table) with its launches in the field's timed frames and
+    its resources at the field's stack depth."""
+    return {"name": name, "route": "cuda",
+            "source": KERNEL_SRC + "traverse.cu",
+            "replaces": JAX_OPS + replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "flat_ms": r["flat_ms"], "lanes": r["lanes"], **res[name]}
 
 
 def _deep_lines(name: str, g: dict) -> None:
@@ -1661,7 +1651,8 @@ def main() -> int:
         assert cli_launches[k] > 0, f"the CLI never launched {k}"
 
     # -- phase e: render-time instancing (two-level table) ------------------
-    inst = instanced_phase(schedule, w, h, FRAMES)
+    inst = instanced_phase(schedule, w, h, FRAMES, profile=args.profile,
+                           results=results)
     inst_launches = inst["launches"]  # of its timed frames only
     ik1, ik2 = inst["k1"], inst["k2"]
     _line(f"instanced: {inst['instances']} instances of one 320-tri sphere "
@@ -1674,13 +1665,14 @@ def main() -> int:
           f"{inst['host_build_s']:.2f} s (flattened "
           f"{inst['flat_host_build_s']:.2f} s)")
     _line(f"instanced K1 on {ik1['lanes']} primary lanes ({ik1['hits']} hits):"
-          f" hit/tri_id/inst equal {ik1['hit_equal']}/{ik1['tri_id_equal']}/"
-          f"{ik1['inst_equal']}, t/u/v max {ik1['ulp']} ulp; {ik1['ms']:.4f} "
-          f"ms (plain {ik1['plain_ms']:.1f}); work {ik1['work']}")
+          f" mismatched lanes {ik1['mismatches']}; {ik1['ms']:.4f} "
+          f"ms (plain {ik1['plain_ms']:.1f}; K1 on the flattened table "
+          f"{ik1['flat_ms']:.4f}); work {ik1['work']}")
     _line(f"instanced K2 on {ik2['lanes']} shadow lanes ({ik2['queried']} "
           f"queried, {ik2['occluded']} occluded): {ik2['mismatches']} "
-          f"mismatches; {ik2['ms']:.4f} ms (plain {ik2['plain_ms']:.1f}); "
-          f"work {ik2['work']}")
+          f"mismatches; {ik2['ms']:.4f} ms (plain {ik2['plain_ms']:.1f}; K2 "
+          f"on the flattened table {ik2['flat_ms']:.4f}); work "
+          f"{ik2['work']}")
     _line(f"instanced vs flattened subframe 0: mean radiance "
           f"{[round(x, 5) for x in inst['mean_radiance']]} vs "
           f"{[round(x, 5) for x in inst['flat_mean_radiance']]}, pixels within "
@@ -1693,7 +1685,7 @@ def main() -> int:
           + f" (mean {flat_t['mean_ms']:.1f}); {flat_t['mrays']:.2f} Mrays/s;"
           f" peak {flat_t['peak'] / 2**30:.2f} GiB; launches "
           f"{flat_t['launches']}")
-    for k in ("closest_hit_instanced", "occluded_instanced"):
+    for k in INSTANCED_KERNELS:
         assert inst["launches"][k] > 0, f"the instanced frame never launched {k}"
 
     # -- phase f: spectral (hero wavelengths) --------------------------------
@@ -1806,16 +1798,24 @@ def main() -> int:
         r["spill_bytes"] = spills.get(k)
     for k, r in (g10["resources"] or {}).items():
         r["spill_bytes"] = spills.get(k)
-    _line("resources: " + "; ".join(
-        f"{k} {r['registers']} regs, {r['spill_bytes']} B spilled, "
-        f"{r['local_bytes']} B local, {r['shared_bytes']} B shared/block, "
-        f"{r['blocks_per_sm']} blocks/SM"
-        for k, r in res.items()))
-    src = "fovpathtracing_optixcodelatest_tpu_torch/csrc/"
-    jax_ops = "fovpathtracing_optixcodelatest_tpu/ops/"
+    # the instanced kernels at the field's stack depth
+    inst_res = kernel_build.resources(inst["stack_depth"])
+    for k, r in inst_res.items():
+        r["spill_bytes"] = spills.get(k)
+    for title, kernel_res in (
+            ("resources", {k: r for k, r in res.items()
+                           if k not in INSTANCED_KERNELS}),
+            (f"resources at the field's depth {inst['stack_depth']}",
+             {k: inst_res[k] for k in INSTANCED_KERNELS})):
+        _line(f"{title}: " + "; ".join(
+            f"{k} {r['registers']} regs, {r['spill_bytes']} B spilled, "
+            f"{r['local_bytes']} B local, {r['shared_bytes']} B "
+            f"shared/block, {r['blocks_per_sm']} blocks/SM"
+            for k, r in kernel_res.items()))
     kernels = [
-        {"name": "closest_hit", "route": "cuda", "source": src + "traverse.cu",
-         "replaces": jax_ops + "traverse8.py:795", "launches":
+        {"name": "closest_hit", "route": "cuda",
+         "source": KERNEL_SRC + "traverse.cu",
+         "replaces": JAX_OPS + "traverse8.py:795", "launches":
          path_launches["closest_hit"], "max_abs_err": err1,
          "ms": times["k1_primary"],
          "plain_ms": p1_ms, "bound_ms": b1, "bound_by": b1_by,
@@ -1823,31 +1823,22 @@ def main() -> int:
          "continuation": {"lanes": nb, "ms": times["k1_continuation"],
                           "plain_ms": p1b_ms,
                           "bound_ms": b1b, "bound_by": b1b_by},
-         "deep": _deep_record(g10, "k1", "closest_hit"),
-         "instanced": {"lanes": ik1["lanes"], "ms": ik1["ms"],
-                       "plain_ms": ik1["plain_ms"],
-                       "bound_ms": ik1["bound_ms"],
-                       "bound_by": ik1["bound_by"],
-                       "launches": inst_launches["closest_hit_instanced"],
-                       "max_abs_err": ik1["max_abs_err"],
-                       **res["closest_hit_instanced"]}},
-        {"name": "occluded", "route": "cuda", "source": src + "traverse.cu",
-         "replaces": jax_ops + "traverse8.py:1367", "launches":
+         "deep": _deep_record(g10, "k1", "closest_hit")},
+        {"name": "occluded", "route": "cuda",
+         "source": KERNEL_SRC + "traverse.cu",
+         "replaces": JAX_OPS + "traverse8.py:1367", "launches":
          path_launches["occluded"], "max_abs_err": err2,
          "ms": times["k2_shadow"],
          "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
          "library_ms": None, **res["occluded"],
-         "deep": _deep_record(g10, "k2", "occluded"),
-         "instanced": {"lanes": ik2["lanes"], "ms": ik2["ms"],
-                       "plain_ms": ik2["plain_ms"],
-                       "bound_ms": ik2["bound_ms"],
-                       "bound_by": ik2["bound_by"],
-                       "launches": inst_launches["occluded_instanced"],
-                       "max_abs_err": ik2["max_abs_err"],
-                       **res["occluded_instanced"]}},
+         "deep": _deep_record(g10, "k2", "occluded")},
+        _instanced_record("closest_hit_instanced", "traverse8.py:523", ik1,
+                          inst_launches, inst_res),
+        _instanced_record("occluded_instanced", "traverse8.py:1487", ik2,
+                          inst_launches, inst_res),
         {"name": "occluded_nocull", "route": "cuda",
-         "source": src + "traverse.cu",
-         "replaces": jax_ops + "traverse8.py:1376", "launches":
+         "source": KERNEL_SRC + "traverse.cu",
+         "replaces": JAX_OPS + "traverse8.py:1376", "launches":
          raycast_launches["occluded_nocull"],
          "max_abs_err": max(nocull["max_abs_err"],
                             float(min(orc["raycast_shadow"]["mismatches"],
@@ -1856,15 +1847,15 @@ def main() -> int:
          "bound_ms": nocull["bound_ms"], "bound_by": nocull["bound_by"],
          "library_ms": None, **res["occluded_nocull"]},
         {"name": "occluded_packets", "route": "cuda",
-         "source": src + "packet_traverse.cu",
-         "replaces": jax_ops + "pallas_traverse.py:53", "launches":
+         "source": KERNEL_SRC + "packet_traverse.cu",
+         "replaces": JAX_OPS + "pallas_traverse.py:53", "launches":
          path_launches["occluded_packets"], "max_abs_err": err3,
          "ms": times["k3_shadow"],
          "plain_ms": p3_ms, "bound_ms": b3, "bound_by": b3_by,
          "library_ms": None, **res["occluded_packets"]},
     ]
     for k in kernels:
-        k["main_path"] = k["name"] in PATH_KERNELS
+        k["main_path"] = k["name"] in PATH_KERNELS + INSTANCED_KERNELS
     results.update(
         kernels=kernels, frame_ms=frame_ms, traces=traces, mrays_s=mrays,
         peak_bytes=peak, launches_per_frame={k: per_frame(k) for k in launches},

@@ -53,9 +53,11 @@
 //   and compacts the active ones with __ballot_sync/__popc into a per-warp
 //   queue in shared memory, so an inactive lane never takes a thread. A lane
 //   whose ray is done takes the next queued ray once kK2RefillIdle (16)
-//   lanes of its warp are idle in K2, whose rays end early and unevenly, and
-//   kK1RefillIdle (32, the whole warp) in K1, which loses its coherence and
-//   25-35% of its speed when part of a warp refills (at 16 or 8 idle lanes).
+//   lanes of its warp are idle in K2, whose rays end early and unevenly
+//   (kIK2RefillIdle, 8, in the two-level K2), and kK1RefillIdle (32, the
+//   whole warp) in K1 and its two-level variant, which lose their
+//   coherence and 20-35% of their speed when part of a warp refills (at 16
+//   or 8 idle lanes).
 // - K1 computes its children's keys in registers and sorts them there with
 //   a bitonic network (over 4, 8 or 16 keys, as far as the node's children
 //   reach) before pushing the hits.
@@ -76,23 +78,33 @@
 // without the flag.
 //
 // Two-level tables (ops/tlas.py; the instance steps of traverse8.py
-// _ch_step :524-632 and of the occlusion loop :1487-1580):
+// _ch_step :523-632 and of the occlusion loop :1487-1580):
 // closest_hit_instanced_kernel and occluded_instanced_kernel are the same
 // walks with INSTANCED set, compiled for (16, 6) only (the single-level
 // kernels compile as without the flag).
 // Rows [inst_base, blas_base) are instance rows [root code, A (3x3
-// row-major), b (3)]; popping an instance code (kind 2, the instance id in
+// row-major), b (3)]. Popping an instance code (kind 2, the instance id in
 // the row bits) reads its 13 words as four 16-byte loads, sets the lane's
 // object-space ray x_obj = A x + b (direction A d left unnormalised, so t
 // stays in world units; its safe inverse) and its current instance, and
-// pushes the BLAS root with the instance entry's key bits. A node row below
-// blas_base is a TLAS row, tested in world space (and the lane leaves its
-// instance); BLAS nodes and leaves are tested in object space. Each sum is
-// evaluated left to right as ops/traverse.py inv_transform writes it, so
-// the object rays, and with them t/u/v, match the plain versions bit for
-// bit. K1 also writes the hit's instance (-1 on a miss). A simple walk: a
-// lane carries the object ray, cur and the best hit's instance in
-// registers and resets them when it takes a new ray.
+// tests the BLAS root's row, node or leaf, in the same step. The plain
+// versions push the root (K1 with the instance entry's key bits) and pop
+// it next: the pop freed the slot the push takes, and the root's key
+// cannot be stale, since t has not changed since the entry passed the
+// stale test; so the rows visited, and their order, are the same. A node
+// row below blas_base is a TLAS row, tested in world space (and the lane
+// leaves its instance); BLAS nodes and leaves are tested in object space.
+// Each sum is evaluated left to right as ops/traverse.py inv_transform
+// writes it, so the object rays, and with them t/u/v, match the plain
+// versions bit for bit. K1 also writes the hit's instance (-1 on a miss).
+// A lane carries the world ray, the object ray, cur and the best hit's
+// instance in registers and resets them when it takes a new ray. More
+// resident warps do not speed K1 up: keeping the world ray in shared
+// memory (one ray a lane in registers, 71 registers and 7 blocks/SM) timed
+// 1-2% slower than this walk (80 registers, 6 blocks/SM). The two-level K2
+// reads its rows staged, as K1 does: 96 registers without the spill that
+// whole-row reads cost it, and 10% faster; and its idle lanes refill at 8
+// (5% faster than at 16). PERF.md has the times of every alternative.
 //
 // Built with --fmad=false: with no FMA contraction the slab tests and the
 // Möller-Trumbore arithmetic round exactly as the plain PyTorch versions
@@ -109,15 +121,17 @@ constexpr int kArity = 16, kLeaf = 6;  // ops/bvh8.py ARITY, LEAF_SIZE
 constexpr uint32_t kKindInst = 2u;     // ops/bvh8.py KIND_INST
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-// lanes of a warp that must be idle before they take new rays
-constexpr int kK1RefillIdle = 32, kK2RefillIdle = 16;
-// resident blocks per SM asked of the register allocator (4 gives K2 109
-// registers, 6 spills)
+// lanes of a warp that must be idle before they take new rays: K1 and its
+// two-level variant, K2 and its non-culling instantiation, the two-level K2
+constexpr int kK1RefillIdle = 32, kK2RefillIdle = 16, kIK2RefillIdle = 8;
+// resident blocks per SM asked of the register allocator by every kernel
+// (4 gives K2 109 registers, 6 spills)
 constexpr int kMinBlocks = 5;
 // whether a walk prefetches a row's two lines into L1 and then reads it a
-// group of children or half a leaf at a time (fewer registers: K1), or
-// reads it all at once (K2, which gains nothing from staging)
-constexpr bool kK1StagedRow = true, kK2StagedRow = false;
+// group of children or half a leaf at a time (fewer registers: K1 and the
+// two-level K2), or reads it all at once (K2, which gains nothing from
+// staging)
+constexpr bool kK1StagedRow = true, kK2StagedRow = false, kIK2StagedRow = true;
 
 template <int ARITY, int LEAF>
 struct Layout {
@@ -307,8 +321,8 @@ struct Instancing<true> {
     cur = -1;
   }
 
-  // Enter the instance of code (kind 2): its row's root code, and the
-  // object-space ray from the row's A and b.
+  // Enter the instance of code (kind 2): its row's BLAS root code, and
+  // the object-space ray from the row's A and b.
   template <int VECS>
   __device__ __forceinline__ uint32_t enter(const uint4* __restrict__ table,
                                             uint32_t code, const Ray& ray) {
@@ -377,7 +391,8 @@ __device__ __forceinline__ void leaf_ray(const Instancing<INSTANCED>& in,
   }
 }
 
-template <int ARITY, int LEAF, bool INSTANCED = false, bool CULL = true>
+template <int ARITY, int LEAF, bool INSTANCED = false, bool CULL = true,
+          bool STAGED = kK2StagedRow>
 struct OccludedWalk {
   using L = Layout<ARITY, LEAF>;
   const uint4* __restrict__ table;
@@ -404,17 +419,14 @@ struct OccludedWalk {
 
   // One pop; true when the ray is done.
   __device__ __forceinline__ bool step() {
-    const uint32_t code = stk[--sp];
+    uint32_t code = stk[--sp];
+    // an instance entry tests its BLAS root in the same step
     if constexpr (INSTANCED) {
-      if ((code & 3u) == kKindInst) {
-        const uint32_t root = in.template enter<L::kVecs>(table, code, ray);
-        if (sp < depth) stk[sp++] = root;
-        return sp == 0;
-      }
+      if ((code & 3u) == kKindInst)
+        code = in.template enter<L::kVecs>(table, code, ray);
     }
     uint4 q[L::kVecs];
-    const uint4* r =
-        begin_row<ARITY, LEAF, kK2StagedRow>(table, code, q);
+    const uint4* r = begin_row<ARITY, LEAF, STAGED>(table, code, q);
     if ((code & 3u) == 0u) {
       float o[3], inv[3];
       node_ray<INSTANCED>(in, code, ray, o, inv);
@@ -422,7 +434,7 @@ struct OccludedWalk {
 #pragma unroll
       for (int g = 0; g < ARITY / 4; ++g) {
         if (!group_used<ARITY>(q, g)) continue;
-        group_boxes<kK2StagedRow>(r, q, g);
+        group_boxes<STAGED>(r, q, g);
 #pragma unroll
         for (int c = 4 * g; c < 4 * g + 4; ++c) {
           const uint32_t cc = word(q, 3 * ARITY + c);
@@ -437,7 +449,7 @@ struct OccludedWalk {
       leaf_ray<INSTANCED>(in, ray, lo, ld);
 #pragma unroll
       for (int k = 0; k < LEAF; ++k) {
-        if (k % 3 == 0) leaf_half<kK2StagedRow>(r, q, k / 3);
+        if (k % 3 == 0) leaf_half<STAGED>(r, q, k / 3);
         float tri[9];
         triangle(q, k, tri);
         occ |= tri_test(tri, lo[0], lo[1], lo[2], ld[0], ld[1], ld[2], tmin,
@@ -501,14 +513,12 @@ struct ClosestWalk {
       if (sp == 0) return true;
       e = stk[--sp];
     }
-    const uint32_t code = e & lowmask;
+    uint32_t code = e & lowmask;
+    // an instance entry tests its BLAS root in the same step: keyed
+    // (e & ~lowmask) | root, the root would pop next and not be stale
     if constexpr (INSTANCED) {
-      if ((code & 3u) == kKindInst) {
-        // the BLAS root, keyed by the instance's entry
-        const uint32_t root = in.template enter<L::kVecs>(table, code, ray);
-        if (sp < depth) stk[sp++] = (e & ~lowmask) | root;
-        return sp == 0;
-      }
+      if ((code & 3u) == kKindInst)
+        code = in.template enter<L::kVecs>(table, code, ray);
     }
     uint4 q[L::kVecs];
     const uint4* r =
@@ -745,7 +755,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         float tmax, int depth, bool* __restrict__ occ_out,
         int* __restrict__ counter, int inst_base, int blas_base) {
   extern __shared__ uint32_t smem[];
-  OccludedWalk<ARITY, LEAF, true> w;
+  OccludedWalk<ARITY, LEAF, true, true, kIK2StagedRow> w;
   w.table = table;
   w.orig = orig;
   w.dir = dir;
@@ -756,7 +766,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   w.stk = thread_stack(smem, depth);
   w.in.inst_base = inst_base;
   w.in.blas_base = blas_base;
-  walk_rays<kK2RefillIdle>(
+  walk_rays<kIK2RefillIdle>(
       w, active, n, counter,
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }

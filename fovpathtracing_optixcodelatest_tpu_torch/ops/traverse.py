@@ -26,7 +26,8 @@ popping a TLAS node row (``row < blas_base``) moves the lane back to world
 space; BLAS nodes and leaves are tested in object space. ``closest_hit``
 then also returns ``inst``, the hit's instance (-1 on a miss). The kernels
 have an instanced variant each (compiled for (16, 6) only), chosen by the
-wrappers from ``num_instances``.
+wrappers from ``num_instances``; they test the BLAS root in the instance
+entry's own step, which visits the same rows in the same order.
 
 ``occluded(..., cull_backface=False)`` lets back faces occlude too (the 04
 raycast's shadow ray, ``render/simple.py``): on a CUDA tensor it launches

@@ -5,11 +5,15 @@
 and the first frame's rays at 960x540 ``reference_32_16_8``;
 ``kernel_calls`` and ``time_kernels`` time, with CUDA events, K1 on the
 1,923,984 primary lanes and on bounce 0's continuation rays, K2 and K3 on
-bounce 0's shadow lanes. ``chip_smoke.py`` reports these times in its
-kernels line.
+bounce 0's shadow lanes. ``field_rays`` and ``field_calls`` do the same
+for the instance field (``instance_field``: 1,000 instances of one
+320-triangle sphere) on its two-level table: the instanced K1 on the
+frame's primary lanes, the instanced K2 on bounce 0's shadow lanes, and
+the single-level K1 and K2 on the flattened twin's table with the same
+rays. ``chip_smoke.py`` reports these times in its kernels line.
 
     python3 fovpathtracing_optixcodelatest_tpu_torch/tools/kernel_times.py \\
-        --tree DIR [--out times.json]
+        --tree DIR [--field] [--out times.json]
 
 prints the same times for the port of another checkout ``DIR``, through
 this file's timing code: it calls only the kernel wrappers' public
@@ -18,7 +22,11 @@ commit, or a patched copy of the port that tries a design alternative, at
 shapes that commit's own ``chip_smoke.py`` does not time. It also times K3
 three more times (its packets depend on scheduling, so this shows its
 spread within one process) and counts the shadow rays where that tree's K3
-and K2 answer differently. To
+and K2 answer differently. ``--field`` times the field's kernels instead,
+counts the lanes where that tree's instanced K1 and K2 differ from their
+plain versions (every output bit for bit), and reports the instanced
+kernels' registers, local memory, blocks per SM and shared memory at the
+field's stack depth with the tree's ``ptxas`` lines. To
 compare the parent's kernels with the change's on one card, unpack ``git
 archive <parent>`` into a git-ignored directory and run, in one chip call,
 each tree's ``chip_smoke.py`` in the order parent, change, change, parent,
@@ -121,6 +129,131 @@ def frame_rays(scene, camera, config, schedule, device="cuda") -> dict:
     }
 
 
+def instance_field(count: int = 1000):
+    """The JAX package's 1,000-instance field (its instancing test's memory
+    case): one icosphere (radius 0.45, subdivision 2: 320 triangles) placed
+    ``count`` times on a 32 x 8 x 4 lattice, and a camera that frames the
+    whole lattice -> (InstancedScene, camera)."""
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+    from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
+        instanced,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
+        Material,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        make_icosphere,
+    )
+
+    def translate(x, y, z):
+        m = np.eye(4)
+        m[:3, 3] = (x, y, z)
+        return m
+
+    ball = make_icosphere((0.0, 0.0, 0.0), 0.45, 2,
+                          Material(color=(0.7, 0.7, 0.7), roughness=0.9))
+    placements = [(0, translate((i % 32) * 1.2, ((i // 32) % 8) * 1.3,
+                                (i // 256) * 1.4)) for i in range(count)]
+    cam = Camera(eye=(18.6, 16.0, 30.0), lookat=(18.6, 4.5, 2.0), fov_y=45.0)
+    return instanced([ball], placements), cam
+
+
+def field_rays(device="cuda", count: int = 1000, width: int = 960,
+               height: int = 540, schedule=None) -> dict:
+    """The instance field (``instance_field``) under the gradient sky on
+    its two-level table (``scene``) and flattened into one single-level
+    table (``flat``), with the rays the kernels see on the first bounce of
+    the instanced frame (``frame_rays``' keys) and the host build seconds
+    of both scenes (``build_s``, ``flat_build_s``)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.config import (
+        FoveationSchedule,
+        RenderConfig,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        scene_arrays,
+        scene_arrays_instanced,
+        scene_from_arrays,
+    )
+
+    sc, cam = instance_field(count)
+    probe = gradient_sky_probe()
+    t0 = time.perf_counter()
+    scene = scene_from_arrays(scene_arrays_instanced(sc, probe), device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = scene_from_arrays(scene_arrays(sc.flatten(), probe), device)
+    flat_build_s = time.perf_counter() - t0
+    config = RenderConfig(width=width, height=height)
+    if schedule is None:
+        schedule = FoveationSchedule.reference_32_16_8()
+    camera = dataclasses.replace(cam, aspect=width / height)
+    return dict(frame_rays(scene, camera, config, schedule, device),
+                flat=flat, field=sc, build_s=build_s,
+                flat_build_s=flat_build_s)
+
+
+def field_calls(rays: dict) -> dict:
+    """One zero-argument call per field kernel and shape: the instanced K1
+    on the primary lanes, the instanced K2 on the shadow lanes, and the
+    single-level K1 and K2 on the same rays against the flattened table."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+
+    config = rays["config"]
+    b, fb = rays["scene"].bvh, rays["flat"].bvh
+    kargs = (config.tmin, config.tmax, *b.walk_args)
+    fargs = (config.tmin, config.tmax, *fb.walk_args)
+    kw = b.instance_kwargs
+    o, d, act, _ = rays["primary"]
+    so, sd, sq = rays["shadow"]
+    return {
+        "ik1_primary": lambda: traverse.closest_hit(b.table, o, d, act,
+                                                    *kargs, **kw),
+        "ik2_shadow": lambda: traverse.occluded(b.table, so, sd, sq, *kargs,
+                                                **kw),
+        "flat_k1_primary": lambda: traverse.closest_hit(fb.table, o, d, act,
+                                                        *fargs),
+        "flat_k2_shadow": lambda: traverse.occluded(fb.table, so, sd, sq,
+                                                    *fargs),
+    }
+
+
+def field_mismatches(rays: dict, calls: dict, plain=None) -> dict:
+    """Lanes where the field's instanced K1 and K2 differ from their plain
+    versions: per K1 output (t, u, v compared bit for bit) and K2's
+    answer. The kernels are exact when every count is 0. ``plain``: the
+    plain versions' (K1, K2) answers on ``rays``, where the caller has
+    them already."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+
+    config, b = rays["config"], rays["scene"].bvh
+    kargs = (config.tmin, config.tmax, *b.walk_args)
+    o, d, act, _ = rays["primary"]
+    so, sd, sq = rays["shadow"]
+    if plain is None:
+        plain = (traverse.closest_hit_plain(b.table, o, d, act, *kargs,
+                                            **b.instance_kwargs),
+                 traverse.occluded_plain(b.table, so, sd, sq, *kargs,
+                                         **b.instance_kwargs))
+    p1, p2 = plain
+    k1 = calls["ik1_primary"]()
+    out = {}
+    for c in ("hit", "t", "u", "v", "tri_id", "inst"):
+        got, want = k1[c], p1[c]
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        out[c] = int((got != want).sum())
+    del k1
+    out["occluded"] = int((calls["ik2_shadow"]() != p2).sum())
+    return out
+
+
 def events_ms(fn) -> float:
     """Mean device time of ``fn`` over ``REPS`` back-to-back calls (CUDA
     events, after one warm-up call)."""
@@ -173,6 +306,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", required=True,
                     help="root of the checkout whose port is timed")
+    ap.add_argument("--field", action="store_true",
+                    help="time the instance field's kernels instead")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -188,25 +323,59 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    rays = bench_rays("cuda")
-    assert rays["primary"][0].shape[0] == PRIMARY_LANES
-    calls = kernel_calls(rays)
-    mismatches = int((calls["k2_shadow"]() != calls["k3_shadow"]()).sum())
-    times = time_kernels(calls)
-    k3_again = [events_ms(calls["k3_shadow"]) for _ in range(3)]
-    result = {"tree": tree, "device": smi, "reps": REPS,
-              "lanes": {"primary": PRIMARY_LANES,
-                        "continuation": rays["continuation"][0].shape[0],
-                        "shadow": rays["shadow"][0].shape[0],
-                        "shadow_queried": int(rays["shadow"][2].sum())},
-              "ms": times, "k3_again": k3_again,
-              "k3_vs_k2_mismatches": mismatches}
+    if args.field:
+        result = dict(field_times(), tree=tree, device=smi, reps=REPS)
+    else:
+        result = dict(bench_times(), tree=tree, device=smi, reps=REPS)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     print(json.dumps(result))
     return 0
+
+
+def field_times() -> dict:
+    """``--field``: the field's kernel times, the instanced kernels'
+    mismatches against their plain versions and their resources."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    rays = field_rays("cuda")
+    assert rays["primary"][0].shape[0] == PRIMARY_LANES
+    calls = field_calls(rays)
+    mismatches = field_mismatches(rays, calls)
+    times = time_kernels(calls)
+    depth = rays["scene"].bvh.stack_depth
+    res = kernel_build.resources(depth)
+    ptxas = [ln.strip() for log in kernel_build.BUILD_INFO["log"].values()
+             for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    return {"lanes": {"primary": PRIMARY_LANES,
+                      "shadow": rays["shadow"][0].shape[0],
+                      "shadow_queried": int(rays["shadow"][2].sum())},
+            "stack_depth": depth,
+            "flat_stack_depth": rays["flat"].bvh.stack_depth,
+            "ms": times, "mismatches": mismatches,
+            "resources": {k: res[k] for k in ("closest_hit_instanced",
+                                              "occluded_instanced")},
+            "ptxas": ptxas}
+
+
+def bench_times() -> dict:
+    """The bench kernels' times, K3's spread and its answers against
+    K2's."""
+    rays = bench_rays("cuda")
+    assert rays["primary"][0].shape[0] == PRIMARY_LANES
+    calls = kernel_calls(rays)
+    mismatches = int((calls["k2_shadow"]() != calls["k3_shadow"]()).sum())
+    times = time_kernels(calls)
+    k3_again = [events_ms(calls["k3_shadow"]) for _ in range(3)]
+    return {"lanes": {"primary": PRIMARY_LANES,
+                      "continuation": rays["continuation"][0].shape[0],
+                      "shadow": rays["shadow"][0].shape[0],
+                      "shadow_queried": int(rays["shadow"][2].sum())},
+            "ms": times, "k3_again": k3_again,
+            "k3_vs_k2_mismatches": mismatches}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""The pure helpers of ``chip_smoke.py``, the shape builder of
-``tools/kernel_times.py``, and a rehearsal of the smoke's phases a-i at a
-small size, on the CPU (no card: the wrappers run the plain versions)."""
+"""The pure helpers of ``chip_smoke.py``, the shape builders of
+``tools/kernel_times.py`` (the bench frame's and the instance field's), and
+a rehearsal of the smoke's phases a-i at a small size, on the CPU (no card:
+the wrappers run the plain versions; a stand-in for ``torch.profiler``
+reports the device's kernels where a phase profiles)."""
 
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -145,6 +148,122 @@ def test_bench_rays_and_kernel_calls_on_cpu():
     assert not out["k2_shadow"][~sq].any()
 
 
+def test_field_rays_and_calls_on_cpu():
+    # kernel_times' field mode at a small size: the field on its two-level
+    # table and flattened, the same rays through both
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    rays = kernel_times.field_rays("cpu", count=96, width=120, height=68,
+                                   schedule=sched)
+    scene, flat = rays["scene"], rays["flat"]
+    assert scene.bvh.num_instances == 96 and scene.num_triangles == 320
+    assert flat.num_triangles == 96 * 320 and not flat.bvh.instanced
+    assert rays["build_s"] > 0 and rays["flat_build_s"] > 0
+    calls = kernel_times.field_calls(rays)
+    assert list(calls) == ["ik1_primary", "ik2_shadow", "flat_k1_primary",
+                           "flat_k2_shadow"]
+    before = dict(kernel_build.LAUNCHES)
+    mism = kernel_times.field_mismatches(rays, calls)
+    assert mism == dict.fromkeys(("hit", "t", "u", "v", "tri_id", "inst",
+                                  "occluded"), 0)
+    out = {k: f() for k, f in calls.items()}
+    assert kernel_build.LAUNCHES == before  # CPU tensors: no kernel ran
+    # one geometry in two tables: the hits agree but for rounding at edges
+    ih, fh = out["ik1_primary"]["hit"], out["flat_k1_primary"]["hit"]
+    assert ih.any() and (ih == fh).float().mean() > 0.999
+    assert (out["ik2_shadow"] == out["flat_k2_shadow"]).float().mean() > 0.999
+    assert out["ik1_primary"]["inst"][ih].min() >= 0
+
+
+def _fake_profiler(events):
+    """A stand-in for ``torch.profiler.profile`` whose ``key_averages`` are
+    ``events`` (each ``(name, device type, self device us, count)``)."""
+    class Events(list):
+        def table(self, **_):
+            return "\n".join(e.key for e in self)
+
+    class Profile:
+        def __init__(self, *_, **__):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def key_averages(self):
+            return Events(types.SimpleNamespace(
+                key=k, device_type=t, self_device_time_total=us, count=c)
+                for k, t, us, c in events)
+
+    return Profile
+
+
+def _instanced_profile_events(frames):
+    """Per frame: 4 launches of each instanced kernel at 0.5 and 0.25 ms,
+    60 of an elementwise kernel at 0.1 ms, and the aten op that ran it."""
+    from torch.autograd import DeviceType
+
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    return [
+        ("void (anonymous namespace)::closest_hit_instanced_kernel<16, 6>("
+         "uint4 const*)", cuda, frames * 4 * 500.0, frames * 4),
+        ("void (anonymous namespace)::occluded_instanced_kernel<16, 6>("
+         "uint4 const*)", cuda, frames * 4 * 250.0, frames * 4),
+        ("void at::native::elementwise_kernel<128, 2>(int)", cuda,
+         frames * 60 * 100.0, frames * 60),
+        ("aten::mul", cpu, frames * 60 * 100.0, frames * 60),
+    ]
+
+
+def test_profile_frames_reads_each_path_kernel(monkeypatch, tmp_path):
+    import torch.profiler
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.profiler, "profile", _fake_profiler(
+        _instanced_profile_events(chip_smoke.FRAMES)))
+    frames = []
+    renderer = types.SimpleNamespace(render=lambda: frames.append(1))
+    results = {}
+    chip_smoke._profile_frames(renderer, str(tmp_path / "p.txt"), results,
+                               name="profile_instanced",
+                               path_kernels=chip_smoke.INSTANCED_KERNELS)
+    p = results["profile_instanced"]
+    assert len(frames) == chip_smoke.FRAMES
+    assert p["kernel_launches"] == {"closest_hit_instanced": 4,
+                                    "occluded_instanced": 4}
+    assert p["kernel_ms_per_launch"] == {"closest_hit_instanced": 0.5,
+                                         "occluded_instanced": 0.25}
+    assert p["device_launches"] == 68
+    assert p["device_busy_ms"] == pytest.approx(2.0 + 1.0 + 6.0)
+    assert p["traversal_kernels_ms"] == pytest.approx(3.0)
+    assert (tmp_path / "p.txt").read_text().count("kernel") == 3
+    # the main path's kernels are missing from this profile: it must fail
+    with pytest.raises(AssertionError, match="missing"):
+        chip_smoke._profile_frames(renderer, str(tmp_path / "q.txt"), {})
+
+
+def test_instanced_record_has_the_contract_keys():
+    r = {"max_abs_err": 0.0, "ms": 0.4, "plain_ms": 700.0, "bound_ms": 0.07,
+         "bound_by": "operations", "flat_ms": 0.3, "lanes": 1923984}
+    res = {"closest_hit_instanced": {"registers": 72, "local_bytes": 0,
+                                     "blocks_per_sm": 7,
+                                     "shared_bytes": 32256,
+                                     "spill_bytes": 0}}
+    rec = chip_smoke._instanced_record(
+        "closest_hit_instanced", "traverse8.py:523", r,
+        {"closest_hit_instanced": 16}, res)
+    contract = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"}
+    assert contract <= set(rec)
+    assert rec["route"] == "cuda" and rec["launches"] == 16
+    assert rec["source"].endswith("csrc/traverse.cu")
+    assert rec["replaces"].endswith("ops/traverse8.py:523")
+    assert rec["flat_ms"] == 0.3 and rec["library_ms"] is None
+    assert rec["registers"] == 72
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     """The smoke's phases on the CPU: the torch.cuda calls they make become
@@ -214,22 +333,37 @@ def test_rehearse_catcher_and_cli_phases(no_card):
     assert "<tmp>" in cli["argv"] and "--device cpu" in cli["argv"]
 
 
-def test_rehearse_instanced_phase(no_card):
+def test_rehearse_instanced_phase(no_card, monkeypatch, tmp_path):
     # phase e at 120x68 on a 96-instance field: the plain versions stand in
     # for the instanced kernels (no device time), the flattened scene's
-    # subframe passes the JAX package's instancing gate
+    # subframe passes the JAX package's instancing gate; profiled with a
+    # stand-in for torch.profiler
+    import torch.profiler
+
+    monkeypatch.setattr(torch.profiler, "profile", _fake_profiler(
+        _instanced_profile_events(chip_smoke.FRAMES)))
     sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    results = {}
     out = chip_smoke.instanced_phase(sched, 120, 68, 1, device="cpu",
-                                     count=96)
+                                     count=96,
+                                     profile=str(tmp_path / "p.txt"),
+                                     results=results)
+    prof = results["profile_instanced"]
+    assert prof["kernel_ms_per_launch"]["closest_hit_instanced"] == 0.5
+    assert (tmp_path / "p_instanced.txt").exists()
     assert out["finite"] and out["frame"].shape == (68, 120, 3)
     assert out["world_triangles"] == 96 * 320
     assert out["table_bytes"] * 10 < out["flat_table_bytes"]
     assert out["tri_pack_bytes"] * 96 == out["flat_tri_pack_bytes"]
     k1, k2 = out["k1"], out["k2"]
-    assert k1["hit_equal"] and k1["inst_equal"] and k1["ulp"] == 0
+    assert k1["mismatches"] == dict.fromkeys(("hit", "t", "u", "v", "tri_id",
+                                              "inst"), 0)
+    assert k1["max_abs_err"] == 0.0
     assert k1["hits"] > 0 and k1["work"]["inst_rows"] > 0
     assert k2["mismatches"] == 0 and k2["queried"] > 0
     assert k1["ms"] is None and k1["bound_ms"] > 0
+    assert k1["flat_ms"] is None and k2["flat_ms"] is None
+    assert out["flat_stack_depth"] > 0
     assert out["close_share"] >= chip_smoke.FLAT_SHARE
     assert out["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
     assert out["flattened"]["finite"]

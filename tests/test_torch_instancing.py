@@ -10,7 +10,9 @@ Möller-Trumbore products into FMAs while the port rounds every operation
 (measured on the 5x5 grid's 4,096 rays: no ray disagrees on hit, tri_id or
 inst; t at most 17 ulp, 8.1e-6 absolute; u/v at most 7.9e-6). The
 integrator: per-ray values within rtol 1e-3 / atol 1e-5 on at least 99%
-of the rays (measured 100%), ``traces`` exact.
+of the rays (measured 100%), ``traces`` exact. The same walk tolerances
+hold on a table whose instances enter their BLAS at a leaf row (the
+kernels test that row in the instance entry's own step).
 """
 
 import dataclasses
@@ -21,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from fovpathtracing_optixcodelatest_tpu.config import RenderConfig as JConfig
 from fovpathtracing_optixcodelatest_tpu.models import instance as jinstance
 from fovpathtracing_optixcodelatest_tpu.models.material import (
@@ -54,9 +55,11 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import tlas, traverse
 from fovpathtracing_optixcodelatest_tpu_torch.render.integrator import trace_paths
+from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 from test_instancing import _grid_scene, _rays_grid, _rot_y, _translate
 from test_torch_catcher_aov import to_jax_meshes
 from test_torch_textures import jax_scene_arrays
+from torch_blas_fields import leaf_root, small_blas_field
 
 torch.set_num_threads(2)
 
@@ -100,7 +103,7 @@ def test_two_level_tables_bit_exact(case):
         psc = to_port_scene(jsc)
     else:
         jsc = _jax_field()
-        psc = chip_smoke.instance_field()[0]
+        psc = kernel_times.instance_field()[0]
         assert psc.num_world_triangles == 320_000
     want = jtlas.build_instanced(*jtlas.scene_tables_from_instanced(jsc))
     got = tlas.build_instanced(*tlas.scene_tables_from_instanced(psc))
@@ -254,3 +257,48 @@ def test_instance_models_match_jax():
     assert np.array_equal(jsc.flatten()[1].vertex, psc.flatten()[1].vertex)
     assert np.array_equal(jsc.instances[1].transform,
                           psc.instances[1].transform)
+
+
+@pytest.mark.parametrize("walk", ["closest_hit", "occluded"])
+def test_leaf_root_instances_match_jax(walk):
+    # pyramids (6 triangles) and quads whose instance rows enter the BLAS
+    # at its one leaf row, in both packages' tables
+    field = small_blas_field()
+    jb = jtlas.build_instanced(*field)
+    pb = tlas.build_instanced(*field)
+    table = leaf_root(np.asarray(jb.table), jb.inst_base, jb.blas_base,
+                      jb.arity)
+    assert np.array_equal(_bits(table), _bits(leaf_root(
+        pb.table, pb.inst_base, pb.blas_base, pb.arity)))
+    jb = dataclasses.replace(jb, table=jnp.asarray(table))
+    o, d = _rays_grid(4096, seed=5, extent=6.0)
+    rng = np.random.default_rng(6)
+    act = rng.random(o.shape[0]) < 0.9
+    args = (torch.tensor(table), torch.tensor(np.asarray(o)),
+            torch.tensor(np.asarray(d)), torch.tensor(act), TMIN, TMAX,
+            pb.stack_depth, pb.arity, pb.leaf_size)
+    kw = {"num_instances": pb.num_instances, "inst_base": pb.inst_base,
+          "blas_base": pb.blas_base}
+    if walk == "occluded":
+        want = np.asarray(traverse8.occluded(jb, o, d, TMIN, TMAX)) & act
+        got = traverse.occluded_plain(*args, **kw).numpy()
+        assert np.array_equal(got, want)
+        assert 0.05 < want.mean() < 0.9
+        return
+    want = traverse8.closest_hit(jb, o, d, TMIN, TMAX)
+    got = traverse.closest_hit_plain(*args, **kw)
+    hit = got["hit"].numpy()
+    for f in ("hit", "tri_id", "inst"):
+        w = np.where(act, np.asarray(want[f]), -1 if f != "hit" else False)
+        assert np.array_equal(got[f].numpy(), w), f
+    assert 0.05 < hit.mean() < 0.9
+    # both meshes are hit: triangles 0-5 (pyramid) and 6-7 (quad)
+    tris = got["tri_id"].numpy()[hit]
+    assert tris.min() < 6 <= tris.max()
+    np.testing.assert_allclose(got["t"].numpy()[hit],
+                               np.asarray(want["t"])[hit], rtol=2e-5,
+                               atol=1e-4)
+    for f in ("u", "v"):
+        np.testing.assert_allclose(got[f].numpy()[hit],
+                                   np.asarray(want[f])[hit], rtol=0,
+                                   atol=2e-5)

@@ -22,7 +22,15 @@ their plain versions the same way, ``inst`` included: on a rotated grid of
 box and ball instances with a mirrored one, at sparse masks, ragged lane
 counts, the stack depth the TLAS+BLAS bound gives (without its safety
 entry: no ray may overflow it) and a small one that overflows; a mirrored
-one-sided quad shows occlusion culling by the object-space winding.
+one-sided quad shows occlusion culling by the object-space winding. They
+test an instance's BLAS root in the instance entry's own step, so they are
+also held to the plain versions on a table whose instances enter their
+BLAS at a leaf row (``leaf_root``), where they must answer as on the same
+table entered at its root node.
+
+The kernels' resources as the CUDA runtime reports them: no kernel keeps
+local memory (no spill), and the single-level K1, K2 and non-culling K2
+keep their registers and resident blocks.
 
 K2's non-culling instantiation (``occluded(..., cull_backface=False)``, the
 04 raycast's shadow ray) is held to its plain version at the same sparse
@@ -49,8 +57,10 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
 from fovpathtracing_optixcodelatest_tpu_torch.ops import (
     kernel_build,
     packet_traverse,
+    tlas,
     traverse,
 )
+from torch_blas_fields import _rot_y, _translate, leaf_root, small_blas_field
 
 TMIN, TMAX = 0.01, 1e16
 
@@ -339,20 +349,6 @@ def test_k3_refuses_other_layouts(city):
 # ---------------------------------------------------------------------------
 
 
-def _translate(x, y, z):
-    m = np.eye(4)
-    m[:3, 3] = (x, y, z)
-    return m
-
-
-def _rot_y(deg):
-    a = np.radians(deg)
-    m = np.eye(4)
-    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = (np.cos(a), np.sin(a), -np.sin(a),
-                                          np.cos(a))
-    return m
-
-
 @pytest.fixture(scope="module")
 def grid():
     """The JAX package's rotated grid of boxes and balls (5 x 5, every third
@@ -389,8 +385,14 @@ def _instanced_against_plain(scene, o, d, act, depth):
     """Launch the instanced K1 and K2 once each and hold them to the plain
     versions; returns (K1 answer, K2 answer)."""
     b = scene.bvh
-    args = (b.table, o, d, act, TMIN, TMAX, depth, b.arity, b.leaf_size)
-    kw = b.instance_kwargs
+    return _instanced_table_against_plain(b.table, b.instance_kwargs, o, d,
+                                          act, depth)
+
+
+def _instanced_table_against_plain(table, kw, o, d, act, depth):
+    """``_instanced_against_plain`` on ``table``, a (16, 6) two-level table
+    whose instance rows ``kw`` places (``instance_kwargs``)."""
+    args = (table, o, d, act, TMIN, TMAX, depth, 16, 6)
     kernel_build.reset_launches()
     k = traverse.closest_hit(*args, **kw)
     occ = traverse.occluded(*args, **kw)
@@ -486,6 +488,50 @@ def test_instanced_kernels_refuse_other_layouts(grid, layout):
         with pytest.raises(ValueError, match="layout"):
             fn(b.table, o, d, act, TMIN, TMAX, b.stack_depth, *layout,
                **b.instance_kwargs)
+
+
+# instances whose BLAS root is a leaf row (tests/torch_blas_fields.py)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.35, 1.0])
+def test_instanced_kernels_on_a_leaf_root_blas(cuda_device, share):
+    b = tlas.build_instanced(*small_blas_field())
+    kw = {"num_instances": b.num_instances, "inst_base": b.inst_base,
+          "blas_base": b.blas_base}
+    node = torch.tensor(b.table, device=cuda_device)
+    leaf = torch.tensor(leaf_root(b.table, b.inst_base, b.blas_base,
+                                  b.arity), device=cuda_device)
+    assert not torch.equal(node, leaf)
+    n = 8192
+    o, d = _grid_rays(n, 11, cuda_device, extent=7.0)
+    rng = np.random.default_rng(12)
+    act = torch.tensor(rng.random(n) < share, device=cuda_device)
+    k, occ = _instanced_table_against_plain(leaf, kw, o, d, act,
+                                            b.stack_depth)
+    # the same geometry entered one row lower: the same answers
+    k_node, occ_node = _instanced_table_against_plain(node, kw, o, d, act,
+                                                      b.stack_depth)
+    for c in ("t", "u", "v", "tri_id", "inst"):
+        assert torch.equal(k[c], k_node[c]), c
+    assert torch.equal(occ, occ_node)
+    # both meshes and the mirrored instance are hit
+    hit_tris = torch.unique(k["tri_id"][k["hit"]]).cpu().numpy()
+    assert hit_tris.min() < 6 <= hit_tris.max()
+    assert int(k["inst"].max()) == len(small_blas_field()[1]) - 1
+    assert occ.any()
+
+
+@pytest.mark.cuda
+def test_kernel_resources(cuda_device):
+    # at the bench scene's stack depth (50): no kernel keeps local memory,
+    # and the single-level kernels' registers and blocks per SM stay
+    res = kernel_build.resources(50)
+    assert all(r["local_bytes"] == 0 for r in res.values()), res
+    single = ("closest_hit", "occluded", "occluded_nocull")
+    assert [res[k]["registers"] for k in single] == [69, 96, 96]
+    assert [res[k]["blocks_per_sm"] for k in single] == [7, 5, 5]
+    assert res["occluded_instanced"]["local_bytes"] == 0
 
 
 # ---------------------------------------------------------------------------
