@@ -78,7 +78,30 @@ i. demand-loaded textures: ``box_city_textured`` n=24 through a
    none open, none left by frame 3) and 64 (the LRU evicts, at most 64
    resident), three frames each; a small frame after paging in, card
    against CPU (every pixel within 1 LSB); the CLI with
-   ``--demand-textures`` on a textured OBJ.
+   ``--demand-textures`` on a textured OBJ;
+j. stereo: ``StereoRenderer`` on the bench scene, 960x540 an eye, the
+   eyes from ``eye_cameras_from_pose`` at the bench camera (IPD 0.064 m),
+   one warm-up pair and ``STEREO_PAIRS`` timed pairs (ms, Mrays/s, kernel
+   launches a pair); each eye of the warm-up pair equals a mono
+   ``render_frame`` with the same camera and key, bit for bit;
+k. the multi-device paths on the one card: ``render_frame_sharded`` over
+   the mesh [cuda:0, cuda:0], ``render_frame_scene_sharded`` with
+   ``tri_pack`` padded and cut in two blocks, ``Renderer(multichip=
+   "samples")`` on its default mesh; each one's subframe 0 equals the
+   single-device frame and canvas bit for bit (the share of pixels equal,
+   within 1 LSB and the canvas's largest difference are printed), then 2
+   frames timed; each block's bytes against the table's;
+l. ``multihost.worker`` in two processes on the one card (gloo at a free
+   port, a timeout each), 2 bench frames: the ranks' frames equal, and
+   equal ``reference_frame`` bit for bit;
+m. the browser viewer: ``serve`` at 960x540 on a free port, progressive,
+   driven by a client thread (the page, two stream JPEGs, the stats; a
+   gaze move, an orbit and a zoom, which restart the accumulation, the
+   denoised view, the next schedule): the swap to full resolution, fps
+   and render ms;
+n. ``benchmark_sweep.main`` on box_city at 480x270, 2 frames (its files
+   and ms/frame a schedule); ``bsdf_test_image`` on the card against the
+   CPU (within ``BSDF_RTOL``); ``save_gif`` of phase j's pairs, read back.
 
 Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
@@ -90,7 +113,7 @@ fallback.
 
 ``--profile`` adds ``FRAMES`` frames of the main path, and as many of the
 textured, the instanced, the spectral, the two deep and the paged-in
-demand frames, under ``torch.profiler``.
+demand frames and of the stereo pairs, under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -1384,6 +1407,488 @@ def demand_phase(city_n: int, schedule, width: int, height: int,
     return out
 
 
+STEREO_PAIRS = 4  # timed pairs of phase j, after one warm-up pair
+IPD = 0.064  # metres between the eyes
+# the sealed reference schedule: the viewer's 's' key cycles to it
+SEALED = "32_16_8_sealed"
+# what the sweep writes: a TSV a schedule and the two summaries
+SWEEP_FILES = ("box_city_fov_32_2_1.tsv", "box_city_fov_32_4_2.tsv",
+               "box_city_fov_32_8_4.tsv", "box_city_fov_32_16_8.tsv",
+               "frame_rate.dat", "rendering_time.dat")
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _agreement(frame, ref, canvas=None, ref_canvas=None) -> dict:
+    """Two uint8 frames (and their canvases): the share of pixels equal in
+    every channel, the share within 1 LSB, the canvases' largest absolute
+    difference."""
+    import numpy as np
+
+    frame, ref = np.asarray(frame), np.asarray(ref)
+    out = {"equal": float((frame == ref).all(-1).mean()),
+           "within_1lsb": _share_within_1lsb(frame, ref)}
+    if canvas is not None:
+        out["canvas_max_abs"] = float((canvas - ref_canvas).abs().max())
+    return out
+
+
+def _exact(agreement: dict) -> bool:
+    return (agreement["equal"] == 1.0
+            and agreement.get("canvas_max_abs", 0.0) == 0.0)
+
+
+class _PairSource:
+    """A stereo renderer as ``_profile_frames`` drives a renderer:
+    ``render()`` renders one pair."""
+
+    def __init__(self, sr, eyes):
+        self.sr, self.eyes = sr, eyes
+
+    def render(self):
+        return self.sr.render(*self.eyes)
+
+
+def stereo_phase(scene, config, schedule, camera, pairs: int, device="cuda",
+                 profile=None, results=None) -> dict:
+    """(j) ``StereoRenderer``: the eyes from ``eye_cameras_from_pose`` at
+    ``camera``'s pose (IPD ``IPD``, converged at the lookat point), one
+    warm-up pair, then ``pairs`` pairs timed on the host clock (each ends
+    in the pair's copy to the host). Each eye of the warm-up pair (subframe
+    0) must equal a mono ``render_frame`` with the same camera and key, bit
+    for bit. ``profile`` adds ``FRAMES`` profiled pairs."""
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.parallel.stereo import (
+        StereoRenderer,
+        eye_cameras_from_pose,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render import film
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        render_frame,
+    )
+
+    w, h = config.width, config.height
+    eye, look = np.asarray(camera.eye), np.asarray(camera.lookat)
+    fwd = look - eye
+    eyes = eye_cameras_from_pose(
+        camera.eye, fwd, up=camera.up, ipd=IPD, fov_y=camera.fov_y,
+        aspect=w / h, focus_distance=float(np.linalg.norm(fwd)))
+    sr = StereoRenderer(scene, config, schedule, device=device)
+    keys = [sr.eye_key(e) for e in (0, 1)]
+    first = sr.render(*eyes)  # the warm-up pair: subframe 0
+    mono_equal = []
+    for e, cam in enumerate(eyes):
+        canvas = film.new_canvas(w, h, film.schedule_padding(schedule, w, h),
+                                 device)
+        _, frame, _ = render_frame(scene, cam.device_params(device), w // 2,
+                                   h // 2, 0, canvas, keys[e], config,
+                                   schedule)
+        mono_equal.append(bool(np.array_equal(frame.cpu().numpy(),
+                                              first[e])))
+    _sync(device)
+    kernel_build.reset_launches()
+    pair_ms, traces, frames = [], [], [first]
+    for _ in range(pairs):
+        t0 = time.perf_counter()
+        frames.append(sr.render(*eyes))  # a host array: the pair is done
+        pair_ms.append((time.perf_counter() - t0) * 1e3)
+        traces.append(sr.stats["traces"])
+    launches = dict(kernel_build.LAUNCHES)
+    out = {
+        "pairs": frames, "pair_ms": pair_ms,
+        "mean_ms": sum(pair_ms) / len(pair_ms), "traces": traces,
+        "mrays": sum(traces) / (sum(pair_ms) / 1e3) / 1e6,
+        "launches": launches,
+        "launches_per_pair": {k: v / pairs for k, v in launches.items()},
+        "mono_equal": mono_equal,
+        "finite": all(bool(np.isfinite(c.cpu().numpy()).all())
+                      for c in sr.canvases),
+        "eyes": [[float(x) for x in c.eye] for c in eyes],
+    }
+    if profile:
+        root, ext = os.path.splitext(profile)
+        _profile_frames(_PairSource(sr, eyes), f"{root}_stereo{ext}",
+                        results, name="profile_stereo")
+    return out
+
+
+def multidevice_phase(scene, config, schedule, camera, frames: int,
+                      device="cuda") -> dict:
+    """(k) The multi-device paths on one device: ``render_frame_sharded``
+    over two ranks on it, ``render_frame_scene_sharded`` with ``tri_pack``
+    padded and cut in two blocks, and ``Renderer(multichip="samples")`` on
+    its default mesh; each path's subframe 0 against the single-device
+    one's (frame and canvas), then ``frames`` more frames timed, with the
+    launches of those frames."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import (
+        fold_in,
+        prng_key,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.parallel import (
+        scene_shard,
+        tiles,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render import film
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+        render_frame,
+    )
+
+    w, h = config.width, config.height
+    gx, gy = w // 2, h // 2
+    camp = camera.device_params(device)
+    pad = film.schedule_padding(schedule, w, h)
+    key = prng_key(0)  # the Renderer's: frame i keyed fold_in(key, i)
+    two = tiles.make_mesh([device if device == "cpu" else "cuda:0"] * 2)
+    ref_canvas = film.new_canvas(w, h, pad, device)
+    ref_canvas, ref, _ = render_frame(scene, camp, gx, gy, 0, ref_canvas,
+                                      fold_in(key, 0), config, schedule)
+    padded = scene_shard.pad_scene_rows(scene, 2)
+    paths = {
+        "samples": (scene, tiles.replicate(scene, two)),
+        "scene": (padded, scene_shard.shard_scene(padded, two)),
+    }
+    out = {"table_bytes": padded.tri_pack.numel() * 4,
+           "block_bytes": [r.tri_pack.numel() * 4
+                           for r in paths["scene"][1]]}
+    for name, (sc, ranks) in paths.items():
+        canvas = film.new_canvas(w, h, pad, device)
+
+        def one(i, canvas=canvas, sc=sc, ranks=ranks):
+            return tiles.render_frame_sharded(
+                sc, camp, gx, gy, i, canvas, fold_in(key, i), config,
+                schedule, two, rank_scenes=ranks)[1].cpu().numpy()
+
+        agree = _agreement(one(0), ref.cpu().numpy(), canvas, ref_canvas)
+        out[name] = dict(agree, **_timed(one, frames))
+    r = Renderer(scene, config, schedule, device=device, multichip="samples")
+    r.set_camera(camera)
+    agree = _agreement(r.render(), ref.cpu().numpy(), r.canvas, ref_canvas)
+    out["renderer"] = dict(agree, mesh=[str(d) for d in r.mesh],
+                           **_timed(lambda i: r.render(), frames))
+    return out
+
+
+def _timed(fn, frames: int) -> dict:
+    """``fn(i)`` for i = 1 .. frames, each ending on the host, timed on the
+    host clock, with the launches of those frames."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    kernel_build.reset_launches()
+    ms = []
+    for i in range(1, frames + 1):
+        t0 = time.perf_counter()
+        fn(i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"frame_ms": ms, "mean_ms": sum(ms) / len(ms),
+            "launches": dict(kernel_build.LAUNCHES)}
+
+
+_MP_WORKER = r"""
+import ast, json, sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+from fovpathtracing_optixcodelatest_tpu_torch.parallel.multihost import (
+    RenderJob, worker)
+rank, port, device, out = int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+job = RenderJob(**ast.literal_eval(sys.argv[6]))
+kernel_build.reset_launches()
+t0 = time.perf_counter()
+frame, traces = worker(rank, 2, f"tcp://127.0.0.1:{port}", device=device,
+                       backend="gloo", job=job, timeout_s=float(sys.argv[7]))
+np.savez(out, frame=frame, traces=traces, wall_s=time.perf_counter() - t0,
+         launches=json.dumps(kernel_build.LAUNCHES))
+"""
+
+
+def multiprocess_phase(job, device="cuda", timeout_s: float = 600.0) -> dict:
+    """(l) ``multihost.worker`` in two processes on one device, joined by
+    gloo at a free port (NCCL refuses two ranks on one GPU), each with its
+    own timeout: both ranks' frames, traces, wall times and kernel
+    launches, and their agreement with ``reference_frame`` of the same job
+    in this process."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.parallel import multihost
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    dev = device if device == "cpu" else "cuda:0"
+    spec = repr(dataclasses.asdict(job))
+    port = str(_free_port())
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MP_WORKER, root, str(r), port, dev,
+             outs[r], spec, str(timeout_s)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=timeout_s)
+                logs.append(err.decode()[-3000:])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        assert all(p.returncode == 0 for p in procs), logs
+        ranks = [dict(np.load(o)) for o in outs]
+    ref = multihost.reference_frame(job=job, device=device)
+    return {
+        "ranks_equal": bool(np.array_equal(ranks[0]["frame"],
+                                           ranks[1]["frame"])),
+        "traces": [int(r["traces"]) for r in ranks],
+        "wall_s": [float(r["wall_s"]) for r in ranks],
+        "launches": [json.loads(str(r["launches"])) for r in ranks],
+        "vs_reference": _agreement(ranks[0]["frame"], ref),
+        "frame": ranks[0]["frame"],
+    }
+
+
+def _viewer_client(port: int, width: int, height: int, swapped, seen: dict,
+                   timeout_s: float, cycle_name: str = SEALED) -> None:
+    """(m)'s browser: the page, two JPEGs off the stream and the stats;
+    then, at full resolution, a gaze move, an orbit and a zoom (the
+    accumulation must restart), the denoised view and the next schedule.
+    What it saw goes into ``seen``; a failure into ``seen["error"]``."""
+    import io
+    import json
+    import urllib.request
+
+    from PIL import Image
+
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.time() + timeout_s
+
+    def get(path, timeout=30):
+        return urllib.request.urlopen(base + path, timeout=timeout)
+
+    def stats():
+        s = json.loads(get("/stats").read())
+        if not s.get("warmup", True):
+            seen["render_ms"].append(s["render_ms"])
+        return s
+
+    def wait_for(cond, what):
+        while time.time() < deadline:
+            s = stats()
+            if cond(s):
+                return s
+            time.sleep(0.05)
+        raise TimeoutError(what)
+
+    seen["render_ms"] = []
+    try:
+        while True:  # the server needs a beat to bind
+            try:
+                seen["page"] = b"/stream" in get("/").read()
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.2)
+        stream = get("/stream", timeout=60)
+        data = b""
+        while data.count(b"\xff\xd9") < 2:
+            chunk = stream.read1(65536)  # what has come, not 64 KiB
+            if not chunk:
+                break
+            data += chunk
+        stream.close()
+        sizes, start = [], 0
+        for _ in range(2):
+            a = data.index(b"\xff\xd8", start)
+            b = data.index(b"\xff\xd9", a) + 2
+            sizes.append(Image.open(io.BytesIO(data[a:b])).size)
+            start = b
+        seen["jpeg_sizes"] = sizes
+        if not swapped.wait(timeout=max(1.0, deadline - time.time())):
+            raise TimeoutError("no swap to full resolution")
+        before = wait_for(lambda s: not s["warmup"] and s["subframe"] >= 3,
+                          "no full-resolution accumulation")
+        seen["subframe_before"] = before["subframe"]
+        gx, gy = width // 3, height // 3
+        for q in (f"gx={gx}&gy={gy}", "dx=30&dy=8", "zoom=1"):
+            get(f"/input?{q}")
+        after = wait_for(lambda s: s["subframe"] <= 2
+                         and s["gaze"] == [gx, height - 1 - gy],
+                         "the orbit did not restart the accumulation")
+        seen["subframe_after"] = after["subframe"]
+        get("/input?view=denoised")
+        wait_for(lambda s: s["view"] == "denoised", "no denoised view")
+        get("/input?view=color")
+        get("/input?sched=next")
+        seen["final"] = wait_for(lambda s: s["schedule"] == cycle_name,
+                                 "the schedule did not cycle")
+    except Exception as e:  # noqa: BLE001 (reported by the phase)
+        seen["error"] = repr(e)
+
+
+def viewer_phase(scene, config, schedule, camera, device="cuda",
+                 max_frames: int = 2000, timeout_s: float = 300.0,
+                 cycle=None, warmup_scale: int = 4) -> dict:
+    """(m) ``viewer.serve`` at ``config``'s size on a free port,
+    progressive, with ``cycle`` = (name, schedule) to cycle to (default the
+    sealed reference schedule), driven by a client thread
+    (``_viewer_client``); every thread joined with a timeout. Returns what
+    the client saw, the frames served, whether the loop swapped to full
+    resolution, and the launches."""
+    import threading
+
+    from fovpathtracing_optixcodelatest_tpu_torch.apps import viewer
+    from fovpathtracing_optixcodelatest_tpu_torch.config import (
+        FoveationSchedule,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import (
+        Trackball,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+
+    if cycle is None:
+        cycle = (SEALED, FoveationSchedule.reference_32_16_8_sealed())
+    r = Renderer(scene, config, schedule, device=device)
+    r.set_camera(camera)
+    tb = Trackball(camera=camera)
+    tb.reinitialize_from_camera()
+    port = _free_port()
+    swapped, stop = threading.Event(), threading.Event()
+    got, seen = {}, {}
+    kernel_build.reset_launches()
+    t0 = time.perf_counter()
+    server = threading.Thread(target=lambda: got.update(frames=viewer.serve(
+        r, tb, port=port, max_frames=max_frames, progressive=True,
+        warmup_scale=warmup_scale, stop_event=stop, on_swap=swapped.set, schedules=[cycle])))
+    client = threading.Thread(target=_viewer_client, args=(
+        port, config.width, config.height, swapped, seen, timeout_s,
+        cycle[0]))
+    server.start()
+    client.start()
+    client.join(timeout=timeout_s + 60)
+    stop.set()
+    server.join(timeout=timeout_s)
+    alive = [n for n, t in (("client", client), ("server", server))
+             if t.is_alive()]
+    assert not alive, f"viewer threads still running: {alive}"
+    return dict(seen, frames=got.get("frames"), swapped=swapped.is_set(),
+                wall_s=time.perf_counter() - t0,
+                launches=dict(kernel_build.LAUNCHES))
+
+
+def sweep_phase(width: int, height: int, frames: int, device="cuda",
+                extra=()) -> dict:
+    """(n) ``benchmark_sweep.main`` in this process on box_city: the files
+    it writes (a TSV a schedule, ``frame_rate.dat``,
+    ``rendering_time.dat``) and each schedule's ms/frame, with the
+    launches of the whole sweep."""
+    import tempfile
+
+    from fovpathtracing_optixcodelatest_tpu_torch.apps import benchmark_sweep
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--device", device, "--scene", "box_city", "--width",
+                str(width), "--height", str(height), "--frames", str(frames),
+                "--out-dir", tmp, *extra]
+        kernel_build.reset_launches()
+        rc = benchmark_sweep.main(argv)
+        launches = dict(kernel_build.LAUNCHES)
+        assert rc == 0, f"the sweep returned {rc}"
+        files = {f: os.path.getsize(os.path.join(tmp, f))
+                 for f in sorted(os.listdir(tmp))}
+        with open(os.path.join(tmp, "rendering_time.dat")) as fh:
+            names, values = (ln.split() for ln in fh.read().splitlines())
+    return {"argv": " ".join(argv).replace(tmp, "<tmp>"), "files": files,
+            "ms_per_frame": dict(zip(names, map(float, values))),
+            "launches": launches}
+
+
+# the BSDF image on the card against the CPU, relative to the image's
+# largest value, on texels no sample marks in either; the sampled uv
+# (measured on an H100: 3.9e-6 and 1.8e-7; the card's transcendentals
+# round apart from the CPU's)
+BSDF_RTOL = 2e-5
+
+
+def bsdf_phase(device="cuda") -> dict:
+    """(n) ``bsdf_test_image`` of a rough plastic and a glass on the card
+    against the CPU: the image's largest difference off the marks relative
+    to its largest value, the sampled uv's largest difference, and the
+    texels marked in one image only."""
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.models.material import (
+        Material,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.utils.bsdf_viz import (
+        bsdf_test_image,
+    )
+
+    out = {}
+    for name, m in (("plastic", Material(color=(0.8, 0.3, 0.2),
+                                         roughness=0.3, metallic=0.0,
+                                         transmission=0.0)),
+                    ("glass", Material(color=(0.9, 0.9, 0.9), roughness=0.6,
+                                       metallic=0.2, transmission=0.7,
+                                       eta=1.5, clearcoat=0.5))):
+        a, auv = bsdf_test_image(m, device=device)
+        b, buv = bsdf_test_image(m, device="cpu")
+        red = np.array([1.0, 0.0, 0.0], np.float32)
+        ma, mb = (a == red).all(-1), (b == red).all(-1)
+        off = ~(ma | mb)
+        out[name] = {
+            "rel_err": float(np.abs(a - b)[off].max() / np.abs(b).max()),
+            "uv_err": float(np.abs(auv - buv).max()),
+            "marks": int(mb.sum()), "marks_differ": int((ma != mb).sum()),
+        }
+    return out
+
+
+def gif_phase(pairs) -> dict:
+    """(n) ``save_gif`` of stereo pairs (left | right, top row up), read
+    back: frame count, size, and the first frame's mean difference from
+    its source (GIF stores 256 colours a frame)."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from fovpathtracing_optixcodelatest_tpu_torch.utils.image import save_gif
+
+    frames = [np.concatenate([p[0], p[1]], axis=1)[::-1] for p in pairs]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stereo.gif")
+        save_gif(path, frames, fps=10.0)
+        nbytes = os.path.getsize(path)
+        with Image.open(path) as im:
+            n, size = im.n_frames, im.size
+            first = np.asarray(im.convert("RGB"), dtype=np.float64)
+    return {"frames": n, "size": size, "bytes": nbytes,
+            "mean_abs_lsb": float(np.abs(first - frames[0]).mean())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1773,6 +2278,102 @@ def main() -> int:
           f"{dem['cli']['argv']} -> 0, files {dem['cli']['files']}, launches "
           f"{dem['cli']['launches']}")
 
+    # -- phase j: stereo, two eyes a pair --------------------------------------
+    st = stereo_phase(scene, config, schedule, camera, STEREO_PAIRS,
+                      profile=args.profile, results=results)
+    _line(f"stereo: 2 x {w}x{h} a pair, IPD {IPD} m, eyes at "
+          f"{[[round(x, 4) for x in e] for e in st['eyes']]}; "
+          f"{STEREO_PAIRS} pairs after 1 warm-up: ms/pair "
+          + ", ".join(f"{x:.1f}" for x in st["pair_ms"])
+          + f" (mean {st['mean_ms']:.1f}); traces/pair {st['traces'][-1]}; "
+          f"{st['mrays']:.2f} Mrays/s; kernel launches/pair "
+          f"{st['launches_per_pair']}; each eye of subframe 0 equals the "
+          f"mono frame: {st['mono_equal']}")
+    assert all(st["mono_equal"]), "an eye differs from the mono frame"
+    assert st["finite"]
+    for k in PATH_KERNELS:
+        assert st["launches"][k] > 0, f"the stereo pairs never launched {k}"
+
+    # -- phase k: the multi-device paths on one card ----------------------------
+    md = multidevice_phase(scene, config, schedule, camera, 2)
+    for name, title in (("samples", "render_frame_sharded, 2 ranks"),
+                        ("scene", "render_frame_scene_sharded, 2 blocks"),
+                        ("renderer", "Renderer(multichip='samples')")):
+        x = md[name]
+        _line(f"multi-device {title} vs the single-device frame: pixels "
+              f"equal {x['equal']:.6f}, within 1 LSB {x['within_1lsb']:.6f},"
+              f" canvas max abs {x['canvas_max_abs']:.3g}; ms/frame "
+              + ", ".join(f"{v:.1f}" for v in x["frame_ms"])
+              + f"; launches {x['launches']}"
+              + (f"; mesh {x['mesh']}" if "mesh" in x else ""))
+        assert _exact(x), f"{title} differs from the single-device frame"
+        for k in PATH_KERNELS:
+            assert x["launches"][k] > 0, f"{title} never launched {k}"
+    _line(f"scene-sharded tri_pack: {md['table_bytes']} bytes in all, "
+          f"blocks of {md['block_bytes']} bytes a rank")
+
+    # -- phase l: two processes on the one card (gloo) ------------------------
+    from fovpathtracing_optixcodelatest_tpu_torch.parallel import multihost
+
+    job = multihost.RenderJob(
+        width=w, height=h, scene="box_city",
+        scene_kwargs=(("n", 24), ("seed", 0)), probe="gradient",
+        probe_kwargs=(), schedule="32_16_8", config_overrides=(), frames=2)
+    mp = multiprocess_phase(job)
+    ref = mp["vs_reference"]
+    _line(f"multi-process: 2 gloo ranks on one card, {w}x{h} 32_16_8, 2 "
+          f"frames: ranks' frames equal {mp['ranks_equal']}; traces "
+          f"{mp['traces']}; vs reference_frame: pixels equal "
+          f"{ref['equal']:.6f}, within 1 LSB {ref['within_1lsb']:.6f}; "
+          f"wall s/process {[round(x, 1) for x in mp['wall_s']]}; launches "
+          f"{mp['launches']}")
+    assert mp["ranks_equal"] and mp["traces"][0] == mp["traces"][1] > 0
+    assert _exact(ref), "the two-process frame differs from reference_frame"
+    for k in PATH_KERNELS:
+        assert all(x[k] > 0 for x in mp["launches"]), \
+            f"a rank never launched {k}"
+
+    # -- phase m: the browser viewer -------------------------------------------
+    vw = viewer_phase(scene, config, schedule, camera)
+    rms = sorted(vw["render_ms"])
+    _line(f"viewer {w}x{h}: {vw['frames']} frames in {vw['wall_s']:.1f} s; "
+          f"page {vw.get('page')}, stream JPEGs {vw.get('jpeg_sizes')}; "
+          f"swapped to full resolution {vw['swapped']}; subframe "
+          f"{vw.get('subframe_before')} -> {vw.get('subframe_after')} after "
+          f"the orbit; stats {vw.get('final')}; full-resolution render ms "
+          f"min {rms[0] if rms else None}, median "
+          f"{rms[len(rms) // 2] if rms else None}, max "
+          f"{rms[-1] if rms else None} ({len(rms)} readings); launches "
+          f"{vw['launches']}")
+    assert "error" not in vw, vw["error"]
+    assert vw["page"] and vw["jpeg_sizes"] == [(w, h)] * 2 and vw["swapped"]
+    assert vw["subframe_after"] < vw["subframe_before"]
+    assert vw["final"]["fps"] > 0 and vw["final"]["render_ms"] > 0
+    for k in PATH_KERNELS:
+        assert vw["launches"][k] > 0, f"the viewer never launched {k}"
+
+    # -- phase n: the benchmark sweep, the BSDF image, the GIF ---------------
+    sw = sweep_phase(480, 270, 2)
+    _line(f"benchmark sweep: {sw['argv']} -> files {sw['files']}; ms/frame "
+          f"{sw['ms_per_frame']}; launches {sw['launches']}")
+    assert set(sw["files"]) == set(SWEEP_FILES) and all(sw["files"].values())
+    for k in PATH_KERNELS:
+        assert sw["launches"][k] > 0, f"the sweep never launched {k}"
+    bs = bsdf_phase()
+    _line("bsdf_test_image 512x256, 1000 samples, card vs CPU: " + "; ".join(
+        f"{k}: image {v['rel_err']:.3g} of its largest value off the marks, "
+        f"uv {v['uv_err']:.3g}, {v['marks']} marked texels, "
+        f"{v['marks_differ']} marked in one only" for k, v in bs.items())
+          + f" (limit {BSDF_RTOL:g})")
+    for v in bs.values():
+        assert v["rel_err"] <= BSDF_RTOL and v["uv_err"] <= BSDF_RTOL
+    gf = gif_phase(st["pairs"])
+    _line(f"save_gif of the {len(st['pairs'])} stereo pairs: read back "
+          f"{gf['frames']} frames of {gf['size']}, {gf['bytes']} bytes; the "
+          f"first frame's mean difference {gf['mean_abs_lsb']:.2f} LSB "
+          "(256 colours a frame)")
+    assert gf["frames"] == len(st["pairs"]) and gf["size"] == (2 * w, h)
+
     # -- phase 8: the kernels line ---------------------------------------------
     per_frame = lambda k: launches[k] / FRAMES  # noqa: E731
     # a kernel of the main path reports its launches there, one off it the
@@ -1874,6 +2475,10 @@ def main() -> int:
         spectral={k: v for k, v in spec.items() if k != "frame"},
         spectral_cli=dict(spec_cli, launches=spec_cli_launches),
         deep=deep, oracle=orc, nocull=nocull, demand=dem,
+        stereo={k: v for k, v in st.items() if k != "pairs"},
+        multidevice=md, multiprocess={k: v for k, v in mp.items()
+                                      if k != "frame"},
+        viewer=vw, sweep=sw, bsdf=bs, gif=gf,
     )
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -10,9 +10,11 @@ telemetry and checkpoints.
 It renders on ``cuda`` unless ``--device cpu`` is given; ``--spectral``
 (with ``--dispersion``) renders the hero-wavelength spectral path;
 ``--demand-textures`` pages an OBJ's textures in through a ``DemandLoader``
-of ``--demand-pages`` 64x64 tiles as the frames request them. ``--viewer``
-and ``--multichip`` are not ported: they exit with status 2 and name the
-ROADMAP item that will port them.
+of ``--demand-pages`` 64x64 tiles as the frames request them;
+``--multichip samples|scene`` splits every frame's samples over every
+visible card (on ``--device cpu``, the one CPU), ``scene`` also the
+triangle table (``parallel/``); ``--viewer`` serves the browser viewer
+(``apps/viewer.py``) instead of the frame loop.
 """
 
 from __future__ import annotations
@@ -24,14 +26,6 @@ import math
 import sys
 
 import numpy as np
-
-# flag -> what is missing, and the ROADMAP.md item that ports it
-NOT_PORTED = {
-    "viewer": "the browser viewer (--viewer) is not ported: ROADMAP item 18",
-    "multichip": "multi-device rendering (--multichip) is not ported: "
-                 "ROADMAP item 19",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="foveated path tracer (PyTorch)")
@@ -76,18 +70,33 @@ def parse_args(argv=None):
     p.add_argument("--dispersion", type=float, default=4200.0,
                    help="Cauchy B coefficient (nm^2) for --spectral")
     p.add_argument("--viewer", action="store_true",
-                   help="interactive browser viewer (not ported)")
+                   help="serve the interactive browser viewer (cursor = "
+                   "gaze, drag = orbit, wheel = zoom) instead of the frame "
+                   "loop")
     p.add_argument("--viewer-port", type=int, default=8000)
-    p.add_argument("--viewer-host", default="127.0.0.1")
-    p.add_argument("--viewer-schedules", default="")
+    p.add_argument("--viewer-host", default="127.0.0.1",
+                   help="viewer bind address (loopback by default: the "
+                   "stream and control endpoints are unauthenticated; pass "
+                   "0.0.0.0 to expose them on purpose)")
+    p.add_argument("--viewer-schedules", default="",
+                   help="comma-separated schedule specs ('F_A_P' or "
+                   "'uniform:N') the viewer's 's' key cycles through after "
+                   "the launch schedule")
     p.add_argument("--demand-textures", action="store_true",
                    help="page textures on demand (64-texel tile atlas + "
                    "request feedback)")
     p.add_argument("--demand-pages", type=int, default=1024,
                    help="demand-texture atlas capacity in 64x64 tiles")
     p.add_argument("--multichip", default=None, choices=["samples", "scene"],
-                   help="render across all visible devices (not ported)")
-    p.add_argument("--no-progressive", action="store_true")
+                   help="render across every visible card (the one CPU "
+                   "with --device cpu): 'samples' splits each pass's "
+                   "samples, 'scene' also cuts the triangle table into a "
+                   "row block a card; both give the single-device frame")
+    p.add_argument("--no-progressive", action="store_true",
+                   help="no progressive viewer start: by default the first "
+                   "frames come at quarter resolution while the first "
+                   "full-resolution frame, which waits on the CUDA "
+                   "kernels' build at first use, renders in the background")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
     return p.parse_args(argv)
@@ -107,10 +116,6 @@ def build_schedule(spec: str):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            print(f"error: {why}", file=sys.stderr)
-            return 2
 
     from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
     from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
@@ -197,10 +202,25 @@ def main(argv=None) -> int:
           file=sys.stderr)
     renderer = Renderer(scene, config=config, schedule=schedule,
                         seed=args.seed, device=args.device,
-                        demand_loader=demand_loader)
+                        demand_loader=demand_loader, multichip=args.multichip)
     renderer.set_camera(cam)
     if args.resume:
         ckpt.resume_renderer(renderer, args.resume)
+
+    if args.viewer:
+        from fovpathtracing_optixcodelatest_tpu_torch.apps import viewer
+        from fovpathtracing_optixcodelatest_tpu_torch.models.camera import (
+            Trackball,
+        )
+
+        tb = Trackball(camera=cam)
+        tb.reinitialize_from_camera()
+        extra = [(s, build_schedule(s))
+                 for s in args.viewer_schedules.split(",") if s]
+        viewer.serve(renderer, tb, port=args.viewer_port,
+                     host=args.viewer_host,
+                     progressive=not args.no_progressive, schedules=extra)
+        return 0
 
     timers = FrameTimers()
     tsv = TsvLogger(args.tsv) if args.tsv else None

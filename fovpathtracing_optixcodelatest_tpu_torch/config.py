@@ -16,6 +16,8 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class FoveationPass:
@@ -34,6 +36,11 @@ class FoveationPass:
     launch_h: int | None = None
     centered: bool = False
     center_offset: int = 0
+
+    @property
+    def fill_size(self) -> int:
+        """The side of the pixel block each launch pixel fills."""
+        return self.factor
 
 
 INNER_RADIUS = 74
@@ -72,6 +79,36 @@ class FoveationSchedule:
         )
 
     @staticmethod
+    def reference_32_16_8_sealed(
+        inner: int = INNER_RADIUS, outer: int = OUTER_RADIUS
+    ) -> "FoveationSchedule":
+        """The reference schedule with its ring bounds widened so that every
+        pixel is written: the annulus reaches outer + 7 (the periphery's
+        4*sqrt(2) block diagonal), the fovea inner + 4 (the annulus's
+        2*sqrt(2)). The verbatim schedule leaves some ring-boundary pixels
+        unwritten (``validate_coverage``)."""
+        ao = outer + 7
+        fo = inner + 4
+        return FoveationSchedule(
+            passes=(
+                FoveationPass(
+                    factor=4, spp=8, r_inner=float(outer), r_outer=1e9,
+                    redraw=False,
+                ),
+                FoveationPass(
+                    factor=2, spp=16, r_inner=float(inner), r_outer=float(ao),
+                    redraw=True, launch_w=ao, launch_h=ao,
+                    centered=True, center_offset=ao,
+                ),
+                FoveationPass(
+                    factor=1, spp=32, r_inner=0.0, r_outer=float(fo),
+                    redraw=True, launch_w=2 * fo, launch_h=2 * fo,
+                    centered=True, center_offset=fo,
+                ),
+            )
+        )
+
+    @staticmethod
     def sweep(fovea_spp: int, annulus_spp: int, periphery_spp: int,
               inner: int = INNER_RADIUS,
               outer: int = OUTER_RADIUS) -> "FoveationSchedule":
@@ -85,6 +122,35 @@ class FoveationSchedule:
                 dataclasses.replace(base[2], spp=fovea_spp),
             )
         )
+
+    def validate_coverage(self, width: int, height: int,
+                          gaze=None) -> np.ndarray:
+        """The (H, W) bool map of the pixels no pass writes at ``gaze``
+        (default the frame centre). A ring pass rejects a whole stride-f
+        block when the block's first pixel leaves the ring, so an inner pass
+        must overlap the next coarser one by that pass's block diagonal."""
+        if gaze is None:
+            gaze = (width // 2, height // 2)
+        gx, gy = gaze
+        covered = np.zeros((height, width), dtype=bool)
+        for p in self.passes:
+            lw = p.launch_w if p.launch_w is not None else width // p.factor
+            lh = p.launch_h if p.launch_h is not None else height // p.factor
+            ox = gx - p.center_offset if p.centered else 0
+            oy = gy - p.center_offset if p.centered else 0
+            lx, ly = np.meshgrid(np.arange(lw), np.arange(lh))
+            idx_x = lx * p.factor + ox
+            idx_y = ly * p.factor + oy
+            rng = np.sqrt((idx_x - gx) ** 2.0 + (idx_y - gy) ** 2.0)
+            ring = (rng >= p.r_inner) & (rng <= p.r_outer)
+            for dy in range(p.fill_size):
+                for dx in range(p.fill_size):
+                    px = idx_x + dx
+                    py = idx_y + dy
+                    ok = (ring & (px >= 0) & (px < width) & (py >= 0)
+                          & (py < height))
+                    covered[py[ok], px[ok]] = True
+        return ~covered
 
     @staticmethod
     def uniform(spp: int = 4) -> "FoveationSchedule":
@@ -151,6 +217,10 @@ class RenderConfig:
     # Cauchy B coefficient (nm^2) of dispersive transmission in spectral
     # mode; 0 = achromatic refraction (render/spectral.py cauchy_eta)
     dispersion: float = 4200.0
+
+    @property
+    def resolution(self) -> Tuple[int, int]:
+        return (self.width, self.height)
 
     def check_supported(self) -> None:
         if self.sampler not in ("random", "stratified", "blue_noise"):

@@ -120,6 +120,12 @@ class Scene:
     shading_normals: Optional[torch.Tensor] = None
     # the demand-loaded texture context (models/demand.DemandContext)
     demand: object = None
+    # one rank's view of a row-sharded scene (parallel/scene_shard.py):
+    # every rank's tri_pack block, each on its rank's device, and this
+    # rank's index; tri_pack is then this rank's own block. The integrator
+    # gathers rows through render/integrator.take_tri_pack.
+    pack_blocks: Optional[tuple] = None
+    pack_rank: int = 0
 
     @property
     def has_textures(self) -> bool:

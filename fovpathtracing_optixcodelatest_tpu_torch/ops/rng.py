@@ -11,7 +11,9 @@ Two parts:
 - A numpy threefry2x32 (``prng_key``, ``fold_in``, ``key_words``) that
   reproduces ``jax.random.PRNGKey(seed)`` and ``jax.random.fold_in`` under
   JAX's default threefry implementation, so both packages derive the same
-  key chain (frame -> jitter/path -> bounce).
+  key chain (frame -> jitter/path -> bounce); ``uniform`` reproduces
+  ``jax.random.uniform``'s float32 draws under JAX's default partitionable
+  threefry (counter i -> threefry of (0, i), the two words xor-ed).
 """
 
 from __future__ import annotations
@@ -62,20 +64,18 @@ def ray_uniforms(key, ray_ids: torch.Tensor, num: int) -> torch.Tensor:
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x: np.uint32, r: int) -> np.uint32:
-    return np.uint32(((int(x) << r) | (int(x) >> (32 - r))) & _MASK)
-
-
-def threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
-    """The 20-round threefry2x32 block function on one counter pair."""
-    ks = (k0 & _MASK, k1 & _MASK, (k0 ^ k1 ^ 0x1BD11BDA) & _MASK)
-    x = [(x0 + ks[0]) & _MASK, (x1 + ks[1]) & _MASK]
+def threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray):
+    """The 20-round threefry2x32 block function on arrays of uint32
+    counter pairs (uint32 arithmetic wraps as the block function needs)."""
+    ks = [np.uint32(k0 & _MASK), np.uint32(k1 & _MASK),
+          np.uint32((k0 ^ k1 ^ 0x1BD11BDA) & _MASK)]
+    x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
     for i in range(5):
         for r in _ROT[i % 2]:
-            x[0] = (x[0] + x[1]) & _MASK
-            x[1] = int(_rotl(np.uint32(x[1]), r)) ^ x[0]
-        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK
-        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _MASK
+            x[0] = x[0] + x[1]
+            x[1] = ((x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))) ^ x[0]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
     return x[0], x[1]
 
 
@@ -88,11 +88,22 @@ def fold_in(key, data: int) -> np.ndarray:
     """``jax.random.fold_in(key, data)``: threefry of the counter pair
     (0, data) under ``key``."""
     k = np.asarray(key, dtype=np.uint32).reshape(-1)
-    y0, y1 = threefry2x32(int(k[-2]), int(k[-1]), 0, int(data) & _MASK)
-    return np.asarray([y0, y1], dtype=np.uint32)
+    y0, y1 = threefry2x32(int(k[-2]), int(k[-1]), np.zeros(1, np.uint32),
+                          np.full(1, int(data) & _MASK, np.uint32))
+    return np.concatenate([y0, y1])
 
 
 def key_words(key) -> tuple[int, int]:
     """The two 32-bit words the counter hash consumes (the key's last two)."""
     k = np.asarray(key, dtype=np.uint32).reshape(-1)
     return int(k[-2]), int(k[-1])
+
+
+def uniform(key, shape) -> np.ndarray:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1) (numpy)."""
+    n = int(np.prod(shape))
+    k0, k1 = key_words(key)
+    b0, b1 = threefry2x32(k0, k1, np.zeros(n, np.uint32),
+                          np.arange(n, dtype=np.uint32))
+    bits = ((b0 ^ b1) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return (bits.view(np.float32) - np.float32(1.0)).reshape(shape)

@@ -76,8 +76,8 @@ def _bn_table(spp: int) -> np.ndarray:
 def aa_jitter(key, ray_ids: torch.Tensor, slots: torch.Tensor, spp: int,
               sampler: str = "random") -> torch.Tensor:
     """(N, 2) per-ray jitter in [0, 1)^2. ``ray_ids`` are the global ray
-    ids (``render/raygen.py``), ``slots`` each ray's sample slot in
-    [0, spp)."""
+    ids (``render/raygen.py``), ``slots`` each ray's sample slot (a slot
+    >= spp pads an uneven multi-device split: its ray is inactive)."""
     if sampler == "random" or spp <= 1:
         return ray_uniforms(key, ray_ids, 2)
     if sampler == "stratified":
@@ -90,7 +90,10 @@ def aa_jitter(key, ray_ids: torch.Tensor, slots: torch.Tensor, spp: int,
         return torch.stack([u, v], dim=-1)
     if sampler == "blue_noise":
         table = torch.tensor(_bn_table(spp), device=ray_ids.device)
-        base = table[slots.to(torch.int64)]
+        # a padding slot (>= spp) takes the point (0, 0)
+        slot = slots.to(torch.int64)
+        base = torch.where((slot < spp)[:, None],
+                           table[torch.clamp(slot, max=spp - 1)], 0.0)
         # one Cranley-Patterson shift per pixel, keyed by its slot-0 ray id
         shift = ray_uniforms(key, ray_ids - slots, 2)
         return torch.remainder(base + shift, 1.0)

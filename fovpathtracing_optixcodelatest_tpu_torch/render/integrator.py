@@ -124,9 +124,42 @@ def _cie_rgb_matrix(lam: torch.Tensor) -> torch.Tensor:
     return torch.einsum("rc,nck->nrk", m, xyz)
 
 
+def take_tri_pack(scene, tri: torch.Tensor, cols=None) -> torch.Tensor:
+    """The ``tri_pack`` rows (or the columns ``cols`` of them) of the int64
+    triangle ids ``tri``. On a whole table this is one index. On a rank of a
+    row-sharded scene (``parallel/scene_shard.py``: ``scene.pack_blocks``
+    holds every rank's block of R rows, each on its rank's device,
+    ``scene.pack_rank`` says which rank this is) the blocks are walked rank
+    by rank, starting at this rank's own and copied to its device as they
+    come, and each gathers the rows of its range that this rank's lanes
+    need. The sum runs in int32 on the rows' bits: float adds would lose
+    the material ids bitcast into columns 9 and 10 and the NaN payload of
+    the texture id -1, while integer adds against zeros are exact in every
+    column, so the result is the whole table's gather bit for bit."""
+    blocks = scene.pack_blocks
+    if blocks is None:
+        tab = scene.tri_pack if cols is None else scene.tri_pack[:, cols]
+        return tab[tri]
+    n, rank = len(blocks), scene.pack_rank
+    r = blocks[0].shape[0]
+    acc = None
+    for s in range(n):
+        owner = (rank - s) % n
+        blk = blocks[owner] if cols is None else blocks[owner][:, cols]
+        blk = blk.to(tri.device).contiguous().view(torch.int32)
+        local = tri - owner * r
+        ok = (local >= 0) & (local < r)
+        g = blk[torch.clamp(local, 0, r - 1)]
+        g = torch.where(ok[:, None] if g.ndim == 2 else ok, g, 0)
+        acc = g if acc is None else acc + g
+    return acc.view(torch.float32)
+
+
 def _oracle_triangles(scene):
     if scene.bvh.instanced:
         raise ValueError("oracle traversal needs a single-level table")
+    if scene.pack_blocks is not None:
+        raise ValueError("oracle traversal needs the whole triangle table")
     tp = scene.tri_pack
     return tp[:, 36:39], tp[:, 39:42], tp[:, 42:45]
 
@@ -179,7 +212,8 @@ def _catcher_passthrough(scene, o, d, hit, config: RenderConfig):
     walked = torch.zeros((), dtype=torch.int64, device=o.device)
     for _ in range(config.catcher_passthrough):
         tri = torch.clamp(hit["tri_id"], min=0).to(torch.int64)
-        flags = scene.tri_pack[tri, 12 + MATERIAL_FLAGS_COL].view(torch.int32)
+        flags = take_tri_pack(scene, tri, 12 + MATERIAL_FLAGS_COL).view(
+            torch.int32)
         thru = hit["hit"] & ((flags & MATERIAL_FLAG_SHADOW_CATCHER) != 0)
         o = torch.where(thru[:, None], o + hit["t"][:, None] * d, o)
         o = o.contiguous()
@@ -208,7 +242,8 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
     if scene.has_catcher and not primary and config.catcher_passthrough > 0:
         o, hit, passthrough = _catcher_passthrough(scene, o, d, hit, config)
     hit_mask = hit["hit"]
-    attr = scene.tri_pack[torch.clamp(hit["tri_id"], min=0).to(torch.int64)]
+    attr = take_tri_pack(scene,
+                         torch.clamp(hit["tri_id"], min=0).to(torch.int64))
     p = torch.where(hit_mask[:, None], o + hit["t"][:, None] * d, o)
     ng = attr[:, 0:3]
     if scene.bvh.instanced:

@@ -56,16 +56,25 @@ def pass_pixels(p: FoveationPass, width: int, height: int, gaze_x: int,
 
 def generate_pass_rays(camera, p: FoveationPass, width: int, height: int,
                        gaze_x: int, gaze_y: int, key, antialias: bool = True,
-                       sampler: str = "random"):
-    """The ray batch of one foveation pass, pixel-major (ray = pixel * spp +
-    slot). Returns dict(origin, direction (N, 3), active (N,), ray_ids (N,)
-    int64, ring (LH, LW), launch, offset, spp, samples_here)."""
+                       sampler: str = "random", sample_ids=None):
+    """The ray batch of one foveation pass, pixel-major (ray = pixel * k +
+    i, the i-th of the k sample slots made). ``sample_ids`` (k,) selects the
+    slots (default all ``spp``): a multi-device render gives each rank a
+    disjoint slice, and each ray is the one the full pass makes for that
+    pixel and slot, since its id, jitter and stratum follow the slot. Slots
+    >= spp (the padding of an uneven split) are made but inactive. Returns
+    dict(origin, direction (N, 3), active (N,), ray_ids (N,) int64, ring
+    (LH, LW), launch, offset, spp, samples_here = k)."""
     dev = camera.eye.device
     lw, lh = pass_launch_dims(p, width, height)
     ox, oy = pass_offset(p, gaze_x, gaze_y)
-    k = p.spp
-    if k > RNG_STRIDE:
-        raise ValueError(f"spp {k} exceeds RNG_STRIDE {RNG_STRIDE}")
+    spp = p.spp
+    if spp > RNG_STRIDE:
+        raise ValueError(f"spp {spp} exceeds RNG_STRIDE {RNG_STRIDE}")
+    if sample_ids is None:
+        sample_ids = torch.arange(spp, device=dev)
+    sample_ids = torch.as_tensor(sample_ids, dtype=torch.int64, device=dev)
+    k = sample_ids.numel()
     n_pix = lw * lh
     idx_x, idx_y = pass_pixels(p, width, height, gaze_x, gaze_y, dev)
 
@@ -85,11 +94,11 @@ def generate_pass_rays(camera, p: FoveationPass, width: int, height: int,
     cy = torch.clamp(idx_y, -OFF_BAND, height + OFF_BAND - 1)
     off_pix = width * height + (cy + OFF_BAND) * virt_w + (cx + OFF_BAND)
     frame_pix = torch.where(in_frame, idx_y * width + idx_x, off_pix).reshape(-1)
-    slots = torch.arange(k, device=dev).repeat(n_pix)
+    slots = sample_ids.repeat(n_pix)
     ray_ids = torch.repeat_interleave(frame_pix, k) * RNG_STRIDE + slots
 
     if antialias:
-        jitter = aa_jitter(key, ray_ids, slots, k, sampler)
+        jitter = aa_jitter(key, ray_ids, slots, spp, sampler)
     else:
         jitter = torch.zeros((n_pix * k, 2), dtype=torch.float32, device=dev)
     fx = torch.repeat_interleave(idx_x.reshape(-1).to(torch.float32), k)
@@ -105,12 +114,12 @@ def generate_pass_rays(camera, p: FoveationPass, width: int, height: int,
     return {
         "origin": origin,
         "direction": direction,
-        "active": torch.repeat_interleave(ring.reshape(-1), k),
+        "active": torch.repeat_interleave(ring.reshape(-1), k) & (slots < spp),
         "ray_ids": ray_ids,
         "ring": ring,
         "launch": (lw, lh),
         "offset": (ox, oy),
-        "spp": k,
+        "spp": spp,
         "samples_here": k,
     }
 

@@ -196,3 +196,18 @@ def _load_radiance_hdr(path: str) -> Optional[np.ndarray]:
 def save_npz_frame(path: str, **arrays) -> None:
     """Float frame dump (EXR stand-in) — e.g. accum/normal/albedo AOVs."""
     np.savez_compressed(path, **{k: np.asarray(v) for k, v in arrays.items()})
+
+
+def save_gif(path: str, frames, fps: float = 10.0) -> None:
+    """Animated GIF of a sequence of (H, W, 3) uint8 or float [0, 1]
+    frames (Pillow), looping forever."""
+    from PIL import Image
+
+    imgs = []
+    for f in frames:
+        arr = np.asarray(f)
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        imgs.append(Image.fromarray(arr))
+    imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                 duration=int(1000.0 / fps), loop=0)

@@ -1,12 +1,13 @@
 """The pure helpers of ``chip_smoke.py``, the shape builders of
 ``tools/kernel_times.py`` (the bench frame's and the instance field's), and
-a rehearsal of the smoke's phases a-i at a small size, on the CPU (no card:
+a rehearsal of the smoke's phases a-n at a small size, on the CPU (no card:
 the wrappers run the plain versions; a stand-in for ``torch.profiler``
 reports the device's kernels where a phase profiles)."""
 
 import dataclasses
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -449,3 +450,109 @@ def test_rehearse_demand_phase(no_card):
     assert d["small_share"] == 1.0
     assert set(d["cli"]["files"]) == {"frame.png", "run.tsv"}
     assert "--demand-textures" in d["cli"]["argv"]
+
+
+def _path_profile_events(frames):
+    """Per frame: 4 launches each of K1 and K2 and 60 of an elementwise
+    kernel."""
+    from torch.autograd import DeviceType
+
+    cuda = DeviceType.CUDA
+    return [
+        ("void (anonymous namespace)::closest_hit_kernel<16, 6>(uint4 "
+         "const*)", cuda, frames * 4 * 300.0, frames * 4),
+        ("void (anonymous namespace)::occluded_kernel<16, 6>(uint4 const*)",
+         cuda, frames * 4 * 100.0, frames * 4),
+        ("void at::native::elementwise_kernel<128, 2>(int)", cuda,
+         frames * 60 * 100.0, frames * 60),
+    ]
+
+
+def test_rehearse_stereo_and_gif_phases(no_card, monkeypatch, tmp_path):
+    # phase j at 120x68 an eye, profiled through a stand-in; phase n's GIF
+    # of its pairs
+    import torch.profiler
+
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+
+    monkeypatch.setattr(torch.profiler, "profile", _fake_profiler(
+        _path_profile_events(chip_smoke.FRAMES)))
+    w, h = 120, 68
+    scene, cam = _small_bench(w=w, h=h)
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    results = {}
+    st = chip_smoke.stereo_phase(scene, RenderConfig(width=w, height=h),
+                                 sched, cam, 1, device="cpu",
+                                 profile=str(tmp_path / "p.txt"),
+                                 results=results)
+    assert st["mono_equal"] == [True, True] and st["finite"]
+    assert len(st["pairs"]) == 2 and st["pairs"][0].shape == (2, h, w, 3)
+    assert st["traces"][0] > 0 and st["mrays"] > 0
+    assert abs(np.linalg.norm(np.subtract(*st["eyes"])) - chip_smoke.IPD) \
+        < 1e-9
+    assert st["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
+    assert results["profile_stereo"]["kernel_launches"] == {
+        "closest_hit": 4, "occluded": 4}
+    assert (tmp_path / "p_stereo.txt").exists()
+    gf = chip_smoke.gif_phase(st["pairs"])
+    assert gf["frames"] == 2 and gf["size"] == (2 * w, h)
+    assert gf["mean_abs_lsb"] < 8
+
+
+def test_rehearse_multidevice_and_multiprocess_phases(no_card):
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+    from fovpathtracing_optixcodelatest_tpu_torch.parallel import multihost
+
+    w, h = 120, 68
+    scene, cam = _small_bench(w=w, h=h)
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    md = chip_smoke.multidevice_phase(scene, RenderConfig(width=w, height=h),
+                                      sched, cam, 1, device="cpu")
+    for name in ("samples", "scene", "renderer"):
+        assert chip_smoke._exact(md[name]), (name, md[name])
+        assert md[name]["within_1lsb"] == 1.0
+        assert len(md[name]["frame_ms"]) == 1
+    assert md["renderer"]["mesh"] == ["cpu"]
+    assert sum(md["block_bytes"]) == md["table_bytes"]
+    assert md["block_bytes"][0] == md["block_bytes"][1]
+    mp = chip_smoke.multiprocess_phase(multihost.RenderJob(frames=2),
+                                       device="cpu", timeout_s=120)
+    assert mp["ranks_equal"] and mp["traces"][0] == mp["traces"][1] > 0
+    assert chip_smoke._exact(mp["vs_reference"])
+    assert mp["frame"].shape == (24, 32, 3)
+    assert mp["launches"] == [{k: 0 for k in kernel_build.LAUNCHES}] * 2
+
+
+def test_rehearse_viewer_phase(no_card):
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+
+    # the progressive start needs 64 pixels a side at warm-up scale 2
+    w, h = 128, 72
+    scene, cam = _small_bench(w=w, h=h)
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    sealed = FoveationSchedule.reference_32_16_8_sealed().scaled(8)
+    vw = chip_smoke.viewer_phase(scene, RenderConfig(width=w, height=h),
+                                 sched, cam, device="cpu", timeout_s=120,
+                                 cycle=("sealed/8", sealed), warmup_scale=2)
+    assert "error" not in vw, vw["error"]
+    assert vw["page"] and vw["jpeg_sizes"] == [(w, h)] * 2 and vw["swapped"]
+    assert vw["subframe_after"] < vw["subframe_before"]
+    assert vw["final"]["schedule"] == "sealed/8"
+    assert vw["final"]["fps"] > 0 and vw["render_ms"]
+    assert vw["frames"] > 5
+
+
+def test_rehearse_sweep_and_bsdf_phases(no_card):
+    sw = chip_smoke.sweep_phase(48, 36, 1, device="cpu",
+                                extra=("--skip-uniform", "--scale-rings"))
+    assert set(sw["files"]) == set(chip_smoke.SWEEP_FILES)
+    assert list(sw["ms_per_frame"]) == [f"fov_{n}" for n in
+                                        ("32_2_1", "32_4_2", "32_8_4",
+                                         "32_16_8")]
+    assert all(v > 0 for v in sw["ms_per_frame"].values())
+    assert "<tmp>" in sw["argv"]
+    bs = chip_smoke.bsdf_phase(device="cpu")
+    assert set(bs) == {"plastic", "glass"}
+    for v in bs.values():
+        assert v["rel_err"] == 0.0 and v["uv_err"] == 0.0
+        assert v["marks"] > 0 and v["marks_differ"] == 0

@@ -1,8 +1,8 @@
 """The PyTorch port's command-line entry point on the CPU (``--device
 cpu``): it writes every file it is asked for, in the JAX CLI's orientation
 (row 0 of a written image is the top of the frame: the frame is flipped),
-resumes from its checkpoint, and refuses the flags it does not port with
-the ROADMAP item that will port them."""
+resumes from its checkpoint, renders ``--multichip`` frames equal to the
+plain ones and hands ``--viewer`` and its flags to the viewer."""
 
 import dataclasses
 
@@ -73,13 +73,40 @@ def test_cli_writes_every_file(tmp_path, capsys):
     assert np.array_equal(jexr.read_exr(str(out2))[..., :3], want)
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--viewer"], "18"), (["--multichip", "samples"], "19"),
-])
-def test_cli_refuses_what_is_not_ported(flag, item, capsys):
-    assert cli.main(BASE + flag) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP item {item}" in err
+@pytest.mark.parametrize("multichip", ["samples", "scene"])
+def test_cli_multichip_renders_the_plain_frame(multichip, tmp_path):
+    # --multichip (formerly refused) on --device cpu: the mesh is the one
+    # CPU; the PNG is the plain CLI's, bit for bit
+    plain, split = tmp_path / "plain.png", tmp_path / "split.png"
+    assert cli.main(BASE + ["--frames", "2", "--out", str(plain)]) == 0
+    assert cli.main(BASE + ["--frames", "2", "--multichip", multichip,
+                            "--out", str(split)]) == 0
+    assert np.array_equal(jimage.load_png(str(split)),
+                          jimage.load_png(str(plain)))
+
+
+def test_cli_viewer_reaches_serve_with_the_flags(monkeypatch):
+    # --viewer (formerly refused) hands the renderer, a trackball on the
+    # scene's camera and the flags' values to viewer.serve
+    from fovpathtracing_optixcodelatest_tpu_torch.apps import viewer
+
+    seen = {}
+    monkeypatch.setattr(viewer, "serve", lambda renderer, tb, **kw:
+                        seen.update(renderer=renderer, tb=tb, **kw))
+    assert cli.main(BASE + ["--viewer", "--viewer-port", "8123",
+                            "--viewer-host", "0.0.0.0", "--viewer-schedules",
+                            "uniform:1,16_4_2", "--no-progressive"]) == 0
+    assert seen["port"] == 8123 and seen["host"] == "0.0.0.0"
+    assert seen["progressive"] is False
+    assert [n for n, _ in seen["schedules"]] == ["uniform:1", "16_4_2"]
+    assert seen["schedules"][0][1] == FoveationSchedule.uniform(1)
+    assert seen["renderer"].subframe == 0  # no frame before the viewer
+    assert seen["renderer"].config.resolution == (W, H)
+    _, cam = scenes.cornell()
+    assert seen["tb"].camera == dataclasses.replace(cam, aspect=W / H)
+    assert cli.main(BASE + ["--viewer"]) == 0
+    assert seen["port"] == 8000 and seen["host"] == "127.0.0.1"
+    assert seen["progressive"] is True and seen["schedules"] == []
 
 
 def test_cli_spectral_renders(tmp_path):

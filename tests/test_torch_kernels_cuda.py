@@ -36,6 +36,11 @@ K2's non-culling instantiation (``occluded(..., cull_backface=False)``, the
 04 raycast's shadow ray) is held to its plain version at the same sparse
 masks, ragged lane counts and small stacks; it must find the back faces
 the culling K2 skips, and refuse two-level tables and other layouts.
+
+The two-rank frames of ``parallel/`` on the card (mesh [cuda:0, cuda:0]:
+the sample slicing and the cross-rank assembly really run), sample-split
+and with ``tri_pack`` cut in two row blocks, equal the single-device
+frame and canvas bit for bit over two subframes, and launch K1 and K2.
 """
 
 import numpy as np
@@ -600,3 +605,62 @@ def test_nocull_k2_refuses_two_level_tables_and_other_layouts(city, grid):
     with pytest.raises(ValueError, match="single-level"):
         traverse.occluded(gb.table, o, d, act, TMIN, TMAX, *gb.walk_args,
                           cull_backface=False, **gb.instance_kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["samples", "scene"])
+def test_two_rank_frame_equals_the_single_device_frame(city, split):
+    import dataclasses
+
+    from fovpathtracing_optixcodelatest_tpu_torch.config import (
+        FoveationPass,
+        FoveationSchedule,
+        RenderConfig,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import (
+        fold_in,
+        prng_key,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.parallel import (
+        scene_shard,
+        tiles,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render import film
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        render_frame,
+    )
+
+    w, h = 64, 48
+    sched = FoveationSchedule(passes=(
+        FoveationPass(factor=4, spp=3, r_inner=8.0, r_outer=1e9,
+                      redraw=False),
+        FoveationPass(factor=1, spp=5, r_inner=0.0, r_outer=9.0, redraw=True,
+                      launch_w=18, launch_h=18, centered=True,
+                      center_offset=9),
+    ))
+    cfg = RenderConfig(width=w, height=h)
+    cam = dataclasses.replace(scenes.box_city(n=4, seed=0)[1], aspect=w / h)
+    camp = cam.device_params("cuda")
+    mesh = tiles.make_mesh(["cuda:0", "cuda:0"])
+    scene = city
+    if split == "scene":
+        scene = scene_shard.pad_scene_rows(city, 2)
+        ranks = scene_shard.shard_scene(scene, mesh)
+        assert ranks[0].tri_pack.shape[0] * 2 == scene.tri_pack.shape[0]
+    else:
+        ranks = tiles.replicate(scene, mesh)
+    canvas = film.new_canvas(w, h, film.schedule_padding(sched, w, h),
+                             "cuda")
+    c1, c2 = canvas.clone(), canvas.clone()
+    for i in range(2):
+        key = fold_in(prng_key(5), i)
+        c1, f1, s1 = render_frame(city, camp, 30, 20, i, c1, key, cfg, sched)
+        kernel_build.reset_launches()
+        c2, f2, t2 = tiles.render_frame_sharded(
+            scene, camp, 30, 20, i, c2, key, cfg, sched, mesh,
+            rank_scenes=ranks)
+        torch.cuda.synchronize()
+        assert kernel_build.LAUNCHES["closest_hit"] > 0
+        assert kernel_build.LAUNCHES["occluded"] > 0
+        assert torch.equal(f1, f2) and torch.equal(c1, c2)
+        assert int(s1["traces"]) == int(t2)

@@ -271,9 +271,13 @@ def test_port_imports_nothing_of_jax():
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
-    # the CLI and the host utilities are covered too
-    for sub in ("apps", "utils"):
+    # the CLI, the host utilities and the multi-device paths are covered
+    for sub in ("apps", "utils", "parallel"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
+    for name in ("tiles", "scene_shard", "multihost", "stereo"):
+        assert os.path.join(PORT, "parallel", name + ".py") in files, name
+    for name in ("viewer", "benchmark_sweep"):
+        assert os.path.join(PORT, "apps", name + ".py") in files, name
     for path in files:
         with open(path) as f:
             src = f.read()
