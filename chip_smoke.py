@@ -101,7 +101,25 @@ m. the browser viewer: ``serve`` at 960x540 on a free port, progressive,
    and render ms;
 n. ``benchmark_sweep.main`` on box_city at 480x270, 2 frames (its files
    and ms/frame a schedule); ``bsdf_test_image`` on the card against the
-   CPU (within ``BSDF_RTOL``); ``save_gif`` of phase j's pairs, read back.
+   CPU (within ``BSDF_RTOL``); ``save_gif`` of phase j's pairs, read back;
+o. the legacy oracles on the bench scene's lanes of phases 4-5: the
+   threaded BVH (``ops/bvh.py``) built on the host and moved to the card,
+   its per-ray walk (``ops/traverse_threaded.py``) against K1 on the
+   primary and continuation lanes (hit equal, the triangle on 99.9% of
+   the hits, t within rtol 1e-5 on the same triangle; brute force sides
+   with K1 where the walk found a farther one) and against K2 on the
+   shadow lanes (99.9% equal), the packet walk (``ops/traverse_packet.py``,
+   256 rays a packet) against the threaded walk (equal but on at most
+   0.1% of the lanes, where brute force sides with the packet walk: it is
+   a union walk), each walk timed once with CUDA events, each lane where
+   two answers differ reported with brute force's answer and its ray's
+   bits; K1 and K2 on the (16, 6) table of the
+   pure-Python builder and K3 on its legacy table against their plain
+   versions (exact), K1/K2 on the native table (hit and occlusion equal)
+   and K2 on every queried lane (K3, exact); ``torch.argmin``'s tie
+   order; ``probe_sample_cdf`` on the card against the CPU (texels equal,
+   within 1e-6). The host seconds of the threaded, the Python and the
+   native wide builds.
 
 Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
@@ -1889,6 +1907,414 @@ def gif_phase(pairs) -> dict:
             "mean_abs_lsb": float(np.abs(first - frames[0]).mean())}
 
 
+# phase o: the legacy oracles on the card. The threaded walk against K1/K2
+# on another tree of the scene: hit equal, the triangle on 99.9% of the
+# hits (ties on shared edges, the bar of tests/test_traverse_packet.py),
+# t within rtol 1e-5 on the same triangle, occlusion on 99.9% of the
+# queried lanes (tests/test_bvh.py:108's bar against brute force). The
+# packet walk against the threaded walk at rtol 1e-6, equal but on at most
+# 0.1% of the lanes, where another ray of its packet leads it into a leaf
+# the ray's own float32 slab test rejects by rounding (the reference's
+# union walk, ROADMAP.md section 3): there brute force over every triangle
+# must side with the packet walk, as it must with K1 where the threaded
+# walk found a farther triangle. probe_sample_cdf on the card against the
+# CPU within 1e-6 relative, the same texels.
+LEGACY_TRI_SHARE = 0.999
+LEGACY_OCC_SHARE = 0.999
+LEGACY_T_RTOL = 1e-5
+PACKET_T_RTOL = 1e-6
+LEGACY_PACKET = 256
+CDF_SAMPLES = 1 << 20
+CDF_RTOL = 1e-6
+
+
+def _walk(fn, device):
+    """``fn()`` once -> (its result, its device time in ms from CUDA events
+    around the call; None off the card)."""
+    import torch
+
+    if device != "cuda":
+        return fn(), None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _hits_against(got: dict, ref: dict) -> dict:
+    """A closest-hit answer against another walk's: lanes whose ``hit``
+    differs; on the lanes both hit, the share with the same triangle; on
+    those with the same triangle, t's largest relative and ulp gaps."""
+    import torch
+
+    both = got["hit"] & ref["hit"]
+    same = both & (got["tri_id"] == ref["tri_id"])
+    out = {"hits": int(ref["hit"].sum()),
+           "hit_mismatches": int((got["hit"] != ref["hit"]).sum()),
+           "tri_id_differ": int(both.sum() - same.sum()),
+           "tri_id_share": float(same.sum()) / max(int(both.sum()), 1),
+           "t_max_rel": 0.0, "t_max_ulp": 0}
+    if same.any():
+        gt, rt = got["t"][same], ref["t"][same]
+        out.update(t_max_rel=float(((gt - rt).abs() / rt.abs()).max()),
+                   t_max_ulp=int((gt.view(torch.int32).long()
+                                  - rt.view(torch.int32).long()).abs().max()))
+    return out
+
+
+def _disagree(got: dict, ref: dict, rtol: float):
+    """Lanes where two closest-hit answers disagree: ``hit`` differs, or
+    both hit at t more than ``rtol`` apart (a tie on a shared edge, the
+    same t on another triangle, agrees)."""
+    both = got["hit"] & ref["hit"]
+    return (got["hit"] != ref["hit"]) | (
+        both & ((got["t"] - ref["t"]).abs() > rtol * ref["t"].abs()))
+
+
+def _brute_lanes(scene, origin, direction, lanes, answers: dict,
+                 tmin: float, tmax: float, cap: int = 16) -> list:
+    """Each of the first ``cap`` ``lanes`` with every walk's answer there
+    (``answers``: name -> closest-hit dict, or occlusion bool tensor), the
+    brute-force answer over every triangle of ``scene`` ("brute": (tri_id,
+    t) or bool) and its ray as float32 bit patterns."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import intersect
+
+    lanes = lanes[:cap]
+    if not lanes.numel():
+        return []
+    tp = scene.tri_pack
+    tris = (tp[:, 36:39], tp[:, 39:42], tp[:, 42:45])
+    ro, rd = origin[lanes], direction[lanes]
+    occlusion = isinstance(next(iter(answers.values())), torch.Tensor)
+    if occlusion:
+        bf = intersect.brute_force_occluded(*tris, ro, rd, tmin, tmax)
+        pick = lambda a, i: bool(a[i])  # noqa: E731
+        brute = [bool(x) for x in bf]
+    else:
+        bf = intersect.brute_force_closest_hit(*tris, ro, rd, tmin, tmax)
+        pick = lambda a, i: (int(a["tri_id"][i]), float(a["t"][i]))  # noqa
+        brute = [(int(i), float(t)) for i, t in zip(bf["tri_id"], bf["t"])]
+    bits = lambda x: x.contiguous().view(torch.int32).tolist()  # noqa: E731
+    return [dict({k: pick(a, lane) for k, a in answers.items()},
+                 lane=lane, brute=brute[i], origin_bits=bits(ro[i]),
+                 direction_bits=bits(rd[i]))
+            for i, lane in enumerate(lanes.tolist())]
+
+
+def _sides_with(record: dict, name: str) -> bool:
+    """Whether the answer ``name`` of a ``_brute_lanes`` record is the
+    brute-force answer (for a closest hit: the same t)."""
+    got, brute = record[name], record["brute"]
+    return got == brute if isinstance(got, bool) else got[1] == brute[1]
+
+
+def legacy_phase(rays: dict, tris, device="cuda") -> dict:
+    """(o) The legacy oracles on the card, on ``rays`` (``kernel_times``'
+    bench rays) of the scene whose host triangles are ``tris``: the
+    threaded BVH built on the host and moved to the card; the threaded
+    walk (``ops/traverse_threaded.py``) against K1 on the primary and
+    continuation lanes and against K2 on the shadow lanes, and the packet
+    walk (``ops/traverse_packet.py``, ``LEGACY_PACKET`` rays a packet)
+    against the threaded walk, each walk timed once; K1 and K2 on the
+    (16, 6) table of the pure-Python builder (``bvh8.build``) and K3 on its
+    legacy table (``bvh8.build_legacy8``) against their plain versions
+    (exact), K1/K2 on the native table and K2 on the queried lanes;
+    ``torch.argmin``'s tie order; ``probe_sample_cdf`` on the card against
+    the CPU."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        bvh,
+        bvh8,
+        bvh_native,
+        kernel_build,
+        packet_traverse,
+        probe_sampling,
+        traverse,
+        traverse_packet,
+        traverse_threaded,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    t_phase = time.perf_counter()
+    b, config = rays["scene"].bvh, rays["config"]
+    tmin, tmax = config.tmin, config.tmax
+    kargs = (tmin, tmax, *b.walk_args)
+    out = {"triangles": int(tris.shape[0])}
+    t0 = time.perf_counter()
+    tb = bvh.build(tris)
+    out["threaded_build_s"] = time.perf_counter() - t0
+    tbd = tb.to(device)
+    t0 = time.perf_counter()
+    py = bvh8.build(tris)
+    out["python_wide_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = bvh_native.build(tris)
+    out["native_wide_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py8 = bvh8.build_legacy8(tris)
+    out["python_legacy_s"] = time.perf_counter() - t0
+    out.update(nodes=tb.num_nodes, python_rows=py.num_rows,
+               python_legacy_rows=py8.num_rows, native_rows=nat.num_rows)
+    assert _bits_equal(nat.table, b.table), \
+        "the triangles are not the scene's"
+    assert not _bits_equal(py.table, nat.table), \
+        "the Python and native builders gave the same table"
+
+    # the threaded and packet walks against K1
+    o, d, act, _ = rays["primary"]
+    k1_native = None
+    for name, (ro, rd, ra) in (("primary", (o, d, act)),
+                               ("continuation", rays["continuation"])):
+        k1 = traverse.closest_hit(b.table, ro, rd, ra, *kargs)
+        tw, tw_ms = _walk(lambda: traverse_threaded.closest_hit(
+            tbd, ro, rd, tmin, tmax, active=ra), device)
+        pw, pw_ms = _walk(lambda: traverse_packet.closest_hit(
+            tbd, ro, rd, tmin, tmax, active=ra, packet_size=LEGACY_PACKET),
+            device)
+        vs_k1, vs_thr = _hits_against(tw, k1), _hits_against(pw, tw)
+        scene = rays["scene"]
+        for v, got, ref, right in ((vs_k1, tw, k1, "k1"),
+                                   (vs_thr, pw, tw, "packet")):
+            lanes = torch.nonzero(_disagree(got, ref, LEGACY_T_RTOL)
+                                  ).squeeze(1)
+            v["disagree"] = lanes.numel()
+            v["lanes"] = _brute_lanes(
+                scene, ro, rd, lanes, {"k1": k1, "walk": tw, "packet": pw},
+                tmin, tmax)
+            assert lanes.numel() <= (1 - LEGACY_TRI_SHARE) * v["hits"] \
+                and all(_sides_with(x, right) for x in v["lanes"]), \
+                f"brute force does not side with {right} ({name} lanes): {v}"
+        out[name] = {"lanes": ro.shape[0], "active": int(ra.sum()),
+                     "steps": tw["steps"], "packet_steps": pw["steps"],
+                     "threaded_ms": tw_ms, "packet_ms": pw_ms,
+                     "vs_k1": vs_k1, "packet_vs_threaded": vs_thr}
+        assert vs_k1["hit_mismatches"] == 0 and \
+            vs_k1["tri_id_share"] >= LEGACY_TRI_SHARE and \
+            vs_k1["t_max_rel"] <= LEGACY_T_RTOL, \
+            f"the threaded walk disagrees with K1 ({name} lanes): {vs_k1}"
+        assert vs_thr["tri_id_share"] >= LEGACY_TRI_SHARE and \
+            vs_thr["t_max_rel"] <= PACKET_T_RTOL, \
+            f"the packet walk disagrees with the threaded walk ({name} " \
+            f"lanes): {vs_thr}"
+        if name == "primary":
+            k1_native = k1
+        del k1, tw, pw
+
+    # ... and against K2 on the shadow lanes
+    so, sd, sq = rays["shadow"]
+    ns, nq = so.shape[0], int(sq.sum())
+    k2_native = traverse.occluded(b.table, so, sd, sq, *kargs)
+    tocc, to_ms = _walk(lambda: traverse_threaded.occluded(
+        tbd, so, sd, tmin, tmax, active=sq), device)
+    pocc, po_ms = _walk(lambda: traverse_packet.occluded(
+        tbd, so, sd, tmin, tmax, active=sq, packet_size=LEGACY_PACKET),
+        device)
+    differ = torch.nonzero(tocc != k2_native).squeeze(1)
+    pdiffer = torch.nonzero(pocc != tocc).squeeze(1)
+    answers = {"k2": k2_native, "walk": tocc, "packet": pocc}
+    sh = out["shadow"] = {
+        "lanes": ns, "queried": nq, "occluded": int(tocc.sum()),
+        "differ": differ.numel(),
+        "differ_lanes": _brute_lanes(rays["scene"], so, sd, differ, answers,
+                                     tmin, tmax),
+        "share_equal": 1.0 - differ.numel() / max(nq, 1),
+        "packet_differ": pdiffer.numel(),
+        "packet_differ_lanes": _brute_lanes(rays["scene"], so, sd, pdiffer,
+                                            answers, tmin, tmax),
+        "threaded_ms": to_ms, "packet_ms": po_ms}
+    assert sh["share_equal"] >= LEGACY_OCC_SHARE, \
+        f"the threaded walk disagrees with K2: {sh}"
+    assert pdiffer.numel() <= (1 - LEGACY_OCC_SHARE) * nq and all(
+        _sides_with(x, "packet") for x in sh["packet_differ_lanes"]), \
+        f"the packet occlusion walk disagrees with the threaded walk: {sh}"
+    del tocc, pocc
+
+    # K1 and K2 on the Python (16, 6) table, K3 on the Python legacy table
+    pt = torch.tensor(py.table, device=device)
+    lt = torch.tensor(py8.table, device=device)
+    pargs = (tmin, tmax, py.stack_depth, py.arity, py.leaf_size)
+    largs = (tmin, tmax, py8.stack_depth, py8.leaf_size)
+    calls = {
+        "k1_primary": lambda: traverse.closest_hit(pt, o, d, act, *pargs),
+        "k2_shadow": lambda: traverse.occluded(pt, so, sd, sq, *pargs),
+        "k3_shadow": lambda: packet_traverse.occluded_packets(lt, so, sd, sq,
+                                                              *largs),
+    }
+    kernel_build.reset_launches()
+    k1p, k2p, k3p = (calls[k]() for k in calls)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = dict(kernel_build.LAUNCHES)
+    st1, st2, st3 = {}, {}, {}
+    p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
+        pt, o, d, act, *pargs, stats=st1))
+    p2, p2_ms = _plain_ms(lambda: traverse.occluded_plain(
+        pt, so, sd, sq, *pargs, stats=st2))
+    p3, p3_ms = _plain_ms(lambda: packet_traverse.occluded_packets_plain(
+        lt, so, sd, sq, *largs, stats=st3))
+    hit_eq, tri_eq, ulp, err1 = _k1_agreement(k1p, p1)
+    mism2, mism3 = int((k2p != p2).sum()), int((k3p != p3).sum())
+    vs_native1 = _hits_against(k1p, k1_native)
+    mism2n = int((k2p != k2_native).sum())
+    mism3k2 = int((k3p != k2_native)[sq].sum())
+    assert hit_eq and tri_eq and ulp == 0, \
+        "K1 disagrees with its plain version on the Python table"
+    assert mism2 == 0, "K2 disagrees with its plain version on the Python table"
+    assert mism3 == 0, \
+        "K3 disagrees with its plain version on the Python legacy table"
+    assert vs_native1["hit_mismatches"] == 0 and \
+        vs_native1["tri_id_share"] >= LEGACY_TRI_SHARE, \
+        f"K1 on the Python table disagrees with the native table's: " \
+        f"{vs_native1}"
+    assert mism2n == 0, "K2 on the Python table disagrees with the native's"
+    assert mism3k2 == 0, "K3 on the Python legacy table disagrees with K2"
+    times = (kernel_times.time_kernels(calls) if device == "cuda"
+             else dict.fromkeys(calls))
+    n, n_act = o.shape[0], int(act.sum())
+
+    def record(call, st, plain_ms, table, lanes, queried, out_bytes, err,
+               **extra):
+        bound, by, _ = _bound(st, table, lanes, queried, out_bytes)
+        return dict(extra, lanes=lanes, ms=times[call], plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, max_abs_err=err, work=st)
+
+    out["python_table"] = {
+        "k1": record("k1_primary", st1, p1_ms, pt, n, n_act, 16, err1,
+                     vs_native=vs_native1),
+        "k2": record("k2_shadow", st2, p2_ms, pt, ns, nq, 1,
+                     float(min(mism2, 1)), native_mismatches=mism2n),
+        "k3": record("k3_shadow", st3, p3_ms, lt, ns, nq, 1,
+                     float(min(mism3, 1)), k2_mismatches=mism3k2),
+    }
+    del k1p, k2p, k3p, p1, p2, p3, k1_native, k2_native
+
+    # torch.argmin takes the first of equal minima on the device too (the
+    # leaf tests' tie order), all-inf rows included
+    inf = float("inf")
+    tie = torch.tensor([[2.0, 1.0, 1.0, 3.0], [inf, inf, inf, inf],
+                        [0.5, 0.5, 0.5, 0.5], [inf, 4.0, inf, 4.0]],
+                       device=device).repeat(1 << 18, 1)
+    out["argmin_first"] = bool(torch.equal(
+        torch.argmin(tie, dim=1).cpu(),
+        torch.tensor([1, 0, 0, 1]).repeat(1 << 18)))
+    assert out["argmin_first"], "torch.argmin broke a tie otherwise"
+
+    # the reference's CDF inversion on the card against the CPU
+    probe = gradient_sky_probe()
+    r = torch.rand((2, CDF_SAMPLES), generator=torch.Generator().manual_seed(0))
+    ref = probe_sampling.probe_sample_cdf(probe, r[0], r[1])
+    got = probe_sampling.probe_sample_cdf(probe, r[0].to(device),
+                                          r[1].to(device))
+    texels = [torch.stack(probe_sampling.cdf_texel(probe, u1, u2)).cpu()
+              for u1, u2 in ((r[0], r[1]), (r[0].to(device), r[1].to(device)))]
+    gd, gc, gp = (x.cpu() for x in got)
+    pdf_ok = ref[2] > 0
+    out["cdf"] = {
+        "samples": CDF_SAMPLES,
+        "texel_mismatches": int((texels[0] != texels[1]).any(0).sum()),
+        "color_mismatches": int((gc != ref[1]).any(-1).sum()),
+        "dir_max_err": float((gd - ref[0]).abs().max()),
+        "pdf_max_rel": float(((gp - ref[2]).abs()[pdf_ok]
+                              / ref[2][pdf_ok]).max()),
+        "pdf_zero_mismatches": int(((gp > 0) != pdf_ok).sum())}
+    c = out["cdf"]
+    assert c["texel_mismatches"] == c["color_mismatches"] == \
+        c["pdf_zero_mismatches"] == 0, f"probe_sample_cdf texels: {c}"
+    assert c["dir_max_err"] <= CDF_RTOL and c["pdf_max_rel"] <= CDF_RTOL, \
+        f"probe_sample_cdf on the card disagrees with the CPU: {c}"
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    """Two float32 tables (numpy or tensors) equal bit for bit."""
+    import numpy as np
+
+    a = np.ascontiguousarray(a.cpu().numpy() if hasattr(a, "cpu") else a)
+    b = np.ascontiguousarray(b.cpu().numpy() if hasattr(b, "cpu") else b)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                 b.view(np.uint32))
+
+
+def _python_record(lg: dict, k: str, kernel: str) -> dict:
+    """The kernels line's record of K1, K2 or K3 on phase o's Python-built
+    table, with its launches in phase o."""
+    r = lg["python_table"][k]
+    return {"lanes": r["lanes"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "launches": lg["launches"][kernel],
+            "max_abs_err": r["max_abs_err"]}
+
+
+def _legacy_lines(lg: dict, times: dict) -> None:
+    _line(f"legacy oracles (phase o): {lg['triangles']} tris; threaded BVH "
+          f"{lg['nodes']} nodes, host build {lg['threaded_build_s']:.3f} s; "
+          f"wide (6, 16) builds: Python {lg['python_wide_s']:.3f} s "
+          f"({lg['python_rows']} rows), native {lg['native_wide_s']:.3f} s "
+          f"({lg['native_rows']} rows); Python legacy8 "
+          f"{lg['python_legacy_s']:.3f} s ({lg['python_legacy_rows']} rows)")
+    ms = lambda x: "not timed" if x is None else f"{x:.1f} ms"  # noqa: E731
+
+    def lanes(v: dict) -> str:
+        return (f"{v['disagree']} lanes disagree"
+                + "".join(f"; lane {x['lane']}: K1 {x['k1']}, walk "
+                          f"{x['walk']}, packet {x['packet']}, brute force "
+                          f"{x['brute']}" for x in v["lanes"]))
+
+    for name, k1 in (("primary", "k1_primary"),
+                     ("continuation", "k1_continuation")):
+        r = lg[name]
+        v, p = r["vs_k1"], r["packet_vs_threaded"]
+        _line(f"threaded closest_hit on the {r['lanes']} {name} lanes "
+              f"({r['active']} active): {r['steps']} steps, "
+              f"{ms(r['threaded_ms'])} (K1 {times.get(k1, 0):.4f} ms); vs "
+              f"K1: {v['hit_mismatches']} hit mismatches of {v['hits']} "
+              f"hits, tri_id share {v['tri_id_share']:.7f}, t max "
+              f"{v['t_max_ulp']} ulp ({v['t_max_rel']:.3g} rel) on the same "
+              f"triangle, {lanes(v)}")
+        _line(f"packet closest_hit ({LEGACY_PACKET} rays) on the {name} "
+              f"lanes: {r['packet_steps']} steps, {ms(r['packet_ms'])}; vs "
+              f"threaded: {p['hit_mismatches']} hit mismatches, tri_id share "
+              f"{p['tri_id_share']:.7f}, t max {p['t_max_ulp']} ulp on the "
+              f"same triangle, {lanes(p)}")
+    s = lg["shadow"]
+    occ = lambda rs: "".join(  # noqa: E731
+        f"; lane {x['lane']}: K2 {x['k2']}, walk {x['walk']}, packet "
+        f"{x['packet']}, brute force {x['brute']}" for x in rs)
+    _line(f"threaded occluded on the {s['lanes']} shadow lanes "
+          f"({s['queried']} queried, {s['occluded']} occluded): "
+          f"{ms(s['threaded_ms'])} (K2 {times.get('k2_shadow', 0):.4f} ms); "
+          f"{s['differ']} lanes differ from K2 (share equal "
+          f"{s['share_equal']:.7f}){occ(s['differ_lanes'])}")
+    _line(f"packet occluded ({LEGACY_PACKET} rays): {ms(s['packet_ms'])}; "
+          f"{s['packet_differ']} lanes differ from the threaded walk"
+          f"{occ(s['packet_differ_lanes'])}")
+    for k, title in (("k1", "K1 closest_hit"), ("k2", "K2 occluded"),
+                     ("k3", "K3 occluded_packets")):
+        r = lg["python_table"][k]
+        timed = "not timed" if r["ms"] is None else f"{r['ms']:.4f} ms"
+        extra = {x: r[x] for x in r if x in (
+            "vs_native", "native_mismatches", "k2_mismatches")}
+        _line(f"{title} on the Python-built table, {r['lanes']} lanes: exact "
+              f"vs plain; {timed}; plain {r['plain_ms']:.1f} ms; bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); {extra}")
+    c = lg["cdf"]
+    _line(f"probe_sample_cdf, {c['samples']} samples, card vs CPU: "
+          f"{c['texel_mismatches']} texels differ, directions within "
+          f"{c['dir_max_err']:.3g}, pdfs within {c['pdf_max_rel']:.3g} "
+          f"relative; argmin first-of-ties {lg['argmin_first']}; phase o "
+          f"{lg['phase_s']:.1f} s; launches {lg['launches']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1910,6 +2336,9 @@ def main() -> int:
         RenderConfig,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        host_triangles,
+    )
     from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
         gradient_sky_probe,
     )
@@ -2374,6 +2803,12 @@ def main() -> int:
           "(256 colours a frame)")
     assert gf["frames"] == len(st["pairs"]) and gf["size"] == (2 * w, h)
 
+    # -- phase o: the legacy oracles, and the kernels on the Python tables ----
+    lg = legacy_phase(rays, host_triangles(scenes.box_city(n=24, seed=0)[0]))
+    _legacy_lines(lg, times)
+    for k in ("closest_hit", "occluded", "occluded_packets"):
+        assert lg["launches"][k] >= 1, f"phase o never launched {k}"
+
     # -- phase 8: the kernels line ---------------------------------------------
     per_frame = lambda k: launches[k] / FRAMES  # noqa: E731
     # a kernel of the main path reports its launches there, one off it the
@@ -2424,7 +2859,8 @@ def main() -> int:
          "continuation": {"lanes": nb, "ms": times["k1_continuation"],
                           "plain_ms": p1b_ms,
                           "bound_ms": b1b, "bound_by": b1b_by},
-         "deep": _deep_record(g10, "k1", "closest_hit")},
+         "deep": _deep_record(g10, "k1", "closest_hit"),
+         "python_table": _python_record(lg, "k1", "closest_hit")},
         {"name": "occluded", "route": "cuda",
          "source": KERNEL_SRC + "traverse.cu",
          "replaces": JAX_OPS + "traverse8.py:1367", "launches":
@@ -2432,7 +2868,8 @@ def main() -> int:
          "ms": times["k2_shadow"],
          "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
          "library_ms": None, **res["occluded"],
-         "deep": _deep_record(g10, "k2", "occluded")},
+         "deep": _deep_record(g10, "k2", "occluded"),
+         "python_table": _python_record(lg, "k2", "occluded")},
         _instanced_record("closest_hit_instanced", "traverse8.py:523", ik1,
                           inst_launches, inst_res),
         _instanced_record("occluded_instanced", "traverse8.py:1487", ik2,
@@ -2453,7 +2890,8 @@ def main() -> int:
          path_launches["occluded_packets"], "max_abs_err": err3,
          "ms": times["k3_shadow"],
          "plain_ms": p3_ms, "bound_ms": b3, "bound_by": b3_by,
-         "library_ms": None, **res["occluded_packets"]},
+         "library_ms": None, **res["occluded_packets"],
+         "python_table": _python_record(lg, "k3", "occluded_packets")},
     ]
     for k in kernels:
         k["main_path"] = k["name"] in PATH_KERNELS + INSTANCED_KERNELS
@@ -2478,7 +2916,7 @@ def main() -> int:
         stereo={k: v for k, v in st.items() if k != "pairs"},
         multidevice=md, multiprocess={k: v for k, v in mp.items()
                                       if k != "frame"},
-        viewer=vw, sweep=sw, bsdf=bs, gif=gf,
+        viewer=vw, sweep=sw, bsdf=bs, gif=gf, legacy=lg,
     )
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,6 +1,8 @@
 """Packed wide BVH tables (counterpart of the JAX package's ``ops/bvh8.py``:
-the single-level layout, and the node and region writers the two-level
-table of ``ops/tlas.py`` shares; host numpy, bit-identical output).
+the single-level layout, the node and region writers the two-level table
+of ``ops/tlas.py`` shares, and the pure-Python wide builder
+``collapse_bvh2``/``build``/``build_legacy8``; host numpy, bit-identical
+output).
 
 Packed (default A16/L6) layout, W = max(4A, 10L) float32 columns:
 
@@ -25,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh import build_bvh2
 
 ARITY = 16
 LEAF_SIZE = 6
@@ -253,3 +257,136 @@ def pack_wide_legacy8(boxes: np.ndarray, meta: np.ndarray, tris: np.ndarray,
         table=table, leaf_perm=leaf_perm, leaf_size=leaf_size, arity=8,
         packed=False, stack_depth=(8 - 1) * height + 2,
     )
+
+
+def _surface_area(lo, hi):
+    d = np.maximum(hi - lo, 0.0)
+    return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+
+def collapse_bvh2(tris: np.ndarray, leaf_size: int, arity: int):
+    """The pure-Python wide collapse (the JAX package's ``collapse_bvh2``,
+    bit for bit): ``ops/bvh.build_bvh2``, then each wide node opens its
+    largest-area internal child while the group still fits ``arity``
+    slots, sibling leaves merged first-fit decreasing into slots of up to
+    ``leaf_size`` triangles. Returns (boxes (M, A, 6), meta (M, A, 2)
+    [a, count], order_slots) in ``pack_wide``'s input convention.
+
+    Not the native collapse's tree (``bvh_native.collapse``): the two
+    builders split and group differently and give different tables of the
+    same shape."""
+    nodes, order = build_bvh2(tris, leaf_size)
+
+    wide_slots: list[list] = []  # per wide node: its slot records
+    wide_index: dict[int, int] = {}
+
+    def leaf_bins(group):
+        """The group's leaves merged first-fit decreasing into bins of up
+        to ``leaf_size`` triangles."""
+        bins: list[list] = []
+        fill: list[int] = []
+        for lid in sorted((c for c in group if nodes[c].count > 0),
+                          key=lambda c: -nodes[c].count):
+            lc = nodes[lid].count
+            for k in range(len(fill)):
+                if fill[k] + lc <= leaf_size:
+                    fill[k] += lc
+                    bins[k].append(lid)
+                    break
+            else:
+                fill.append(lc)
+                bins.append([lid])
+        return bins
+
+    def slots_needed(group):
+        internals = sum(1 for c in group if nodes[c].count == 0)
+        return internals + len(leaf_bins(group))
+
+    def make_wide(b2: int) -> int:
+        n = nodes[b2]
+        group = [n.left, n.right] if n.count == 0 else [b2]
+        while True:
+            best, best_sa = -1, -1.0
+            for i, c in enumerate(group):
+                cn = nodes[c]
+                if cn.count == 0:
+                    sa = _surface_area(cn.lo, cn.hi)
+                    if sa > best_sa:
+                        best, best_sa = i, sa
+            if best < 0:
+                break
+            cn = nodes[group[best]]
+            trial = group[:best] + [cn.left, cn.right] + group[best + 1:]
+            if slots_needed(trial) > arity:
+                break
+            group = trial
+        # slot records: ("i", bvh2 node) internal | ("l", [leaf ids]) merged
+        slots = ([("i", c) for c in group if nodes[c].count == 0]
+                 + [("l", b) for b in leaf_bins(group)])
+        wide_slots.append(slots)
+        wide_index[b2] = len(wide_slots) - 1
+        return wide_index[b2]
+
+    queue = [make_wide(0)]
+    while queue:
+        w = queue.pop()
+        for kind, payload in wide_slots[w]:
+            if kind == "i" and payload not in wide_index:
+                make_wide(payload)
+                queue.append(wide_index[payload])
+
+    m = len(wide_slots)
+    boxes = np.zeros((m, arity, 6), dtype=np.float32)
+    boxes[..., 0:3] = np.inf
+    boxes[..., 3:6] = -np.inf
+    meta = np.full((m, arity, 2), [0, -1], dtype=np.int32)
+    total = max(int(sum(nodes[lid].count for g in wide_slots
+                        for kind, payload in g if kind == "l"
+                        for lid in payload)), 1)
+    order_slots = np.full(total, -1, dtype=np.int64)
+    cursor = 0
+    for w, group in enumerate(wide_slots):
+        for s, (kind, payload) in enumerate(group):
+            if kind == "i":
+                cn = nodes[payload]
+                boxes[w, s, 0:3] = cn.lo
+                boxes[w, s, 3:6] = cn.hi
+                meta[w, s] = (wide_index[payload], 0)
+                continue
+            lo = np.full(3, np.inf, dtype=np.float32)
+            hi = np.full(3, -np.inf, dtype=np.float32)
+            start = cursor
+            for lid in payload:
+                cn = nodes[lid]
+                lo = np.minimum(lo, cn.lo)
+                hi = np.maximum(hi, cn.hi)
+                order_slots[cursor: cursor + cn.count] = \
+                    order[cn.start: cn.start + cn.count]
+                cursor += cn.count
+            boxes[w, s, 0:3] = lo
+            boxes[w, s, 3:6] = hi
+            meta[w, s] = (start, cursor - start)
+    return boxes, meta, order_slots
+
+
+def build(tris: np.ndarray, leaf_size: int = LEAF_SIZE, arity: int = ARITY,
+          dfs: bool = False, treelet_budget: int = 0) -> WideBVH:
+    """The packed wide table through the Python collapse (the JAX
+    package's ``bvh8.build``; ``bvh_native.build`` is the native one).
+    The DFS row order and the treelet layout serve the TPU's windowed
+    gathers and are left out of the port by design: ``dfs`` must be False
+    and ``treelet_budget`` 0."""
+    if dfs or treelet_budget:
+        raise ValueError(
+            "DFS rows and treelets are TPU gather layouts the port leaves "
+            f"out by design (dfs={dfs}, treelet_budget={treelet_budget})")
+    boxes, meta, order_slots = collapse_bvh2(tris, leaf_size, arity)
+    return pack_wide(boxes, meta, tris, order_slots, leaf_size, arity)
+
+
+def build_legacy8(tris: np.ndarray, leaf_size: int = LEAF_SIZE8) -> WideBVH:
+    """The legacy 8-wide f32 table through the Python collapse: the JAX
+    package's ``bvh8.build_legacy8`` tree, the one its packet-kernel tests
+    walk (``bvh_native.build_legacy8`` is the native collapse's tree)."""
+    boxes, meta, order_slots = collapse_bvh2(tris, leaf_size, 8)
+    return pack_wide_legacy8(boxes, meta, tris, order_slots, leaf_size)

@@ -1,6 +1,7 @@
 """Wide BVH build through the native binned-SAH collapse (counterpart of the
 JAX package's ``ops/bvh_native.py`` for single-level scenes), with its npz
-cache of packed tables.
+cache of packed tables; ``build(force_python=True)`` collapses in Python
+instead and bypasses the cache.
 
 Every scene, whatever its size, gets the (``ARITY``, ``LEAF_SIZE``) = (16, 6)
 table that K1 and K2 are compiled for. The JAX package's deep-scene
@@ -34,6 +35,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
     LEAF_SIZE,
     LEAF_SIZE8,
     WideBVH,
+    collapse_bvh2,
     pack_wide,
     pack_wide_legacy8,
 )
@@ -132,16 +134,21 @@ def _cache_save(path: str, bvh: WideBVH) -> None:
 
 
 def build(tris: np.ndarray, leaf_size: int = LEAF_SIZE,
-          arity: int = ARITY, timings: dict | None = None) -> WideBVH:
+          arity: int = ARITY, timings: dict | None = None,
+          force_python: bool = False) -> WideBVH:
     """Packed single-level WideBVH from (T, 3, 3) float32 corners, through
     the npz cache for scenes of ``BVH_CACHE_MIN_TRIS`` triangles or more.
     ``timings`` gets the host seconds of each step taken: ``key_s`` and
     ``load_s`` on a cache hit, else ``collapse_s``, ``pack_s`` and, where
-    the scene is cached, ``key_s`` and ``save_s``."""
+    the scene is cached, ``key_s`` and ``save_s``. ``force_python`` builds
+    through the pure-Python collapse (``bvh8.collapse_bvh2``, the JAX
+    package's tree) instead of the native one, and never reads or writes
+    the cache, whose tables are native builds."""
     clock = {} if timings is None else timings
     t0 = time.perf_counter()
     path = None
-    directory = cache_dir() if tris.shape[0] >= BVH_CACHE_MIN_TRIS else ""
+    directory = ("" if force_python or tris.shape[0] < BVH_CACHE_MIN_TRIS
+                 else cache_dir())
     if directory:
         path = os.path.join(directory,
                             _cache_key(tris, leaf_size, arity) + ".npz")
@@ -151,7 +158,8 @@ def build(tris: np.ndarray, leaf_size: int = LEAF_SIZE,
             _lap(clock, "load_s", t0)
             return cached
         t0 = time.perf_counter()
-    boxes, meta, perm = collapse(tris, leaf_size, arity)
+    collapse_fn = collapse_bvh2 if force_python else collapse
+    boxes, meta, perm = collapse_fn(tris, leaf_size, arity)
     t0 = _lap(clock, "collapse_s", t0)
     bvh = pack_wide(boxes, meta, tris, perm, leaf_size, arity)
     t0 = _lap(clock, "pack_s", t0)
@@ -168,6 +176,10 @@ def _lap(clock: dict, name: str, t0: float) -> float:
 
 
 def build_legacy8(tris: np.ndarray, leaf_size: int = LEAF_SIZE8) -> WideBVH:
-    """The legacy 8-wide f32 table the packet kernel walks."""
+    """The legacy 8-wide f32 table the packet kernel walks, through the
+    native collapse. This is not the tree of the JAX package's
+    ``bvh8.build_legacy8``, which collapses in Python (the port's
+    ``bvh8.build_legacy8``): the two builders give different tables of the
+    same shape."""
     boxes, meta, perm = collapse(tris, leaf_size, 8)
     return pack_wide_legacy8(boxes, meta, tris, perm, leaf_size)

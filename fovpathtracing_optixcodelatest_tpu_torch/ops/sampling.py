@@ -64,9 +64,28 @@ def basis_from_vector(w):
     return u, cross(w, u)
 
 
+def onb(n):
+    """The raygen frame of the reference's Onb -> (tangent, binormal): the
+    binormal from the larger of |n.x| and |n.z|."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    zero = torch.zeros_like(nx)
+    b_a = torch.stack([-ny, nx, zero], dim=-1)
+    b_b = torch.stack([zero, -nz, ny], dim=-1)
+    use_a = (nx.abs() > nz.abs())[..., None]
+    binormal = normalize(torch.where(use_a, b_a, b_b))
+    return cross(binormal, n), binormal
+
+
 def face_forward(n, v):
     """Flip n into the hemisphere of v."""
     return torch.where(dot(n, v)[..., None] < 0.0, -n, n)
+
+
+def uniform_sample_sphere(u1, u2):
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def uniform_sample_hemisphere(u1, u2):
@@ -87,6 +106,12 @@ def cosine_sample_hemisphere(u1, u2):
     s = uniform_sample_disc(u1, u2)
     z = torch.sqrt(torch.clamp(1.0 - s[..., 0] ** 2 - s[..., 1] ** 2, min=0.0))
     return torch.stack([s[..., 0], s[..., 1], z], dim=-1)
+
+
+def uniform_sample_triangle(u1, u2):
+    """Barycentric (u, v) uniform over a triangle."""
+    r = torch.sqrt(u1)
+    return 1.0 - r, u2 * r
 
 
 def local_to_world(d, u, v, n):

@@ -9,6 +9,7 @@ resumes exactly where it stopped.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -75,3 +76,19 @@ def checkpoint_renderer(renderer, path: str,
                         camera: Optional[Camera] = None,
                         gaze: Optional[Tuple[int, int]] = None) -> None:
     save_checkpoint(path, renderer.canvas, renderer.subframe, camera, gaze)
+
+
+@dataclasses.dataclass
+class AutoCheckpointer:
+    """Checkpoint a long progressive render every ``every`` subframes."""
+
+    path: str
+    every: int = 32
+
+    def maybe(self, renderer) -> bool:
+        """Write ``path`` when the renderer's subframe is a positive
+        multiple of ``every``; True when it wrote."""
+        if renderer.subframe > 0 and renderer.subframe % self.every == 0:
+            checkpoint_renderer(renderer, self.path)
+            return True
+        return False

@@ -556,3 +556,82 @@ def test_rehearse_sweep_and_bsdf_phases(no_card):
     for v in bs.values():
         assert v["rel_err"] == 0.0 and v["uv_err"] == 0.0
         assert v["marks"] > 0 and v["marks_differ"] == 0
+
+
+def test_rehearse_legacy_phase(no_card):
+    # phase o on box_city n=4 at 96x54: the threaded and packet walks
+    # against K1/K2 (here their plain versions), the Python-built tables
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        host_triangles,
+    )
+
+    sched = FoveationSchedule.reference_32_16_8().scaled(10)
+    rays = kernel_times.bench_rays("cpu", city_n=4, width=96, height=54,
+                                   schedule=sched)
+    tris = host_triangles(scenes.box_city(n=4, seed=0)[0])
+    lg = chip_smoke.legacy_phase(rays, tris, device="cpu")
+    assert lg["triangles"] == 204 and lg["nodes"] > 0
+    assert lg["python_rows"] == lg["native_rows"] == 50
+    for name in ("primary", "continuation"):
+        r = lg[name]
+        assert r["steps"] > 0 and r["packet_steps"] > r["steps"]
+        assert r["threaded_ms"] is None and r["packet_ms"] is None
+        assert r["vs_k1"]["hits"] > 0
+        for v in (r["vs_k1"], r["packet_vs_threaded"]):
+            assert v["hit_mismatches"] == v["disagree"] == 0
+            assert v["tri_id_share"] == 1.0 and v["lanes"] == []
+    s = lg["shadow"]
+    assert s["queried"] == int(rays["shadow"][2].sum()) and s["occluded"] > 0
+    assert s["differ"] == s["packet_differ"] == 0
+    assert lg["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
+    for k in ("k1", "k2", "k3"):
+        r = lg["python_table"][k]
+        assert r["max_abs_err"] == 0.0 and r["ms"] is None
+        assert r["bound_ms"] > 0
+        rec = chip_smoke._python_record(lg, k, "closest_hit")
+        assert set(rec) == {"lanes", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "launches", "max_abs_err"}
+    assert lg["python_table"]["k1"]["vs_native"]["hit_mismatches"] == 0
+    assert lg["python_table"]["k3"]["k2_mismatches"] == 0
+    c = lg["cdf"]
+    assert c["texel_mismatches"] == c["color_mismatches"] == 0
+    assert c["dir_max_err"] == c["pdf_max_rel"] == 0.0
+    assert lg["argmin_first"]
+    chip_smoke._legacy_lines(lg, {})
+
+
+def test_brute_lanes_report_each_walk_and_brute_force():
+    # the records phase o keeps of lanes where two walks disagree
+    sched = FoveationSchedule.reference_32_16_8().scaled(10)
+    rays = kernel_times.bench_rays("cpu", city_n=4, width=96, height=54,
+                                   schedule=sched)
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+
+    scene, cfg = rays["scene"], rays["config"]
+    o, d, act, _ = rays["primary"]
+    args = (scene.bvh.table, o, d, act, cfg.tmin, cfg.tmax,
+            *scene.bvh.walk_args)
+    k1 = traverse.closest_hit(*args)
+    lanes = torch.nonzero(k1["hit"]).squeeze(1)[:3]
+    miss = dict(k1, hit=torch.zeros_like(k1["hit"]))
+    assert torch.equal(chip_smoke._disagree(miss, k1, 1e-5), k1["hit"])
+    assert not chip_smoke._disagree(k1, k1, 1e-5).any()
+    recs = chip_smoke._brute_lanes(scene, o, d, lanes, {"k1": k1},
+                                   cfg.tmin, cfg.tmax, cap=2)
+    assert [r["lane"] for r in recs] == lanes[:2].tolist()
+    for r in recs:
+        assert chip_smoke._sides_with(r, "k1") and r["brute"] == r["k1"]
+        assert np.array_equal(
+            np.array(r["origin_bits"], np.int32).view(np.float32),
+            o[r["lane"]].numpy())
+    so, sd, sq = rays["shadow"]
+    occ = traverse.occluded(scene.bvh.table, so, sd, sq, cfg.tmin, cfg.tmax,
+                            *scene.bvh.walk_args)
+    lanes = torch.nonzero(occ).squeeze(1)[:2]
+    recs = chip_smoke._brute_lanes(scene, so, sd, lanes, {"k2": ~occ},
+                                   cfg.tmin, cfg.tmax)
+    assert all(r["brute"] is True and r["k2"] is False
+               and not chip_smoke._sides_with(r, "k2") for r in recs)
+    assert chip_smoke._brute_lanes(scene, so, sd, lanes[:0], {"k2": occ},
+                                   cfg.tmin, cfg.tmax) == []

@@ -41,6 +41,16 @@ The two-rank frames of ``parallel/`` on the card (mesh [cuda:0, cuda:0]:
 the sample slicing and the cross-rank assembly really run), sample-split
 and with ``tri_pack`` cut in two row blocks, equal the single-device
 frame and canvas bit for bit over two subframes, and launch K1 and K2.
+
+K1, K2 and K3 on the tables of the pure-Python builder (``bvh8.build``,
+``bvh8.build_legacy8``: the JAX package's trees) equal their plain
+versions exactly and answer as on the native tree (hit and occlusion
+equal, the triangle on 99.9% of the hits). The legacy oracles on the card
+(the threaded BVH's per-ray and packet walks) equal their CPU runs (hit,
+tri_id, occlusion and steps exact, t within 1e-6 relative) and K1/K2's
+hit and occlusion; ``torch.argmin`` takes the first of equal minima there
+too, and ``probe_sample_cdf`` on the card picks the CPU's texels
+(directions within 1e-6, pdfs within 1e-6 relative).
 """
 
 import numpy as np
@@ -664,3 +674,124 @@ def test_two_rank_frame_equals_the_single_device_frame(city, split):
         assert kernel_build.LAUNCHES["occluded"] > 0
         assert torch.equal(f1, f2) and torch.equal(c1, c2)
         assert int(s1["traces"]) == int(t2)
+
+
+# ---------------------------------------------------------------------------
+# The pure-Python builder's tables (the JAX package's trees) under K1/K2/K3,
+# and the legacy oracles (threaded BVH, per-ray and packet walks) on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def python_tables():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        host_triangles,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh, bvh8
+
+    tris = host_triangles(scenes.box_city(n=4, seed=0)[0])
+    return (tris, bvh8.build(tris), bvh8.build_legacy8(tris),
+            bvh.build(tris))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.35, 1.0])
+def test_kernels_on_the_python_tables(city, python_tables, share):
+    _, wide, leg8 = python_tables[:3]
+    n = 70_001
+    o, d, _ = _rays(n, 13, city.device)
+    act = torch.tensor(np.random.default_rng(2).random(n) < share,
+                       device=city.device)
+    pt = torch.tensor(wide.table, device=city.device)
+    args = (pt, o, d, act, TMIN, TMAX, wide.stack_depth, wide.arity,
+            wide.leaf_size)
+    lt = torch.tensor(leg8.table, device=city.device)
+    largs = (lt, o, d, act, TMIN, TMAX, leg8.stack_depth, leg8.leaf_size)
+    kernel_build.reset_launches()
+    k = traverse.closest_hit(*args)
+    occ = traverse.occluded(*args)
+    occ3 = packet_traverse.occluded_packets(*largs)
+    torch.cuda.synchronize()
+    assert kernel_build.LAUNCHES == _launched(closest_hit=1, occluded=1,
+                                              occluded_packets=1)
+    p = traverse.closest_hit_plain(*args)
+    for c in ("t", "u", "v", "tri_id", "hit"):
+        assert torch.equal(k[c], p[c]), c
+    assert torch.equal(occ, traverse.occluded_plain(*args))
+    assert torch.equal(occ3, packet_traverse.occluded_packets_plain(*largs))
+    # another tree of the same triangles: the same answers
+    b = city.bvh
+    nargs = (b.table, o, d, act, TMIN, TMAX, b.stack_depth, b.arity,
+             b.leaf_size)
+    kn = traverse.closest_hit(*nargs)
+    assert torch.equal(k["hit"], kn["hit"]) and k["hit"].any()
+    assert (k["tri_id"] == kn["tri_id"])[k["hit"]].float().mean() >= 0.999
+    occ_n = traverse.occluded(*nargs)
+    assert torch.equal(occ, occ_n) and torch.equal(occ3, occ_n)
+
+
+@pytest.mark.cuda
+def test_legacy_walks_on_the_card_equal_the_cpu(city, python_tables):
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        traverse_packet,
+        traverse_threaded,
+    )
+
+    threaded = python_tables[3]
+    o, d, act = _rays(20_000, 17, "cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tb = threaded.to(dev)
+        args = (o.to(dev), d.to(dev), TMIN, TMAX)
+        runs[dev] = (
+            traverse_threaded.closest_hit(tb, *args, active=act.to(dev)),
+            traverse_packet.closest_hit(tb, *args, active=act.to(dev),
+                                        packet_size=64),
+            traverse_threaded.occluded(tb, *args, active=act.to(dev)),
+            traverse_packet.occluded(tb, *args, active=act.to(dev),
+                                     packet_size=64))
+    for want, got in zip(runs["cpu"][:2], runs["cuda"][:2]):
+        assert got["steps"] == want["steps"]
+        for c in ("hit", "tri_id"):
+            assert torch.equal(got[c].cpu(), want[c]), c
+        h = want["hit"]
+        assert torch.allclose(got["t"].cpu()[h], want["t"][h], rtol=1e-6)
+    for want, got in zip(runs["cpu"][2:], runs["cuda"][2:]):
+        assert torch.equal(got.cpu(), want)
+    # the threaded walk on the card answers as K1/K2 on the native tree
+    b = city.bvh
+    dargs = (o.cuda(), d.cuda(), act.cuda(), TMIN, TMAX, b.stack_depth,
+             b.arity, b.leaf_size)
+    assert torch.equal(runs["cuda"][0]["hit"],
+                       traverse.closest_hit(b.table, *dargs)["hit"])
+    assert torch.equal(runs["cuda"][2], traverse.occluded(b.table, *dargs))
+    with pytest.raises(ValueError, match="bvh.to"):
+        traverse_threaded.closest_hit(threaded.to("cpu"), o.cuda(), d.cuda(),
+                                      TMIN, TMAX)
+
+
+@pytest.mark.cuda
+def test_argmin_and_probe_sample_cdf_on_the_card(cuda_device):
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling
+
+    inf = float("inf")
+    tie = torch.tensor([[2.0, 1.0, 1.0, 3.0], [inf, inf, inf, inf],
+                        [0.5, 0.5, 0.5, 0.5], [inf, 4.0, inf, 4.0]])
+    assert torch.argmin(tie.cuda(), dim=1).tolist() == [1, 0, 0, 1]
+    probe = gradient_sky_probe(64, 32)
+    r = torch.rand((2, 100_000), generator=torch.Generator().manual_seed(1))
+    r[:, :32] = torch.as_tensor(probe.cdf_y)  # uniforms at the CDF's steps
+    cpu = probe_sampling.probe_sample_cdf(probe, r[0], r[1])
+    got = probe_sampling.probe_sample_cdf(probe, r[0].cuda(), r[1].cuda())
+    texel = probe_sampling.cdf_texel(probe, r[0], r[1])
+    for a, b in zip(texel, probe_sampling.cdf_texel(probe, r[0].cuda(),
+                                                    r[1].cuda())):
+        assert torch.equal(b.cpu(), a)
+    assert torch.equal(got[1].cpu(), cpu[1])
+    assert torch.allclose(got[0].cpu(), cpu[0], rtol=0, atol=1e-6)
+    assert torch.allclose(got[2].cpu(), cpu[2], rtol=1e-6, atol=0)
