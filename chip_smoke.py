@@ -57,12 +57,20 @@ f. spectral: the untextured bench frame with ``spectral=True``, timed like
    of the pixels within 1 LSB); the CLI with ``--spectral`` at 960x540.
 g. deep scenes: ``box_city_fast`` n=180 (388,812 triangles, 4 timed
    frames) and n=913 (10,002,840 triangles, 2 timed frames) at 960x540
-   ``reference_32_16_8``: the host build phase by phase, the warm start
-   from the npz BVH cache the cold build wrote (bit-identical table), the
-   scene's memory report and the peak device memory; K1 and K2 at the
-   scene's stack depth against their plain versions on 65,536 lanes of
-   the frame's primary and bounce-0 shadow rays (exact), timed there and
-   on all the frame's lanes, with the resources at that depth;
+   ``reference_32_16_8``, each in its default (16, 6) table and in one of
+   the JAX package's wide packings (``DEEP_SCENES``: the Python-collapsed
+   (32, 24) at n=180, the native (32, 12) at n=913): the host build phase
+   by phase, the warm start from the npz BVH cache the cold build wrote
+   (bit-identical table), the scene's memory report; for each table the
+   timed frames (peak device memory, launches: the wide frames launch only
+   the wide instantiations) and as many under the profiler (device busy
+   ms, idle share), K1, K2 and the non-culling K2 at the table's stack
+   depth against their plain versions on 65,536 lanes of the frame's
+   primary and bounce-0 shadow rays (exact), timed there and on all the
+   frame's lanes, the rows a lane the plain walks fetch, the resources at
+   that depth; the two tables agree (K1's hit and t equal, tri_id apart
+   only at exact ties that brute force confirms, the frames on 99% of the
+   pixels within 1 LSB);
 h. the brute-force oracle and the golden images on the card: cornell
    64x48 ``uniform(4)`` through K1/K2 against ``traversal="oracle"`` (SSIM
    >= 0.98, mean abs < 5e-3; a stack cut to depth 1 must fall below SSIM
@@ -72,7 +80,8 @@ h. the brute-force oracle and the golden images on the card: cornell
    shadow rays launch K2's non-culling instantiation: the JAX test's
    assertions, every pixel within 1 LSB of the CPU's, and that kernel exact
    against its plain version on the raycast's and on the bench's bounce-0
-   shadow rays;
+   shadow rays; the raycast from the scene's (32, 12) and (32, 24) tables
+   launches those layouts' non-culling K2 and gives the same frame;
 i. demand-loaded textures: ``box_city_textured`` n=24 through a
    ``DemandLoader`` at ``max_pages`` 1024 (every tile fits: requests, loads,
    none open, none left by frame 3) and 64 (the LRU evicts, at most 64
@@ -125,13 +134,16 @@ Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
 kernels the same way). Prints the card's name and power limit, one
 ``{"kernels": [...]}`` line (with each kernel's registers, local memory and
-resident blocks per SM), and as its last line ``{"ok": true, "device":
+resident blocks per SM; the wide layouts' instantiations as
+``closest_hit_a32_l12`` and so on, with their phase-g times), and as its
+last line ``{"ok": true, "device":
 {...}}``. Any failed check raises and exits non-zero; there is no CPU
 fallback.
 
 ``--profile`` adds ``FRAMES`` frames of the main path, and as many of the
-textured, the instanced, the spectral, the two deep and the paged-in
-demand frames and of the stereo pairs, under ``torch.profiler``.
+textured, the instanced, the spectral and the paged-in demand frames and
+of the stereo pairs, under ``torch.profiler``, and writes the op tables of
+phase g's profiled frames, which are profiled in every run.
 """
 
 from __future__ import annotations
@@ -167,9 +179,11 @@ JAX_OPS = "fovpathtracing_optixcodelatest_tpu/ops/"
 # scene's
 PATH_KERNELS = ("closest_hit", "occluded")
 INSTANCED_KERNELS = ("closest_hit_instanced", "occluded_instanced")
-# phase g's deep scenes: (box_city_fast n, timed frames after one warm-up):
-# 388,812 and 10,002,840 triangles
-DEEP_SCENES = ((180, 4), (913, 2))
+# phase g's deep scenes: (box_city_fast n, timed frames after one warm-up,
+# the wide (arity, leaf_size) table built beside the (16, 6) one): 388,812
+# triangles with the Python-collapsed L24/A32 table (about 12 s on the
+# host), 10,002,840 with the native L12/A32 one (about 16 s)
+DEEP_SCENES = ((180, 4, (32, 24)), (913, 2, (32, 12)))
 
 
 def _line(msg: str) -> None:
@@ -259,11 +273,19 @@ def _kernel_of(name: str):
 
 
 def _ptxas_spills(log: str) -> dict:
-    """Spill-store bytes per kernel from an ``nvcc -Xptxas -v`` log."""
+    """Spill-store bytes per kernel from an ``nvcc -Xptxas -v`` log; a
+    wide layout's instantiation under its ``kernel_build.layout_name``."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
     out, current = {}, None
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            current = _kernel_of(ln.split("Function properties for", 1)[1])
+            fn = ln.split("Function properties for", 1)[1]
+            current = _kernel_of(fn)
+            lay = re.search(r"_kernelILi(\d+)ELi(\d+)E", fn)
+            if current and lay:
+                current = kernel_build.layout_name(current, int(lay[1]),
+                                                   int(lay[2]))
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and current:
             out[current] = int(m.group(1))
@@ -313,9 +335,10 @@ def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int):
     return op_ms, "operations", fetch
 
 
-def _profile_frames(renderer, path: str, results: dict,
-                    name: str = "profile", path_kernels=PATH_KERNELS) -> None:
-    """``FRAMES`` more frames under torch.profiler. Per frame: the device's
+def _profile_frames(renderer, path, results: dict, name: str = "profile",
+                    path_kernels=PATH_KERNELS, frames: int = FRAMES) -> None:
+    """``frames`` more frames under torch.profiler, the op table written to
+    ``path`` (None: not written). Per frame: the device's
     busy time (the sum of its kernels' times), the wall time of the same
     profiled frames (host clock, ending in a synchronize), the idle share
     of one in the other, the kernel launches, the device time and launches
@@ -329,18 +352,18 @@ def _profile_frames(renderer, path: str, results: dict,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(FRAMES):
+        for _ in range(frames):
             renderer.render()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     events = prof.key_averages()
-    dev_ms = lambda e: e.self_device_time_total / 1e3 / FRAMES  # noqa: E731
+    dev_ms = lambda e: e.self_device_time_total / 1e3 / frames  # noqa: E731
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(dev_ms(e) for e in kernels)
     path_ms = {k: sum(dev_ms(e) for e in kernels if _kernel_of(e.key) == k)
                for k in path_kernels}
     path_n = {k: sum(e.count for e in kernels if _kernel_of(e.key) == k)
-              / FRAMES for k in path_kernels}
+              / frames for k in path_kernels}
     # a renamed kernel must fail here, not read as 0 ms
     assert all(v > 0 for v in path_ms.values()), \
         f"a main-path kernel is missing from the profile: {path_ms}"
@@ -348,26 +371,28 @@ def _profile_frames(renderer, path: str, results: dict,
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.key.startswith("aten::")]
     top = sorted(ops, key=dev_ms, reverse=True)[:8]
-    launches = sum(e.count for e in kernels) / FRAMES
+    launches = sum(e.count for e in kernels) / frames
     idle = 1 - busy_ms / wall_ms
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(events.table(sort_by="self_device_time_total", row_limit=80))
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(events.table(sort_by="self_device_time_total",
+                                 row_limit=80))
     results[name] = {
-        "frames": FRAMES, "device_busy_ms": busy_ms, "frame_ms": wall_ms,
+        "frames": frames, "device_busy_ms": busy_ms, "frame_ms": wall_ms,
         "idle_share": idle, "traversal_kernels_ms": ours_ms,
         "kernel_ms": path_ms, "kernel_launches": path_n,
         "kernel_ms_per_launch": {k: path_ms[k] / path_n[k] for k in path_ms},
         "device_launches": launches,
-        "top_ops": [(e.key, dev_ms(e), e.count / FRAMES) for e in top],
+        "top_ops": [(e.key, dev_ms(e), e.count / frames) for e in top],
     }
-    _line(f"{name} ({FRAMES} frames, per frame): device busy {busy_ms:.1f} "
+    _line(f"{name} ({frames} frames, per frame): device busy {busy_ms:.1f} "
           f"ms of a {wall_ms:.1f} ms profiled frame (idle share {idle:.2f}); "
           f"traversal kernels {ours_ms:.3f} ms ("
           + ", ".join(f"{k} {v:.3f} in {path_n[k]:.0f} launches"
                       for k, v in path_ms.items()) + "); "
           f"{launches:.0f} device launches; top ops: "
-          + "; ".join(f"{e.key} {dev_ms(e):.2f} ms x{e.count / FRAMES:.0f}"
+          + "; ".join(f"{e.key} {dev_ms(e):.2f} ms x{e.count / frames:.0f}"
                       for e in top))
 
 
@@ -793,15 +818,24 @@ def _subset(mask, count: int):
 
 def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
                device="cuda", subset: int = 65536, profile=None,
-               results=None) -> dict:
-    """(g) A deep scene, ``box_city_fast(city_n)`` under the gradient sky:
-    the host build phase by phase (scene, triangles, collapse, pack, the
-    npz cache's write) and its warm start from that cache (key, load and
-    upload of the table; bit-identical to the cold build), ``frames``
-    timed frames after one warm-up, and K1 and K2 on ``subset`` lanes of
-    the frame's primary and bounce-0 shadow rays against their plain
-    versions (exact), timed there and on all of the frame's lanes. With
-    ``profile``, ``FRAMES`` more frames under the profiler."""
+               wide=(32, 12)) -> dict:
+    """(g) A deep scene, ``box_city_fast(city_n)`` under the gradient sky,
+    in two tables of the same triangles: the default (16, 6) one and the
+    ``wide`` (arity, leaf_size) one. The host build phase by phase (scene,
+    triangles, collapse, pack, the npz cache's write) and the (16, 6)
+    table's warm start from that cache (key, load and upload of the table;
+    bit-identical to the cold build), then for each table: ``frames``
+    timed frames after one warm-up and as many under the profiler (device
+    busy ms and idle share; with ``profile``, the op table is written
+    there), and K1, K2 and the non-culling K2 on ``subset`` lanes of the
+    frame's primary and bounce-0 shadow rays against their plain versions
+    (exact), timed there and on all of the frame's lanes, with the rows a
+    lane the plain walks fetch and the kernels' resources at the table's
+    stack depth. The two tables must agree: K1's hit and t equal on the
+    subset, tri_id apart only at exact ties (both triangles hit at the
+    brute-force t), the last timed frames on 99% of the pixels within
+    1 LSB. The (16, 6) table's results are the top-level keys, the wide
+    one's ``wide``."""
     import tempfile
 
     import numpy as np
@@ -816,13 +850,13 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
         gradient_sky_probe,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        DeviceBVH,
         scene_arrays,
         scene_from_arrays,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.ops import (
         bvh_native,
         kernel_build,
-        traverse,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
         Renderer,
@@ -837,6 +871,7 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
     tris = host_triangles(meshes)
     out["triangles_s"] = time.perf_counter() - t0
     saved = os.environ.get("FOVTPU_BVH_CACHE")
+    wide_build = {}
     with tempfile.TemporaryDirectory() as cache:
         os.environ["FOVTPU_BVH_CACHE"] = cache
         try:
@@ -851,6 +886,12 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
                 torch.cuda.synchronize()
             out["warm_start_s"] = time.perf_counter() - t0
             out["cache_files"] = len(os.listdir(cache))
+            # the wide table, cold (and written to the cache, as a user's
+            # build would be)
+            t0 = time.perf_counter()
+            wbvh = bvh_native.build(tris, leaf_size=wide[1], arity=wide[0],
+                                    timings=wide_build)
+            wide_build_s = time.perf_counter() - t0
         finally:
             if saved is None:
                 del os.environ["FOVTPU_BVH_CACHE"]
@@ -873,90 +914,189 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
         torch.cuda.synchronize()
     out["upload_s"] = time.perf_counter() - t0
     del arrays
+    wscene = dataclasses.replace(scene, bvh=DeviceBVH.upload(wbvh, device))
+    del bvh, wbvh
     b = scene.bvh
     out.update(triangles=scene.num_triangles, rows=b.num_rows,
                table_bytes=b.table.numel() * 4, stack_depth=b.stack_depth,
                memory=scene.memory_bytes())
     config = RenderConfig(width=width, height=height, max_depth=4)
     camera = dataclasses.replace(cam, aspect=width / height)
-    renderer = Renderer(scene, config, schedule, device=device)
-    renderer.set_camera(camera)
-    out.update(timed_frames(renderer, frames))
-    lin = renderer.linear_frame()
-    out["mean_radiance"] = float(lin.mean())
-    assert out["frame"].shape == (height, width, 3) and out["finite"]
-    assert out["mean_radiance"] > 0, "the deep frame is black"
+    w = {"layout": wide, "build_s": wide_build_s, "build": wide_build,
+         "rows": wscene.bvh.num_rows,
+         "table_bytes": wscene.bvh.table.numel() * 4,
+         "stack_depth": wscene.bvh.stack_depth}
+    root, ext = os.path.splitext(profile) if profile else (None, None)
+    for rec, sc in ((out, scene), (w, wscene)):
+        lay = (sc.bvh.arity, sc.bvh.leaf_size)
+        name = kernel_build.layout_name(f"deep{city_n}", *lay)
+        renderer = Renderer(sc, config, schedule, device=device)
+        renderer.set_camera(camera)
+        rec.update(timed_frames(renderer, frames))
+        rec["mean_radiance"] = float(renderer.linear_frame().mean())
+        assert rec["frame"].shape == (height, width, 3) and rec["finite"]
+        assert rec["mean_radiance"] > 0, "the deep frame is black"
+        prof = {}
+        _profile_frames(renderer, profile and f"{root}_{name}{ext}", prof,
+                        name=f"deep n={city_n} {lay}",
+                        frames=frames)
+        rec["profile"] = prof.popitem()[1]
+        del renderer
     out["memory_report"] = scene.memory_report(
         n_rays=kernel_times.PRIMARY_LANES)
-    if profile:
-        root, ext = os.path.splitext(profile)
-        _profile_frames(renderer, f"{root}_deep{city_n}{ext}", results,
-                        name=f"profile_deep{city_n}")
-    del renderer
+    w["frame_share"] = _share_within_1lsb(out["frame"], w["frame"])
+    assert w["frame_share"] >= 0.99, \
+        f"the {wide} table's frame differs from the (16, 6) one's"
 
-    # K1 and K2 at this depth: exact on a lane subset, timed there and on
-    # the whole frame's lanes
+    # K1, K2 and the non-culling K2 on both tables with the same rays:
+    # exact on a lane subset, timed there and on the whole frame's lanes
     rays = kernel_times.frame_rays(scene, camera, config, schedule, device)
     o, d, act, _ = rays["primary"]
     so, sd, sq = rays["shadow"]
     sel1, sel2 = _subset(act, subset), _subset(sq, subset)
-    po, pd = o[sel1].contiguous(), d[sel1].contiguous()
-    qo, qd = so[sel2].contiguous(), sd[sel2].contiguous()
-    ones1 = torch.ones((sel1.numel(),), dtype=torch.bool, device=device)
-    ones2 = torch.ones((sel2.numel(),), dtype=torch.bool, device=device)
+    ones = lambda x: torch.ones((x.numel(),), dtype=torch.bool,  # noqa
+                                device=device)
+    sub = ((o[sel1].contiguous(), d[sel1].contiguous(), ones(sel1)),
+           (so[sel2].contiguous(), sd[sel2].contiguous(), ones(sel2)))
+    bvhs = (scene.bvh, wscene.bvh)
+    calls = kernel_times.table_calls(bvhs, config, *sub)
+    frame_calls = kernel_times.table_calls(bvhs, config, (o, d, act),
+                                           (so, sd, sq))
+    times = frame_times = None
+    if device == "cuda":
+        times = kernel_times.time_kernels(calls)
+        frame_times = kernel_times.time_kernels(frame_calls)
+    got = [_walk_records(rec, b, calls, sub, config, times, frame_times,
+                         o.shape[0], so.shape[0], int(sq.sum()), device)
+           for rec, b in ((out, scene.bvh), (w, wscene.bvh))]
+    # the two tables of one scene: the same hits at the same t; another
+    # triangle only at an exact tie
+    a, c = got[0][0], got[1][0]
+    w["hit_equal"] = bool(torch.equal(a["hit"], c["hit"]))
+    w["t_equal"] = bool(torch.equal(a["t"], c["t"]))
+    lanes = torch.nonzero(a["tri_id"] != c["tri_id"]).squeeze(1)
+    w["ties"] = _ties(scene, *sub[0][:2], lanes, a, c, config.tmin,
+                      config.tmax)
+    w["occluded_mismatches"] = int((got[0][1] != got[1][1]).sum())
+    w["nocull_mismatches"] = int((got[0][2] != got[1][2]).sum())
+    assert w["hit_equal"] and w["t_equal"], \
+        f"the {wide} table's K1 hits differ from the (16, 6) table's"
+    assert w["ties"]["ties"] == w["ties"]["lanes"] == lanes.numel(), \
+        f"the two tables' triangles differ beyond ties: {w['ties']}"
+    out["wide"] = w
+    return out
+
+
+def _walk_records(rec: dict, b, calls: dict, sub, config, times,
+                  frame_times, n_frame: int, n_shadow: int,
+                  n_queried: int, device) -> tuple:
+    """K1, K2 and the non-culling K2 of the table ``b`` on phase g's lane
+    subset ``sub`` against their plain versions (exact): their records
+    (``k1``, ``k2``, ``k2_nocull``: times on the subset and on the frame's
+    lanes, plain time, bound, rows a lane) and the table's resources go
+    into ``rec``; returns the kernels' answers (K1, K2, non-culling K2)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
+
+    (po, pd, ones1), (qo, qd, ones2) = sub
     kargs = (config.tmin, config.tmax, *b.walk_args)
-    calls = {
-        "k1_subset": lambda: traverse.closest_hit(b.table, po, pd, ones1,
-                                                  *kargs),
-        "k2_subset": lambda: traverse.occluded(b.table, qo, qd, ones2,
-                                               *kargs),
-        "k1_frame": lambda: traverse.closest_hit(b.table, o, d, act, *kargs),
-        "k2_frame": lambda: traverse.occluded(b.table, so, sd, sq, *kargs),
-    }
-    got1, got2 = calls["k1_subset"](), calls["k2_subset"]()
-    st1, st2 = {}, {}
+    layout = (b.arity, b.leaf_size)
+    # the records' keys and the instantiations' names
+    names = {key: kernel_build.layout_name(k, *layout) for key, k in
+             zip(("k1", "k2", "k2_nocull"), kernel_build.LAYOUT_KERNELS)}
+    got1 = calls[names["k1"]]()
+    got2 = calls[names["k2"]]()
+    got3 = calls[names["k2_nocull"]]()
+    st1, st2, st3 = {}, {}, {}
     p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
         b.table, po, pd, ones1, *kargs, stats=st1))
     p2, p2_ms = _plain_ms(lambda: traverse.occluded_plain(
         b.table, qo, qd, ones2, *kargs, stats=st2))
+    p3, p3_ms = _plain_ms(lambda: traverse.occluded_plain(
+        b.table, qo, qd, ones2, *kargs, stats=st3, cull_backface=False))
     hit_eq, tri_eq, ulp, err1 = _k1_agreement(got1, p1)
     mism2 = int((got2 != p2).sum().item())
+    mism3 = int((got3 != p3).sum().item())
     assert hit_eq and tri_eq and ulp == 0, \
-        f"K1 disagrees with its plain version at depth {b.stack_depth}"
-    assert mism2 == 0, \
-        f"K2 disagrees with its plain version at depth {b.stack_depth}"
+        f"K1 at {layout} disagrees with its plain version"
+    assert mism2 == 0, f"K2 at {layout} disagrees with its plain version"
+    assert mism3 == 0, \
+        f"the non-culling K2 at {layout} disagrees with its plain version"
     assert int(p1["hit"].sum()) > 0 and int(p2.sum()) > 0
+    n1, n2 = po.shape[0], qo.shape[0]
+    ms = lambda k, t: None if t is None else t[names[k]]  # noqa: E731
+    for key, st, p_ms, mism, n_out in (("k1", st1, p1_ms, 0, 16),
+                                       ("k2", st2, p2_ms, mism2, 1),
+                                       ("k2_nocull", st3, p3_ms, mism3, 1)):
+        bound, by, fetch = _bound(st, b.table, n1 if key == "k1" else n2,
+                                  n1 if key == "k1" else n2, n_out)
+        rec[key] = {
+            "lanes": n1 if key == "k1" else n2, "ms": ms(key, times),
+            "frame_ms": ms(key, frame_times),
+            "frame_lanes": n_frame if key == "k1" else n_shadow,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "fetch_bytes": fetch, "work": st,
+            "max_abs_err": err1 if key == "k1" else float(min(mism, 1)),
+            "rows_per_lane": (st["node_rows"] / (n1 if key == "k1" else n2),
+                              st["leaf_rows"] / (n1 if key == "k1" else n2))}
+    rec["k1"].update(hits=int(p1["hit"].sum()), hit_equal=hit_eq,
+                     tri_id_equal=tri_eq, ulp=ulp)
+    rec["k2"].update(occluded=int(p2.sum()), mismatches=mism2,
+                     frame_queried=n_queried)
+    rec["k2_nocull"].update(occluded=int(p3.sum()), mismatches=mism3,
+                            frame_queried=n_queried)
+    rec["resources"] = None
     if device == "cuda":
-        times = kernel_times.time_kernels(calls)
         res = kernel_build.resources(b.stack_depth)
-        res = {k: res[k] for k in PATH_KERNELS}
-    else:  # a rehearsal: no device time
-        times, res = dict.fromkeys(calls), None
-    n1, n2 = sel1.numel(), sel2.numel()
-    b1, b1_by, f1 = _bound(st1, b.table, n1, n1, 16)
-    b2, b2_by, f2 = _bound(st2, b.table, n2, n2, 1)
-    out["k1"] = {"lanes": n1, "hits": int(p1["hit"].sum()),
-                 "hit_equal": hit_eq, "tri_id_equal": tri_eq, "ulp": ulp,
-                 "max_abs_err": err1, "ms": times["k1_subset"],
-                 "frame_ms": times["k1_frame"], "frame_lanes": o.shape[0],
-                 "plain_ms": p1_ms, "bound_ms": b1, "bound_by": b1_by,
-                 "fetch_bytes": f1, "work": st1,
-                 "rows_per_lane": (st1["node_rows"] / n1,
-                                   st1["leaf_rows"] / n1)}
-    out["k2"] = {"lanes": n2, "occluded": int(p2.sum()),
-                 "mismatches": mism2, "max_abs_err": float(min(mism2, 1)),
-                 "ms": times["k2_subset"], "frame_ms": times["k2_frame"],
-                 "frame_lanes": so.shape[0], "frame_queried": int(sq.sum()),
-                 "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
-                 "fetch_bytes": f2, "work": st2,
-                 "rows_per_lane": (st2["node_rows"] / n2,
-                                   st2["leaf_rows"] / n2)}
-    out["resources"] = res
+        rec["resources"] = {k: res[kernel_build.layout_name(k, *layout)]
+                            for k in kernel_build.LAYOUT_KERNELS}
+    return got1, got2, got3
+
+
+def _ties(scene, o, d, lanes, a: dict, c: dict, tmin: float,
+          tmax: float) -> dict:
+    """Lanes where two closest-hit answers ``a`` and ``c`` of the same rays
+    name different triangles: how many, and on how many both triangles
+    are hit exactly at the answers' t, which is the brute-force closest t
+    over every triangle of ``scene`` (an exact tie)."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import intersect
+
+    out = {"lanes": lanes.numel(), "ties": 0, "records": []}
+    if not lanes.numel():
+        return out
+    tp = scene.tri_pack
+    tris = (tp[:, 36:39], tp[:, 39:42], tp[:, 42:45])
+    ro, rd = o[lanes], d[lanes]
+    brute = intersect.brute_force_closest_hit(*tris, ro, rd, tmin, tmax,
+                                              chunk=1 << 16)
+    t = a["t"][lanes]
+    tie = brute["t"] == t
+    for ids in (a["tri_id"][lanes], c["tri_id"][lanes]):
+        ids = ids.long()
+        tk, _, _, hk = intersect.ray_triangle(
+            ro[:, None], rd[:, None], *(x[ids][:, None] for x in tris),
+            tmin, tmax)
+        tie &= hk[:, 0] & (tk[:, 0] == t)
+    out["ties"] = int(tie.sum())
+    bits = lambda x: x.contiguous().view(torch.int32).tolist()  # noqa: E731
+    out["records"] = [
+        {"lane": int(lane), "tri_ids": (int(a["tri_id"][lane]),
+                                        int(c["tri_id"][lane])),
+         "t": float(t[i]), "brute": (int(brute["tri_id"][i]),
+                                     float(brute["t"][i])),
+         "tie": bool(tie[i]), "origin_bits": bits(ro[i]),
+         "direction_bits": bits(rd[i])}
+        for i, lane in enumerate(lanes[:8].tolist())]
     return out
 
 
 def _deep_record(g: dict, k: str, kernel: str) -> dict:
-    """The kernels line's record of K1 or K2 on the deep scene ``g``."""
+    """The kernels line's record of K1 or K2 on the deep scene ``g``'s
+    (16, 6) table."""
     r = g[k]
     return {"triangles": g["triangles"], "stack_depth": g["stack_depth"],
             "lanes": r["lanes"], "ms": r["ms"], "frame_ms": r["frame_ms"],
@@ -965,6 +1105,31 @@ def _deep_record(g: dict, k: str, kernel: str) -> dict:
             "launches": g["launches"][kernel],
             "max_abs_err": r["max_abs_err"],
             "rows_per_lane": r["rows_per_lane"], **g["resources"][kernel]}
+
+
+def _wide_record(g: dict, k: str, kernel: str, replaces: str,
+                 launches: int, spills: dict) -> dict:
+    """The kernels line's entry of K1, K2 or the non-culling K2 (``k``:
+    "k1", "k2", "k2_nocull"; ``kernel``: its ``kernel_build.LAUNCHES`` name)
+    at the wide layout of the deep scene ``g``: its times on phase g's lane
+    subset and on the frame's lanes, with ``launches`` from the path that
+    ran it (the wide frames; the raycast for the non-culling K2)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    w = g["wide"]
+    r = w[k]
+    name = kernel_build.layout_name(kernel, *w["layout"])
+    return {"name": name, "route": "cuda",
+            "source": KERNEL_SRC + "traverse.cu",
+            "replaces": JAX_OPS + replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "triangles": g["triangles"], "stack_depth": w["stack_depth"],
+            "lanes": r["lanes"], "frame_ms": r["frame_ms"],
+            "frame_lanes": r["frame_lanes"],
+            "rows_per_lane": r["rows_per_lane"],
+            "spill_bytes": spills.get(name), **w["resources"][kernel]}
 
 
 def _instanced_record(name: str, replaces: str, r: dict, launches: dict,
@@ -982,10 +1147,37 @@ def _instanced_record(name: str, replaces: str, r: dict, launches: dict,
             "flat_ms": r["flat_ms"], "lanes": r["lanes"], **res[name]}
 
 
+def _table_lines(name: str, g: dict, rec: dict) -> None:
+    """Phase g's lines of one table ``rec`` of the deep scene ``g``."""
+    _line(_frames_line(f"{name}: {len(rec['frame_ms'])} frames after 1 "
+                       "warm-up", rec)
+          + f"; mean radiance {rec['mean_radiance']:.4f}")
+    p = rec["profile"]
+    _line(f"{name} profiled: device busy {p['device_busy_ms']:.1f} ms of a "
+          f"{p['frame_ms']:.1f} ms frame (idle share {p['idle_share']:.3f}); "
+          "K1/K2 " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                               p["kernel_ms"].items()))
+    for k in ("k1", "k2", "k2_nocull"):
+        r = rec[k]
+        ms = "not timed" if r["ms"] is None else (
+            f"{r['ms']:.4f} ms on the subset, {r['frame_ms']:.4f} ms on the "
+            f"frame's {r['frame_lanes']} lanes")
+        _line(f"{name} {k.upper()} at depth {rec['stack_depth']} on "
+              f"{r['lanes']} lanes: exact vs plain; {ms}; plain "
+              f"{r['plain_ms']:.1f} ms; bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}); node/leaf rows a lane "
+              f"{r['rows_per_lane'][0]:.2f}/{r['rows_per_lane'][1]:.2f}")
+    if rec["resources"]:
+        _line(f"{name} resources at depth {rec['stack_depth']}: " + "; ".join(
+            f"{k} {r['registers']} regs, {r['local_bytes']} B local, "
+            f"{r['shared_bytes']} B shared/block, {r['blocks_per_sm']} "
+            "blocks/SM" for k, r in rec["resources"].items()))
+
+
 def _deep_lines(name: str, g: dict) -> None:
     c, w = g["cold"], g["warm"]
     _line(f"{name}: box_city_fast(n={g['city_n']}), {g['triangles']} tris, "
-          f"{g['rows']} rows, table {g['table_bytes'] / 1e6:.1f} MB, "
+          f"(16, 6) table {g['rows']} rows, {g['table_bytes'] / 1e6:.1f} MB, "
           f"stack_depth {g['stack_depth']}; host build: scene "
           f"{g['scene_s']:.2f} s, triangles {g['triangles_s']:.2f} s, cold "
           f"BVH {g['cold_build_s']:.2f} s ("
@@ -996,23 +1188,20 @@ def _deep_lines(name: str, g: dict) -> None:
           + ", ".join(f"{k} {v:.2f}" for k, v in w.items())
           + " + upload)")
     _line(f"{name} memory_report: {g['memory_report']}")
-    _line(_frames_line(f"{name}: {len(g['frame_ms'])} frames after 1 warm-up",
-                       g) + f"; mean radiance {g['mean_radiance']:.4f}")
-    for k in ("k1", "k2"):
-        r = g[k]
-        ms = "not timed" if r["ms"] is None else (
-            f"{r['ms']:.4f} ms on the subset, {r['frame_ms']:.4f} ms on the "
-            f"frame's {r['frame_lanes']} lanes")
-        _line(f"{name} {k.upper()} at depth {g['stack_depth']} on "
-              f"{r['lanes']} lanes: exact vs plain; {ms}; plain "
-              f"{r['plain_ms']:.1f} ms; bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}); node/leaf rows a lane "
-              f"{r['rows_per_lane'][0]:.2f}/{r['rows_per_lane'][1]:.2f}")
-    if g["resources"]:
-        _line(f"{name} resources at depth {g['stack_depth']}: " + "; ".join(
-            f"{k} {r['registers']} regs, {r['shared_bytes']} B shared/block, "
-            f"{r['blocks_per_sm']} blocks/SM"
-            for k, r in g["resources"].items()))
+    _table_lines(f"{name} (16, 6)", g, g)
+    wd = g["wide"]
+    lay = tuple(wd["layout"])
+    _line(f"{name} {lay} table: {wd['rows']} rows, "
+          f"{wd['table_bytes'] / 1e6:.1f} MB, stack_depth "
+          f"{wd['stack_depth']}; cold build {wd['build_s']:.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in wd["build"].items())
+          + f"); against the (16, 6) table: frame pixels within 1 LSB "
+          f"{wd['frame_share']:.4f}, K1 hit equal {wd['hit_equal']}, t equal "
+          f"{wd['t_equal']}, tri_id apart on {wd['ties']['lanes']} lanes "
+          f"({wd['ties']['ties']} exact ties), occlusion apart on "
+          f"{wd['occluded_mismatches']} (non-culling "
+          f"{wd['nocull_mismatches']}) of the subset's lanes")
+    _table_lines(f"{name} {lay}", g, wd)
 
 
 def open_scene():
@@ -1217,6 +1406,21 @@ def oracle_phase(device="cuda") -> dict:
     out["raycast_share"] = _share_within_1lsb(frame, frames["cpu"])
     assert out["raycast_share"] == 1.0, \
         f"raycast on {device} vs CPU: {out['raycast_share']}"
+    # the raycast from the wide tables: their non-culling K2 on a user's path
+    out["raycast_wide"] = {}
+    for lay in kernel_build.WIDE_LAYOUTS:
+        sc = build_scene(meshes, texture_images=images, device=device,
+                         shading_normals=True, arity=lay[0],
+                         leaf_size=lay[1])
+        kernel_build.reset_launches()
+        wide = simple.raycast(sc, cam.device_params(device), 64, 48,
+                              light_pos=light).cpu().numpy()
+        name = kernel_build.layout_name("occluded_nocull", *lay)
+        out["raycast_wide"][name] = {
+            "launches": kernel_build.LAUNCHES[name],
+            "share": _share_within_1lsb(wide, frame)}
+        assert out["raycast_wide"][name]["share"] == 1.0, \
+            f"the raycast from the {lay} table differs from the (16, 6) one"
 
     so, sd, q = simple.shadow_rays(scene, cam.device_params(device), 64, 48,
                                    light_pos=light)
@@ -2646,16 +2850,21 @@ def main() -> int:
     for k in PATH_KERNELS:
         assert spec_cli_launches[k] > 0, f"the spectral CLI never launched {k}"
 
-    # -- phase g: deep scenes (388,812 and 10,002,840 triangles) -------------
+    # -- phase g: deep scenes (388,812 and 10,002,840 triangles), each in its
+    # (16, 6) table and in a wide one ---------------------------------------
     deep = {}
-    for city_n, deep_frames in DEEP_SCENES:
+    for city_n, deep_frames, wide in DEEP_SCENES:
         g = deep_phase(city_n, deep_frames, schedule, w, h,
-                       profile=args.profile, results=results)
+                       profile=args.profile, wide=wide)
         deep[city_n] = g
         _deep_lines(f"deep n={city_n}", g)
         for k in PATH_KERNELS:
+            wk = kernel_build.layout_name(k, *wide)
             assert g["launches"][k] > 0, f"the deep frame never launched {k}"
-        del g["frame"]
+            assert g["launches"][wk] == 0, f"the (16, 6) frame launched {wk}"
+            assert g["wide"]["launches"][wk] == g["wide"]["launches"][k] > 0, \
+                f"the {wide} frame did not launch only {wk}"
+        del g["frame"], g["wide"]["frame"]
         torch.cuda.empty_cache()
     g10 = deep[DEEP_SCENES[-1][0]]
 
@@ -2678,6 +2887,11 @@ def main() -> int:
           f"{orc['raycast_shadow']}; launches {raycast_launches}")
     assert raycast_launches["occluded_nocull"] > 0, \
         "the raycast never launched the non-culling K2"
+    for k, r in orc["raycast_wide"].items():
+        _line(f"raycast 64x48 (04) from the {k[len('occluded_nocull_'):]} "
+              f"table: pixels within 1 LSB of the (16, 6) table's "
+              f"{r['share']:.4f}; {k} launches {r['launches']}")
+        assert r["launches"] > 0, f"the raycast never launched {k}"
     nocull = nocull_check(bvh, so, sd, sq, tmin, tmax)
     _line(f"non-culling K2 on the bench's bounce-0 shadow lanes: "
           f"{nocull['lanes']} lanes, {nocull['queried']} queried, "
@@ -2884,6 +3098,20 @@ def main() -> int:
          "ms": nocull["ms"], "plain_ms": nocull["plain_ms"],
          "bound_ms": nocull["bound_ms"], "bound_by": nocull["bound_by"],
          "library_ms": None, **res["occluded_nocull"]},
+        # the wide layouts' instantiations on phase g's scenes: K1 and K2
+        # launched by the wide table's frames, the non-culling K2 by the
+        # raycast from a wide table (phase h)
+        *[_wide_record(
+            deep[city_n], k, kernel, replaces,
+            orc["raycast_wide"][kernel_build.layout_name(kernel, *wide)][
+                "launches"] if k == "k2_nocull" else
+            deep[city_n]["wide"]["launches"][
+                kernel_build.layout_name(kernel, *wide)], spills)
+          for city_n, _, wide in DEEP_SCENES
+          for k, kernel, replaces in (
+              ("k1", "closest_hit", "traverse8.py:795"),
+              ("k2", "occluded", "traverse8.py:1367"),
+              ("k2_nocull", "occluded_nocull", "traverse8.py:1376"))],
         {"name": "occluded_packets", "route": "cuda",
          "source": KERNEL_SRC + "packet_traverse.cu",
          "replaces": JAX_OPS + "pallas_traverse.py:53", "launches":

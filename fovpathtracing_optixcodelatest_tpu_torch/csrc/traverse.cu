@@ -14,9 +14,11 @@
 // uint32 at col 3c + a (lo = u & 0xFFFF0000, hi = u << 16) and the child's
 // entry code (row << 2) | kind at col 3A + c (kind 0 node, 1 leaf, 0 =
 // empty). Leaf rows hold L triangles [v0, e1, e2] and, at col 9L + k, the
-// original triangle id of slot k. The kernels are compiled for the one
-// layout the port builds, A16/L6 (W = 64, 256-byte rows); the wrappers
-// refuse any other.
+// original triangle id of slot k. K1, K2 and the non-culling K2 are
+// compiled for the three layouts the port builds: A16/L6 (W = 64, 256-byte
+// rows), the default, and the JAX package's wide A32/L12 (W = 128, 512 B)
+// and A32/L24 (W = 240, 960 B); the two-level kernels for A16/L6 only. The
+// wrappers refuse any other.
 //
 // Visit order (K1) is the JAX package's: a stack entry is the packed key
 // (mono(tn) & himask) | code, children are pushed sorted by descending key
@@ -70,12 +72,39 @@
 // The constants below were chosen by timing each alternative build on every
 // main-path shape against the kept one (PERF.md has the numbers).
 //
+// The wide layouts (A32/L12, A32/L24) run the same walks with these
+// differences, which keep every instantiation exact against its plain
+// version and out of spills:
+//
+// - Thirty-two children. A node's keys sort in registers by a 32-key
+//   bitonic network where more than four of its groups of four children
+//   are used (16, 8 or 4 keys where fewer are); any sort of the same keys
+//   leaves the same stack, since hit keys are distinct (their codes are).
+// - Staged reads everywhere. A row is 32 or 60 uint4, more than registers
+//   hold, so K2 and the non-culling K2 read staged as K1 does: the node's
+//   eight code uint4s, then three box uint4s a group of four children, or
+//   seven uint4s a third of a leaf. The prefetch covers the lines of the
+//   row's used part (four for an A32 node or an L12 leaf, seven for an L24
+//   leaf, and the line of its last word: 960-byte rows do not start on a
+//   line).
+// - The stack in local memory. The wide tables need deeper stacks (164 at
+//   10M triangles in A32/L12, against 110 in A16/L6), and a stack of that
+//   depth in shared memory takes 84 KB a block: two blocks (8 warps) an
+//   SM. In local memory, kMaxStack entries a thread, interleaved by the
+//   hardware so a warp's pushes at one depth share lines as the strided
+//   shared stack's do, the stack costs no shared memory and the registers
+//   alone set the resident blocks (6 for K1, 5 for K2). On the 10M
+//   frame's primary lanes the A32/L12 K1 took 15.7 ms so, against 26.3
+//   with the shared stack (PERF.md). The (16, 6) kernels keep the shared
+//   stack; a local stack for them has not been timed (PERF.md, open
+//   questions).
+//
 // K2 without back-face culling (traverse8.py occluded(cull_backface=False)
 // :1376, its leaf test :247; the 04 raycast's shadow ray): the occlusion
 // walk has a compile-time CULL flag, and occluded_nocull_kernel is its
-// CULL = false instantiation for single-level (16, 6) tables, in which a
-// triangle occludes where |det| > 1e-9. The culling kernels compile as
-// without the flag.
+// CULL = false instantiation for single-level tables of each layout, in
+// which a triangle occludes where |det| > 1e-9. The culling kernels
+// compile as without the flag.
 //
 // Two-level tables (ops/tlas.py; the instance steps of traverse8.py
 // _ch_step :523-632 and of the occlusion loop :1487-1580):
@@ -118,6 +147,8 @@
 namespace {
 
 constexpr int kArity = 16, kLeaf = 6;  // ops/bvh8.py ARITY, LEAF_SIZE
+// entries of a local-memory stack: ops/traverse.py MAX_STACK
+constexpr int kMaxStack = 256;
 constexpr uint32_t kKindInst = 2u;     // ops/bvh8.py KIND_INST
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -141,6 +172,15 @@ struct Layout {
   static constexpr int kVecs = kWidth / 4;             // uint4 per row
   static constexpr int kLeafVecs = (9 * LEAF + 3) / 4;  // uint4 of triangles
   static_assert(kWidth % 4 == 0, "a row must be whole uint4s");
+  // 128-byte lines of a node's boxes and codes, of a leaf's triangles
+  static constexpr int kNodeLines = (16 * ARITY + 127) / 128;
+  static constexpr int kLeafLines = (36 * LEAF + 127) / 128;
+  // a row of more uint4s than the (16, 6) row's 16: the wide layouts
+  static constexpr bool kWide = kVecs > 16;
+  // K2 reads whole rows only where they fit in registers
+  static constexpr bool kK2Staged = kK2StagedRow || kWide;
+  // the wide layouts keep the stack in local memory
+  static constexpr bool kLocalStack = kWide;
 };
 
 __device__ __forceinline__ uint32_t mono_u32(float x) {
@@ -188,9 +228,19 @@ __device__ __forceinline__ const uint4* begin_row(
     load_row<ARITY, LEAF>(table, code, q);
     return r;
   }
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(r));
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(r + 8));
-  if ((code & 3u) == 0u) load_vecs(r, q, 3 * ARITY / 4, L::kVecs - 1);
+  const bool node = (code & 3u) == 0u;
+  constexpr int kLines =
+      L::kNodeLines > L::kLeafLines ? L::kNodeLines : L::kLeafLines;
+#pragma unroll
+  for (int j = 0; j < kLines; ++j)
+    if (j < (node ? L::kNodeLines : L::kLeafLines))
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(r + 8 * j));
+  if constexpr (L::kVecs % 8 != 0) {  // a row that starts inside a line
+    const char* last = reinterpret_cast<const char*>(r) - 1 +
+                       (node ? 16 * ARITY : 36 * LEAF);
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(last));
+  }
+  if (node) load_vecs(r, q, 3 * ARITY / 4, ARITY - 1);  // the child codes
   return r;
 }
 
@@ -230,8 +280,9 @@ __device__ __forceinline__ void triangle(const uint4* q, int k, float tri[9]) {
 // registers: every loop has a constant trip count and unrolls.
 template <int N>
 __device__ __forceinline__ void sort_desc(uint32_t* k) {
-  constexpr int kLog = N == 16 ? 4 : N == 8 ? 3 : N == 4 ? 2 : N == 2 ? 1 : 0;
-  static_assert(N == 1 << kLog, "N must be a power of two up to 16");
+  constexpr int kLog = N == 32 ? 5 : N == 16 ? 4 : N == 8 ? 3 : N == 4 ? 2
+                       : N == 2 ? 1 : 0;
+  static_assert(N == 1 << kLog, "N must be a power of two up to 32");
 #pragma unroll
   for (int p = 1; p <= kLog; ++p) {
 #pragma unroll
@@ -260,21 +311,49 @@ __device__ __forceinline__ bool group_used(const uint4* q, int g) {
   return (c.x | c.y | c.z | c.w) != 0u;
 }
 
-// One thread's stack: entry j at base[j * stride].
+// One thread's stack: in shared memory, entry j at base[32 j] (the warps'
+// stacks of depth entries follow their queues), or in local memory, in
+// the kernel's Storage array. The array stays out of the walk's struct,
+// whose fields would otherwise follow it into local memory.
+template <bool LOCAL>
 struct Stack {
+  struct Storage {};
   uint32_t* base;
-  int stride;
-  __device__ __forceinline__ uint32_t& operator[](int j) const {
-    return base[j * stride];
+  __device__ __forceinline__ void init(uint32_t* smem, int depth, Storage&) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    base = smem + kWarps * kQueue + warp * 32 * depth + lane;
+  }
+  __device__ __forceinline__ uint32_t& operator[](int j) {
+    return base[j * 32];
   }
 };
+
+template <>
+struct Stack<true> {
+  struct Storage {
+    uint32_t e[kMaxStack];
+  };
+  uint32_t* base;
+  __device__ __forceinline__ void init(uint32_t*, int, Storage& s) {
+    base = s.e;
+  }
+  __device__ __forceinline__ uint32_t& operator[](int j) { return base[j]; }
+};
+
+// dynamic shared memory of a block: the warps' queues, then their stacks
+// where these lie in shared memory
+template <bool LOCAL>
+__host__ __device__ constexpr size_t shared_bytes(int depth) {
+  return sizeof(int) * kWarps * kQueue +
+         (LOCAL ? 0 : sizeof(uint32_t) * kWarps * 32 * (size_t)depth);
+}
 
 // Push the nonzero keys among k[0..N) (cnt of them, distinct) in descending
 // order, so the nearest ends on top; a full stack keeps the largest keys
 // that fit.
-template <int N>
+template <int N, class Stk>
 __device__ __forceinline__ void push_sorted(uint32_t* k, int cnt, int depth,
-                                            const Stack& stk, int& sp) {
+                                            Stk& stk, int& sp) {
   if (cnt > 1) {
     sort_desc<N>(k);
   } else if (cnt == 1) {
@@ -286,6 +365,23 @@ __device__ __forceinline__ void push_sorted(uint32_t* k, int cnt, int depth,
   for (int j = 0; j < N; ++j)
     if (j < push) stk[sp + j] = k[j];
   sp += push;
+}
+
+// push_sorted over the fewest keys (N, N / 2, ... down to 4) that cover the
+// ``groups`` groups of four up to the last used one: the keys past them
+// are 0
+template <int N, class Stk>
+__device__ __forceinline__ void push_used(uint32_t* k, int cnt, int groups,
+                                          int depth, Stk& stk, int& sp) {
+  if constexpr (N > 4) {
+    if (groups > N / 8) {
+      push_sorted<N>(k, cnt, depth, stk, sp);
+      return;
+    }
+    push_used<N / 2>(k, cnt, groups, depth, stk, sp);
+  } else {
+    push_sorted<4>(k, cnt, depth, stk, sp);
+  }
 }
 
 struct Ray {
@@ -392,7 +488,7 @@ __device__ __forceinline__ void leaf_ray(const Instancing<INSTANCED>& in,
 }
 
 template <int ARITY, int LEAF, bool INSTANCED = false, bool CULL = true,
-          bool STAGED = kK2StagedRow>
+          bool STAGED = Layout<ARITY, LEAF>::kK2Staged>
 struct OccludedWalk {
   using L = Layout<ARITY, LEAF>;
   const uint4* __restrict__ table;
@@ -401,7 +497,7 @@ struct OccludedWalk {
   bool* __restrict__ out;
   float tmin, tmax;
   int depth;
-  Stack stk;
+  Stack<L::kLocalStack> stk;
   Ray ray;
   int sp;
   bool occ;
@@ -476,7 +572,7 @@ struct ClosestWalk {
   float tmin, tmax;
   int depth;
   uint32_t lowmask;
-  Stack stk;
+  Stack<L::kLocalStack> stk;
   Ray ray;
   int sp, best;
   float t, u, v;
@@ -550,12 +646,7 @@ struct ClosestWalk {
           cnt += hit;
         }
       }
-      if (groups > 2)
-        push_sorted<ARITY>(key, cnt, depth, stk, sp);
-      else if (groups == 2)
-        push_sorted<8>(key, cnt, depth, stk, sp);
-      else
-        push_sorted<4>(key, cnt, depth, stk, sp);
+      push_used<ARITY>(key, cnt, groups, depth, stk, sp);
     } else {
       const int* ids = reinterpret_cast<const int*>(r) + 9 * LEAF;
       float lo[3], ld[3];
@@ -633,17 +724,6 @@ __device__ __forceinline__ void walk_rays(Walk& w,
   }
 }
 
-// dynamic shared memory of a block: the warps' queues, then their stacks
-__host__ __device__ constexpr size_t shared_bytes(int depth) {
-  return sizeof(int) * kWarps * kQueue +
-         sizeof(uint32_t) * kWarps * 32 * (size_t)depth;
-}
-
-__device__ __forceinline__ Stack thread_stack(uint32_t* smem, int depth) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return Stack{smem + kWarps * kQueue + warp * 32 * depth + lane, 32};
-}
-
 template <int ARITY, int LEAF>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) closest_hit_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
@@ -665,7 +745,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) closest_hit_kernel(
   w.tmax = tmax;
   w.depth = depth;
   w.lowmask = lowmask;
-  w.stk = thread_stack(smem, depth);
+  typename decltype(w.stk)::Storage stack;
+  w.stk.init(smem, depth, stack);
   walk_rays<kK1RefillIdle>(
       w, active, n, counter,
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
@@ -687,7 +768,8 @@ __device__ __forceinline__ void occluded_walk(
   w.tmin = tmin;
   w.tmax = tmax;
   w.depth = depth;
-  w.stk = thread_stack(smem, depth);
+  typename decltype(w.stk)::Storage stack;
+  w.stk.init(smem, depth, stack);
   walk_rays<kK2RefillIdle>(
       w, active, n, counter,
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
@@ -737,7 +819,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   w.tmax = tmax;
   w.depth = depth;
   w.lowmask = lowmask;
-  w.stk = thread_stack(smem, depth);
+  typename decltype(w.stk)::Storage stack;
+  w.stk.init(smem, depth, stack);
   w.in.inst_base = inst_base;
   w.in.blas_base = blas_base;
   w.inst_out = inst_out;
@@ -763,7 +846,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   w.tmin = tmin;
   w.tmax = tmax;
   w.depth = depth;
-  w.stk = thread_stack(smem, depth);
+  typename decltype(w.stk)::Storage stack;
+  w.stk.init(smem, depth, stack);
   w.in.inst_base = inst_base;
   w.in.blas_base = blas_base;
   walk_rays<kIK2RefillIdle>(
@@ -772,35 +856,84 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 }
 
 // K1 (which = 0), K2 (1), their instanced variants (2, 3) and the
-// non-culling K2 (4)
+// non-culling K2 (4), at each layout (the instanced ones at (16, 6) only)
 constexpr int kKernels = 5;
+constexpr int kLayouts = 3;
 
-const void* kernel_of(int which) {
-  switch (which) {
-    case 0:
-      return (const void*)closest_hit_kernel<kArity, kLeaf>;
+template <int ARITY, int LEAF>
+struct LayoutTag {
+  static constexpr int kArity = ARITY, kLeaf = LEAF;
+};
+
+// Layout 0 (16, 6), 1 (32, 12), 2 (32, 24); -1 for one not compiled.
+int layout_of(int arity, int leaf) {
+  if (arity == kArity && leaf == kLeaf) return 0;
+  if (arity == 32 && leaf == 12) return 1;
+  if (arity == 32 && leaf == 24) return 2;
+  return -1;
+}
+
+// f(LayoutTag<ARITY, LEAF>{}) for a layout_of index
+template <class F>
+auto with_layout(int layout, F f) {
+  switch (layout) {
     case 1:
-      return (const void*)occluded_kernel<kArity, kLeaf>;
+      return f(LayoutTag<32, 12>{});
     case 2:
-      return (const void*)closest_hit_instanced_kernel<kArity, kLeaf>;
-    case 3:
-      return (const void*)occluded_instanced_kernel<kArity, kLeaf>;
+      return f(LayoutTag<32, 24>{});
     default:
-      return (const void*)occluded_nocull_kernel<kArity, kLeaf>;
+      return f(LayoutTag<kArity, kLeaf>{});
   }
 }
 
-// Resident blocks per SM of kernel ``which`` at a shared-memory size on the
-// current device, and the grid that fills it.
-cudaError_t grid_of(int which, size_t smem, int* per_sm, int* blocks) {
-  static GridCache cache[kKernels];
-  return cache[which].get(kernel_of(which), kThreads, smem, per_sm, blocks);
+// kernel ``which`` at a layout, nullptr where it is not compiled
+const void* kernel_of(int which, int layout) {
+  return with_layout(layout, [which](auto tag) -> const void* {
+    constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
+    switch (which) {
+      case 0:
+        return (const void*)closest_hit_kernel<A, L>;
+      case 1:
+        return (const void*)occluded_kernel<A, L>;
+      case 4:
+        return (const void*)occluded_nocull_kernel<A, L>;
+    }
+    if constexpr (A == kArity && L == kLeaf) {
+      if (which == 2)
+        return (const void*)closest_hit_instanced_kernel<A, L>;
+      if (which == 3) return (const void*)occluded_instanced_kernel<A, L>;
+    }
+    return nullptr;
+  });
 }
 
-int launch_grid(int which, int n, int depth, size_t* smem, int* blocks) {
-  *smem = shared_bytes(depth);
+// dynamic shared memory of a block of a layout's kernels at a stack depth
+size_t shared_of(int layout, int depth) {
+  return with_layout(layout, [depth](auto tag) {
+    using L = Layout<decltype(tag)::kArity, decltype(tag)::kLeaf>;
+    return shared_bytes<L::kLocalStack>(depth);
+  });
+}
+
+// Resident blocks per SM of kernel ``which`` at a layout and a
+// shared-memory size on the current device, and the grid that fills it.
+cudaError_t grid_of(int which, int layout, size_t smem, int* per_sm,
+                    int* blocks) {
+  static GridCache cache[kKernels * kLayouts];
+  const void* fn = which >= 0 && which < kKernels && layout >= 0
+                       ? kernel_of(which, layout)
+                       : nullptr;
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return cache[which * kLayouts + layout].get(fn, kThreads, smem, per_sm,
+                                              blocks);
+}
+
+int launch_grid(int which, int layout, int n, int depth, size_t* smem,
+                int* blocks) {
+  if (depth < 1 || depth > kMaxStack) return (int)cudaErrorInvalidValue;
+  *smem = shared_of(layout, depth);
   int per_sm = 0, full = 0;
-  const cudaError_t err = grid_of(which, *smem, &per_sm, &full);
+  const cudaError_t err = grid_of(which, layout, *smem, &per_sm, &full);
   if (err != cudaSuccess) return (int)err;
   const int needed = (n + kThreads - 1) / kThreads;
   *blocks = full < needed ? full : needed;
@@ -809,59 +942,81 @@ int launch_grid(int which, int n, int depth, size_t* smem, int* blocks) {
 
 }  // namespace
 
+// K1, K2 and the non-culling K2 take the table's (arity, leaf_size) and
+// launch the instantiation of that layout; any other returns
+// cudaErrorInvalidValue.
 extern "C" int fov_closest_hit(const float* table, const float* orig,
                                const float* dir, const unsigned char* active,
                                int n, float tmin, float tmax, int stack_depth,
                                unsigned int lowmask, float* t_out,
                                int* tri_out, float* u_out, float* v_out,
-                               int* counter, void* stream) {
+                               int* counter, int arity, int leaf,
+                               void* stream) {
+  const int layout = layout_of(arity, leaf);
+  if (layout < 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     size_t smem = 0;
     int blocks = 0;
-    const int rc = launch_grid(0, n, stack_depth, &smem, &blocks);
+    const int rc = launch_grid(0, layout, n, stack_depth, &smem, &blocks);
     if (rc != 0) return rc;
-    closest_hit_kernel<kArity, kLeaf>
-        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
-            tmax, stack_depth, lowmask, t_out, tri_out, u_out, v_out, counter);
+    with_layout(layout, [&](auto tag) {
+      closest_hit_kernel<decltype(tag)::kArity, decltype(tag)::kLeaf>
+          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+              reinterpret_cast<const uint4*>(table), orig, dir, active, n,
+              tmin, tmax, stack_depth, lowmask, t_out, tri_out, u_out, v_out,
+              counter);
+      return 0;
+    });
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int fov_occluded(const float* table, const float* orig,
-                            const float* dir, const unsigned char* active,
-                            int n, float tmin, float tmax, int stack_depth,
-                            bool* occ_out, int* counter, void* stream) {
+namespace {
+
+// K2 (which 1) or the non-culling K2 (4) at the table's layout
+int launch_occluded(int which, const float* table, const float* orig,
+                    const float* dir, const unsigned char* active, int n,
+                    float tmin, float tmax, int stack_depth, bool* occ_out,
+                    int* counter, int arity, int leaf, void* stream) {
+  const int layout = layout_of(arity, leaf);
+  if (layout < 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     size_t smem = 0;
     int blocks = 0;
-    const int rc = launch_grid(1, n, stack_depth, &smem, &blocks);
+    const int rc = launch_grid(which, layout, n, stack_depth, &smem, &blocks);
     if (rc != 0) return rc;
-    occluded_kernel<kArity, kLeaf>
-        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
-            tmax, stack_depth, occ_out, counter);
+    with_layout(layout, [&](auto tag) {
+      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
+      const auto kernel =
+          which == 1 ? occluded_kernel<A, L> : occluded_nocull_kernel<A, L>;
+      kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+          reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
+          tmax, stack_depth, occ_out, counter);
+      return 0;
+    });
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fov_occluded(const float* table, const float* orig,
+                            const float* dir, const unsigned char* active,
+                            int n, float tmin, float tmax, int stack_depth,
+                            bool* occ_out, int* counter, int arity, int leaf,
+                            void* stream) {
+  return launch_occluded(1, table, orig, dir, active, n, tmin, tmax,
+                         stack_depth, occ_out, counter, arity, leaf, stream);
 }
 
 extern "C" int fov_occluded_nocull(const float* table, const float* orig,
                                    const float* dir,
                                    const unsigned char* active, int n,
                                    float tmin, float tmax, int stack_depth,
-                                   bool* occ_out, int* counter,
-                                   void* stream) {
-  if (n > 0) {
-    size_t smem = 0;
-    int blocks = 0;
-    const int rc = launch_grid(4, n, stack_depth, &smem, &blocks);
-    if (rc != 0) return rc;
-    occluded_nocull_kernel<kArity, kLeaf>
-        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
-            tmax, stack_depth, occ_out, counter);
-  }
-  return (int)cudaGetLastError();
+                                   bool* occ_out, int* counter, int arity,
+                                   int leaf, void* stream) {
+  return launch_occluded(4, table, orig, dir, active, n, tmin, tmax,
+                         stack_depth, occ_out, counter, arity, leaf, stream);
 }
 
 extern "C" int fov_closest_hit_instanced(
@@ -873,7 +1028,7 @@ extern "C" int fov_closest_hit_instanced(
   if (n > 0) {
     size_t smem = 0;
     int blocks = 0;
-    const int rc = launch_grid(2, n, stack_depth, &smem, &blocks);
+    const int rc = launch_grid(2, 0, n, stack_depth, &smem, &blocks);
     if (rc != 0) return rc;
     closest_hit_instanced_kernel<kArity, kLeaf>
         <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
@@ -894,7 +1049,7 @@ extern "C" int fov_occluded_instanced(const float* table, const float* orig,
   if (n > 0) {
     size_t smem = 0;
     int blocks = 0;
-    const int rc = launch_grid(3, n, stack_depth, &smem, &blocks);
+    const int rc = launch_grid(3, 0, n, stack_depth, &smem, &blocks);
     if (rc != 0) return rc;
     occluded_instanced_kernel<kArity, kLeaf>
         <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
@@ -907,18 +1062,23 @@ extern "C" int fov_occluded_instanced(const float* table, const float* orig,
 // Registers per thread, local memory per thread (spills and any stack
 // frame), resident blocks per SM and dynamic shared memory per block of
 // kernel ``which`` (K1 0, K2 1, instanced K1 2, instanced K2 3, non-culling
-// K2 4) at stack_depth.
-extern "C" int fov_traverse_info(int which, int stack_depth, int* regs,
+// K2 4) at layout (arity, leaf) and stack_depth.
+extern "C" int fov_traverse_info(int which, int arity, int leaf,
+                                 int stack_depth, int* regs,
                                  int* local_bytes, int* blocks_per_sm,
                                  int* shared) {
-  if (which < 0 || which >= kKernels) return (int)cudaErrorInvalidValue;
+  const int layout = layout_of(arity, leaf);
+  if (which < 0 || which >= kKernels || layout < 0 ||
+      kernel_of(which, layout) == nullptr || stack_depth < 1 ||
+      stack_depth > kMaxStack)
+    return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel_of(which));
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel_of(which, layout));
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  *shared = (int)shared_bytes(stack_depth);
+  const size_t smem = shared_of(layout, stack_depth);
+  *shared = (int)smem;
   int blocks = 0;
-  return (int)grid_of(which, shared_bytes(stack_depth), blocks_per_sm,
-                      &blocks);
+  return (int)grid_of(which, layout, smem, blocks_per_sm, &blocks);
 }

@@ -16,6 +16,11 @@ A scene built with ``shading_normals=True`` also carries each triangle's
 corner shading normals (``shading_normals``), which only the 04 raycast
 (``render/simple.py``) reads; the path tracer never uploads them.
 
+``build_scene(leaf_size=, arity=)`` chooses the table's packing, as the
+JAX package's does: ``None`` keeps the (16, 6) table at every scene size;
+(32, 12) and (32, 24) are the other layouts the kernels are compiled for
+(``ops/bvh_native.py``). ``build_scene_instanced`` packs (16, 6) tables.
+
 ``scene_from_arrays`` is the one door between the packages: it builds the
 port's scene from plain numpy arrays (the JAX ``Scene``'s arrays, collected
 with ``np.asarray`` by the tests), so both packages can be fed the same BVH
@@ -62,6 +67,13 @@ class DeviceBVH:
     num_instances: int = 0
     inst_base: int = 0
     blas_base: int = 0
+
+    @classmethod
+    def upload(cls, bvh, device) -> "DeviceBVH":
+        """The single-level host ``WideBVH`` ``bvh`` on ``device``."""
+        return cls(table=torch.tensor(bvh.table, device=device),
+                   stack_depth=bvh.stack_depth, arity=bvh.arity,
+                   leaf_size=bvh.leaf_size)
 
     @property
     def num_rows(self) -> int:
@@ -287,14 +299,20 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda",
 def scene_arrays(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,
                  texture_images: Optional[Sequence[np.ndarray]] = None,
                  legacy8: bool = False, bvh=None,
-                 shading_normals: bool = False) -> Dict[str, np.ndarray]:
+                 shading_normals: bool = False,
+                 leaf_size: Optional[int] = None,
+                 arity: Optional[int] = None) -> Dict[str, np.ndarray]:
     """Host build: flatten, pack the BVH (and optionally the legacy table
     and the corner shading normals), pad the textures, build the probe
     tables -> the ``scene_from_arrays`` dict. ``bvh`` is the packed
-    ``WideBVH`` of these meshes where it is built already."""
+    ``WideBVH`` of these meshes where it is built already; else it is
+    packed at ``leaf_size`` and ``arity`` (``None``: the (16, 6)
+    default)."""
     tris = host_triangles(meshes)
     if bvh is None:
-        bvh = bvh_native.build(tris)
+        kw = {k: v for k, v in (("leaf_size", leaf_size), ("arity", arity))
+              if v is not None}
+        bvh = bvh_native.build(tris, **kw)
     arrays = _host_arrays(meshes, bvh, probe, texture_images)
     if shading_normals:
         arrays["shading_normals"] = shading_normal_rows(meshes)
@@ -352,13 +370,18 @@ def build_scene_instanced(instanced_scene,
 def build_scene(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,
                 texture_images: Optional[Sequence[np.ndarray]] = None,
                 device="cuda", legacy8: bool = False, demand=None,
-                shading_normals: bool = False) -> Scene:
+                shading_normals: bool = False,
+                leaf_size: Optional[int] = None,
+                arity: Optional[int] = None) -> Scene:
     """Flatten meshes, build the BVH, pack the textures (a mesh's
     ``diffuse_texture_id`` indexes ``texture_images``, or the textures of
     the demand context ``demand``), attach the probe (default: the constant
     2.5 ambient probe), upload to ``device``; ``shading_normals`` adds the
-    corner normals the 04 raycast reads."""
+    corner normals the 04 raycast reads. ``leaf_size``/``arity`` choose the
+    BVH packing (``None``: the (16, 6) table; the kernels also walk
+    (32, 12) and (32, 24))."""
     return scene_from_arrays(
         scene_arrays(meshes, probe, texture_images, legacy8,
-                     shading_normals=shading_normals), device, demand
+                     shading_normals=shading_normals, leaf_size=leaf_size,
+                     arity=arity), device, demand
     )

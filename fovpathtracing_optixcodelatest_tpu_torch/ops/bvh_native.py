@@ -3,20 +3,34 @@ JAX package's ``ops/bvh_native.py`` for single-level scenes), with its npz
 cache of packed tables; ``build(force_python=True)`` collapses in Python
 instead and bypasses the cache.
 
-Every scene, whatever its size, gets the (``ARITY``, ``LEAF_SIZE``) = (16, 6)
-table that K1 and K2 are compiled for. The JAX package's deep-scene
-packings (L12/A32 and L24/A32 tables in DFS order with treelets past 1M
-triangles) serve the TPU's windowed gathers and are not part of the port.
+The port builds the three packings its kernels are compiled for: (arity,
+leaf size) = (16, 6), the default at every scene size, and the wide
+(32, 12) and (32, 24) of the JAX package's deep scenes, which a caller
+asks for (``build(tris, leaf_size=12, arity=32)``; ``models/scene.py``
+``build_scene(leaf_size=, arity=)``). The JAX package picks the wide ones
+by scene size (L12/A32 from 1M triangles, L24/A32 from 4M); the port does
+not, and it leaves out their DFS row order and treelets, which serve the
+TPU's windowed gathers. Each table equals the JAX package's
+``build(tris, leaf_size, arity, dfs=False)`` bit for bit. As there, a
+layout the native collapse refuses (``collapse`` returns None: leaves of
+more than 15 triangles, so every L24 table) is collapsed in Python
+(``bvh8.collapse_bvh2``), on the host, which takes far longer: seconds at
+388,812 triangles where the native build takes a fraction of one, minutes
+at 10M.
 
 The cache: the native build of a 10M-triangle scene takes tens of seconds
 on the host, and the packed table is a deterministic function of the
 triangles, the packing parameters and the packing code. ``build`` keys
 scenes of at least ``BVH_CACHE_MIN_TRIS`` triangles by a SHA-1 of those
-(the code as the digest of its sources, ``packing_digest``),
-stores the packed ``WideBVH`` as one npz file, and on a hit returns it
-bit for bit from one ``np.load``. The directory is ``FOVTPU_BVH_CACHE``
-(the JAX package's variable; its keys and the port's never collide), by
-default ``build/bvh_cache/`` in the checkout; "" disables the cache.
+(the code as the digest of its sources, ``packing_digest``), stores the
+packed ``WideBVH`` as one npz file, and on a hit returns it bit for bit
+from one ``np.load``. The native builder's source, which decides the
+layouts it refuses, is in the digest, so a key names the tables of one
+collapse: a Python-collapsed table never shares a key with a native one
+(``force_python`` never reads or writes the cache).
+The directory is ``FOVTPU_BVH_CACHE`` (the JAX package's variable; its
+keys and the port's never collide), by default ``build/bvh_cache/`` in the
+checkout; "" disables the cache.
 """
 
 from __future__ import annotations
@@ -62,7 +76,7 @@ def cache_dir() -> str:
 
 def collapse(tris: np.ndarray, leaf_size: int, arity: int):
     """Native binned-SAH BVH2 + collapse -> (boxes (M, A, 6), meta (M, A, 2),
-    order_slots)."""
+    order_slots), or None where the native builder refuses the layout."""
     lib = load_library()
     tris = np.ascontiguousarray(tris, dtype=np.float32)
     boxes_p = ctypes.POINTER(ctypes.c_float)()
@@ -77,7 +91,7 @@ def collapse(tris: np.ndarray, leaf_size: int, arity: int):
         ctypes.byref(num_nodes), ctypes.byref(perm_p), ctypes.byref(num_slots),
     )
     if rc != 0:
-        raise RuntimeError(f"native BVH build failed (rc={rc})")
+        return None
     try:
         m, s = num_nodes.value, num_slots.value
         boxes = np.ctypeslib.as_array(boxes_p, shape=(m, arity, 6)).copy()
@@ -88,6 +102,14 @@ def collapse(tris: np.ndarray, leaf_size: int, arity: int):
         lib.fovtix_free(meta_p)
         lib.fovtix_free(perm_p)
     return boxes, meta, perm.astype(np.int64)
+
+
+def collapse_any(tris: np.ndarray, leaf_size: int, arity: int):
+    """``collapse``, or the pure-Python collapse (``bvh8.collapse_bvh2``)
+    where the native builder refuses the layout, as the JAX package's
+    ``build`` and ``tlas.build_instanced`` fall through."""
+    out = collapse(tris, leaf_size, arity)
+    return collapse_bvh2(tris, leaf_size, arity) if out is None else out
 
 
 @functools.lru_cache(maxsize=1)
@@ -138,12 +160,13 @@ def build(tris: np.ndarray, leaf_size: int = LEAF_SIZE,
           force_python: bool = False) -> WideBVH:
     """Packed single-level WideBVH from (T, 3, 3) float32 corners, through
     the npz cache for scenes of ``BVH_CACHE_MIN_TRIS`` triangles or more.
-    ``timings`` gets the host seconds of each step taken: ``key_s`` and
-    ``load_s`` on a cache hit, else ``collapse_s``, ``pack_s`` and, where
-    the scene is cached, ``key_s`` and ``save_s``. ``force_python`` builds
-    through the pure-Python collapse (``bvh8.collapse_bvh2``, the JAX
-    package's tree) instead of the native one, and never reads or writes
-    the cache, whose tables are native builds."""
+    The native collapse builds it where it takes the layout, the
+    pure-Python one (``bvh8.collapse_bvh2``, the JAX package's tree)
+    where it refuses, as the JAX package's ``build`` falls through. ``timings`` gets the host seconds of each step taken:
+    ``key_s`` and ``load_s`` on a cache hit, else ``collapse_s``,
+    ``pack_s`` and, where the scene is cached, ``key_s`` and ``save_s``.
+    ``force_python`` collapses in Python whatever the layout and never
+    reads or writes the cache."""
     clock = {} if timings is None else timings
     t0 = time.perf_counter()
     path = None
@@ -158,7 +181,7 @@ def build(tris: np.ndarray, leaf_size: int = LEAF_SIZE,
             _lap(clock, "load_s", t0)
             return cached
         t0 = time.perf_counter()
-    collapse_fn = collapse_bvh2 if force_python else collapse
+    collapse_fn = collapse_bvh2 if force_python else collapse_any
     boxes, meta, perm = collapse_fn(tris, leaf_size, arity)
     t0 = _lap(clock, "collapse_s", t0)
     bvh = pack_wide(boxes, meta, tris, perm, leaf_size, arity)
@@ -181,5 +204,8 @@ def build_legacy8(tris: np.ndarray, leaf_size: int = LEAF_SIZE8) -> WideBVH:
     ``bvh8.build_legacy8``, which collapses in Python (the port's
     ``bvh8.build_legacy8``): the two builders give different tables of the
     same shape."""
-    boxes, meta, perm = collapse(tris, leaf_size, 8)
+    out = collapse(tris, leaf_size, 8)
+    if out is None:
+        raise ValueError(f"the native collapse refuses leaves of {leaf_size}")
+    boxes, meta, perm = out
     return pack_wide_legacy8(boxes, meta, tris, perm, leaf_size)

@@ -35,21 +35,43 @@ NVCC_FLAGS = (
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# launches per kernel wrapper; each wrapper adds one where it launches
+# the layouts (arity, leaf size) K1, K2 and the non-culling K2 are
+# compiled for besides the default (16, 6): the JAX package's wide packings
+WIDE_LAYOUTS = ((32, 12), (32, 24))
+# the kernels compiled at every layout
+LAYOUT_KERNELS = ("closest_hit", "occluded", "occluded_nocull")
+
+
+def layout_name(kernel: str, arity: int, leaf_size: int) -> str:
+    """The name of ``kernel``'s (arity, leaf_size) instantiation, which
+    keys its launch count and its resources: the kernel's own at the
+    default (16, 6), else e.g. "closest_hit_a32_l12"."""
+    if (arity, leaf_size) == (16, 6):
+        return kernel
+    return f"{kernel}_a{arity}_l{leaf_size}"
+
+
+# launches per kernel wrapper; each wrapper adds one where it launches.
+# "closest_hit", "occluded" and "occluded_nocull" count every layout's
+# launches; a wide layout's are also counted under its ``layout_name``.
 LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0,
             "closest_hit_instanced": 0, "occluded_instanced": 0,
-            "occluded_nocull": 0}
+            "occluded_nocull": 0,
+            **{layout_name(k, *lay): 0 for lay in WIDE_LAYOUTS
+               for k in LAYOUT_KERNELS}}
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points: the launches take (table, origin, direction, active, n,
 # tmin, tmax, stack_depth, ...), end in the stream and return
-# cudaGetLastError; the *_info queries return a cudaError_t code too
+# cudaGetLastError; the *_info queries return a cudaError_t code too. The
+# single-level K1/K2 take the table's (arity, leaf_size) before the stream.
 SIGNATURES = {
     "fov_closest_hit": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P, _P, _P, _P,
-                        _P, _P),
-    "fov_occluded": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P),
+                        _P, _I, _I, _P),
+    "fov_occluded": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _I, _I, _P),
     # K2 with back faces occluding: fov_occluded's arguments
-    "fov_occluded_nocull": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P),
+    "fov_occluded_nocull": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _I, _I,
+                            _P),
     # the instanced variants add (inst_base, blas_base[, inst_out])
     "fov_closest_hit_instanced": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P,
                                   _P, _P, _P, _P, _I, _I, _P, _P),
@@ -58,7 +80,7 @@ SIGNATURES = {
     "fov_occluded_packets": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P,
                              _P),
     "fov_packet_spill": (_I, _I, _P),
-    "fov_traverse_info": (_I, _I, _P, _P, _P, _P),
+    "fov_traverse_info": (_I, _I, _I, _I, _P, _P, _P, _P),
     "fov_packet_info": (_P, _P, _P, _P),
 }
 
@@ -161,19 +183,18 @@ def resources(stack_depth: int) -> dict:
     frames), resident blocks per SM and dynamic shared memory per block of
     each kernel, as the CUDA runtime reports them for the loaded build; K1/K2
     and their instanced and non-culling variants at ``stack_depth`` (K3's
-    shared memory does not depend on it)."""
+    shared memory does not depend on it), the wide layouts' K1/K2 and
+    non-culling K2 under their ``layout_name``."""
     out = {}
-    queries = (
-        ("closest_hit", "traverse", "fov_traverse_info", (0, stack_depth)),
-        ("occluded", "traverse", "fov_traverse_info", (1, stack_depth)),
-        ("occluded_packets", "packet_traverse", "fov_packet_info", ()),
-        ("closest_hit_instanced", "traverse", "fov_traverse_info",
-         (2, stack_depth)),
-        ("occluded_instanced", "traverse", "fov_traverse_info",
-         (3, stack_depth)),
-        ("occluded_nocull", "traverse", "fov_traverse_info",
-         (4, stack_depth)),
-    )
+    which = {"closest_hit": 0, "occluded": 1, "closest_hit_instanced": 2,
+             "occluded_instanced": 3, "occluded_nocull": 4}
+    queries = [(k, "traverse", "fov_traverse_info", (w, 16, 6, stack_depth))
+               for k, w in which.items()]
+    queries.append(("occluded_packets", "packet_traverse", "fov_packet_info",
+                    ()))
+    queries += [(layout_name(k, *lay), "traverse", "fov_traverse_info",
+                 (which[k], *lay, stack_depth))
+                for lay in WIDE_LAYOUTS for k in LAYOUT_KERNELS]
     keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes")
     for kernel, lib, fn, args in queries:
         vals = [ctypes.c_int(0) for _ in keys]

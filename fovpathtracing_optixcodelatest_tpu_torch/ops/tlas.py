@@ -44,7 +44,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
     pack_boxes_into,
     pack_region_into,
 )
-from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh_native import collapse
+from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh_native import collapse_any
 
 
 def build_instanced(unique_tris: Sequence[np.ndarray],
@@ -60,7 +60,7 @@ def build_instanced(unique_tris: Sequence[np.ndarray],
     assert n_inst >= 1 and len(unique_tris) >= 1
     assert len(transforms) == n_inst
     tris32 = [np.asarray(t, np.float32) for t in unique_tris]
-    blas = [collapse(t, leaf_size, arity) for t in tris32]
+    blas = [collapse_any(t, leaf_size, arity) for t in tris32]
     obj_lo = [t.reshape(-1, 3).min(0) for t in tris32]
     obj_hi = [t.reshape(-1, 3).max(0) for t in tris32]
 
@@ -85,7 +85,7 @@ def build_instanced(unique_tris: Sequence[np.ndarray],
     fake = np.stack([world_boxes[:, 0:3], world_boxes[:, 3:6],
                      0.5 * (world_boxes[:, 0:3] + world_boxes[:, 3:6])],
                     axis=1).astype(np.float32)
-    t_boxes, t_meta, t_order = collapse(fake, 1, arity)
+    t_boxes, t_meta, t_order = collapse_any(fake, 1, arity)
     mt = t_boxes.shape[0]
 
     width = max(4 * arity, 10 * leaf_size, 13)

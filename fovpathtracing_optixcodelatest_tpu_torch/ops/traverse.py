@@ -4,13 +4,15 @@ the JAX package's ``ops/traverse8.py`` ``closest_hit``/``occluded``).
 ``closest_hit`` and ``occluded`` are the kernel wrappers: on a CUDA tensor
 they launch the hand-written kernels of ``csrc/traverse.cu`` (K1, K2) and
 raise if the launch fails; on a CPU tensor they run ``closest_hit_plain`` /
-``occluded_plain``. The kernels are compiled for the one packed layout the
-port builds, ``bvh8.ARITY`` x ``bvh8.LEAF_SIZE`` (16, 6): on a CUDA tensor
-any other (arity, leaf_size), or a table that is not 16-byte aligned, raises
-``ValueError``. The plain versions take any layout: they walk every ray's
-stack as one (N, stack_depth) int64 tensor with masked gathers and repeat
-the kernels' arithmetic and visit order operation for operation, so the two
-agree bit for bit.
+``occluded_plain``. The kernels are compiled for the packed layouts the
+port builds (``KERNEL_LAYOUTS``): (arity, leaf_size) = (16, 6), the
+default, and the JAX package's wide (32, 12) and (32, 24); a wide launch
+also counts under ``kernel_build.layout_name``. On a CUDA tensor any other
+(arity, leaf_size), rows of another width, or a table that is not 16-byte
+aligned raises ``ValueError``. The plain versions take any layout: they
+walk every ray's stack as one (N, stack_depth) int64 tensor with masked
+gathers and repeat the kernels' arithmetic and visit order operation for
+operation, so the two agree bit for bit.
 
 Visit order is the reference's: a closest-hit stack entry is the packed key
 ``(mono(tn) & himask) | code``; a node's hit children are pushed sorted by
@@ -25,13 +27,15 @@ instance ``cur``, and pushes the BLAS root with the instance's key bits;
 popping a TLAS node row (``row < blas_base``) moves the lane back to world
 space; BLAS nodes and leaves are tested in object space. ``closest_hit``
 then also returns ``inst``, the hit's instance (-1 on a miss). The kernels
-have an instanced variant each (compiled for (16, 6) only), chosen by the
-wrappers from ``num_instances``; they test the BLAS root in the instance
-entry's own step, which visits the same rows in the same order.
+have an instanced variant each (compiled for (16, 6) only: any other
+layout raises on a CUDA tensor), chosen by the wrappers from
+``num_instances``; they test the BLAS root in the instance entry's own
+step, which visits the same rows in the same order.
 
 ``occluded(..., cull_backface=False)`` lets back faces occlude too (the 04
 raycast's shadow ray, ``render/simple.py``): on a CUDA tensor it launches
-K2's non-culling instantiation, compiled for single-level (16, 6) tables.
+K2's non-culling instantiation, compiled for single-level tables of each
+layout.
 """
 
 from __future__ import annotations
@@ -47,7 +51,13 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
 )
 
 _MASK = 0xFFFFFFFF
-MAX_STACK = 128  # deepest stack the wrappers take
+# deepest stack the wrappers take: the wide tables need up to 164 entries
+# (A32/L12 at 10M triangles); csrc/traverse.cu kMaxStack
+MAX_STACK = 256
+# the (arity, leaf_size) layouts K1, K2 and the non-culling K2 are compiled
+# for, with their rows' widths (bvh8: max(4 arity, 10 leaf_size) columns)
+KERNEL_LAYOUTS = {lay: max(4 * lay[0], 10 * lay[1])
+                  for lay in ((ARITY, LEAF_SIZE), *kernel_build.WIDE_LAYOUTS)}
 # what the plain versions' ``stats`` count: rows fetched, the distinct rows
 # among them (each call's, summed over calls: what the calls must read from
 # memory at least once), and the tests done on them (non-empty children
@@ -244,22 +254,38 @@ def _check(table, o, d, active, stack_depth, num_instances=0, inst_base=0,
 
 
 def _kernel_layout(table, n: int, arity: int, leaf_size: int,
-                   want=(ARITY, LEAF_SIZE), width: int = 4 * ARITY) -> None:
-    """Refuse what a compiled kernel does not take: another (arity,
-    leaf_size) layout than ``want`` (K1/K2: the packed (ARITY, LEAF_SIZE)),
-    rows not ``width`` columns wide, a table that is not 16-byte aligned
+                   want=None, width: int | None = None) -> None:
+    """Refuse what a compiled kernel does not take: an (arity, leaf_size)
+    layout it is not compiled for (K1/K2: ``KERNEL_LAYOUTS``; a kernel
+    compiled for one layout passes it as ``want``, its rows' width as
+    ``width``), rows of another width, a table that is not 16-byte aligned
     (rows are read as uint4), or more rays than an int32 counter can hand
     out."""
-    if (arity, leaf_size) != want:
+    layouts = KERNEL_LAYOUTS if want is None else {want: width}
+    if (arity, leaf_size) not in layouts:
         raise ValueError(
-            f"the CUDA kernel takes only the {want} layout, not "
+            f"the CUDA kernel takes the layouts {sorted(layouts)}, not "
             f"({arity}, {leaf_size})")
+    width = layouts[(arity, leaf_size)]
     if table.shape[1] != width:
         raise ValueError(f"the kernel's rows need {width} columns")
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
     if n >= 2**31 - 2**20:
         raise ValueError("too many rays for one launch")
+
+
+# the one layout and row width the instanced kernels are compiled for
+_SINGLE_LAYOUT = ((ARITY, LEAF_SIZE), 4 * ARITY)
+
+
+def _count(name: str, arity: int, leaf_size: int) -> None:
+    """Count a launch of kernel ``name``, and under its layout's name where
+    the layout is a wide one."""
+    kernel_build.LAUNCHES[name] += 1
+    if (arity, leaf_size) != (ARITY, LEAF_SIZE):
+        kernel_build.LAUNCHES[
+            kernel_build.layout_name(name, arity, leaf_size)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -378,9 +404,10 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
                 blas_base: int = 0):
     """Closest hit of each active ray: dict(t, tri_id, u, v, hit) of (N,)
     tensors (miss: t = inf, tri_id = -1, u = v = 0), and ``inst`` (-1 on a
-    miss) on a two-level table. CUDA tensors launch K1, or its instanced
-    variant where ``num_instances > 0`` (the (16, 6) layout only); CPU
-    tensors run ``closest_hit_plain``."""
+    miss) on a two-level table. CUDA tensors launch K1 at the table's
+    layout (``KERNEL_LAYOUTS``), or its instanced variant where
+    ``num_instances > 0`` (the (16, 6) layout only); CPU tensors run
+    ``closest_hit_plain``."""
     inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
                "blas_base": blas_base}
     _check(table, o, d, active, stack_depth, **inst_kw)
@@ -388,7 +415,8 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
         return closest_hit_plain(table, o, d, active, tmin, tmax,
                                  stack_depth, arity, leaf_size, **inst_kw)
     n, dev = o.shape[0], o.device
-    _kernel_layout(table, n, arity, leaf_size)
+    _kernel_layout(table, n, arity, leaf_size,
+                   *(_SINGLE_LAYOUT if num_instances else ()))
     cb = codebits(table.shape[0])
     if cb > 26:
         raise ValueError("table too large for packed tn|code stack entries")
@@ -412,10 +440,11 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
                 kernel_build.stream())
             name = "closest_hit_instanced"
         else:
-            rc = lib.fov_closest_hit(*args, kernel_build.stream())
+            rc = lib.fov_closest_hit(*args, arity, leaf_size,
+                                     kernel_build.stream())
             name = "closest_hit"
         kernel_build.check(rc, name)
-        kernel_build.LAUNCHES[name] += 1
+        _count(name, arity, leaf_size)
     out["hit"] = tri >= 0
     return out
 
@@ -500,11 +529,11 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
              num_instances: int = 0, inst_base: int = 0, blas_base: int = 0,
              cull_backface: bool = True):
     """Any-hit occlusion with first-hit exit -> (N,) bool; back faces do not
-    occlude unless ``cull_backface`` is False. CUDA tensors launch K2 (the
-    (16, 6) layout only, walking only the active lanes): its instanced
-    variant where ``num_instances > 0``, its non-culling instantiation
-    where ``cull_backface`` is False (single-level tables only); CPU
-    tensors run ``occluded_plain``."""
+    occlude unless ``cull_backface`` is False. CUDA tensors launch K2 at
+    the table's layout (``KERNEL_LAYOUTS``), walking only the active lanes:
+    its instanced variant where ``num_instances > 0`` (the (16, 6) layout
+    only), its non-culling instantiation where ``cull_backface`` is False
+    (single-level tables only); CPU tensors run ``occluded_plain``."""
     inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
                "blas_base": blas_base}
     _check(table, o, d, active, stack_depth, **inst_kw)
@@ -513,7 +542,8 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
                               arity, leaf_size, cull_backface=cull_backface,
                               **inst_kw)
     n, dev = o.shape[0], o.device
-    _kernel_layout(table, n, arity, leaf_size)
+    _kernel_layout(table, n, arity, leaf_size,
+                   *(_SINGLE_LAYOUT if num_instances else ()))
     if num_instances and not cull_backface:
         raise ValueError("the non-culling K2 takes single-level tables only")
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -528,11 +558,12 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
                                         kernel_build.stream())
         name = "occluded_instanced"
     elif not cull_backface:
-        rc = lib.fov_occluded_nocull(*args, kernel_build.stream())
+        rc = lib.fov_occluded_nocull(*args, arity, leaf_size,
+                                     kernel_build.stream())
         name = "occluded_nocull"
     else:
-        rc = lib.fov_occluded(*args, kernel_build.stream())
+        rc = lib.fov_occluded(*args, arity, leaf_size, kernel_build.stream())
         name = "occluded"
     kernel_build.check(rc, name)
-    kernel_build.LAUNCHES[name] += 1
+    _count(name, arity, leaf_size)
     return occ

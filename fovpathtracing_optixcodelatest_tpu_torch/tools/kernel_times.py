@@ -10,10 +10,13 @@ for the instance field (``instance_field``: 1,000 instances of one
 320-triangle sphere) on its two-level table: the instanced K1 on the
 frame's primary lanes, the instanced K2 on bounce 0's shadow lanes, and
 the single-level K1 and K2 on the flattened twin's table with the same
-rays. ``chip_smoke.py`` reports these times in its kernels line.
+rays. ``layout_tables`` and ``table_calls`` compare packings: one
+scene's tables at several (arity, leaf_size) layouts, each walked by K1,
+K2 and the non-culling K2 with the same rays (``chip_smoke.py`` phase g).
+``chip_smoke.py`` reports these times in its kernels line.
 
     python3 fovpathtracing_optixcodelatest_tpu_torch/tools/kernel_times.py \\
-        --tree DIR [--field] [--out times.json]
+        --tree DIR [--field | --layouts N] [--out times.json]
 
 prints the same times for the port of another checkout ``DIR``, through
 this file's timing code: it calls only the kernel wrappers' public
@@ -26,7 +29,12 @@ and K2 answer differently. ``--field`` times the field's kernels instead,
 counts the lanes where that tree's instanced K1 and K2 differ from their
 plain versions (every output bit for bit), and reports the instanced
 kernels' registers, local memory, blocks per SM and shared memory at the
-field's stack depth with the tree's ``ptxas`` lines. To
+field's stack depth with the tree's ``ptxas`` lines. ``--layouts N``
+times ``box_city_fast(N)``'s tables at every layout the kernels are
+compiled for (``traverse.KERNEL_LAYOUTS``) on the primary and bounce-0
+shadow lanes of that scene's 960x540 frame, with each table's rows, stack
+depth, host build seconds and resources (the (32, 24) table is collapsed
+in Python: about 12 s at N = 180). To
 compare the parent's kernels with the change's on one card, unpack ``git
 archive <parent>`` into a git-ignored directory and run, in one chip call,
 each tree's ``chip_smoke.py`` in the order parent, change, change, parent,
@@ -297,6 +305,48 @@ def kernel_calls(rays: dict) -> dict:
     }
 
 
+def layout_tables(tris, layouts) -> dict:
+    """{(arity, leaf_size): (WideBVH, host build seconds)} of the triangles
+    ``tris`` packed at each of ``layouts``."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native
+
+    out = {}
+    for arity, leaf in layouts:
+        t0 = time.perf_counter()
+        b = bvh_native.build(tris, leaf_size=leaf, arity=arity)
+        out[(arity, leaf)] = (b, time.perf_counter() - t0)
+    return out
+
+
+def table_calls(bvhs, config, primary, shadow) -> dict:
+    """One zero-argument call per table and kernel, every table walked by
+    the same rays: K1 on the ``primary`` lanes (origin, direction,
+    active), K2 and the non-culling K2 on the ``shadow`` lanes (origin,
+    direction, query). ``bvhs`` are ``DeviceBVH``s of distinct layouts;
+    each call is named as its instantiation (``kernel_build.layout_name``:
+    "closest_hit", "occluded_a32_l12", ...)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
+
+    calls = {}
+    for b in bvhs:
+        kargs = (config.tmin, config.tmax, *b.walk_args)
+        name = lambda k, b=b: kernel_build.layout_name(  # noqa: E731
+            k, b.arity, b.leaf_size)
+        calls[name("closest_hit")] = (
+            lambda b=b, kargs=kargs: traverse.closest_hit(
+                b.table, *primary, *kargs))
+        calls[name("occluded")] = (
+            lambda b=b, kargs=kargs: traverse.occluded(
+                b.table, *shadow, *kargs))
+        calls[name("occluded_nocull")] = (
+            lambda b=b, kargs=kargs: traverse.occluded(
+                b.table, *shadow, *kargs, cull_backface=False))
+    return calls
+
+
 def time_kernels(calls: dict) -> dict:
     """{shape: mean ms} of every ``kernel_calls`` entry, in its order."""
     return {name: events_ms(fn) for name, fn in calls.items()}
@@ -308,6 +358,12 @@ def main() -> int:
                     help="root of the checkout whose port is timed")
     ap.add_argument("--field", action="store_true",
                     help="time the instance field's kernels instead")
+    ap.add_argument("--layouts", type=int, default=None, metavar="N",
+                    help="time box_city_fast(N)'s tables at every compiled "
+                    "layout instead")
+    ap.add_argument("--layout", type=int, nargs=2, action="append",
+                    metavar=("ARITY", "LEAF"),
+                    help="with --layouts: only these layouts (repeat)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -325,6 +381,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     if args.field:
         result = dict(field_times(), tree=tree, device=smi, reps=REPS)
+    elif args.layouts is not None:
+        result = dict(layout_times(args.layouts, args.layout), tree=tree,
+                      device=smi, reps=REPS)
     else:
         result = dict(bench_times(), tree=tree, device=smi, reps=REPS)
     if args.out:
@@ -359,6 +418,64 @@ def field_times() -> dict:
             "resources": {k: res[k] for k in ("closest_hit_instanced",
                                               "occluded_instanced")},
             "ptxas": ptxas}
+
+
+def layout_times(city_n: int, layouts=None) -> dict:
+    """``--layouts N``: K1, K2 and the non-culling K2 on ``box_city_fast(N)``
+    at each of ``layouts`` (default: every compiled layout) with the same
+    rays (the frame of the scene's (16, 6) table), and each table's rows,
+    stack depth, host build seconds and kernel resources at its depth."""
+    from fovpathtracing_optixcodelatest_tpu_torch.config import (
+        FoveationSchedule,
+        RenderConfig,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        host_triangles,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        DeviceBVH,
+        scene_arrays,
+        scene_from_arrays,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
+
+    layouts = [tuple(x) for x in layouts or traverse.KERNEL_LAYOUTS]
+    meshes, cam = scenes.box_city_fast(n=city_n, seed=0)
+    tables = layout_tables(host_triangles(meshes),
+                           {(16, 6), *layouts})
+    scene = scene_from_arrays(scene_arrays(
+        meshes, gradient_sky_probe(), bvh=tables[(16, 6)][0]), "cuda")
+    tables = {k: tables[k] for k in layouts}
+    config = RenderConfig(width=960, height=540)
+    rays = frame_rays(scene, dataclasses.replace(cam, aspect=960 / 540),
+                      config, FoveationSchedule.reference_32_16_8())
+    o, d, act, _ = rays["primary"]
+    bvhs = {k: DeviceBVH.upload(b, "cuda") for k, (b, _) in tables.items()}
+    calls = table_calls(bvhs.values(), config, (o, d, act), rays["shadow"])
+    times = time_kernels(calls)
+    info = []
+    for (arity, leaf), (b, build_s) in tables.items():
+        res = kernel_build.resources(b.stack_depth)
+        b = bvhs[(arity, leaf)]
+        names = [kernel_build.layout_name(k, arity, leaf)
+                 for k in kernel_build.LAYOUT_KERNELS]
+        info.append({
+            "layout": [arity, leaf],
+            "rows": b.num_rows, "width": b.table.shape[1],
+            "stack_depth": b.stack_depth, "build_s": build_s,
+            "resources": {k: res[k] for k in names}})
+    return {"city_n": city_n, "triangles": scene.num_triangles,
+            "lanes": {"primary": o.shape[0],
+                      "shadow": rays["shadow"][0].shape[0],
+                      "shadow_queried": int(rays["shadow"][2].sum())},
+            "ms": times, "tables": info}
 
 
 def bench_times() -> dict:

@@ -68,6 +68,11 @@ def test_ptxas_spills_per_kernel():
     assert chip_smoke._ptxas_spills(PTXAS_LOG) == {"occluded": 0,
                                                   "closest_hit": 16}
     assert chip_smoke._ptxas_spills("") == {}
+    # a wide layout's instantiation is told apart by its template arguments
+    wide = PTXAS_LOG.replace("ILi16ELi6EE", "ILi32ELi12EE")
+    assert chip_smoke._ptxas_spills(PTXAS_LOG + wide) == {
+        "occluded": 0, "closest_hit": 16, "occluded_a32_l12": 0,
+        "closest_hit_a32_l12": 16}
 
 
 def test_k1_agreement_counts_ulps_on_hits():
@@ -388,25 +393,56 @@ def test_rehearse_spectral_phases(no_card):
 
 def test_rehearse_deep_phase(no_card, monkeypatch):
     # phase g on box_city_fast(6) at 120x68 (444 triangles), the npz cache
-    # forced on: a cold build that writes it, a warm start that reads it
+    # forced on: a cold build that writes it, a warm start that reads it;
+    # the (32, 12) table beside the (16, 6) one, each table's frames
+    # profiled through a stand-in for torch.profiler
+    _rehearse_deep_phase(monkeypatch, (32, 12))
+
+
+def test_rehearse_deep_phase_python_collapsed(no_card, monkeypatch):
+    # the same with the (32, 24) table, which the Python collapse builds
+    _rehearse_deep_phase(monkeypatch, (32, 24))
+
+
+def _rehearse_deep_phase(monkeypatch, wide):
+    import torch.profiler
+
     from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native
 
     monkeypatch.setattr(bvh_native, "BVH_CACHE_MIN_TRIS", 1)
+    monkeypatch.setattr(torch.profiler, "profile",
+                        _fake_profiler(_path_profile_events(1)))
     sched = FoveationSchedule.reference_32_16_8().scaled(8)
-    g = chip_smoke.deep_phase(6, 1, sched, 120, 68, device="cpu", subset=500)
+    g = chip_smoke.deep_phase(6, 1, sched, 120, 68, device="cpu", subset=500,
+                              wide=wide)
     assert g["triangles"] == 444 and g["cache_files"] == 1
     assert set(g["cold"]) == {"key_s", "collapse_s", "pack_s", "save_s"}
     assert set(g["warm"]) == {"key_s", "load_s"}
     assert g["finite"] and g["mean_radiance"] > 0
     assert g["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
     assert g["table_bytes"] == g["rows"] * 64 * 4
-    for k in ("k1", "k2"):
-        assert g[k]["lanes"] == 500 and g[k]["max_abs_err"] == 0.0
-        assert g[k]["ms"] is None and g[k]["bound_ms"] > 0
-    assert g["k1"]["hit_equal"] and g["k1"]["ulp"] == 0
-    assert 0 < g["k2"]["occluded"] < 500
+    w = g["wide"]
+    assert tuple(w["layout"]) == wide and w["finite"]
+    assert w["table_bytes"] == w["rows"] * max(4 * wide[0], 10 * wide[1]) * 4
+    assert set(w["build"]) == {"key_s", "collapse_s", "pack_s", "save_s"}
+    for rec in (g, w):
+        for k in ("k1", "k2", "k2_nocull"):
+            assert rec[k]["lanes"] == 500 and rec[k]["max_abs_err"] == 0.0
+            assert rec[k]["ms"] is None and rec[k]["bound_ms"] > 0
+        assert rec["k1"]["hit_equal"] and rec["k1"]["ulp"] == 0
+        # K2 below all 500 subset lanes, so that not every shadow ray is
+        # occluded; culling occludes no more than the non-culling K2
+        assert 0 < rec["k2"]["occluded"] < 500
+        assert rec["k2"]["occluded"] <= rec["k2_nocull"]["occluded"]
+        assert rec["profile"]["device_busy_ms"] > 0
+    # one scene in two tables: the same hits, t and frame
+    assert w["hit_equal"] and w["t_equal"] and w["frame_share"] >= 0.99
+    assert w["ties"]["ties"] == w["ties"]["lanes"]
+    # fewer, wider rows: fewer rows a lane
+    assert w["rows"] < g["rows"]
+    assert sum(w["k1"]["rows_per_lane"]) < sum(g["k1"]["rows_per_lane"])
     assert "frame state" in g["memory_report"]
-    chip_smoke._deep_lines("deep", dict(g, resources=None))
+    chip_smoke._deep_lines("deep", g)
 
 
 def test_rehearse_oracle_phase_and_nocull_check(no_card):
@@ -420,6 +456,11 @@ def test_rehearse_oracle_phase_and_nocull_check(no_card):
     rs = orc["raycast_shadow"]
     # back faces occlude the raycast's shadow rays only without culling
     assert rs["mismatches"] == 0 and rs["occluded"] > rs["occluded_culling"]
+    # the raycast from the wide tables (no kernel runs on the CPU)
+    assert orc["raycast_wide"] == {
+        kernel_build.layout_name("occluded_nocull", *lay): {
+            "launches": 0, "share": 1.0}
+        for lay in kernel_build.WIDE_LAYOUTS}
 
     sched = FoveationSchedule.reference_32_16_8().scaled(10)
     rays = kernel_times.bench_rays("cpu", city_n=4, width=96, height=54,

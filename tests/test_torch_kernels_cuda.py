@@ -28,14 +28,23 @@ also held to the plain versions on a table whose instances enter their
 BLAS at a leaf row (``leaf_root``), where they must answer as on the same
 table entered at its root node.
 
-The kernels' resources as the CUDA runtime reports them: no kernel keeps
-local memory (no spill), and the single-level K1, K2 and non-culling K2
+The kernels' resources as the CUDA runtime reports them: no (16, 6)
+kernel keeps local memory (no spill), the wide ones only their
+``MAX_STACK``-entry stack, and the single-level K1, K2 and non-culling K2
 keep their registers and resident blocks.
 
 K2's non-culling instantiation (``occluded(..., cull_backface=False)``, the
 04 raycast's shadow ray) is held to its plain version at the same sparse
 masks, ragged lane counts and small stacks; it must find the back faces
 the culling K2 skips, and refuse two-level tables and other layouts.
+
+K1, K2 and the non-culling K2 at the wide layouts (32, 12) and (32, 24)
+(``build_scene(leaf_size=, arity=)``) are held to their plain versions the
+same way, at sparse masks, ragged lane counts and overflowing stacks, each
+launch counted under its layout too; with the full stack they answer as
+the (16, 6) table of the same triangles (hit and t equal). Layouts that
+are not compiled, and rows of another compiled layout's width, raise;
+the instanced wrappers refuse the wide layouts.
 
 The two-rank frames of ``parallel/`` on the card (mesh [cuda:0, cuda:0]:
 the sample slicing and the cross-rank assembly really run), sample-split
@@ -494,7 +503,7 @@ def test_instanced_occlusion_culls_by_object_space_winding(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", [(8, 4), (16, 4)])
+@pytest.mark.parametrize("layout", [(8, 4), (16, 4), (32, 12), (32, 24)])
 def test_instanced_kernels_refuse_other_layouts(grid, layout):
     o, d = _grid_rays(64, 0, grid.device)
     act = torch.ones(64, dtype=torch.bool, device=grid.device)
@@ -539,10 +548,24 @@ def test_instanced_kernels_on_a_leaf_root_blas(cuda_device, share):
 
 @pytest.mark.cuda
 def test_kernel_resources(cuda_device):
-    # at the bench scene's stack depth (50): no kernel keeps local memory,
-    # and the single-level kernels' registers and blocks per SM stay
+    # at the bench scene's stack depth (50): no (16, 6) kernel keeps local
+    # memory, and the single-level kernels' registers and blocks per SM
+    # stay; the wide layouts' kernels keep only their stack there
     res = kernel_build.resources(50)
-    assert all(r["local_bytes"] == 0 for r in res.values()), res
+    wide = [kernel_build.layout_name(k, *lay)
+            for lay in kernel_build.WIDE_LAYOUTS
+            for k in kernel_build.LAYOUT_KERNELS]
+    assert all(r["local_bytes"] == 0 for k, r in res.items()
+               if k not in wide), res
+    # the wide ones: K1, K2 and the non-culling K2 of each layout keep the
+    # MAX_STACK-entry stack in local memory (K2 16 bytes more, no spill)
+    for lay in kernel_build.WIDE_LAYOUTS:
+        names = [kernel_build.layout_name(k, *lay)
+                 for k in kernel_build.LAYOUT_KERNELS]
+        assert [res[k]["local_bytes"] - 4 * traverse.MAX_STACK
+                for k in names] == [0, 16, 16], res
+        assert [res[k]["registers"] for k in names] == [80, 96, 96]
+        assert [res[k]["blocks_per_sm"] for k in names] == [6, 5, 5]
     single = ("closest_hit", "occluded", "occluded_nocull")
     assert [res[k]["registers"] for k in single] == [69, 96, 96]
     assert [res[k]["blocks_per_sm"] for k in single] == [7, 5, 5]
@@ -606,6 +629,7 @@ def test_nocull_k2_keeps_the_overflow_rule(city, depth):
 
 @pytest.mark.cuda
 def test_nocull_k2_refuses_two_level_tables_and_other_layouts(city, grid):
+    # (the wide layouts: test_wide_kernels_refuse_layouts_not_compiled)
     o, d, act = _rays(64, 0, city.device)
     b = city.bvh
     with pytest.raises(ValueError, match="layout"):
@@ -795,3 +819,110 @@ def test_argmin_and_probe_sample_cdf_on_the_card(cuda_device):
     assert torch.equal(got[1].cpu(), cpu[1])
     assert torch.allclose(got[0].cpu(), cpu[0], rtol=0, atol=1e-6)
     assert torch.allclose(got[2].cpu(), cpu[2], rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K1, K2 and the non-culling K2 at the wide layouts, (32, 12) and (32, 24):
+# the JAX package's deep-scene packings
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def wide_cities():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    meshes = scenes.box_city(n=8, seed=0)[0]
+    return {lay: build_scene(meshes, device="cuda", arity=lay[0],
+                             leaf_size=lay[1])
+            for lay in traverse.KERNEL_LAYOUTS}
+
+
+def _wide_against_plain(scene, o, d, act, depth):
+    """Launch K1, K2 and the non-culling K2 once each on a wide table, count
+    them under their layout, and hold them to the plain versions; returns
+    (K1, K2, non-culling K2 answers)."""
+    b = scene.bvh
+    args = (b.table, o, d, act, TMIN, TMAX, depth, b.arity, b.leaf_size)
+    kernel_build.reset_launches()
+    k = traverse.closest_hit(*args)
+    occ = traverse.occluded(*args)
+    occ_n = traverse.occluded(*args, cull_backface=False)
+    torch.cuda.synchronize()
+    launched = int(o.shape[0] > 0)
+    lay = (b.arity, b.leaf_size)
+    assert kernel_build.LAUNCHES == _launched(
+        closest_hit=launched, occluded=launched, occluded_nocull=launched,
+        **{kernel_build.layout_name(n, *lay): launched
+           for n in kernel_build.LAYOUT_KERNELS})
+    p = traverse.closest_hit_plain(*args)
+    for c in ("t", "u", "v", "tri_id", "hit"):
+        assert torch.equal(k[c], p[c]), c
+    assert torch.equal(occ, traverse.occluded_plain(*args))
+    assert torch.equal(occ_n, traverse.occluded_plain(*args,
+                                                      cull_backface=False))
+    assert not (occ | occ_n)[~act].any() and not k["hit"][~act].any()
+    return k, occ, occ_n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.35, 1.0])
+def test_wide_kernels_match_plain_at_active_share(wide_cities, layout,
+                                                  share):
+    scene = wide_cities[layout]
+    n = 70_001
+    o, d, _ = _rays(n, 7, scene.device)
+    act = torch.tensor(np.random.default_rng(11).random(n) < share,
+                       device=scene.device)
+    k, occ, occ_n = _wide_against_plain(scene, o, d, act,
+                                        scene.bvh.stack_depth)
+    assert not (occ & ~occ_n).any()
+    if share > 0:
+        assert k["hit"].any() and occ.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 70_001])
+def test_wide_kernels_match_plain_at_ragged_n(wide_cities, layout, n):
+    scene = wide_cities[layout]
+    o, d, act = _rays(n, 3, scene.device)
+    k, occ, _ = _wide_against_plain(scene, o, d, act, scene.bvh.stack_depth)
+    assert k["t"].shape == occ.shape == (n,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_wide_kernels_keep_the_overflow_rule(wide_cities, layout, depth):
+    scene = wide_cities[layout]
+    o, d, act = _rays(20_000, 5, scene.device)
+    k, occ, _ = _wide_against_plain(scene, o, d, act, depth)
+    full = _wide_against_plain(scene, o, d, act, scene.bvh.stack_depth)
+    assert not torch.equal(k["tri_id"], full[0]["tri_id"])
+    assert not torch.equal(occ, full[1])
+    # the full stack answers as the (16, 6) table of the same triangles
+    b = wide_cities[(16, 6)].bvh
+    nk = traverse.closest_hit(b.table, o, d, act, TMIN, TMAX, *b.walk_args)
+    assert torch.equal(full[0]["hit"], nk["hit"])
+    assert torch.equal(full[0]["t"], nk["t"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 8), (32, 6), (64, 12), (16, 12),
+                                    (16, 24)])
+def test_wide_kernels_refuse_layouts_not_compiled(wide_cities, layout):
+    scene = wide_cities[(32, 12)]
+    o, d, act = _rays(64, 0, scene.device)
+    b = scene.bvh
+    for kw in ({}, {"cull_backface": False}):
+        with pytest.raises(ValueError, match="layout"):
+            traverse.occluded(b.table, o, d, act, TMIN, TMAX, b.stack_depth,
+                              *layout, **kw)
+    with pytest.raises(ValueError, match="layout"):
+        traverse.closest_hit(b.table, o, d, act, TMIN, TMAX, b.stack_depth,
+                             *layout)
+    # a compiled layout with rows of another layout's width
+    with pytest.raises(ValueError, match="columns"):
+        traverse.closest_hit(b.table, o, d, act, TMIN, TMAX, b.stack_depth,
+                             32, 24)
