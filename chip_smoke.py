@@ -67,10 +67,12 @@ g. deep scenes: ``box_city_fast`` n=180 (388,812 triangles, 4 timed
    ms, idle share), K1, K2 and the non-culling K2 at the table's stack
    depth against their plain versions on 65,536 lanes of the frame's
    primary and bounce-0 shadow rays (exact), timed there and on all the
-   frame's lanes, the rows a lane the plain walks fetch, the resources at
-   that depth; the two tables agree (K1's hit and t equal, tri_id apart
-   only at exact ties that brute force confirms, the frames on 99% of the
-   pixels within 1 LSB);
+   frame's lanes beside the (16, 6) table's kernels on the same rays, with
+   bounds for both (the frame's from the subset's work a lane), the rows a
+   lane the plain walks fetch, each kernel's design (lanes a ray, how rows
+   are read, the stack's home) and resources at that depth; the two tables
+   agree (K1's hit and t equal, tri_id apart only at exact ties that brute
+   force confirms, the frames on 99% of the pixels within 1 LSB);
 h. the brute-force oracle and the golden images on the card: cornell
    64x48 ``uniform(4)`` through K1/K2 against ``traversal="oracle"`` (SSIM
    >= 0.98, mean abs < 5e-3; a stack cut to depth 1 must fall below SSIM
@@ -81,7 +83,9 @@ h. the brute-force oracle and the golden images on the card: cornell
    assertions, every pixel within 1 LSB of the CPU's, and that kernel exact
    against its plain version on the raycast's and on the bench's bounce-0
    shadow rays; the raycast from the scene's (32, 12) and (32, 24) tables
-   launches those layouts' non-culling K2 and gives the same frame;
+   launches those layouts' non-culling K2 and gives the same frame; the
+   README's library example, ``Renderer(meshes=scenes.cornell()[0], ...)``
+   at 960x540, builds its scene on the card and renders a frame;
 i. demand-loaded textures: ``box_city_textured`` n=24 through a
    ``DemandLoader`` at ``max_pages`` 1024 (every tile fits: requests, loads,
    none open, none left by frame 3) and 64 (the LRU evicts, at most 64
@@ -267,7 +271,8 @@ def _kernel_of(name: str):
     for kernel in ("occluded_packets", "closest_hit_instanced",
                    "occluded_instanced", "occluded_nocull", "closest_hit",
                    "occluded"):
-        if f"{kernel}_kernel" in name:
+        # the wide layouts' group walks: "closest_hit_group_kernel", ...
+        if f"{kernel}_kernel" in name or f"{kernel}_group_kernel" in name:
             return kernel
     return None
 
@@ -309,7 +314,8 @@ def _k1_agreement(k: dict, p: dict):
     return hit_eq, tri_eq, ulp, err
 
 
-def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int):
+def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int,
+           scale: float = 1.0):
     """Least time for the work: the bytes the call must move (each distinct
     table row this run's rays fetch, the mask of every lane and the ray of
     each active lane read once, each lane's result written once; rows no
@@ -319,14 +325,17 @@ def _bound(stats: dict, table, n_rays: int, n_active: int, out_bytes: int):
     fetched node row, a triangle test of each real triangle of every fetched
     leaf row and, on a two-level table, the object-space ray of each
     instance row entered, as the plain version counted them in ``stats``)
-    at the float32 peak. Returns (ms, "bytes"|"operations", row-fetch
-    bytes; an instance row's 13 words are four 16-byte loads)."""
+    at the float32 peak. ``scale`` multiplies the operations: a bound for
+    more lanes than ``stats`` counted, from a subset's work a lane (its
+    distinct rows are kept: the larger call fetches at least those).
+    Returns (ms, "bytes"|"operations", row-fetch bytes; an instance row's
+    13 words are four 16-byte loads)."""
     byte_ms = (stats["distinct_rows"] * table.shape[1] * 4
                + n_active * RAY_BYTES
                + n_rays * (MASK_BYTES + out_bytes)) / HBM_BYTES_PER_S * 1e3
     inst = stats.get("inst_rows", 0)
     ops = (stats["child_tests"] * SLAB_OPS + stats["tri_tests"] * MT_OPS
-           + inst * INST_OPS)
+           + inst * INST_OPS) * scale
     op_ms = ops / F32_OPS_PER_S * 1e3
     fetch = ((stats["node_rows"] + stats["leaf_rows"]) * table.shape[1] * 4
              + inst * 64)
@@ -967,7 +976,8 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
         times = kernel_times.time_kernels(calls)
         frame_times = kernel_times.time_kernels(frame_calls)
     got = [_walk_records(rec, b, calls, sub, config, times, frame_times,
-                         o.shape[0], so.shape[0], int(sq.sum()), device)
+                         o.shape[0], so.shape[0], int(act.sum()),
+                         int(sq.sum()), device)
            for rec, b in ((out, scene.bvh), (w, wscene.bvh))]
     # the two tables of one scene: the same hits at the same t; another
     # triangle only at an exact tie
@@ -988,13 +998,19 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
 
 
 def _walk_records(rec: dict, b, calls: dict, sub, config, times,
-                  frame_times, n_frame: int, n_shadow: int,
+                  frame_times, n_frame: int, n_shadow: int, n_active: int,
                   n_queried: int, device) -> tuple:
     """K1, K2 and the non-culling K2 of the table ``b`` on phase g's lane
     subset ``sub`` against their plain versions (exact): their records
     (``k1``, ``k2``, ``k2_nocull``: times on the subset and on the frame's
     lanes, plain time, bound, rows a lane) and the table's resources go
-    into ``rec``; returns the kernels' answers (K1, K2, non-culling K2)."""
+    into ``rec``; returns the kernels' answers (K1, K2, non-culling K2).
+    The frame's lanes (``n_active`` of the ``n_frame`` primary lanes
+    active, ``n_queried`` of the ``n_shadow`` shadow lanes queried) get a
+    bound too, ``frame_bound_ms``: the subset's operations a lane times the
+    frame's walked lanes (the subset is spread evenly over them; the plain
+    walk of every frame lane would take minutes), at least the subset's
+    distinct rows."""
     from fovpathtracing_optixcodelatest_tpu_torch.ops import (
         kernel_build,
         traverse,
@@ -1030,13 +1046,18 @@ def _walk_records(rec: dict, b, calls: dict, sub, config, times,
     for key, st, p_ms, mism, n_out in (("k1", st1, p1_ms, 0, 16),
                                        ("k2", st2, p2_ms, mism2, 1),
                                        ("k2_nocull", st3, p3_ms, mism3, 1)):
-        bound, by, fetch = _bound(st, b.table, n1 if key == "k1" else n2,
-                                  n1 if key == "k1" else n2, n_out)
+        n_sub = n1 if key == "k1" else n2
+        bound, by, fetch = _bound(st, b.table, n_sub, n_sub, n_out)
+        walked = n_active if key == "k1" else n_queried
+        frame_bound, frame_by, _ = _bound(
+            st, b.table, n_frame if key == "k1" else n_shadow, walked, n_out,
+            scale=walked / n_sub)
         rec[key] = {
             "lanes": n1 if key == "k1" else n2, "ms": ms(key, times),
             "frame_ms": ms(key, frame_times),
             "frame_lanes": n_frame if key == "k1" else n_shadow,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "frame_bound_ms": frame_bound, "frame_bound_by": frame_by,
             "fetch_bytes": fetch, "work": st,
             "max_abs_err": err1 if key == "k1" else float(min(mism, 1)),
             "rows_per_lane": (st["node_rows"] / (n1 if key == "k1" else n2),
@@ -1102,6 +1123,7 @@ def _deep_record(g: dict, k: str, kernel: str) -> dict:
             "lanes": r["lanes"], "ms": r["ms"], "frame_ms": r["frame_ms"],
             "frame_lanes": r["frame_lanes"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "frame_bound_ms": r["frame_bound_ms"],
             "launches": g["launches"][kernel],
             "max_abs_err": r["max_abs_err"],
             "rows_per_lane": r["rows_per_lane"], **g["resources"][kernel]}
@@ -1112,8 +1134,10 @@ def _wide_record(g: dict, k: str, kernel: str, replaces: str,
     """The kernels line's entry of K1, K2 or the non-culling K2 (``k``:
     "k1", "k2", "k2_nocull"; ``kernel``: its ``kernel_build.LAUNCHES`` name)
     at the wide layout of the deep scene ``g``: its times on phase g's lane
-    subset and on the frame's lanes, with ``launches`` from the path that
-    ran it (the wide frames; the raycast for the non-culling K2)."""
+    subset and on the frame's lanes beside the (16, 6) table's on the same
+    rays (``narrow_ms``, ``narrow_frame_ms``), its design and resources,
+    with ``launches`` from the path that ran it (the wide frames; the
+    raycast for the non-culling K2)."""
     from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 
     w = g["wide"]
@@ -1128,6 +1152,8 @@ def _wide_record(g: dict, k: str, kernel: str, replaces: str,
             "triangles": g["triangles"], "stack_depth": w["stack_depth"],
             "lanes": r["lanes"], "frame_ms": r["frame_ms"],
             "frame_lanes": r["frame_lanes"],
+            "frame_bound_ms": r["frame_bound_ms"],
+            "narrow_ms": g[k]["ms"], "narrow_frame_ms": g[k]["frame_ms"],
             "rows_per_lane": r["rows_per_lane"],
             "spill_bytes": spills.get(name), **w["resources"][kernel]}
 
@@ -1165,13 +1191,19 @@ def _table_lines(name: str, g: dict, rec: dict) -> None:
         _line(f"{name} {k.upper()} at depth {rec['stack_depth']} on "
               f"{r['lanes']} lanes: exact vs plain; {ms}; plain "
               f"{r['plain_ms']:.1f} ms; bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}); node/leaf rows a lane "
+              f"({r['bound_by']}), on the frame's lanes "
+              f"{r['frame_bound_ms']:.5f} ms ({r['frame_bound_by']}, from "
+              f"the subset's work a lane); node/leaf rows a lane "
               f"{r['rows_per_lane'][0]:.2f}/{r['rows_per_lane'][1]:.2f}")
     if rec["resources"]:
-        _line(f"{name} resources at depth {rec['stack_depth']}: " + "; ".join(
-            f"{k} {r['registers']} regs, {r['local_bytes']} B local, "
-            f"{r['shared_bytes']} B shared/block, {r['blocks_per_sm']} "
-            "blocks/SM" for k, r in rec["resources"].items()))
+        _line(f"{name} design and resources at depth {rec['stack_depth']}: "
+              + "; ".join(
+                  f"{k} {r['group_lanes']} lane(s) a ray, rows by "
+                  f"{r['row_copy']}, stack in {r['stack']} memory, "
+                  f"{r['registers']} regs, {r['local_bytes']} B local, "
+                  f"{r['shared_bytes']} B shared/block, "
+                  f"{r['blocks_per_sm']} blocks/SM"
+                  for k, r in rec["resources"].items()))
 
 
 def _deep_lines(name: str, g: dict) -> None:
@@ -1202,6 +1234,13 @@ def _deep_lines(name: str, g: dict) -> None:
           f"{wd['occluded_mismatches']} (non-culling "
           f"{wd['nocull_mismatches']}) of the subset's lanes")
     _table_lines(f"{name} {lay}", g, wd)
+    if g["k1"]["ms"] is not None:
+        _line(f"{name} {lay} against (16, 6) on the same rays, ms on the "
+              "subset; on the frame's lanes: " + "; ".join(
+                  f"{k.upper()} {wd[k]['ms']:.4f} vs {g[k]['ms']:.4f}; "
+                  f"{wd[k]['frame_ms']:.4f} vs {g[k]['frame_ms']:.4f} "
+                  f"({wd[k]['frame_ms'] / g[k]['frame_ms']:.2f}x)"
+                  for k in ("k1", "k2", "k2_nocull")))
 
 
 def open_scene():
@@ -1439,6 +1478,37 @@ def oracle_phase(device="cuda") -> dict:
         "the non-culling K2 disagrees with its plain version (raycast)"
     assert int(want.sum()) > 0
     return out
+
+
+def readme_example(width: int, height: int, schedule=None,
+                   device="cuda") -> dict:
+    """The README's library example: ``Renderer(meshes=...)`` builds the
+    cornell scene itself (on the card by default) and renders one frame at
+    the centre gaze -> the frame's shape, mean, the scene's device and the
+    launches."""
+    from fovpathtracing_optixcodelatest_tpu_torch.config import (
+        FoveationSchedule,
+        RenderConfig,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+
+    meshes, camera = scenes.cornell()
+    kernel_build.reset_launches()
+    kw = {} if device == "cuda" else {"device": device}
+    r = Renderer(meshes=meshes, config=RenderConfig(width=width,
+                                                    height=height),
+                 schedule=schedule or FoveationSchedule.reference_32_16_8(),
+                 **kw)
+    r.set_camera(camera)
+    frame = r.render(gaze=(width // 2, height // 2))
+    _sync(device)
+    return {"shape": frame.shape, "mean": float(frame.mean()),
+            "device": str(r.scene.device), "traces": r.stats["traces"],
+            "launches": dict(kernel_build.LAUNCHES)}
 
 
 def nocull_check(bvh, so, sd, sq, tmin: float, tmax: float,
@@ -2892,6 +2962,16 @@ def main() -> int:
               f"table: pixels within 1 LSB of the (16, 6) table's "
               f"{r['share']:.4f}; {k} launches {r['launches']}")
         assert r["launches"] > 0, f"the raycast never launched {k}"
+    readme = readme_example(w, h)
+    _line(f"README example: Renderer(meshes=scenes.cornell()[0]) -> "
+          f"{readme['shape']} frame on {readme['device']}, mean "
+          f"{readme['mean']:.2f}, {readme['traces']} traces; launches "
+          f"{readme['launches']}")
+    assert readme["shape"] == (h, w, 3) and 0 < readme["mean"] < 255
+    assert readme["device"].startswith("cuda")
+    for k in PATH_KERNELS:
+        assert readme["launches"][k] > 0, f"the README frame never launched {k}"
+    orc["readme"] = readme
     nocull = nocull_check(bvh, so, sd, sq, tmin, tmax)
     _line(f"non-culling K2 on the bench's bounce-0 shadow lanes: "
           f"{nocull['lanes']} lanes, {nocull['queried']} queried, "

@@ -18,7 +18,8 @@
 // compiled for the three layouts the port builds: A16/L6 (W = 64, 256-byte
 // rows), the default, and the JAX package's wide A32/L12 (W = 128, 512 B)
 // and A32/L24 (W = 240, 960 B); the two-level kernels for A16/L6 only. The
-// wrappers refuse any other.
+// wrappers refuse any other. A16/L6 and A32/L24 walk one ray a thread,
+// A32/L12 one ray a group of lanes (below).
 //
 // Visit order (K1) is the JAX package's: a stack entry is the packed key
 // (mono(tn) & himask) | code, children are pushed sorted by descending key
@@ -72,32 +73,65 @@
 // The constants below were chosen by timing each alternative build on every
 // main-path shape against the kept one (PERF.md has the numbers).
 //
-// The wide layouts (A32/L12, A32/L24) run the same walks with these
-// differences, which keep every instantiation exact against its plain
-// version and out of spills:
+// A32/L24 runs the same walks with these differences, which keep every
+// instantiation exact against its plain version and out of spills:
 //
 // - Thirty-two children. A node's keys sort in registers by a 32-key
 //   bitonic network where more than four of its groups of four children
 //   are used (16, 8 or 4 keys where fewer are); any sort of the same keys
 //   leaves the same stack, since hit keys are distinct (their codes are).
-// - Staged reads everywhere. A row is 32 or 60 uint4, more than registers
-//   hold, so K2 and the non-culling K2 read staged as K1 does: the node's
-//   eight code uint4s, then three box uint4s a group of four children, or
-//   seven uint4s a third of a leaf. The prefetch covers the lines of the
-//   row's used part (four for an A32 node or an L12 leaf, seven for an L24
-//   leaf, and the line of its last word: 960-byte rows do not start on a
-//   line).
-// - The stack in local memory. The wide tables need deeper stacks (164 at
-//   10M triangles in A32/L12, against 110 in A16/L6), and a stack of that
-//   depth in shared memory takes 84 KB a block: two blocks (8 warps) an
-//   SM. In local memory, kMaxStack entries a thread, interleaved by the
-//   hardware so a warp's pushes at one depth share lines as the strided
-//   shared stack's do, the stack costs no shared memory and the registers
-//   alone set the resident blocks (6 for K1, 5 for K2). On the 10M
-//   frame's primary lanes the A32/L12 K1 took 15.7 ms so, against 26.3
-//   with the shared stack (PERF.md). The (16, 6) kernels keep the shared
-//   stack; a local stack for them has not been timed (PERF.md, open
-//   questions).
+// - Staged reads everywhere. A row is 60 uint4, more than registers hold,
+//   so K2 and the non-culling K2 read staged as K1 does: the node's eight
+//   code uint4s, then three box uint4s a group of four children, or seven
+//   uint4s a third of a leaf. The prefetch covers the lines of the row's
+//   used part (four for a node, seven for a leaf, and the line of its last
+//   word: 960-byte rows do not start on a line).
+// - The stack in local memory: kMaxStack entries a thread, interleaved by
+//   the hardware so a warp's pushes at one depth share lines as the
+//   strided shared stack's do; it costs no shared memory, and the
+//   registers alone set the resident blocks (6 for K1, 5 for K2).
+//
+// A32/L12 walks each ray with a group of G lanes instead (group-per-ray
+// walks, below). What bounds one thread's wide step is its serial work
+// (32 slab tests in eight groups, a 32-key sort, 12 triangle tests) and,
+// on the deep tables these layouts serve (a 10M-triangle A32/L12 table is
+// 686 MB, 14 times the L2), the chain of dependent row fetches from HBM.
+// The group walk spreads a step over its lanes and fetches each row in
+// one coalesced pass:
+//
+// - Lane j of the group owns children C j .. C j + C - 1 (C = 32 / G),
+//   whose boxes and codes are contiguous words of the row, and triangles
+//   j, j + G, ... of a leaf. The group copies the row into the ray's
+//   shared-memory buffer with cp.async, every G-th uint4 a lane, so each
+//   pass reads contiguous bytes; a leaf's 9-word triangles, which straddle
+//   16-byte chunks, are then read word by word from shared memory (the
+//   rays' buffers are offset 8 banks apart).
+// - No sorting network. K1 compacts the node's hit keys in slot order into
+//   the ray's shared scratch (ballot prefix counts), and each key goes to
+//   stk[sp + rank], its rank the number of hit keys above it (distinct):
+//   the stack a descending sort leaves; a full stack keeps the largest
+//   keys, rank < depth - sp. K2 pushes its hits in slot order at their
+//   ballot prefix positions, the first depth - sp of them.
+// - A leaf's closest hit is a (t, slot) min-reduction across the group
+//   (lowest slot among equal t: the triangle the serial t < best loop
+//   keeps), u, v and the id from the same slot; K2's is an any-hit ballot.
+// - Lockstep steps. The groups of a warp pop, start their rows' copies and
+//   wait for them together, then visit only the rows of the kind (node or
+//   leaf) more of them hold, so the warp runs one of the two paths a step;
+//   the others keep their rows (K1 10% faster on the 10M frame than
+//   visiting every row each step). The persistent loop hands queued rays
+//   to idle groups (walk_rays' counter and queue, a group taking a lane's
+//   place).
+// - G and the stack's home (GroupDesign), chosen by timing G = 4, 8, 16
+//   (and 2) with the stack in shared and in global memory on the 10M
+//   frame's lanes: rays in flight set the time there. K1 takes G = 4 with
+//   its stack in a global buffer the wrapper allocates (64 registers, 8
+//   blocks an SM: 256 rays; a shared stack of depth 164 leaves 5 blocks),
+//   K2 G = 8 with a shared stack (48 registers, 10 blocks). On that frame
+//   K1 takes 14% less time than the one-thread walk, K2 7% less; on tables
+//   that fit in the L2 (388,812 triangles) the group walks take about 2x
+//   the one-thread walks' time, which is why A32/L24, timed there, keeps
+//   its one-thread walk (PERF.md has every alternative's time).
 //
 // K2 without back-face culling (traverse8.py occluded(cull_backface=False)
 // :1376, its leaf test :247; the 04 raycast's shadow ray): the occlusion
@@ -855,6 +889,554 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
 
+// ---------------------------------------------------------------------------
+// The (32, 12) layout's walks: a group of G lanes per ray
+// ---------------------------------------------------------------------------
+
+// The group walks' design, K1 (CLOSEST) and K2: G, the lanes of a ray, and
+// where its stack lies, chosen by timing G = 4, 8, 16 and both homes on the
+// 10M-triangle frame's lanes (PERF.md). K1: G = 4, the stack in global
+// memory (the wrapper's buffer), which leaves shared memory to 8 blocks an
+// SM, 256 rays (a shared stack of depth 164 leaves 5); K2: G = 8, the
+// stack in shared memory.
+template <bool CLOSEST>
+struct GroupDesign {
+  static constexpr int kLanes = CLOSEST ? 4 : 8;
+  static constexpr bool kGlobalStack = CLOSEST;
+};
+// groups of a warp that must be idle before they take new rays: one (K1
+// waiting for all its groups was 4% faster on the 10M frame's primary
+// lanes but 2% slower over the frame's four launches, whose bounce rays
+// end unevenly; K2 17% slower)
+constexpr int kGroupRefillIdle = 1;
+// resident blocks per SM asked of the register allocator by the group
+// walks (8: 64 registers)
+constexpr int kGroupMinBlocks = 8;
+
+// the lowest lane of every group of g lanes of a warp
+__host__ __device__ constexpr unsigned group_leaders(int g) {
+  unsigned m = 0u;
+  for (int l = 0; l < 32; l += g) m |= 1u << l;
+  return m;
+}
+
+template <int ARITY, int LEAF, int G>
+struct Grouped {
+  static_assert(32 % G == 0, "a group is lanes of one warp");
+  static_assert(ARITY % (4 * G) == 0 && LEAF % 2 == 0,
+                "a lane owns children in fours (whole uint4s of box words "
+                "and codes); a leaf row is whole uint4s");
+  static constexpr int kChildren = ARITY / G;       // a lane's children
+  static constexpr int kTris = (LEAF + G - 1) / G;  // a lane's triangles
+  static constexpr int kRays = kThreads / G;        // a block's rays
+  // the uint4s a step copies: a node row (boxes, codes), a leaf row's
+  // triangles and ids
+  static constexpr int kNodeVecs = ARITY;
+  static constexpr int kLeafVecs = 10 * LEAF / 4;
+  static constexpr int kCopies =
+      ((kNodeVecs > kLeafVecs ? kNodeVecs : kLeafVecs) + G - 1) / G;
+  // a ray's row buffer in words, padded to 8 mod 32 so the four rays of a
+  // warp (at G = 8) read their triangles' words from 32 distinct banks
+  static constexpr int kRowWords =
+      4 * (kNodeVecs > kLeafVecs ? kNodeVecs : kLeafVecs);
+  static constexpr int kBufWords = kRowWords + (40 - kRowWords % 32) % 32;
+};
+
+// dynamic shared memory of a group walk's block: the warps' queues, then
+// each ray's row buffer, then (K1) each ray's ARITY-entry key scratch (its
+// hit keys, compacted), then (a shared stack) each ray's stack of depth
+// entries
+template <int ARITY, int LEAF, bool CLOSEST>
+__host__ __device__ constexpr size_t group_shared_bytes(int depth) {
+  using D = GroupDesign<CLOSEST>;
+  using P = Grouped<ARITY, LEAF, D::kLanes>;
+  return sizeof(int) * kWarps * kQueue +
+         sizeof(uint32_t) * P::kRays *
+             (P::kBufWords + (CLOSEST ? ARITY : 0) +
+              (D::kGlobalStack ? 0 : (size_t)depth));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// n words of shared memory from s (16-byte aligned) into w
+template <int N>
+__device__ __forceinline__ void shared_words(const uint32_t* s,
+                                             uint32_t (&w)[N]) {
+  static_assert(N % 4 == 0, "whole uint4s");
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const uint4 v = reinterpret_cast<const uint4*>(s)[q];
+    w[4 * q] = v.x;
+    w[4 * q + 1] = v.y;
+    w[4 * q + 2] = v.z;
+    w[4 * q + 3] = v.w;
+  }
+}
+
+// A ray walked by the G lanes of a group: the state every lane holds alike
+// (the ray, the stack pointer), the ray's row buffer (and K1's key scratch)
+// in shared memory, its stack, and the steps both walks share.
+template <int ARITY, int LEAF, bool CLOSEST>
+struct GroupRay {
+  using D = GroupDesign<CLOSEST>;
+  static constexpr int G = D::kLanes;
+  using P = Grouped<ARITY, LEAF, G>;
+  const uint4* __restrict__ table;
+  const float* __restrict__ orig;
+  const float* __restrict__ dir;
+  float tmin, tmax;
+  int depth;
+  unsigned gmask;  // the group's lanes
+  int jl;          // this lane's index in the group
+  uint32_t* buf;   // the ray's row buffer
+  uint32_t* keys;  // the ray's key scratch (K1)
+  uint32_t* stk;   // the ray's stack
+  Ray ray;
+  int sp;
+
+  // smem: the block's dynamic shared memory; gstack: the global stack
+  // buffer, kRays * depth entries a block (a global stack only)
+  __device__ __forceinline__ void init(uint32_t* smem, uint32_t* gstack) {
+    constexpr int kKeys = CLOSEST ? ARITY : 0;
+    const int lane = threadIdx.x & 31;
+    jl = lane & (G - 1);
+    gmask = G == 32 ? kFull : ((1u << (G & 31)) - 1u) << (lane & ~(G - 1));
+    const int slot = threadIdx.x / G;
+    uint32_t* base = smem + kWarps * kQueue;
+    buf = base + slot * P::kBufWords;
+    keys = base + P::kRays * P::kBufWords + slot * kKeys;
+    if constexpr (D::kGlobalStack)
+      stk = gstack + ((size_t)blockIdx.x * P::kRays + slot) * depth;
+    else
+      stk = base + P::kRays * (P::kBufWords + kKeys) + slot * depth;
+  }
+
+  __device__ __forceinline__ void start(int i) {
+    ray.load(orig, dir, i);
+    if (jl == 0) stk[0] = 0u;  // the root: code 0 = internal row 0
+    sp = 1;
+  }
+
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    return __ballot_sync(gmask, p) & gmask;
+  }
+
+  // The hit children's positions in slot order (a lane's children follow
+  // the lanes before it): pos[i] for this lane's hit child i, and cnt,
+  // the node's hit children.
+  __device__ __forceinline__ void slot_order(const bool (&hit)[P::kChildren],
+                                             int (&pos)[P::kChildren],
+                                             int& cnt) const {
+    const unsigned before = (1u << (threadIdx.x & 31)) - 1u;
+    int below = 0;
+    cnt = 0;
+#pragma unroll
+    for (int i = 0; i < P::kChildren; ++i) {
+      const unsigned b = ballot(hit[i]);
+      cnt += __popc(b);
+      below += __popc(b & before);
+    }
+#pragma unroll
+    for (int i = 0; i < P::kChildren; ++i) {
+      pos[i] = below;
+      below += hit[i];
+    }
+  }
+
+  // Start copying the row of entry code into the ray's buffer: the
+  // group's lanes take every G-th uint4, so each pass reads contiguous
+  // bytes. The warp waits for every group's copies at once.
+  __device__ __forceinline__ void issue(uint32_t code) const {
+    const uint4* r = table + (size_t)(code >> 2) * Layout<ARITY, LEAF>::kVecs;
+    const int vecs = (code & 3u) == 0u ? P::kNodeVecs : P::kLeafVecs;
+    uint4* dst = reinterpret_cast<uint4*>(buf);
+#pragma unroll
+    for (int m = 0; m < P::kCopies; ++m) {
+      const int q = jl + G * m;
+      if (q < vecs) cp_async16(dst + q, r + q);
+    }
+  }
+
+  // Slab-test this lane's children kChildren jl .. kChildren (jl + 1) - 1
+  // of the node row in the buffer: hit (a non-empty child whose box the
+  // ray enters before tlimit), its entry code and tn.
+  __device__ __forceinline__ void children(float tlimit,
+                                           bool (&hit)[P::kChildren],
+                                           uint32_t (&code)[P::kChildren],
+                                           float (&tn)[P::kChildren]) const {
+    constexpr int C = P::kChildren;
+    uint32_t box[3 * C];
+    shared_words<3 * C>(buf + 3 * C * jl, box);
+    shared_words<C>(buf + 3 * ARITY + C * jl, code);
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      float lo[3], hi[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = __uint_as_float(box[3 * i + a] & 0xFFFF0000u);
+        hi[a] = __uint_as_float(box[3 * i + a] << 16);
+      }
+      hit[i] = slab(lo, hi, ray.o, ray.inv, tmin, tlimit, &tn[i]) &&
+               code[i] != 0u;
+    }
+  }
+
+  // triangle k of the leaf row in the buffer
+  __device__ __forceinline__ void triangle(int k, float tri[9]) const {
+#pragma unroll
+    for (int j = 0; j < 9; ++j) tri[j] = __uint_as_float(buf[9 * k + j]);
+  }
+};
+
+template <int ARITY, int LEAF, bool CULL>
+struct OccludedGroupWalk : GroupRay<ARITY, LEAF, false> {
+  using B = GroupRay<ARITY, LEAF, false>;
+  using P = typename B::P;
+  bool* __restrict__ out;
+  bool occ;
+
+  __device__ __forceinline__ void miss(int i) const { out[i] = false; }
+
+  __device__ __forceinline__ void begin(int i) {
+    B::start(i);
+    occ = false;
+  }
+
+  // The next entry to visit (there is one: a ray is done when its stack
+  // empties).
+  __device__ __forceinline__ bool pop(uint32_t& code) {
+    code = B::stk[--B::sp];
+    return true;
+  }
+
+  // Visit the row of code, in the buffer; true when the ray is done. Hit
+  // children are pushed in slot order (a lane's children follow the lanes
+  // before it), the first depth - sp of them where they do not all fit.
+  __device__ __forceinline__ bool visit(uint32_t code) {
+    if ((code & 3u) == 0u) {
+      constexpr int C = P::kChildren;
+      bool hit[C];
+      uint32_t cc[C];
+      float tn[C];
+      B::children(B::tmax, hit, cc, tn);
+      int pos[C], cnt;
+      B::slot_order(hit, pos, cnt);
+      const int room = B::depth - B::sp;
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        if (hit[i] && pos[i] < room) B::stk[B::sp + pos[i]] = cc[i];
+      B::sp += min(cnt, room);
+    } else {
+      bool any = false;
+#pragma unroll
+      for (int m = 0; m < P::kTris; ++m) {
+        const int k = B::jl + B::G * m;
+        if (k < LEAF) {
+          float tri[9];
+          B::triangle(k, tri);
+          any |= tri_test(tri, B::ray.o[0], B::ray.o[1], B::ray.o[2],
+                          B::ray.d[0], B::ray.d[1], B::ray.d[2], B::tmin,
+                          B::tmax, CULL)
+                     .hit;
+        }
+      }
+      occ = B::ballot(any) != 0u;
+    }
+    return occ || B::sp == 0;
+  }
+
+  __device__ __forceinline__ void end(int i) const {
+    if (B::jl == 0) out[i] = occ;
+  }
+};
+
+template <int ARITY, int LEAF>
+struct ClosestGroupWalk : GroupRay<ARITY, LEAF, true> {
+  using B = GroupRay<ARITY, LEAF, true>;
+  using P = typename B::P;
+  float* __restrict__ t_out;
+  int* __restrict__ tri_out;
+  float* __restrict__ u_out;
+  float* __restrict__ v_out;
+  uint32_t lowmask;
+  int best;
+  float t, u, v;
+
+  __device__ __forceinline__ void miss(int i) const {
+    t_out[i] = FOV_INF;
+    tri_out[i] = -1;
+    u_out[i] = 0.0f;
+    v_out[i] = 0.0f;
+  }
+
+  __device__ __forceinline__ void begin(int i) {
+    B::start(i);
+    best = -1;
+    t = FOV_INF;
+    u = v = 0.0f;
+  }
+
+  // The next entry to visit, skipping stale ones (their boxes start
+  // beyond the closest hit); false when none is left: the ray is done.
+  __device__ __forceinline__ bool pop(uint32_t& code) {
+    const uint32_t fresh = mono_u32(fminf(t, B::tmax)) | lowmask;
+    uint32_t e;
+    do {
+      if (B::sp == 0) return false;
+      e = B::stk[--B::sp];
+    } while (e > fresh);
+    code = e & lowmask;
+    return true;
+  }
+
+  // Visit the row of code, in the buffer; true when the ray is done. A
+  // node's hit keys go to stk[sp + rank], rank = the hit keys above the key
+  // (distinct, as their codes are): the stack a descending sort leaves,
+  // nearest on top; a full stack keeps the largest keys, rank < depth - sp.
+  // A leaf's closest hit is the (t, slot) minimum over the group: the
+  // lowest slot among equal t, as the serial t < best loop keeps.
+  __device__ __forceinline__ bool visit(uint32_t code) {
+    const float tlimit = fminf(t, B::tmax);
+    if ((code & 3u) == 0u) {
+      constexpr int C = P::kChildren;
+      bool hit[C];
+      uint32_t key[C];
+      float tn[C];
+      B::children(tlimit, hit, key, tn);
+      const uint32_t himask = ~lowmask;
+      int pos[C], cnt;
+      B::slot_order(hit, pos, cnt);
+      // the hit keys, compacted into the ray's scratch; lane l then ranks
+      // keys l, l + G, ...
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        if (hit[i]) B::keys[pos[i]] = (mono_u32(tn[i]) & himask) | key[i];
+      __syncwarp(B::gmask);
+      const int push = min(cnt, B::depth - B::sp);
+      for (int q = B::jl; q < cnt; q += B::G) {
+        const uint32_t k = B::keys[q];
+        int rank = 0;
+        for (int x = 0; x < cnt; ++x) rank += B::keys[x] > k;
+        if (rank < push) B::stk[B::sp + rank] = k;
+      }
+      B::sp += push;
+    } else {
+      float bt = FOV_INF, bu = 0.0f, bv = 0.0f;
+      int bk = LEAF;
+#pragma unroll
+      for (int m = 0; m < P::kTris; ++m) {
+        const int k = B::jl + B::G * m;
+        if (k < LEAF) {
+          float tri[9];
+          B::triangle(k, tri);
+          const TriHit h =
+              tri_test(tri, B::ray.o[0], B::ray.o[1], B::ray.o[2],
+                       B::ray.d[0], B::ray.d[1], B::ray.d[2], B::tmin,
+                       B::tmax, false);
+          if (h.hit && h.t < bt) {
+            bt = h.t;
+            bu = h.u;
+            bv = h.v;
+            bk = k;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = B::G / 2; off > 0; off >>= 1) {
+        const float ot = __shfl_xor_sync(B::gmask, bt, off);
+        const float ou = __shfl_xor_sync(B::gmask, bu, off);
+        const float ov = __shfl_xor_sync(B::gmask, bv, off);
+        const int ok = __shfl_xor_sync(B::gmask, bk, off);
+        if (ot < bt || (ot == bt && ok < bk)) {
+          bt = ot;
+          bu = ou;
+          bv = ov;
+          bk = ok;
+        }
+      }
+      if (bt < t) {
+        t = bt;
+        u = bu;
+        v = bv;
+        best = static_cast<int>(B::buf[9 * LEAF + bk]);
+      }
+    }
+    return B::sp == 0;
+  }
+
+  __device__ __forceinline__ void end(int i) const {
+    if (B::jl == 0) {
+      t_out[i] = t;
+      tri_out[i] = best;
+      u_out[i] = u;
+      v_out[i] = v;
+    }
+  }
+};
+
+// The persistent loop of one warp whose groups of G lanes each walk a ray:
+// walk_rays with a group, not a lane, taking each queued ray, once
+// kGroupRefillIdle groups are idle. A group's lanes hold its ray
+// (mine) alike; every branch that decides whether the warp goes on is
+// taken on values all 32 lanes hold alike. The groups of a
+// warp step in lockstep: each pops its next entry and starts its row's
+// copy, the warp waits once for all of them, then the groups whose rows
+// are of the kind more groups hold (node or leaf) visit them; the others
+// keep their rows for a later step.
+template <int G, class Walk>
+__device__ __forceinline__ void walk_group_rays(
+    Walk& w, const unsigned char* __restrict__ active, int n,
+    int* __restrict__ counter, int* __restrict__ queue) {
+  constexpr int kGroups = 32 / G;
+  constexpr unsigned kLeaders = group_leaders(G);
+  const int lane = threadIdx.x & 31;
+  const unsigned before = (1u << (lane & ~(G - 1))) - 1u;  // earlier groups
+  int mine = -1;  // this group's ray, -1 = idle
+  int head = 0, queued = 0;  // the warp's queue window [head, head + queued)
+  bool drained = false;      // the counter has passed n
+  uint32_t code = 0u;        // the group's entry popped and copied
+  bool held = false;         // ... and not visited yet
+  while (true) {
+    // fetch chunks of 32 lanes until every idle group has a ray waiting
+    const unsigned idle = __ballot_sync(kFull, mine < 0) & kLeaders;
+    const int want = __popc(idle);
+    fill_queue(active, n, counter, queue, head, queued, drained, want,
+               [&](int i) { w.miss(i); });
+    __syncwarp();
+    if (mine < 0) {
+      const int r = __popc(idle & before);
+      if (r < queued) {
+        mine = queue[(head + r) & (kQueue - 1)];
+        w.begin(mine);
+      }
+    }
+    const int took = min(want, queued);
+    head += took;
+    queued -= took;
+    __syncwarp();
+    if (__ballot_sync(kFull, mine >= 0) == 0) return;
+    // walk until enough groups are idle to refill (to the end once no ray
+    // is left to fetch)
+    const int limit = drained && queued == 0 ? kGroups : kGroupRefillIdle;
+    while (true) {
+      __syncwarp();  // the last visits' pushes and buffer reads are done
+      if (mine >= 0 && !held) {
+        if (w.pop(code)) {
+          w.issue(code);
+          held = true;
+        } else {
+          w.end(mine);
+          mine = -1;
+        }
+      }
+      cp_async_wait_all();
+      __syncwarp();
+      // visit one kind of row a step, the kind more groups hold, so the
+      // warp runs one of the node and leaf paths (the others keep theirs)
+      const bool node = (code & 3u) == 0u;
+      const int nodes = __popc(__ballot_sync(kFull, held && node) & kLeaders);
+      const int leaves =
+          __popc(__ballot_sync(kFull, held && !node) & kLeaders);
+      if (held && node == (nodes >= leaves)) {
+        held = false;
+        if (w.visit(code)) {
+          w.end(mine);
+          mine = -1;
+        }
+      }
+      if (__popc(__ballot_sync(kFull, mine < 0) & kLeaders) >= limit) break;
+    }
+  }
+}
+
+// stack: the global stack buffer, kRays * depth entries a block
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+    closest_hit_group_kernel(
+        const uint4* __restrict__ table, const float* __restrict__ orig,
+        const float* __restrict__ dir,
+        const unsigned char* __restrict__ active, int n, float tmin,
+        float tmax, int depth, unsigned int lowmask,
+        float* __restrict__ t_out, int* __restrict__ tri_out,
+        float* __restrict__ u_out, float* __restrict__ v_out,
+        int* __restrict__ counter, uint32_t* __restrict__ stack) {
+  extern __shared__ __align__(16) uint32_t group_smem[];
+  ClosestGroupWalk<ARITY, LEAF> w;
+  w.table = table;
+  w.orig = orig;
+  w.dir = dir;
+  w.t_out = t_out;
+  w.tri_out = tri_out;
+  w.u_out = u_out;
+  w.v_out = v_out;
+  w.tmin = tmin;
+  w.tmax = tmax;
+  w.depth = depth;
+  w.lowmask = lowmask;
+  w.init(group_smem, stack);
+  walk_group_rays<decltype(w)::G>(
+      w, active, n, counter,
+      reinterpret_cast<int*>(group_smem) + (threadIdx.x >> 5) * kQueue);
+}
+
+// The group walks' K2 of both kernels below.
+template <int ARITY, int LEAF, bool CULL>
+__device__ __forceinline__ void occluded_group_walk(
+    const uint4* __restrict__ table, const float* __restrict__ orig,
+    const float* __restrict__ dir, const unsigned char* __restrict__ active,
+    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int* __restrict__ counter) {
+  extern __shared__ __align__(16) uint32_t group_smem[];
+  OccludedGroupWalk<ARITY, LEAF, CULL> w;
+  w.table = table;
+  w.orig = orig;
+  w.dir = dir;
+  w.out = occ_out;
+  w.tmin = tmin;
+  w.tmax = tmax;
+  w.depth = depth;
+  w.init(group_smem, nullptr);
+  walk_group_rays<decltype(w)::G>(
+      w, active, n, counter,
+      reinterpret_cast<int*>(group_smem) + (threadIdx.x >> 5) * kQueue);
+}
+
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+    occluded_group_kernel(const uint4* __restrict__ table,
+                          const float* __restrict__ orig,
+                          const float* __restrict__ dir,
+                          const unsigned char* __restrict__ active, int n,
+                          float tmin, float tmax, int depth,
+                          bool* __restrict__ occ_out,
+                          int* __restrict__ counter) {
+  occluded_group_walk<ARITY, LEAF, true>(table, orig, dir, active, n, tmin,
+                                         tmax, depth, occ_out, counter);
+}
+
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+    occluded_nocull_group_kernel(const uint4* __restrict__ table,
+                                 const float* __restrict__ orig,
+                                 const float* __restrict__ dir,
+                                 const unsigned char* __restrict__ active,
+                                 int n, float tmin, float tmax, int depth,
+                                 bool* __restrict__ occ_out,
+                                 int* __restrict__ counter) {
+  occluded_group_walk<ARITY, LEAF, false>(table, orig, dir, active, n,
+                                          tmin, tmax, depth, occ_out,
+                                          counter);
+}
+
 // K1 (which = 0), K2 (1), their instanced variants (2, 3) and the
 // non-culling K2 (4), at each layout (the instanced ones at (16, 6) only)
 constexpr int kKernels = 5;
@@ -886,17 +1468,38 @@ auto with_layout(int layout, F f) {
   }
 }
 
+// (32, 12) walks a ray with a group of lanes, (16, 6) and (32, 24) with a
+// lane
+template <int A, int L>
+constexpr bool kGrouped = A == 32 && L == 12;
+
+// K2 (CULL) or the non-culling K2 at a layout
+template <int A, int L, bool CULL>
+auto occluded_kernel_at() {
+  if constexpr (kGrouped<A, L> && CULL)
+    return occluded_group_kernel<A, L>;
+  else if constexpr (kGrouped<A, L>)
+    return occluded_nocull_group_kernel<A, L>;
+  else if constexpr (CULL)
+    return occluded_kernel<A, L>;
+  else
+    return occluded_nocull_kernel<A, L>;
+}
+
 // kernel ``which`` at a layout, nullptr where it is not compiled
 const void* kernel_of(int which, int layout) {
   return with_layout(layout, [which](auto tag) -> const void* {
     constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
     switch (which) {
       case 0:
-        return (const void*)closest_hit_kernel<A, L>;
+        if constexpr (kGrouped<A, L>)
+          return (const void*)closest_hit_group_kernel<A, L>;
+        else
+          return (const void*)closest_hit_kernel<A, L>;
       case 1:
-        return (const void*)occluded_kernel<A, L>;
+        return (const void*)occluded_kernel_at<A, L, true>();
       case 4:
-        return (const void*)occluded_nocull_kernel<A, L>;
+        return (const void*)occluded_kernel_at<A, L, false>();
     }
     if constexpr (A == kArity && L == kLeaf) {
       if (which == 2)
@@ -907,11 +1510,38 @@ const void* kernel_of(int which, int layout) {
   });
 }
 
-// dynamic shared memory of a block of a layout's kernels at a stack depth
-size_t shared_of(int layout, int depth) {
-  return with_layout(layout, [depth](auto tag) {
-    using L = Layout<decltype(tag)::kArity, decltype(tag)::kLeaf>;
-    return shared_bytes<L::kLocalStack>(depth);
+// dynamic shared memory of a block of kernel ``which`` at a layout and a
+// stack depth
+size_t shared_of(int which, int layout, int depth) {
+  return with_layout(layout, [which, depth](auto tag) {
+    constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
+    if constexpr (kGrouped<A, L>)
+      return which == 0 ? group_shared_bytes<A, L, true>(depth)
+                        : group_shared_bytes<A, L, false>(depth);
+    else
+      return shared_bytes<Layout<A, L>::kLocalStack>(depth);
+  });
+}
+
+// The design of kernel ``which`` at a layout: the lanes that walk one ray,
+// and where its stack lies (0 shared memory, 1 global memory, 2 local
+// memory).
+void design_of(int which, int layout, int* lanes, int* stack_home) {
+  with_layout(layout, [=](auto tag) {
+    constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
+    if constexpr (kGrouped<A, L>) {
+      const bool closest = which == 0;
+      *lanes = closest ? GroupDesign<true>::kLanes
+                       : GroupDesign<false>::kLanes;
+      *stack_home = (closest ? GroupDesign<true>::kGlobalStack
+                             : GroupDesign<false>::kGlobalStack)
+                        ? 1
+                        : 0;
+    } else {
+      *lanes = 1;
+      *stack_home = Layout<A, L>::kLocalStack ? 2 : 0;
+    }
+    return 0;
   });
 }
 
@@ -931,7 +1561,7 @@ cudaError_t grid_of(int which, int layout, size_t smem, int* per_sm,
 int launch_grid(int which, int layout, int n, int depth, size_t* smem,
                 int* blocks) {
   if (depth < 1 || depth > kMaxStack) return (int)cudaErrorInvalidValue;
-  *smem = shared_of(layout, depth);
+  *smem = shared_of(which, layout, depth);
   int per_sm = 0, full = 0;
   const cudaError_t err = grid_of(which, layout, *smem, &per_sm, &full);
   if (err != cudaSuccess) return (int)err;
@@ -940,18 +1570,34 @@ int launch_grid(int which, int layout, int n, int depth, size_t* smem,
   return 0;
 }
 
+// entries of the global stack buffer kernel ``which`` takes for n lanes at
+// a layout and a stack depth (0 where its stacks lie elsewhere)
+int global_stack_entries(int which, int layout, int n, int depth,
+                         long long* entries) {
+  int lanes = 1, home = 0;
+  design_of(which, layout, &lanes, &home);
+  *entries = 0;
+  if (home != 1 || n <= 0) return 0;
+  size_t smem = 0;
+  int blocks = 0;
+  const int rc = launch_grid(which, layout, n, depth, &smem, &blocks);
+  *entries = (long long)blocks * (kThreads / lanes) * depth;
+  return rc;
+}
+
 }  // namespace
 
 // K1, K2 and the non-culling K2 take the table's (arity, leaf_size) and
 // launch the instantiation of that layout; any other returns
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue. K1's stack: fov_traverse_stack entries of scratch
+// (none at the layouts whose stacks lie in shared or local memory).
 extern "C" int fov_closest_hit(const float* table, const float* orig,
                                const float* dir, const unsigned char* active,
                                int n, float tmin, float tmax, int stack_depth,
                                unsigned int lowmask, float* t_out,
                                int* tri_out, float* u_out, float* v_out,
-                               int* counter, int arity, int leaf,
-                               void* stream) {
+                               int* counter, unsigned int* stack, int arity,
+                               int leaf, void* stream) {
   const int layout = layout_of(arity, leaf);
   if (layout < 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
@@ -960,15 +1606,35 @@ extern "C" int fov_closest_hit(const float* table, const float* orig,
     const int rc = launch_grid(0, layout, n, stack_depth, &smem, &blocks);
     if (rc != 0) return rc;
     with_layout(layout, [&](auto tag) {
-      closest_hit_kernel<decltype(tag)::kArity, decltype(tag)::kLeaf>
-          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-              reinterpret_cast<const uint4*>(table), orig, dir, active, n,
-              tmin, tmax, stack_depth, lowmask, t_out, tri_out, u_out, v_out,
-              counter);
+      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
+      const uint4* t = reinterpret_cast<const uint4*>(table);
+      if constexpr (kGrouped<A, L>)
+        closest_hit_group_kernel<A, L>
+            <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+                t, orig, dir, active, n, tmin, tmax, stack_depth, lowmask,
+                t_out, tri_out, u_out, v_out, counter, stack);
+      else
+        closest_hit_kernel<A, L>
+            <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+                t, orig, dir, active, n, tmin, tmax, stack_depth, lowmask,
+                t_out, tri_out, u_out, v_out, counter);
       return 0;
     });
   }
   return (int)cudaGetLastError();
+}
+
+// The global stack buffer K1 (which 0) or K2 (1, 4) takes for n lanes at
+// layout (arity, leaf) and stack_depth: *entries uint32 entries, 0 where
+// the kernel keeps its stacks in shared or local memory.
+extern "C" int fov_traverse_stack(int which, int arity, int leaf,
+                                  int stack_depth, int n,
+                                  long long* entries) {
+  const int layout = layout_of(arity, leaf);
+  if (which < 0 || which >= kKernels || layout < 0 ||
+      kernel_of(which, layout) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return global_stack_entries(which, layout, n, stack_depth, entries);
 }
 
 namespace {
@@ -987,8 +1653,8 @@ int launch_occluded(int which, const float* table, const float* orig,
     if (rc != 0) return rc;
     with_layout(layout, [&](auto tag) {
       constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
-      const auto kernel =
-          which == 1 ? occluded_kernel<A, L> : occluded_nocull_kernel<A, L>;
+      const auto kernel = which == 1 ? occluded_kernel_at<A, L, true>()
+                                     : occluded_kernel_at<A, L, false>();
       kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
           reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
           tmax, stack_depth, occ_out, counter);
@@ -1077,8 +1743,25 @@ extern "C" int fov_traverse_info(int which, int arity, int leaf,
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  const size_t smem = shared_of(layout, stack_depth);
+  const size_t smem = shared_of(which, layout, stack_depth);
   *shared = (int)smem;
   int blocks = 0;
   return (int)grid_of(which, layout, smem, blocks_per_sm, &blocks);
+}
+
+// The design of kernel ``which`` at layout (arity, leaf): the lanes that
+// walk one ray (1, or G at (32, 12)), how its rows reach the walk (0:
+// 16-byte __ldg's into registers; 1: cp.async into the ray's
+// shared-memory buffer) and where its stacks lie (0 shared, 1 global, 2
+// local memory).
+extern "C" int fov_traverse_design(int which, int arity, int leaf,
+                                   int* group_lanes, int* row_copy,
+                                   int* stack_home) {
+  const int layout = layout_of(arity, leaf);
+  if (which < 0 || which >= kKernels || layout < 0 ||
+      kernel_of(which, layout) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  design_of(which, layout, group_lanes, stack_home);
+  *row_copy = *group_lanes > 1 ? 1 : 0;
+  return 0;
 }

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 # the layouts (arity, leaf size) K1, K2 and the non-culling K2 are
 # compiled for besides the default (16, 6): the JAX package's wide packings
+# ((32, 12) as group-per-ray walks, (32, 24) as one thread a ray)
 WIDE_LAYOUTS = ((32, 12), (32, 24))
 # the kernels compiled at every layout
 LAYOUT_KERNELS = ("closest_hit", "occluded", "occluded_nocull")
@@ -64,10 +65,11 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points: the launches take (table, origin, direction, active, n,
 # tmin, tmax, stack_depth, ...), end in the stream and return
 # cudaGetLastError; the *_info queries return a cudaError_t code too. The
-# single-level K1/K2 take the table's (arity, leaf_size) before the stream.
+# single-level K1/K2 take the table's (arity, leaf_size) before the stream,
+# K1 its global stack buffer (``fov_traverse_stack`` entries) before those.
 SIGNATURES = {
     "fov_closest_hit": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P, _P, _P, _P,
-                        _P, _I, _I, _P),
+                        _P, _P, _I, _I, _P),
     "fov_occluded": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _I, _I, _P),
     # K2 with back faces occluding: fov_occluded's arguments
     "fov_occluded_nocull": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _I, _I,
@@ -81,6 +83,8 @@ SIGNATURES = {
                              _P),
     "fov_packet_spill": (_I, _I, _P),
     "fov_traverse_info": (_I, _I, _I, _I, _P, _P, _P, _P),
+    "fov_traverse_design": (_I, _I, _I, _P, _P, _P),
+    "fov_traverse_stack": (_I, _I, _I, _I, _I, _P),
     "fov_packet_info": (_P, _P, _P, _P),
 }
 
@@ -178,13 +182,23 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {rc})")
 
 
+# how a traversal kernel's rows reach its walk, and where its stacks lie
+# (``fov_traverse_design``)
+ROW_COPIES = ("ldg", "cp.async")
+STACK_HOMES = ("shared", "global", "local")
+
+
 def resources(stack_depth: int) -> dict:
     """Registers per thread, local memory per thread (spills and stack
     frames), resident blocks per SM and dynamic shared memory per block of
     each kernel, as the CUDA runtime reports them for the loaded build; K1/K2
     and their instanced and non-culling variants at ``stack_depth`` (K3's
     shared memory does not depend on it), the wide layouts' K1/K2 and
-    non-culling K2 under their ``layout_name``."""
+    non-culling K2 under their ``layout_name``. K1/K2's entries also give
+    their design: ``group_lanes`` (the lanes that walk one ray),
+    ``row_copy`` (``ROW_COPIES``: 16-byte loads into registers, or
+    ``cp.async`` into the ray's shared-memory row buffer) and ``stack``
+    (``STACK_HOMES``)."""
     out = {}
     which = {"closest_hit": 0, "occluded": 1, "closest_hit_instanced": 2,
              "occluded_instanced": 3, "occluded_nocull": 4}
@@ -202,6 +216,14 @@ def resources(stack_depth: int) -> dict:
                                                 for v in vals))
         check(rc, fn)
         out[kernel] = dict(zip(keys, (v.value for v in vals)))
+        if fn == "fov_traverse_info":
+            design = [ctypes.c_int(0) for _ in range(3)]
+            check(library(lib).fov_traverse_design(
+                *args[:3], *(ctypes.addressof(v) for v in design)),
+                "fov_traverse_design")
+            group, copy, home = (v.value for v in design)
+            out[kernel].update(group_lanes=group, row_copy=ROW_COPIES[copy],
+                               stack=STACK_HOMES[home])
     return out
 
 

@@ -40,6 +40,8 @@ layout.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
@@ -288,6 +290,20 @@ def _count(name: str, arity: int, leaf_size: int) -> None:
             kernel_build.layout_name(name, arity, leaf_size)] += 1
 
 
+def _global_stack(lib, arity: int, leaf_size: int, stack_depth: int, n: int,
+                  dev):
+    """The global-memory stack buffer K1 takes at the layout for n lanes
+    (at (32, 12) its rays' stacks lie there; elsewhere in shared or local
+    memory: None)."""
+    entries = ctypes.c_longlong(0)
+    kernel_build.check(lib.fov_traverse_stack(
+        0, arity, leaf_size, stack_depth, n, ctypes.addressof(entries)),
+        "fov_traverse_stack")
+    if entries.value == 0:
+        return None
+    return torch.empty((entries.value,), dtype=torch.int32, device=dev)
+
+
 # ---------------------------------------------------------------------------
 # closest hit (K1)
 # ---------------------------------------------------------------------------
@@ -440,8 +456,10 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
                 kernel_build.stream())
             name = "closest_hit_instanced"
         else:
-            rc = lib.fov_closest_hit(*args, arity, leaf_size,
-                                     kernel_build.stream())
+            stack = _global_stack(lib, arity, leaf_size, stack_depth, n, dev)
+            rc = lib.fov_closest_hit(
+                *args, 0 if stack is None else stack.data_ptr(), arity,
+                leaf_size, kernel_build.stream())
             name = "closest_hit"
         kernel_build.check(rc, name)
         _count(name, arity, leaf_size)

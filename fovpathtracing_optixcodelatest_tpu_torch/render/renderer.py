@@ -17,7 +17,7 @@ key, 1) (``ops.rng``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +25,11 @@ import torch
 from fovpathtracing_optixcodelatest_tpu_torch.config import (
     FoveationSchedule,
     RenderConfig,
+)
+from fovpathtracing_optixcodelatest_tpu_torch.models.probe import ProbeParams
+from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+    Scene,
+    build_scene,
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling as probe_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import fold_in, prng_key
@@ -202,6 +207,12 @@ class Renderer:
     an optional ``demand_loader`` (``models/demand.DemandLoader``) whose
     context the scene samples its textures through.
 
+    The scene comes as the JAX package's ``Renderer`` takes it: ``meshes``
+    (a sequence of ``HostMesh``; ``probe`` and ``texture_images`` as
+    ``build_scene`` takes them) builds it on ``device``; a prebuilt
+    ``scene`` (also the first positional argument) is used as it is, its
+    probe swapped for ``probe`` where one is given.
+
     ``multichip="samples"`` renders every frame over the devices of
     ``mesh`` (default ``parallel/tiles.make_mesh()``, every visible CUDA
     device; on a CPU renderer the one CPU), each tracing its slice of every
@@ -210,12 +221,27 @@ class Renderer:
     single-device frame; ``render_aov`` stays on the renderer's device. A
     demand loader is refused with either."""
 
-    def __init__(self, scene, config: RenderConfig = RenderConfig(),
+    def __init__(self, scene: Optional[Scene] = None,
+                 config: RenderConfig = RenderConfig(),
                  schedule: Optional[FoveationSchedule] = None, seed: int = 0,
                  device="cuda", demand_loader=None,
-                 multichip: Optional[str] = None, mesh=None):
+                 multichip: Optional[str] = None, mesh=None, *,
+                 meshes: Optional[Sequence] = None,
+                 probe: Optional[ProbeParams] = None, texture_images=None):
         config.check_supported()
         self.device = torch.device(device)
+        if scene is not None and not isinstance(scene, Scene):
+            if meshes is not None:
+                raise ValueError("meshes given twice")
+            meshes, scene = scene, None  # JAX's first positional argument
+        if scene is None:
+            if meshes is None:
+                raise ValueError("provide meshes or a prebuilt scene")
+            scene = build_scene(meshes, probe=probe,
+                                texture_images=texture_images,
+                                device=self.device)
+        elif probe is not None:
+            scene = scene.with_probe(probe)
         if scene.device.type != self.device.type:
             raise ValueError(
                 f"scene lies on {scene.device}, renderer on {self.device}"

@@ -33,8 +33,10 @@ field's stack depth with the tree's ``ptxas`` lines. ``--layouts N``
 times ``box_city_fast(N)``'s tables at every layout the kernels are
 compiled for (``traverse.KERNEL_LAYOUTS``) on the primary and bounce-0
 shadow lanes of that scene's 960x540 frame, with each table's rows, stack
-depth, host build seconds and resources (the (32, 24) table is collapsed
-in Python: about 12 s at N = 180). To
+depth, host build seconds and resources (with each kernel's design where
+the tree reports it: lanes a ray, how rows are read, the stack's home;
+the (32, 24) table is collapsed in Python: about 12 s at N = 180, more
+than 5 minutes at N = 913, so name ``--layout 32 12`` there). To
 compare the parent's kernels with the change's on one card, unpack ``git
 archive <parent>`` into a git-ignored directory and run, in one chip call,
 each tree's ``chip_smoke.py`` in the order parent, change, change, parent,

@@ -57,6 +57,13 @@ def test_kernel_of_reads_plain_templated_and_mangled_names():
         "uint4 const*)": "occluded_nocull",
         "_ZN12_GLOBAL__N_122occluded_nocull_kernelILi16ELi6EEEvPK5uint4":
             "occluded_nocull",
+        # the wide layouts' group walks
+        "void (anonymous namespace)::closest_hit_group_kernel<32, 12, 8>("
+        "uint4 const*)": "closest_hit",
+        "void (anonymous namespace)::occluded_group_kernel<32, 24, 8>("
+        "uint4 const*)": "occluded",
+        "_ZN12_GLOBAL__N_128occluded_nocull_group_kernelILi32ELi12ELi8EEEv"
+        "PK5uint4": "occluded_nocull",
         "void at::native::elementwise_kernel<128, 2>(int)": None,
         "aten::mul": None,
     }
@@ -73,6 +80,10 @@ def test_ptxas_spills_per_kernel():
     assert chip_smoke._ptxas_spills(PTXAS_LOG + wide) == {
         "occluded": 0, "closest_hit": 16, "occluded_a32_l12": 0,
         "closest_hit_a32_l12": 16}
+    # and so is a group walk, by its first two
+    group = PTXAS_LOG.replace("_115occluded_kernelILi16ELi6EE",
+                              "_121occluded_group_kernelILi32ELi24ELi8EE")
+    assert chip_smoke._ptxas_spills(group)["occluded_a32_l24"] == 0
 
 
 def test_k1_agreement_counts_ulps_on_hits():
@@ -429,6 +440,8 @@ def _rehearse_deep_phase(monkeypatch, wide):
         for k in ("k1", "k2", "k2_nocull"):
             assert rec[k]["lanes"] == 500 and rec[k]["max_abs_err"] == 0.0
             assert rec[k]["ms"] is None and rec[k]["bound_ms"] > 0
+            # the frame's lanes: more work than the subset's
+            assert rec[k]["frame_bound_ms"] > rec[k]["bound_ms"]
         assert rec["k1"]["hit_equal"] and rec["k1"]["ulp"] == 0
         # K2 below all 500 subset lanes, so that not every shadow ray is
         # occluded; culling occludes no more than the non-culling K2
@@ -472,6 +485,16 @@ def test_rehearse_oracle_phase_and_nocull_check(no_card):
     assert out["mismatches"] == 0 and out["ms"] is None
     assert out["occluded"] >= out["occluded_culling"]
     assert out["bound_ms"] > 0 and out["queried"] == int(sq.sum())
+
+
+def test_rehearse_readme_example(no_card):
+    # phase h's line: the README's Renderer(meshes=...) builds the scene
+    # itself, on the device asked for
+    sched = FoveationSchedule.uniform(1)
+    r = chip_smoke.readme_example(24, 16, schedule=sched, device="cpu")
+    assert r["shape"] == (16, 24, 3) and 0 < r["mean"] < 255
+    assert r["device"] == "cpu" and r["traces"] > 0
+    assert r["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
 
 
 def test_rehearse_demand_phase(no_card):

@@ -28,10 +28,12 @@ also held to the plain versions on a table whose instances enter their
 BLAS at a leaf row (``leaf_root``), where they must answer as on the same
 table entered at its root node.
 
-The kernels' resources as the CUDA runtime reports them: no (16, 6)
-kernel keeps local memory (no spill), the wide ones only their
-``MAX_STACK``-entry stack, and the single-level K1, K2 and non-culling K2
-keep their registers and resident blocks.
+The kernels' resources as the CUDA runtime reports them: no kernel keeps
+local memory (no spill) but the (32, 24) ones, which keep their
+``MAX_STACK``-entry stack there; the (16, 6), two-level and K3 kernels
+keep their registers and resident blocks; the (32, 12) group-per-ray walks
+report their lanes a ray, stack home, registers, blocks/SM and shared
+memory.
 
 K2's non-culling instantiation (``occluded(..., cull_backface=False)``, the
 04 raycast's shadow ray) is held to its plain version at the same sparse
@@ -40,11 +42,16 @@ the culling K2 skips, and refuse two-level tables and other layouts.
 
 K1, K2 and the non-culling K2 at the wide layouts (32, 12) and (32, 24)
 (``build_scene(leaf_size=, arity=)``) are held to their plain versions the
-same way, at sparse masks, ragged lane counts and overflowing stacks, each
+same way, at sparse masks, ragged lane counts (also counts that leave a
+warp's last groups of lanes without a ray: (32, 12) walks a ray with a
+group of lanes), overflowing stacks and the deepest stack the wrappers
+take (``MAX_STACK``: K1's global stack buffer, K2's shared stack), each
 launch counted under its layout too; with the full stack they answer as
-the (16, 6) table of the same triangles (hit and t equal). Layouts that
-are not compiled, and rows of another compiled layout's width, raise;
-the instanced wrappers refuse the wide layouts.
+the (16, 6) table of the same triangles (hit and t equal). A leaf holding
+each triangle twice pins K1's tie rule: the lower slot, as the plain
+version's serial loop keeps it, where a group's lanes hit both copies.
+Layouts that are not compiled, and rows of another compiled layout's
+width, raise; the instanced wrappers refuse the wide layouts.
 
 The two-rank frames of ``parallel/`` on the card (mesh [cuda:0, cuda:0]:
 the sample slicing and the cross-rank assembly really run), sample-split
@@ -79,12 +86,20 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
     build_scene_instanced,
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+    bvh_native,
     kernel_build,
     packet_traverse,
     tlas,
     traverse,
 )
-from torch_blas_fields import _rot_y, _translate, leaf_root, small_blas_field
+from torch_blas_fields import (
+    _rot_y,
+    _translate,
+    leaf_root,
+    leaf_slots,
+    small_blas_field,
+    twin_tris,
+)
 
 TMIN, TMAX = 0.01, 1e16
 
@@ -548,28 +563,40 @@ def test_instanced_kernels_on_a_leaf_root_blas(cuda_device, share):
 
 @pytest.mark.cuda
 def test_kernel_resources(cuda_device):
-    # at the bench scene's stack depth (50): no (16, 6) kernel keeps local
-    # memory, and the single-level kernels' registers and blocks per SM
-    # stay; the wide layouts' kernels keep only their stack there
+    # at the bench scene's stack depth (50): no kernel keeps local memory;
+    # the (16, 6), two-level and K3 kernels keep their registers and
+    # resident blocks, one lane a ray, rows read by 16-byte loads
     res = kernel_build.resources(50)
-    wide = [kernel_build.layout_name(k, *lay)
-            for lay in kernel_build.WIDE_LAYOUTS
-            for k in kernel_build.LAYOUT_KERNELS]
+    wide24 = [kernel_build.layout_name(k, 32, 24)
+              for k in kernel_build.LAYOUT_KERNELS]
     assert all(r["local_bytes"] == 0 for k, r in res.items()
-               if k not in wide), res
-    # the wide ones: K1, K2 and the non-culling K2 of each layout keep the
+               if k not in wide24), res
+    single = ("closest_hit", "occluded", "occluded_nocull",
+              "closest_hit_instanced", "occluded_instanced")
+    assert [res[k]["registers"] for k in single] == [69, 96, 96, 80, 96]
+    assert [res[k]["blocks_per_sm"] for k in single] == [7, 5, 5, 6, 5]
+    assert all(res[k]["group_lanes"] == 1 and res[k]["row_copy"] == "ldg"
+               for k in single)
+    assert (res["occluded_packets"]["registers"],
+            res["occluded_packets"]["blocks_per_sm"]) == (64, 8)
+    # (32, 12): the group-per-ray walks, rows copied into shared memory; K1
+    # 4 lanes a ray with its stack in global memory, K2 and the non-culling
+    # K2 8 lanes a ray with the stack in shared memory
+    names = [kernel_build.layout_name(k, 32, 12)
+             for k in kernel_build.LAYOUT_KERNELS]
+    got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["registers"],
+            res[k]["blocks_per_sm"], res[k]["shared_bytes"]) for k in names]
+    assert got == [(4, "global", 64, 8, 22528), (8, "shared", 48, 10, 12928),
+                   (8, "shared", 48, 10, 12928)], got
+    assert all(res[k]["row_copy"] == "cp.async" for k in names)
+    # (32, 24): one thread a ray (the group walks were slower there), the
     # MAX_STACK-entry stack in local memory (K2 16 bytes more, no spill)
-    for lay in kernel_build.WIDE_LAYOUTS:
-        names = [kernel_build.layout_name(k, *lay)
-                 for k in kernel_build.LAYOUT_KERNELS]
-        assert [res[k]["local_bytes"] - 4 * traverse.MAX_STACK
-                for k in names] == [0, 16, 16], res
-        assert [res[k]["registers"] for k in names] == [80, 96, 96]
-        assert [res[k]["blocks_per_sm"] for k in names] == [6, 5, 5]
-    single = ("closest_hit", "occluded", "occluded_nocull")
-    assert [res[k]["registers"] for k in single] == [69, 96, 96]
-    assert [res[k]["blocks_per_sm"] for k in single] == [7, 5, 5]
-    assert res["occluded_instanced"]["local_bytes"] == 0
+    names = [kernel_build.layout_name(k, 32, 24)
+             for k in kernel_build.LAYOUT_KERNELS]
+    got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["registers"],
+            res[k]["blocks_per_sm"], res[k]["local_bytes"]) for k in names]
+    assert got == [(1, "local", 80, 6, 1024), (1, "local", 96, 5, 1040),
+                   (1, "local", 96, 5, 1040)], got
 
 
 # ---------------------------------------------------------------------------
@@ -883,7 +910,9 @@ def test_wide_kernels_match_plain_at_active_share(wide_cities, layout,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
-@pytest.mark.parametrize("n", [0, 1, 31, 33, 70_001])
+# 7, 9, 29, 4101: counts that leave a warp's last groups of lanes (4 or 8
+# lanes a ray at (32, 12)) without a ray
+@pytest.mark.parametrize("n", [0, 1, 7, 9, 29, 31, 33, 4101, 70_001])
 def test_wide_kernels_match_plain_at_ragged_n(wide_cities, layout, n):
     scene = wide_cities[layout]
     o, d, act = _rays(n, 3, scene.device)
@@ -926,3 +955,61 @@ def test_wide_kernels_refuse_layouts_not_compiled(wide_cities, layout):
     with pytest.raises(ValueError, match="columns"):
         traverse.closest_hit(b.table, o, d, act, TMIN, TMAX, b.stack_depth,
                              32, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_kernels_at_the_deepest_stack(wide_cities, layout):
+    # at MAX_STACK, the deepest stack the wrappers take, every stack home
+    # still holds a ray's whole stack: (32, 12)'s K1 in the global buffer
+    # its wrapper allocates, its K2s in shared memory (1 KB a ray, the
+    # most a block asks for), (32, 24)'s in local memory; the walks launch,
+    # keep no spills and answer as their plain versions
+    scene = wide_cities[layout]
+    o, d, act = _rays(20_000, 17, scene.device)
+    _wide_against_plain(scene, o, d, act, traverse.MAX_STACK)
+    res = kernel_build.resources(traverse.MAX_STACK)
+    for k in kernel_build.LAYOUT_KERNELS:
+        r = res[kernel_build.layout_name(k, *layout)]
+        assert r["blocks_per_sm"] >= 1, r
+        rays = 128 // r["group_lanes"]
+        if r["stack"] == "shared":
+            assert r["shared_bytes"] > 4 * traverse.MAX_STACK * rays, r
+        if r["stack"] == "local":
+            assert r["local_bytes"] >= 4 * traverse.MAX_STACK, r
+        else:
+            assert r["local_bytes"] == 0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_k1_keeps_the_lower_slot_of_a_tie(cuda_device, layout):
+    # a leaf holding each triangle twice: both copies are hit at the same
+    # t on different lanes of a group, and K1 must keep the lower slot, as
+    # the plain version's serial t < best loop does
+    tris = twin_tris()
+    half = len(tris) // 2
+    b = bvh_native.build(tris, leaf_size=layout[1], arity=layout[0])
+    table = torch.tensor(b.table, device=cuda_device)
+    rng = np.random.default_rng(4)
+    n = 4096
+    o = np.concatenate([rng.uniform(-4.9, 4.9, (n, 1)), np.full((n, 1), 5.0),
+                        rng.uniform(-4.9, 4.9, (n, 1))], 1)
+    d = np.concatenate([rng.normal(0, 0.05, (n, 1)), -np.ones((n, 1)),
+                        rng.normal(0, 0.05, (n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.tensor(x, dtype=torch.float32, device=cuda_device)
+            for x in (o, d))
+    act = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    args = (table, o, d, act, TMIN, TMAX, b.stack_depth, *layout)
+    k = traverse.closest_hit(*args)
+    p = traverse.closest_hit_plain(*args)
+    for c in ("t", "u", "v", "tri_id", "hit"):
+        assert torch.equal(k[c], p[c]), c
+    hit = k["hit"]
+    assert hit.float().mean() > 0.95
+    slots = leaf_slots(b.table, *layout)
+    for tid in k["tri_id"][hit].tolist():
+        other = tid + half if tid < half else tid - half
+        assert slots[tid][0] == slots[other][0]
+        assert slots[tid][1] < slots[other][1]

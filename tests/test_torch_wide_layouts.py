@@ -57,7 +57,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops import (
 from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import prng_key
 from fovpathtracing_optixcodelatest_tpu_torch.render import film
 from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import render_frame
-from torch_blas_fields import _translate, pyramid_tris
+from torch_blas_fields import _translate, leaf_slots, pyramid_tris, twin_tris
 
 torch.set_num_threads(2)
 
@@ -193,6 +193,40 @@ def test_plain_walks_match_jax_on_wide_tables(arity, leaf):
     assert np.array_equal(occ.numpy(), np.asarray(jocc))
     assert np.array_equal(occ_n.numpy(), np.asarray(jocc_n))
     assert 0 < int(occ.sum()) < int(occ_n.sum()) < len(o)
+
+
+def test_plain_k1_keeps_the_lower_slot_of_a_tie_as_jax():
+    """A leaf holding a triangle twice: both copies hit at the same t, and
+    the closest hit is the lower slot's, as JAX's serial ``t < best`` leaf
+    loop keeps it (the kernels' group min-reduction must keep it too)."""
+    tris = twin_tris()
+    half = len(tris) // 2
+    jb = jbvh_native.build(tris, leaf_size=12, arity=32, dfs=False)
+    pb = bvh_native.build(tris, leaf_size=12, arity=32)
+    assert _same_table(pb, jb)
+    rng = np.random.default_rng(4)
+    n = 512
+    o = np.concatenate([rng.uniform(-4.9, 4.9, (n, 1)), np.full((n, 1), 5.0),
+                        rng.uniform(-4.9, 4.9, (n, 1))], 1).astype(np.float32)
+    d = np.concatenate([rng.normal(0, 0.05, (n, 1)), -np.ones((n, 1)),
+                        rng.normal(0, 0.05, (n, 1))], 1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    with jax.disable_jit():
+        ref = traverse8.closest_hit(jb, jnp.asarray(o), jnp.asarray(d), TMIN,
+                                    TMAX)
+    got = traverse.closest_hit_plain(
+        torch.from_numpy(pb.table), torch.from_numpy(o), torch.from_numpy(d),
+        torch.ones(n, dtype=torch.bool), TMIN, TMAX, pb.stack_depth, 32, 12)
+    ids = got["tri_id"].numpy()
+    assert np.array_equal(ids, np.asarray(ref["tri_id"]))
+    hit = got["hit"].numpy()
+    assert hit.mean() > 0.95  # a ray on a cell's edge may slip through
+    ids = ids[hit]
+    slots = leaf_slots(pb.table, 32, 12)
+    twin = np.where(ids < half, ids + half, ids - half)
+    for tid, other in zip(ids.tolist(), twin.tolist()):
+        assert slots[tid][0] == slots[other][0]  # one leaf row
+        assert slots[tid][1] < slots[other][1]  # the lower slot
 
 
 def test_frame_matches_jax_at_l12_a32():

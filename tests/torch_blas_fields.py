@@ -66,3 +66,44 @@ def leaf_root(table, inst_base, blas_base, arity):
         assert len(kids) == 1 and kids[0] & 3 == 1, "not a one-leaf BLAS"
         words[r, 0] = kids[0]
     return out
+
+
+def twin_tris(n: int = 10):
+    """An n x n grid of unit quads in the plane y = 0, facing +y, every
+    triangle twice: (4 n^2, 3, 3) float32 corners, triangle i + 2 n^2 the
+    copy of triangle i. The builder keeps a triangle and its copy (the same
+    centroid) in one leaf, so a ray that hits one hits both at the same t:
+    the closest-hit walks must keep the lower slot."""
+    cells = []
+    for i in range(n):
+        for k in range(n):
+            x, z = i - n / 2, k - n / 2
+            p = np.array([[x, 0.0, z], [x + 1, 0.0, z], [x + 1, 0.0, z + 1],
+                          [x, 0.0, z + 1]])
+            cells += [p[[0, 2, 1]], p[[0, 3, 2]]]
+    base = np.stack(cells).astype(np.float32)
+    return np.concatenate([base, base])
+
+
+def leaf_slots(table, arity: int, leaf_size: int) -> dict:
+    """{triangle id: (leaf row, slot)} of every real triangle of a packed
+    single-level table (numpy), found by walking its node rows from the
+    root."""
+    ids_of = np.ascontiguousarray(
+        table[:, 9 * leaf_size: 10 * leaf_size]).view(np.int32)
+    codes = np.ascontiguousarray(
+        table[:, 3 * arity: 4 * arity]).view(np.uint32)
+    out, todo = {}, [0]
+    while todo:
+        row = todo.pop()
+        for c in codes[row]:
+            c = int(c)
+            if c == 0:
+                continue
+            if c & 3 == 0:
+                todo.append(c >> 2)
+            else:
+                for slot, tid in enumerate(ids_of[c >> 2]):
+                    if tid >= 0:
+                        out[int(tid)] = (c >> 2, slot)
+    return out
