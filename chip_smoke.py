@@ -50,7 +50,15 @@ e. render-time instancing: the 1,000-instance sphere field
    single-level K1 and K2 on the same rays against the flattened table;
    the same subframe from the flattened single-level scene within the JAX
    package's instancing gate (mean radiance within rtol 0.05, 90% of
-   pixels within 1e-3);
+   pixels within 1e-3); the field's two-level tables at (32, 12) and
+   (32, 24) (``tlas.build_instanced(leaf_size=, arity=)``): the instanced
+   K1 and K2 compiled there against their plain versions on the same
+   lanes (exact), timed, with bounds and resources, and the frames at each
+   layout (launches under the layout's names) within 1 LSB of the (16, 6)
+   frame on 99% of the pixels; the same for the city field
+   (``kernel_times.city_field``: 8 instances of one 1,500-triangle BLAS,
+   whose wide BLAS rows are many leaves), at (16, 6), (32, 12) and
+   (32, 24), 2 timed frames each;
 f. spectral: the untextured bench frame with ``spectral=True``, timed like
    the main path; the dispersive glass sphere (``glass_sphere``,
    ``dispersion`` 25000) on the card against the CPU at a small size (99%
@@ -59,7 +67,9 @@ g. deep scenes: ``box_city_fast`` n=180 (388,812 triangles, 4 timed
    frames) and n=913 (10,002,840 triangles, 2 timed frames) at 960x540
    ``reference_32_16_8``, each in its default (16, 6) table and in one of
    the JAX package's wide packings (``DEEP_SCENES``: the Python-collapsed
-   (32, 24) at n=180, the native (32, 12) at n=913): the host build phase
+   (32, 24) at n=180, the native (32, 12) at n=913, both in pack order,
+   ``dfs=False``: a named L12/A32 build at 10M is phase p's DFS and
+   treelet table): the host build phase
    by phase, the warm start from the npz BVH cache the cold build wrote
    (bit-identical table), the scene's memory report; for each table the
    timed frames (peak device memory, launches: the wide frames launch only
@@ -134,12 +144,30 @@ o. the legacy oracles on the bench scene's lanes of phases 4-5: the
    within 1e-6). The host seconds of the threaded, the Python and the
    native wide builds.
 
+p. (after phase g) JAX's default deep scene: ``box_city_fast`` n=400
+   (1,920,012 triangles) at 960x540 ``reference_32_16_8``, ``max_depth``
+   4, in three tables (``JAX_TABLES``): the port's default (16, 6), JAX's
+   plain L12/A32 (``dfs=False``) and JAX's default for a named L12/A32
+   layout (``build_scene(meshes, leaf_size=12, arity=32)``: DFS rows,
+   small siblings grouped under 35 synthetic rows, treelets of 8,192
+   rows); for each, the host build cold and warm (from the npz cache it
+   wrote, bit for bit), 4 timed frames and 4 profiled (device busy,
+   launches), K1, K2 and the non-culling K2 against their plain versions
+   on 65,536 lanes of the frame's primary and shadow rays (exact) and
+   timed on all of them; the default table's frame within 1 LSB of the
+   plain L12/A32 frame on 99% of the pixels (the bit-identical share
+   printed), every table's within 1 LSB of the (16, 6) frame, K1's hits
+   and t equal on every table (another triangle only at an exact tie).
+
 Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
 kernels the same way). Prints the card's name and power limit, one
 ``{"kernels": [...]}`` line (with each kernel's registers, local memory and
 resident blocks per SM; the wide layouts' instantiations as
-``closest_hit_a32_l12`` and so on, with their phase-g times), and as its
+``closest_hit_a32_l12`` and so on, with their phase-g times, the
+two-level ones as ``closest_hit_instanced_a32_l12`` and so on, with their
+phase-e times; K1, K2 and the non-culling K2 with their phase-p times
+under ``jax_tables``), and as its
 last line ``{"ok": true, "device":
 {...}}``. Any failed check raises and exits non-zero; there is no CPU
 fallback.
@@ -147,7 +175,7 @@ fallback.
 ``--profile`` adds ``FRAMES`` frames of the main path, and as many of the
 textured, the instanced, the spectral and the paged-in demand frames and
 of the stereo pairs, under ``torch.profiler``, and writes the op tables of
-phase g's profiled frames, which are profiled in every run.
+phase g's and phase p's profiled frames, which are profiled in every run.
 """
 
 from __future__ import annotations
@@ -188,6 +216,9 @@ INSTANCED_KERNELS = ("closest_hit_instanced", "occluded_instanced")
 # triangles with the Python-collapsed L24/A32 table (about 12 s on the
 # host), 10,002,840 with the native L12/A32 one (about 16 s)
 DEEP_SCENES = ((180, 4, (32, 24)), (913, 2, (32, 12)))
+# phase p's scene: box_city_fast n=400, 1,920,012 triangles, the size of
+# the JAX package's default deep scene (models/scenes.py box_city_fast)
+JAX_SCENE_N = 400
 
 
 def _line(msg: str) -> None:
@@ -661,6 +692,135 @@ def cli_phase(width: int, height: int, schedule: str, device="cuda",
 FLAT_MEAN_RTOL, FLAT_PIXEL_TOL, FLAT_SHARE = 0.05, 1e-3, 0.90
 
 
+def _field_layouts(rays: dict, frames: int, ref_frame, device) -> dict:
+    """(e) The field ``rays`` on its two-level tables at the wide layouts
+    (``rays["wide"]``): for each, the instanced K1 and K2 against their
+    plain versions on the frame's primary and bounce-0 shadow lanes
+    (exact), their times (CUDA events), bounds and resources at the
+    table's depth, and ``frames`` timed frames (launches under the
+    layout's names) whose last frame lies within 1 LSB of ``ref_frame``
+    (the (16, 6) table's) on 99% of the pixels. Keyed by
+    ``kernel_build.layout_name("field", arity, leaf_size)``."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    config = rays["config"]
+    o, d, act, _ = rays["primary"]
+    so, sd, sq = rays["shadow"]
+    n, n_act, ns, nq = o.shape[0], int(act.sum()), so.shape[0], int(sq.sum())
+    calls = kernel_times.field_calls(rays)
+    out = {}
+    for lay, b in rays["wide"].items():
+        kargs = (config.tmin, config.tmax, *b.walk_args)
+        kw = b.instance_kwargs
+        st1, st2 = {}, {}
+        p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
+            b.table, o, d, act, *kargs, stats=st1, **kw))
+        p2, p2_ms = _plain_ms(lambda: traverse.occluded_plain(
+            b.table, so, sd, sq, *kargs, stats=st2, **kw))
+        mism = kernel_times.field_mismatches(rays, calls, plain=(p1, p2),
+                                             layout=lay)
+        mism2 = mism.pop("occluded")
+        assert not any(mism.values()), \
+            f"instanced K1 at {lay} disagrees with its plain version: {mism}"
+        assert mism2 == 0, f"instanced K2 at {lay} disagrees with its plain version"
+        assert int(p1["hit"].sum()) > 0 and int(p2.sum()) > 0
+        names = {k: kernel_build.layout_name(k, *lay) for k in
+                 ("ik1_primary", "ik2_shadow", *kernel_build.INSTANCED_KERNELS)}
+        times = dict.fromkeys(names.values())
+        if device == "cuda":  # else a rehearsal: no device time
+            times = kernel_times.time_kernels(
+                {names[k]: calls[names[k]] for k in ("ik1_primary",
+                                                     "ik2_shadow")})
+        b1, b1_by, f1 = _bound(st1, b.table, n, n_act, 20)
+        b2, b2_by, f2 = _bound(st2, b.table, ns, nq, 1)
+        rec = {"layout": lay, "rows": b.num_rows, "stack_depth": b.stack_depth,
+               "inst_base": b.inst_base, "blas_base": b.blas_base,
+               "table_bytes": b.table.numel() * 4,
+               "host_build_s": rays["wide_build_s"][lay]}
+        rec["k1"] = {"lanes": n, "active": n_act,
+                     "hits": int(p1["hit"].sum()), "mismatches": mism,
+                     "max_abs_err": float(min(sum(mism.values()), 1)),
+                     "ms": times[names["ik1_primary"]], "plain_ms": p1_ms,
+                     "bound_ms": b1, "bound_by": b1_by, "fetch_bytes": f1,
+                     "work": st1}
+        rec["k2"] = {"lanes": ns, "queried": nq, "occluded": int(p2.sum()),
+                     "mismatches": mism2, "max_abs_err": float(min(mism2, 1)),
+                     "ms": times[names["ik2_shadow"]], "plain_ms": p2_ms,
+                     "bound_ms": b2, "bound_by": b2_by, "fetch_bytes": f2,
+                     "work": st2}
+        del p1, p2
+        rec["resources"] = None
+        if device == "cuda":
+            res = kernel_build.resources(b.stack_depth)
+            rec["resources"] = {k: res[names[k]]
+                                for k in kernel_build.INSTANCED_KERNELS}
+        renderer = Renderer(dataclasses.replace(rays["scene"], bvh=b),
+                            config, rays["schedule"], device=device)
+        renderer.set_camera(rays["camera"])
+        rec.update(timed_frames(renderer, frames))
+        del renderer
+        frame = rec.pop("frame")
+        rec["frame_mean"] = float(frame.mean())
+        rec["frame_share"] = _share_within_1lsb(frame, ref_frame)
+        assert rec["frame_share"] >= 0.99, \
+            f"the field's {lay} frame differs from the (16, 6) frame's"
+        for k in kernel_build.INSTANCED_KERNELS:
+            assert rec["launches"][names[k]] == rec["launches"][k] > 0 \
+                or device != "cuda", \
+                f"the {lay} field frame did not launch only {names[k]}"
+        out[kernel_build.layout_name("field", *lay)] = rec
+    return out
+
+
+def city_field_phase(schedule, width: int, height: int, frames: int,
+                     device="cuda") -> dict:
+    """(e) The city field (``kernel_times.city_field``: 8 instances of one
+    1,500-triangle BLAS) on its (16, 6) two-level table, ``frames`` timed
+    frames, its instanced K1 and K2 against their plain versions on the
+    frame's lanes (exact), and the same at the wide layouts
+    (``_field_layouts``)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    rays = kernel_times.field_rays(device, width=width, height=height,
+                                   schedule=schedule,
+                                   layouts=kernel_build.WIDE_LAYOUTS,
+                                   field=kernel_times.city_field())
+    b = rays["scene"].bvh
+    calls = kernel_times.field_calls(rays)
+    mism = kernel_times.field_mismatches(rays, calls)
+    assert not any(mism.values()), \
+        f"instanced K1/K2 at (16, 6) disagree on the city field: {mism}"
+    # the (16, 6) kernels on the same lanes, beside the wide ones' times
+    times = dict.fromkeys(("ik1_primary", "ik2_shadow"))
+    if device == "cuda":
+        times = kernel_times.time_kernels({k: calls[k] for k in times})
+    renderer = Renderer(rays["scene"], rays["config"], schedule,
+                        device=device)
+    renderer.set_camera(rays["camera"])
+    out = timed_frames(renderer, frames)
+    del renderer
+    assert out["finite"] and 0 < out["frame"].mean() < 255
+    out.update(instances=b.num_instances, rows=b.num_rows,
+               stack_depth=b.stack_depth,
+               world_triangles=rays["field"].num_world_triangles,
+               unique_triangles=rays["scene"].num_triangles,
+               mismatches=mism, k1_ms=times["ik1_primary"],
+               k2_ms=times["ik2_shadow"])
+    out["wide"] = _field_layouts(rays, frames, out["frame"], device)
+    return out
+
+
 def instanced_phase(schedule, width: int, height: int, frames: int,
                     device="cuda", count: int = 1000, profile=None,
                     results=None) -> dict:
@@ -672,16 +832,21 @@ def instanced_phase(schedule, width: int, height: int, frames: int,
     ``device``, and the single-level K1 and K2 timed on the same rays
     against the flattened single-level table; subframe 0 against the same
     subframe of the flattened scene (the gate above); the flattened
-    scene's frames timed the same way."""
+    scene's frames timed the same way; the field's tables at the wide
+    layouts (``_field_layouts``, under ``wide``)."""
     import numpy as np
 
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
         Renderer,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 
-    rays = kernel_times.field_rays(device, count, width, height, schedule)
+    rays = kernel_times.field_rays(device, count, width, height, schedule,
+                                   layouts=kernel_build.WIDE_LAYOUTS)
     scene, flat, sc = rays["scene"], rays["flat"], rays["field"]
     config, camera = rays["config"], rays["camera"]
     b = scene.bvh
@@ -714,7 +879,8 @@ def instanced_phase(schedule, width: int, height: int, frames: int,
     so, sd, sq = rays["shadow"]
     kargs = (config.tmin, config.tmax, *b.walk_args)
     kw = b.instance_kwargs
-    calls = kernel_times.field_calls(rays)
+    calls = {k: v for k, v in kernel_times.field_calls(rays).items()
+             if not k.endswith(("_l12", "_l24"))}
     st1, st2 = {}, {}
     p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
         b.table, o, d, act, *kargs, stats=st1, **kw))
@@ -747,7 +913,9 @@ def instanced_phase(schedule, width: int, height: int, frames: int,
                  "flat_ms": times["flat_k2_shadow"], "plain_ms": p2_ms,
                  "bound_ms": b2, "bound_by": b2_by, "fetch_bytes": f2,
                  "work": st2}
-    del p1, p2, rays, calls
+    del p1, p2, calls
+    out["wide"] = _field_layouts(rays, frames, out["frame"], device)
+    del rays
 
     # subframe 0 against the flattened scene's
     lin = {}
@@ -898,8 +1066,10 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
             # the wide table, cold (and written to the cache, as a user's
             # build would be)
             t0 = time.perf_counter()
+            # dfs=False: the plain wide table (a named L12/A32 layout at
+            # 10M would be JAX's DFS and treelet table: phase p's)
             wbvh = bvh_native.build(tris, leaf_size=wide[1], arity=wide[0],
-                                    timings=wide_build)
+                                    dfs=False, timings=wide_build)
             wide_build_s = time.perf_counter() - t0
         finally:
             if saved is None:
@@ -1015,12 +1185,13 @@ def _walk_records(rec: dict, b, calls: dict, sub, config, times,
         kernel_build,
         traverse,
     )
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 
     (po, pd, ones1), (qo, qd, ones2) = sub
     kargs = (config.tmin, config.tmax, *b.walk_args)
     layout = (b.arity, b.leaf_size)
     # the records' keys and the instantiations' names
-    names = {key: kernel_build.layout_name(k, *layout) for key, k in
+    names = {key: kernel_times.table_name(k, b) for key, k in
              zip(("k1", "k2", "k2_nocull"), kernel_build.LAYOUT_KERNELS)}
     got1 = calls[names["k1"]]()
     got2 = calls[names["k2"]]()
@@ -1074,6 +1245,203 @@ def _walk_records(rec: dict, b, calls: dict, sub, config, times,
         rec["resources"] = {k: res[kernel_build.layout_name(k, *layout)]
                             for k in kernel_build.LAYOUT_KERNELS}
     return got1, got2, got3
+
+
+# phase p's tables of JAX's default deep scene: (label, the build's
+# arguments): the port's default, JAX's plain L12/A32 and JAX's default
+# table for a named L12/A32 layout (from 1M triangles: DFS rows, grouped
+# treelets of DEEP_TREELET_BUDGET rows)
+JAX_TABLES = (("(16, 6)", {}),
+              ("L12/A32 plain", {"leaf_size": 12, "arity": 32, "dfs": False}),
+              ("JAX default", {"leaf_size": 12, "arity": 32}))
+
+
+def jax_tables_phase(city_n: int, frames: int, schedule, width: int,
+                     height: int, device="cuda", subset: int = 65536,
+                     profile=None) -> dict:
+    """(p) JAX's default deep scene, ``box_city_fast(city_n)`` (n=400:
+    1,920,012 triangles) under the gradient sky, in each of
+    ``JAX_TABLES``:
+    the host build cold and warm (from the npz cache it wrote; bit for
+    bit), the table's rows and stacks; for each table ``frames`` timed
+    frames after one warm-up and as many under the profiler (device busy
+    ms, launches; with ``profile``, the op tables), and K1, K2 and the
+    non-culling K2 on ``subset`` lanes of the (16, 6) frame's primary and
+    bounce-0 shadow rays against their plain versions (exact), timed there
+    and on all of the frame's lanes (``_walk_records``). The last table's
+    frame must lie within 1 LSB of the second's on 99% of the pixels (its
+    bit-identical share is reported), and every table's within 1 LSB of
+    the first's; K1 must give the same hits at the same t on every table,
+    another triangle only at an exact tie. -> {label: record}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.config import RenderConfig
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        host_triangles,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.probe import (
+        gradient_sky_probe,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        DeviceBVH,
+        scene_arrays,
+        scene_from_arrays,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    tables = JAX_TABLES
+    t0 = time.perf_counter()
+    meshes, cam = scenes.box_city_fast(n=city_n, seed=0)
+    tris = host_triangles(meshes)
+    scene_s = time.perf_counter() - t0
+    recs, bvhs = {}, []
+    saved = os.environ.get("FOVTPU_BVH_CACHE")
+    bits = lambda a: a.view(np.uint32)  # noqa: E731 (ids are NaN floats)
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["FOVTPU_BVH_CACHE"] = cache
+        try:
+            for label, kw in tables:
+                cold, warm = {}, {}
+                t0 = time.perf_counter()
+                b = bvh_native.build(tris, timings=cold, **kw)
+                cold_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                again = bvh_native.build(tris, timings=warm, **kw)
+                warm_s = time.perf_counter() - t0
+                assert np.array_equal(bits(again.table), bits(b.table)) \
+                    and np.array_equal(again.leaf_perm, b.leaf_perm) and \
+                    again.stack_depth == b.stack_depth and \
+                    again.top_rows == b.top_rows, \
+                    f"the cached {label} table differs from the cold build"
+                del again
+                recs[label] = {
+                    "build": kw, "cold_s": cold_s, "cold": cold,
+                    "warm_s": warm_s, "warm": warm, "rows": b.num_rows,
+                    "layout": (b.arity, b.leaf_size), "dfs": b.dfs,
+                    "top_rows": b.top_rows, "top_stack": b.top_stack,
+                    "treelet_stack": b.treelet_stack,
+                    "stack_depth": b.stack_depth,
+                    "table_bytes": b.table.nbytes}
+                bvhs.append(b)
+            files = len(os.listdir(cache))
+        finally:
+            if saved is None:
+                del os.environ["FOVTPU_BVH_CACHE"]
+            else:
+                os.environ["FOVTPU_BVH_CACHE"] = saved
+    assert files == len(tables), f"{files} cache files for {len(tables)} tables"
+    scene = scene_from_arrays(scene_arrays(meshes, gradient_sky_probe(),
+                                           bvh=bvhs[0]), device)
+    del meshes, tris
+    scs = [scene] + [dataclasses.replace(scene, bvh=DeviceBVH.upload(b,
+                                                                     device))
+                     for b in bvhs[1:]]
+    del bvhs
+    config = RenderConfig(width=width, height=height, max_depth=4)
+    camera = dataclasses.replace(cam, aspect=width / height)
+    root, ext = os.path.splitext(profile) if profile else (None, None)
+    for (label, _), sc in zip(tables, scs):
+        rec = recs[label]
+        rec.update(triangles=sc.num_triangles, scene_s=scene_s)
+        renderer = Renderer(sc, config, schedule, device=device)
+        renderer.set_camera(camera)
+        rec.update(timed_frames(renderer, frames))
+        rec["mean_radiance"] = float(renderer.linear_frame().mean())
+        assert rec["frame"].shape == (height, width, 3) and rec["finite"]
+        assert rec["mean_radiance"] > 0, f"the {label} frame is black"
+        name = kernel_times.table_name(f"jax{city_n}", sc.bvh)
+        prof = {}
+        _profile_frames(renderer, profile and f"{root}_{name}{ext}", prof,
+                        name=f"p n={city_n} {label}", frames=frames)
+        rec["profile"] = prof.popitem()[1]
+        del renderer
+    first, plain, last = (recs[label] for label, _ in
+                          (tables[0], tables[1], tables[-1]))
+    last["plain_share"] = _share_within_1lsb(last["frame"], plain["frame"])
+    last["plain_identical"] = float(
+        (last["frame"] == plain["frame"]).all(-1).mean())
+    assert last["plain_share"] >= 0.99, \
+        f"the {tables[-1][0]} frame differs from the {tables[1][0]} one's"
+    for rec in recs.values():
+        rec["first_share"] = _share_within_1lsb(rec["frame"], first["frame"])
+        assert rec["first_share"] >= 0.99, \
+            "a table's frame differs from the (16, 6) one's"
+
+    rays = kernel_times.frame_rays(scene, camera, config, schedule, device)
+    o, d, act, _ = rays["primary"]
+    so, sd, sq = rays["shadow"]
+    sel1, sel2 = _subset(act, subset), _subset(sq, subset)
+    ones = lambda x: torch.ones((x.numel(),), dtype=torch.bool,  # noqa
+                                device=device)
+    sub = ((o[sel1].contiguous(), d[sel1].contiguous(), ones(sel1)),
+           (so[sel2].contiguous(), sd[sel2].contiguous(), ones(sel2)))
+    dbvhs = [sc.bvh for sc in scs]
+    calls = kernel_times.table_calls(dbvhs, config, *sub)
+    frame_calls = kernel_times.table_calls(dbvhs, config, (o, d, act),
+                                           (so, sd, sq))
+    times = frame_times = None
+    if device == "cuda":
+        times = kernel_times.time_kernels(calls)
+        frame_times = kernel_times.time_kernels(frame_calls)
+    got = [_walk_records(recs[label], b, calls, sub, config, times,
+                         frame_times, o.shape[0], so.shape[0],
+                         int(act.sum()), int(sq.sum()), device)
+           for (label, _), b in zip(tables, dbvhs)]
+    a = got[0][0]
+    for (label, _), g in zip(tables[1:], got[1:]):
+        rec, c = recs[label], g[0]
+        rec["hit_equal"] = bool(torch.equal(a["hit"], c["hit"]))
+        rec["t_equal"] = bool(torch.equal(a["t"], c["t"]))
+        lanes = torch.nonzero(a["tri_id"] != c["tri_id"]).squeeze(1)
+        rec["ties"] = _ties(scene, *sub[0][:2], lanes, a, c, config.tmin,
+                            config.tmax)
+        rec["occluded_mismatches"] = int((got[0][1] != g[1]).sum())
+        rec["nocull_mismatches"] = int((got[0][2] != g[2]).sum())
+        assert rec["hit_equal"] and rec["t_equal"], \
+            f"the {label} table's K1 hits differ from the (16, 6) table's"
+        assert rec["ties"]["ties"] == rec["ties"]["lanes"] == lanes.numel(), \
+            f"the {label} table's triangles differ beyond ties"
+    # the same tree in two row orders: the same triangles too
+    last["plain_tri_id_apart"] = int((got[1][0]["tri_id"]
+                                      != got[-1][0]["tri_id"]).sum())
+    del scs, scene, rays, calls, frame_calls
+    return recs
+
+
+def _jax_tables_lines(name: str, recs: dict) -> None:
+    """Phase p's lines: each table's build, then ``_table_lines``."""
+    for label, rec in recs.items():
+        c, w = rec["cold"], rec["warm"]
+        _line(f"{name} {label}: {rec['triangles']} tris, {rec['layout']} "
+              f"table, dfs {rec['dfs']}, {rec['rows']} rows, "
+              f"{rec['table_bytes'] / 1e6:.1f} MB, stack_depth "
+              f"{rec['stack_depth']}, top_rows {rec['top_rows']}, top_stack "
+              f"{rec['top_stack']}, treelet_stack {rec['treelet_stack']}; "
+              f"host build cold {rec['cold_s']:.2f} s ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in c.items())
+              + f"), warm {rec['warm_s']:.2f} s ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in w.items())
+              + f"); frame within 1 LSB of the (16, 6) frame "
+              f"{rec['first_share']:.4f}"
+              + (f"; K1 hit equal {rec['hit_equal']}, t equal "
+                 f"{rec['t_equal']}, tri_id apart on {rec['ties']['lanes']} "
+                 f"lanes ({rec['ties']['ties']} exact ties), occlusion apart "
+                 f"on {rec['occluded_mismatches']} (non-culling "
+                 f"{rec['nocull_mismatches']})" if "ties" in rec else ""))
+        _table_lines(f"{name} {label}", rec, rec)
+    last = list(recs.values())[-1]
+    _line(f"{name} {list(recs)[-1]} against {list(recs)[1]}: frame pixels "
+          f"within 1 LSB {last['plain_share']:.4f}, bit-identical "
+          f"{last['plain_identical']:.4f}; K1 tri_id apart on "
+          f"{last['plain_tri_id_apart']} subset lanes")
 
 
 def _ties(scene, o, d, lanes, a: dict, c: dict, tmin: float,
@@ -1171,6 +1539,99 @@ def _instanced_record(name: str, replaces: str, r: dict, launches: dict,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "flat_ms": r["flat_ms"], "lanes": r["lanes"], **res[name]}
+
+
+def _field_record(inst: dict, city: dict, kernel: str, layout,
+                  replaces: str, spills: dict) -> dict:
+    """The kernels line's entry of the instanced K1 or K2 (``kernel``) at a
+    wide ``layout``: its phase-e record on the 1,000-instance field's lanes
+    (launches: the field's wide frames; ``narrow_ms``: the (16, 6) table's
+    kernel on the same rays), and ``city``, its record on the city field
+    (8 instances of a 1,500-triangle BLAS)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    key = kernel_build.layout_name("field", *layout)
+    k = "k1" if kernel == "closest_hit_instanced" else "k2"
+    name = kernel_build.layout_name(kernel, *layout)
+    w, cw = inst["wide"][key], city["wide"][key]
+    r, cr = w[k], cw[k]
+    return {"name": name, "route": "cuda",
+            "source": KERNEL_SRC + "traverse.cu",
+            "replaces": JAX_OPS + replaces, "launches": w["launches"][name],
+            "max_abs_err": max(r["max_abs_err"], cr["max_abs_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "lanes": r["lanes"],
+            "stack_depth": w["stack_depth"], "narrow_ms": inst[k]["ms"],
+            "spill_bytes": spills.get(name), **w["resources"][kernel],
+            "city": {"lanes": cr["lanes"], "ms": cr["ms"],
+                     "narrow_ms": city[f"{k}_ms"],
+                     "plain_ms": cr["plain_ms"], "bound_ms": cr["bound_ms"],
+                     "bound_by": cr["bound_by"],
+                     "launches": cw["launches"][name],
+                     "stack_depth": cw["stack_depth"],
+                     "max_abs_err": cr["max_abs_err"]}}
+
+
+def _jax_tables_record(p: dict, k: str, layout) -> dict:
+    """The kernels line's records of K1, K2 or the non-culling K2 (``k``)
+    on phase p's tables of ``layout``, keyed by table, with the frames'
+    launches of the kernel's instantiation there (0 for the non-culling K2,
+    which the frames do not launch)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    kernel = dict(zip(("k1", "k2", "k2_nocull"),
+                      kernel_build.LAYOUT_KERNELS))[k]
+    name = kernel_build.layout_name(kernel, *layout)
+    return {label: {"lanes": rec[k]["lanes"], "ms": rec[k]["ms"],
+                    "frame_ms": rec[k]["frame_ms"],
+                    "frame_lanes": rec[k]["frame_lanes"],
+                    "plain_ms": rec[k]["plain_ms"],
+                    "bound_ms": rec[k]["bound_ms"],
+                    "bound_by": rec[k]["bound_by"],
+                    "frame_bound_ms": rec[k]["frame_bound_ms"],
+                    "launches": rec["launches"][name],
+                    "max_abs_err": rec[k]["max_abs_err"],
+                    "stack_depth": rec["stack_depth"], "rows": rec["rows"],
+                    "rows_per_lane": rec[k]["rows_per_lane"]}
+            for label, rec in p.items()
+            if tuple(rec["layout"]) == tuple(layout)}
+
+
+def _field_lines(name: str, wide: dict) -> None:
+    """Phase e's lines of a field's wide tables (``_field_layouts``)."""
+    for rec in wide.values():
+        lay = tuple(rec["layout"])
+        k1, k2 = rec["k1"], rec["k2"]
+        ms = lambda r: "not timed" if r["ms"] is None else (  # noqa: E731
+            f"{r['ms']:.4f} ms")
+        _line(f"{name} {lay}: table {rec['rows']} rows (instances "
+              f"[{rec['inst_base']}, {rec['blas_base']})), stack_depth "
+              f"{rec['stack_depth']}, {rec['table_bytes'] / 1e6:.3f} MB, "
+              f"host build {rec['host_build_s']:.2f} s; instanced K1 on "
+              f"{k1['lanes']} primary lanes ({k1['hits']} hits) mismatched "
+              f"lanes {k1['mismatches']}, {ms(k1)} (plain "
+              f"{k1['plain_ms']:.1f}, bound {k1['bound_ms']:.5f} "
+              f"{k1['bound_by']}); instanced K2 on {k2['lanes']} shadow lanes "
+              f"({k2['queried']} queried, {k2['occluded']} occluded) "
+              f"{k2['mismatches']} mismatches, {ms(k2)} (plain "
+              f"{k2['plain_ms']:.1f}, bound {k2['bound_ms']:.5f} "
+              f"{k2['bound_by']}); frame within 1 LSB of the (16, 6) frame "
+              f"{rec['frame_share']:.4f}")
+        _line(f"{name} {lay}: {len(rec['frame_ms'])} frames after 1 "
+              "warm-up: ms/frame " + ", ".join(f"{x:.1f}"
+                                               for x in rec["frame_ms"])
+              + f" (mean {rec['mean_ms']:.1f}); {rec['mrays']:.2f} Mrays/s; "
+              f"peak {rec['peak'] / 2**30:.2f} GiB; frame mean "
+              f"{rec['frame_mean']:.3f}; launches {rec['launches']}")
+        if rec["resources"]:
+            _line(f"{name} {lay} resources at depth {rec['stack_depth']}: "
+                  + "; ".join(
+                      f"{k} {r['group_lanes']} lane(s) a ray, stack in "
+                      f"{r['stack']} memory, {r['registers']} regs, "
+                      f"{r['local_bytes']} B local, {r['shared_bytes']} B "
+                      f"shared/block, {r['blocks_per_sm']} blocks/SM"
+                      for k, r in rec["resources"].items()))
 
 
 def _table_lines(name: str, g: dict, rec: dict) -> None:
@@ -2895,6 +3356,16 @@ def main() -> int:
           f"{flat_t['launches']}")
     for k in INSTANCED_KERNELS:
         assert inst["launches"][k] > 0, f"the instanced frame never launched {k}"
+    _field_lines("instanced field", inst["wide"])
+    city = city_field_phase(schedule, w, h, 2)
+    _line(f"city field: {city['instances']} instances of one "
+          f"{city['unique_triangles']}-tri BLAS ({city['world_triangles']} "
+          f"world tris); (16, 6) table {city['rows']} rows, stack_depth "
+          f"{city['stack_depth']}; instanced K1/K2 vs plain mismatched lanes "
+          f"{city['mismatches']}, {city['k1_ms']:.4f} / {city['k2_ms']:.4f} "
+          f"ms; " + _frames_line("2 frames", city))
+    _field_lines("city field", city["wide"])
+    del city["frame"]
 
     # -- phase f: spectral (hero wavelengths) --------------------------------
     spec = spectral_phase(scene, config, schedule, camera, FRAMES, sw)
@@ -2937,6 +3408,20 @@ def main() -> int:
         del g["frame"], g["wide"]["frame"]
         torch.cuda.empty_cache()
     g10 = deep[DEEP_SCENES[-1][0]]
+
+    # -- phase p: JAX's default deep scene (1,920,012 triangles) in the port's
+    # (16, 6) table, JAX's plain L12/A32 one and JAX's default (DFS rows,
+    # grouped treelets) ------------------------------------------------------
+    jt = jax_tables_phase(JAX_SCENE_N, FRAMES, schedule, w, h,
+                          profile=args.profile)
+    _jax_tables_lines(f"p n={JAX_SCENE_N}", jt)
+    for label, rec in jt.items():
+        for k in PATH_KERNELS:
+            name = kernel_build.layout_name(k, *rec["layout"])
+            assert rec["launches"][name] == rec["launches"][k] > 0, \
+                f"the {label} frame did not launch {name}"
+        del rec["frame"]
+    torch.cuda.empty_cache()
 
     # -- phase h: the oracle, the golden images and the 04 raycast ----------
     orc = oracle_phase()
@@ -3154,6 +3639,7 @@ def main() -> int:
                           "plain_ms": p1b_ms,
                           "bound_ms": b1b, "bound_by": b1b_by},
          "deep": _deep_record(g10, "k1", "closest_hit"),
+         "jax_tables": _jax_tables_record(jt, "k1", (16, 6)),
          "python_table": _python_record(lg, "k1", "closest_hit")},
         {"name": "occluded", "route": "cuda",
          "source": KERNEL_SRC + "traverse.cu",
@@ -3163,11 +3649,18 @@ def main() -> int:
          "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
          "library_ms": None, **res["occluded"],
          "deep": _deep_record(g10, "k2", "occluded"),
+         "jax_tables": _jax_tables_record(jt, "k2", (16, 6)),
          "python_table": _python_record(lg, "k2", "occluded")},
         _instanced_record("closest_hit_instanced", "traverse8.py:523", ik1,
                           inst_launches, inst_res),
         _instanced_record("occluded_instanced", "traverse8.py:1487", ik2,
                           inst_launches, inst_res),
+        # the instanced kernels at the wide layouts (phase e)
+        *[_field_record(inst, city, kernel, lay, replaces, spills)
+          for lay in kernel_build.WIDE_LAYOUTS
+          for kernel, replaces in (
+              ("closest_hit_instanced", "traverse8.py:523"),
+              ("occluded_instanced", "traverse8.py:1487"))],
         {"name": "occluded_nocull", "route": "cuda",
          "source": KERNEL_SRC + "traverse.cu",
          "replaces": JAX_OPS + "traverse8.py:1376", "launches":
@@ -3177,16 +3670,18 @@ def main() -> int:
                                       1))),
          "ms": nocull["ms"], "plain_ms": nocull["plain_ms"],
          "bound_ms": nocull["bound_ms"], "bound_by": nocull["bound_by"],
-         "library_ms": None, **res["occluded_nocull"]},
+         "library_ms": None, **res["occluded_nocull"],
+         "jax_tables": _jax_tables_record(jt, "k2_nocull", (16, 6))},
         # the wide layouts' instantiations on phase g's scenes: K1 and K2
         # launched by the wide table's frames, the non-culling K2 by the
         # raycast from a wide table (phase h)
-        *[_wide_record(
+        *[dict(_wide_record(
             deep[city_n], k, kernel, replaces,
             orc["raycast_wide"][kernel_build.layout_name(kernel, *wide)][
                 "launches"] if k == "k2_nocull" else
             deep[city_n]["wide"]["launches"][
-                kernel_build.layout_name(kernel, *wide)], spills)
+                kernel_build.layout_name(kernel, *wide)], spills),
+            jax_tables=_jax_tables_record(jt, k, wide))
           for city_n, _, wide in DEEP_SCENES
           for k, kernel, replaces in (
               ("k1", "closest_hit", "traverse8.py:795"),
@@ -3218,6 +3713,7 @@ def main() -> int:
         catcher=dict(cat, launches=cat_launches),
         cli=dict(cli, launches=cli_launches),
         instanced={k: v for k, v in inst.items() if k != "frame"},
+        city_field=city, jax_tables=jt,
         spectral={k: v for k, v in spec.items() if k != "frame"},
         spectral_cli=dict(spec_cli, launches=spec_cli_launches),
         deep=deep, oracle=orc, nocull=nocull, demand=dem,

@@ -17,9 +17,13 @@
 // original triangle id of slot k. K1, K2 and the non-culling K2 are
 // compiled for the three layouts the port builds: A16/L6 (W = 64, 256-byte
 // rows), the default, and the JAX package's wide A32/L12 (W = 128, 512 B)
-// and A32/L24 (W = 240, 960 B); the two-level kernels for A16/L6 only. The
-// wrappers refuse any other. A16/L6 and A32/L24 walk one ray a thread,
-// A32/L12 one ray a group of lanes (below).
+// and A32/L24 (W = 240, 960 B); the two-level kernels too. The wrappers
+// refuse any other layout. A16/L6 and A32/L24 walk one ray a thread, the
+// single-level A32/L12 kernels one ray a group of lanes (below). A row
+// order is no layout: the JAX package's DFS and treelet tables (rows of
+// the same tree permuted, synthetic group rows whose empty slots hold the
+// box (+inf, -inf) and code 0, which every walk skips by its code) walk
+// unchanged, with ties between equal keys following their row ids.
 //
 // Visit order (K1) is the JAX package's: a stack entry is the packed key
 // (mono(tn) & himask) | code, children are pushed sorted by descending key
@@ -142,9 +146,13 @@
 //
 // Two-level tables (ops/tlas.py; the instance steps of traverse8.py
 // _ch_step :523-632 and of the occlusion loop :1487-1580):
-// closest_hit_instanced_kernel and occluded_instanced_kernel are the same
-// walks with INSTANCED set, compiled for (16, 6) only (the single-level
-// kernels compile as without the flag).
+// closest_hit_instanced_kernel and occluded_instanced_kernel are the
+// one-thread walks with INSTANCED set, compiled at each layout (the
+// single-level kernels compile as without the flag). At A32/L12 and
+// A32/L24 they take the wide one-thread walks' form: the row read staged,
+// the stack in local memory (kMaxStack entries); at A32/L12 that is the
+// one-thread walk the single-level kernels left for the group walk, kept
+// here as the simple exact kernel (a group variant is not written).
 // Rows [inst_base, blas_base) are instance rows [root code, A (3x3
 // row-major), b (3)]. Popping an instance code (kind 2, the instance id in
 // the row bits) reads its 13 words as four 16-byte loads, sets the lane's
@@ -1438,7 +1446,7 @@ __global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
 }
 
 // K1 (which = 0), K2 (1), their instanced variants (2, 3) and the
-// non-culling K2 (4), at each layout (the instanced ones at (16, 6) only)
+// non-culling K2 (4), at each layout
 constexpr int kKernels = 5;
 constexpr int kLayouts = 3;
 
@@ -1468,10 +1476,11 @@ auto with_layout(int layout, F f) {
   }
 }
 
-// (32, 12) walks a ray with a group of lanes, (16, 6) and (32, 24) with a
-// lane
+// the single-level kernels at (32, 12) walk a ray with a group of lanes;
+// every other kernel and layout with a lane
 template <int A, int L>
 constexpr bool kGrouped = A == 32 && L == 12;
+constexpr bool grouped_kernel(int which) { return which != 2 && which != 3; }
 
 // K2 (CULL) or the non-culling K2 at a layout
 template <int A, int L, bool CULL>
@@ -1498,13 +1507,12 @@ const void* kernel_of(int which, int layout) {
           return (const void*)closest_hit_kernel<A, L>;
       case 1:
         return (const void*)occluded_kernel_at<A, L, true>();
+      case 2:
+        return (const void*)closest_hit_instanced_kernel<A, L>;
+      case 3:
+        return (const void*)occluded_instanced_kernel<A, L>;
       case 4:
         return (const void*)occluded_kernel_at<A, L, false>();
-    }
-    if constexpr (A == kArity && L == kLeaf) {
-      if (which == 2)
-        return (const void*)closest_hit_instanced_kernel<A, L>;
-      if (which == 3) return (const void*)occluded_instanced_kernel<A, L>;
     }
     return nullptr;
   });
@@ -1515,11 +1523,12 @@ const void* kernel_of(int which, int layout) {
 size_t shared_of(int which, int layout, int depth) {
   return with_layout(layout, [which, depth](auto tag) {
     constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
-    if constexpr (kGrouped<A, L>)
-      return which == 0 ? group_shared_bytes<A, L, true>(depth)
-                        : group_shared_bytes<A, L, false>(depth);
-    else
-      return shared_bytes<Layout<A, L>::kLocalStack>(depth);
+    if constexpr (kGrouped<A, L>) {
+      if (grouped_kernel(which))
+        return which == 0 ? group_shared_bytes<A, L, true>(depth)
+                          : group_shared_bytes<A, L, false>(depth);
+    }
+    return shared_bytes<Layout<A, L>::kLocalStack>(depth);
   });
 }
 
@@ -1529,7 +1538,7 @@ size_t shared_of(int which, int layout, int depth) {
 void design_of(int which, int layout, int* lanes, int* stack_home) {
   with_layout(layout, [=](auto tag) {
     constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
-    if constexpr (kGrouped<A, L>) {
+    if (kGrouped<A, L> && grouped_kernel(which)) {
       const bool closest = which == 0;
       *lanes = closest ? GroupDesign<true>::kLanes
                        : GroupDesign<false>::kLanes;
@@ -1685,22 +1694,30 @@ extern "C" int fov_occluded_nocull(const float* table, const float* orig,
                          stack_depth, occ_out, counter, arity, leaf, stream);
 }
 
+// The two-level K1 and K2 take the table's (arity, leaf) as the
+// single-level ones do.
 extern "C" int fov_closest_hit_instanced(
     const float* table, const float* orig, const float* dir,
     const unsigned char* active, int n, float tmin, float tmax,
     int stack_depth, unsigned int lowmask, float* t_out, int* tri_out,
     float* u_out, float* v_out, int* counter, int inst_base, int blas_base,
-    int* inst_out, void* stream) {
+    int* inst_out, int arity, int leaf, void* stream) {
+  const int layout = layout_of(arity, leaf);
+  if (layout < 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     size_t smem = 0;
     int blocks = 0;
-    const int rc = launch_grid(2, 0, n, stack_depth, &smem, &blocks);
+    const int rc = launch_grid(2, layout, n, stack_depth, &smem, &blocks);
     if (rc != 0) return rc;
-    closest_hit_instanced_kernel<kArity, kLeaf>
-        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
-            tmax, stack_depth, lowmask, t_out, tri_out, u_out, v_out, counter,
-            inst_base, blas_base, inst_out);
+    with_layout(layout, [&](auto tag) {
+      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
+      closest_hit_instanced_kernel<A, L>
+          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+              reinterpret_cast<const uint4*>(table), orig, dir, active, n,
+              tmin, tmax, stack_depth, lowmask, t_out, tri_out, u_out, v_out,
+              counter, inst_base, blas_base, inst_out);
+      return 0;
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -1710,17 +1727,24 @@ extern "C" int fov_occluded_instanced(const float* table, const float* orig,
                                       const unsigned char* active, int n,
                                       float tmin, float tmax, int stack_depth,
                                       bool* occ_out, int* counter,
-                                      int inst_base, int blas_base,
-                                      void* stream) {
+                                      int inst_base, int blas_base, int arity,
+                                      int leaf, void* stream) {
+  const int layout = layout_of(arity, leaf);
+  if (layout < 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     size_t smem = 0;
     int blocks = 0;
-    const int rc = launch_grid(3, 0, n, stack_depth, &smem, &blocks);
+    const int rc = launch_grid(3, layout, n, stack_depth, &smem, &blocks);
     if (rc != 0) return rc;
-    occluded_instanced_kernel<kArity, kLeaf>
-        <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-            reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
-            tmax, stack_depth, occ_out, counter, inst_base, blas_base);
+    with_layout(layout, [&](auto tag) {
+      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
+      occluded_instanced_kernel<A, L>
+          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+              reinterpret_cast<const uint4*>(table), orig, dir, active, n,
+              tmin, tmax, stack_depth, occ_out, counter, inst_base,
+              blas_base);
+      return 0;
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -1750,7 +1774,7 @@ extern "C" int fov_traverse_info(int which, int arity, int leaf,
 }
 
 // The design of kernel ``which`` at layout (arity, leaf): the lanes that
-// walk one ray (1, or G at (32, 12)), how its rows reach the walk (0:
+// walk one ray (1, or G for the single-level kernels at (32, 12)), how its rows reach the walk (0:
 // 16-byte __ldg's into registers; 1: cp.async into the ray's
 // shared-memory buffer) and where its stacks lie (0 shared, 1 global, 2
 // local memory).

@@ -17,9 +17,15 @@ corner shading normals (``shading_normals``), which only the 04 raycast
 (``render/simple.py``) reads; the path tracer never uploads them.
 
 ``build_scene(leaf_size=, arity=)`` chooses the table's packing, as the
-JAX package's does: ``None`` keeps the (16, 6) table at every scene size;
-(32, 12) and (32, 24) are the other layouts the kernels are compiled for
-(``ops/bvh_native.py``). ``build_scene_instanced`` packs (16, 6) tables.
+JAX package's does: ``None`` for both keeps the (16, 6) table at every
+scene size; a named one gives the JAX package's table for the same call
+(``ops/bvh_native.py``: from 1M triangles in DFS order with treelets), so
+``build_scene(meshes, leaf_size=12, arity=32)`` on a scene of 1M triangles
+or more builds the JAX package's default deep table. (32, 12) and (32, 24)
+are the other layouts the kernels are compiled for. The table's row order
+(``bvh_dfs``, ``bvh_top_rows``, ``bvh_top_stack``, ``bvh_treelet_stack``)
+rides along in the arrays. ``build_scene_instanced`` packs (16, 6)
+tables.
 
 ``scene_from_arrays`` is the one door between the packages: it builds the
 port's scene from plain numpy arrays (the JAX ``Scene``'s arrays, collected
@@ -67,13 +73,23 @@ class DeviceBVH:
     num_instances: int = 0
     inst_base: int = 0
     blas_base: int = 0
+    # the row order (ops/bvh8.py WideBVH): DFS, and the treelet layout's
+    # top rows and stack bounds; every walk takes any of them
+    dfs: bool = False
+    top_rows: int = 0
+    top_stack: int = 0
+    treelet_stack: int = 0
 
     @classmethod
     def upload(cls, bvh, device) -> "DeviceBVH":
-        """The single-level host ``WideBVH`` ``bvh`` on ``device``."""
+        """The host ``WideBVH`` ``bvh`` (single-level or two-level) on
+        ``device``."""
         return cls(table=torch.tensor(bvh.table, device=device),
                    stack_depth=bvh.stack_depth, arity=bvh.arity,
-                   leaf_size=bvh.leaf_size)
+                   leaf_size=bvh.leaf_size, num_instances=bvh.num_instances,
+                   inst_base=bvh.inst_base, blas_base=bvh.blas_base,
+                   dfs=bvh.dfs, top_rows=bvh.top_rows,
+                   top_stack=bvh.top_stack, treelet_stack=bvh.treelet_stack)
 
     @property
     def num_rows(self) -> int:
@@ -245,7 +261,9 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda",
     3) and ``texture_sizes`` (K, 2) when a triangle carries a texture id;
     optionally ``legacy_table`` and ``legacy_stack_depth`` for the packet
     kernel; ``bvh_num_instances``, ``bvh_inst_base`` and ``bvh_blas_base``
-    for a two-level table; optionally ``shading_normals`` (T, 10). A demand
+    for a two-level table; ``bvh_dfs``, ``bvh_top_rows``, ``bvh_top_stack``
+    and ``bvh_treelet_stack`` for a table in DFS or treelet order;
+    optionally ``shading_normals`` (T, 10). A demand
     texture context ``demand`` stands in for ``texture_data``: the
     triangles' texture ids then index its textures."""
     tri_pack = np.ascontiguousarray(arrays["tri_pack"], dtype=np.float32)
@@ -277,6 +295,10 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device="cuda",
         num_instances=int(arrays.get("bvh_num_instances", 0)),
         inst_base=int(arrays.get("bvh_inst_base", 0)),
         blas_base=int(arrays.get("bvh_blas_base", 0)),
+        dfs=bool(arrays.get("bvh_dfs", False)),
+        top_rows=int(arrays.get("bvh_top_rows", 0)),
+        top_stack=int(arrays.get("bvh_top_stack", 0)),
+        treelet_stack=int(arrays.get("bvh_treelet_stack", 0)),
     )
     legacy = None
     if "legacy_table" in arrays:
@@ -306,8 +328,8 @@ def scene_arrays(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None
     and the corner shading normals), pad the textures, build the probe
     tables -> the ``scene_from_arrays`` dict. ``bvh`` is the packed
     ``WideBVH`` of these meshes where it is built already; else it is
-    packed at ``leaf_size`` and ``arity`` (``None``: the (16, 6)
-    default)."""
+    packed at ``leaf_size`` and ``arity`` (both ``None``: the (16, 6)
+    default; else ``bvh_native.build``'s rule for named layouts)."""
     tris = host_triangles(meshes)
     if bvh is None:
         kw = {k: v for k, v in (("leaf_size", leaf_size), ("arity", arity))
@@ -333,6 +355,9 @@ def _host_arrays(meshes, bvh, probe, texture_images) -> Dict[str, np.ndarray]:
         "bvh_arity": bvh.arity, "bvh_leaf_size": bvh.leaf_size,
         "bvh_num_instances": bvh.num_instances,
         "bvh_inst_base": bvh.inst_base, "bvh_blas_base": bvh.blas_base,
+        "bvh_dfs": bvh.dfs, "bvh_top_rows": bvh.top_rows,
+        "bvh_top_stack": bvh.top_stack,
+        "bvh_treelet_stack": bvh.treelet_stack,
         "tri_pack": tri_pack, "material_rows": packed_rows_numpy(materials),
         "texture_data": tex_data, "texture_sizes": tex_sizes,
         **_probe_arrays(probe),
@@ -378,8 +403,9 @@ def build_scene(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,
     the demand context ``demand``), attach the probe (default: the constant
     2.5 ambient probe), upload to ``device``; ``shading_normals`` adds the
     corner normals the 04 raycast reads. ``leaf_size``/``arity`` choose the
-    BVH packing (``None``: the (16, 6) table; the kernels also walk
-    (32, 12) and (32, 24))."""
+    BVH packing (both ``None``: the (16, 6) table; a named one: the JAX
+    package's table for the same call, in DFS and treelet order from 1M
+    triangles; the kernels also walk (32, 12) and (32, 24))."""
     return scene_from_arrays(
         scene_arrays(meshes, probe, texture_images, legacy8,
                      shading_normals=shading_normals, leaf_size=leaf_size,

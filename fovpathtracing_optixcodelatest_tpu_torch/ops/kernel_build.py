@@ -39,8 +39,10 @@ NVCC_FLAGS = (
 # compiled for besides the default (16, 6): the JAX package's wide packings
 # ((32, 12) as group-per-ray walks, (32, 24) as one thread a ray)
 WIDE_LAYOUTS = ((32, 12), (32, 24))
-# the kernels compiled at every layout
+# the single-level kernels compiled at every layout
 LAYOUT_KERNELS = ("closest_hit", "occluded", "occluded_nocull")
+# the two-level kernels, also compiled at every layout
+INSTANCED_KERNELS = ("closest_hit_instanced", "occluded_instanced")
 
 
 def layout_name(kernel: str, arity: int, leaf_size: int) -> str:
@@ -53,20 +55,21 @@ def layout_name(kernel: str, arity: int, leaf_size: int) -> str:
 
 
 # launches per kernel wrapper; each wrapper adds one where it launches.
-# "closest_hit", "occluded" and "occluded_nocull" count every layout's
-# launches; a wide layout's are also counted under its ``layout_name``.
+# The traversal kernels' own names count every layout's launches; a wide
+# layout's are also counted under its ``layout_name``.
 LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0,
             "closest_hit_instanced": 0, "occluded_instanced": 0,
             "occluded_nocull": 0,
             **{layout_name(k, *lay): 0 for lay in WIDE_LAYOUTS
-               for k in LAYOUT_KERNELS}}
+               for k in LAYOUT_KERNELS + INSTANCED_KERNELS}}
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points: the launches take (table, origin, direction, active, n,
 # tmin, tmax, stack_depth, ...), end in the stream and return
 # cudaGetLastError; the *_info queries return a cudaError_t code too. The
-# single-level K1/K2 take the table's (arity, leaf_size) before the stream,
-# K1 its global stack buffer (``fov_traverse_stack`` entries) before those.
+# K1/K2 take the table's (arity, leaf_size) before the stream, the
+# single-level K1 its global stack buffer (``fov_traverse_stack`` entries)
+# before those.
 SIGNATURES = {
     "fov_closest_hit": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P, _P, _P, _P,
                         _P, _P, _I, _I, _P),
@@ -76,9 +79,9 @@ SIGNATURES = {
                             _P),
     # the instanced variants add (inst_base, blas_base[, inst_out])
     "fov_closest_hit_instanced": (_P, _P, _P, _P, _I, _F, _F, _I, _U, _P,
-                                  _P, _P, _P, _P, _I, _I, _P, _P),
+                                  _P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
     "fov_occluded_instanced": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _I,
-                               _I, _P),
+                               _I, _I, _I, _P),
     "fov_occluded_packets": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P,
                              _P),
     "fov_packet_spill": (_I, _I, _P),
@@ -198,7 +201,8 @@ def resources(stack_depth: int) -> dict:
     their design: ``group_lanes`` (the lanes that walk one ray),
     ``row_copy`` (``ROW_COPIES``: 16-byte loads into registers, or
     ``cp.async`` into the ray's shared-memory row buffer) and ``stack``
-    (``STACK_HOMES``)."""
+    (``STACK_HOMES``). The wide layouts' kernels are listed under their
+    ``layout_name``, the two-level ones too."""
     out = {}
     which = {"closest_hit": 0, "occluded": 1, "closest_hit_instanced": 2,
              "occluded_instanced": 3, "occluded_nocull": 4}
@@ -208,7 +212,8 @@ def resources(stack_depth: int) -> dict:
                     ()))
     queries += [(layout_name(k, *lay), "traverse", "fov_traverse_info",
                  (which[k], *lay, stack_depth))
-                for lay in WIDE_LAYOUTS for k in LAYOUT_KERNELS]
+                for lay in WIDE_LAYOUTS
+                for k in LAYOUT_KERNELS + INSTANCED_KERNELS]
     keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes")
     for kernel, lib, fn, args in queries:
         vals = [ctypes.c_int(0) for _ in keys]

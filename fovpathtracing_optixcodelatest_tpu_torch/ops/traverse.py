@@ -27,10 +27,15 @@ instance ``cur``, and pushes the BLAS root with the instance's key bits;
 popping a TLAS node row (``row < blas_base``) moves the lane back to world
 space; BLAS nodes and leaves are tested in object space. ``closest_hit``
 then also returns ``inst``, the hit's instance (-1 on a miss). The kernels
-have an instanced variant each (compiled for (16, 6) only: any other
-layout raises on a CUDA tensor), chosen by the wrappers from
-``num_instances``; they test the BLAS root in the instance entry's own
-step, which visits the same rows in the same order.
+have an instanced variant each, compiled for the same layouts and chosen
+by the wrappers from ``num_instances``; they test the BLAS root in the
+instance entry's own step, which visits the same rows in the same order.
+
+A table in DFS or treelet order (``bvh8.pack_wide(dfs=,
+treelet_budget=)``) is walked as any other: its rows are the same tree's,
+permuted, with group rows whose boxes hold their members'; ties between
+equal keys follow its row ids, as the reference's walk of the same table
+does.
 
 ``occluded(..., cull_backface=False)`` lets back faces occlude too (the 04
 raycast's shadow ray, ``render/simple.py``): on a CUDA tensor it launches
@@ -258,11 +263,11 @@ def _check(table, o, d, active, stack_depth, num_instances=0, inst_base=0,
 def _kernel_layout(table, n: int, arity: int, leaf_size: int,
                    want=None, width: int | None = None) -> None:
     """Refuse what a compiled kernel does not take: an (arity, leaf_size)
-    layout it is not compiled for (K1/K2: ``KERNEL_LAYOUTS``; a kernel
-    compiled for one layout passes it as ``want``, its rows' width as
-    ``width``), rows of another width, a table that is not 16-byte aligned
-    (rows are read as uint4), or more rays than an int32 counter can hand
-    out."""
+    layout it is not compiled for (K1/K2 and their two-level variants:
+    ``KERNEL_LAYOUTS``; a kernel compiled for one layout, K3, passes it as
+    ``want``, its rows' width as ``width``), rows of another width, a
+    table that is not 16-byte aligned (rows are read as uint4), or more
+    rays than an int32 counter can hand out."""
     layouts = KERNEL_LAYOUTS if want is None else {want: width}
     if (arity, leaf_size) not in layouts:
         raise ValueError(
@@ -275,10 +280,6 @@ def _kernel_layout(table, n: int, arity: int, leaf_size: int,
         raise ValueError("table must be 16-byte aligned")
     if n >= 2**31 - 2**20:
         raise ValueError("too many rays for one launch")
-
-
-# the one layout and row width the instanced kernels are compiled for
-_SINGLE_LAYOUT = ((ARITY, LEAF_SIZE), 4 * ARITY)
 
 
 def _count(name: str, arity: int, leaf_size: int) -> None:
@@ -422,8 +423,7 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
     tensors (miss: t = inf, tri_id = -1, u = v = 0), and ``inst`` (-1 on a
     miss) on a two-level table. CUDA tensors launch K1 at the table's
     layout (``KERNEL_LAYOUTS``), or its instanced variant where
-    ``num_instances > 0`` (the (16, 6) layout only); CPU tensors run
-    ``closest_hit_plain``."""
+    ``num_instances > 0``; CPU tensors run ``closest_hit_plain``."""
     inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
                "blas_base": blas_base}
     _check(table, o, d, active, stack_depth, **inst_kw)
@@ -431,8 +431,7 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
         return closest_hit_plain(table, o, d, active, tmin, tmax,
                                  stack_depth, arity, leaf_size, **inst_kw)
     n, dev = o.shape[0], o.device
-    _kernel_layout(table, n, arity, leaf_size,
-                   *(_SINGLE_LAYOUT if num_instances else ()))
+    _kernel_layout(table, n, arity, leaf_size)
     cb = codebits(table.shape[0])
     if cb > 26:
         raise ValueError("table too large for packed tn|code stack entries")
@@ -452,8 +451,8 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
         lib = kernel_build.library("traverse")
         if num_instances:
             rc = lib.fov_closest_hit_instanced(
-                *args, inst_base, blas_base, out["inst"].data_ptr(),
-                kernel_build.stream())
+                *args, inst_base, blas_base, out["inst"].data_ptr(), arity,
+                leaf_size, kernel_build.stream())
             name = "closest_hit_instanced"
         else:
             stack = _global_stack(lib, arity, leaf_size, stack_depth, n, dev)
@@ -549,9 +548,9 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
     """Any-hit occlusion with first-hit exit -> (N,) bool; back faces do not
     occlude unless ``cull_backface`` is False. CUDA tensors launch K2 at
     the table's layout (``KERNEL_LAYOUTS``), walking only the active lanes:
-    its instanced variant where ``num_instances > 0`` (the (16, 6) layout
-    only), its non-culling instantiation where ``cull_backface`` is False
-    (single-level tables only); CPU tensors run ``occluded_plain``."""
+    its instanced variant where ``num_instances > 0``, its non-culling
+    instantiation where ``cull_backface`` is False (single-level tables
+    only); CPU tensors run ``occluded_plain``."""
     inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
                "blas_base": blas_base}
     _check(table, o, d, active, stack_depth, **inst_kw)
@@ -560,8 +559,7 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
                               arity, leaf_size, cull_backface=cull_backface,
                               **inst_kw)
     n, dev = o.shape[0], o.device
-    _kernel_layout(table, n, arity, leaf_size,
-                   *(_SINGLE_LAYOUT if num_instances else ()))
+    _kernel_layout(table, n, arity, leaf_size)
     if num_instances and not cull_backface:
         raise ValueError("the non-culling K2 takes single-level tables only")
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -572,8 +570,8 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
             n, tmin, tmax, stack_depth, occ.data_ptr(), counter.data_ptr())
     lib = kernel_build.library("traverse")
     if num_instances:
-        rc = lib.fov_occluded_instanced(*args, inst_base, blas_base,
-                                        kernel_build.stream())
+        rc = lib.fov_occluded_instanced(*args, inst_base, blas_base, arity,
+                                        leaf_size, kernel_build.stream())
         name = "occluded_instanced"
     elif not cull_backface:
         rc = lib.fov_occluded_nocull(*args, arity, leaf_size,

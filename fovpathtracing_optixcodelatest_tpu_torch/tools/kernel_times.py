@@ -8,15 +8,18 @@ and the first frame's rays at 960x540 ``reference_32_16_8``;
 bounce 0's shadow lanes. ``field_rays`` and ``field_calls`` do the same
 for the instance field (``instance_field``: 1,000 instances of one
 320-triangle sphere) on its two-level table: the instanced K1 on the
-frame's primary lanes, the instanced K2 on bounce 0's shadow lanes, and
-the single-level K1 and K2 on the flattened twin's table with the same
-rays. ``layout_tables`` and ``table_calls`` compare packings: one
-scene's tables at several (arity, leaf_size) layouts, each walked by K1,
-K2 and the non-culling K2 with the same rays (``chip_smoke.py`` phase g).
+frame's primary lanes, the instanced K2 on bounce 0's shadow lanes, the
+same kernels on the field's two-level tables at the wide layouts
+(``field_rays(layouts=)``), and the single-level K1 and K2 on the
+flattened twin's table with the same rays. ``layout_tables`` and
+``table_calls`` compare packings: one scene's tables at several (arity,
+leaf_size) layouts and row orders, each walked by K1, K2 and the
+non-culling K2 with the same rays (``chip_smoke.py`` phases g and p).
 ``chip_smoke.py`` reports these times in its kernels line.
 
     python3 fovpathtracing_optixcodelatest_tpu_torch/tools/kernel_times.py \\
-        --tree DIR [--field | --layouts N] [--out times.json]
+        --tree DIR [--field [--layout A L ...] | --layouts N [--layout A L
+        ...] [--jax-default]] [--out times.json]
 
 prints the same times for the port of another checkout ``DIR``, through
 this file's timing code: it calls only the kernel wrappers' public
@@ -29,14 +32,20 @@ and K2 answer differently. ``--field`` times the field's kernels instead,
 counts the lanes where that tree's instanced K1 and K2 differ from their
 plain versions (every output bit for bit), and reports the instanced
 kernels' registers, local memory, blocks per SM and shared memory at the
-field's stack depth with the tree's ``ptxas`` lines. ``--layouts N``
+field's stack depth with the tree's ``ptxas`` lines; with ``--layout A L``
+(repeatable) also the field's two-level tables at those layouts, on the
+same rays (the tree must compile the instanced kernels at those layouts).
+``--layouts N``
 times ``box_city_fast(N)``'s tables at every layout the kernels are
 compiled for (``traverse.KERNEL_LAYOUTS``) on the primary and bounce-0
 shadow lanes of that scene's 960x540 frame, with each table's rows, stack
 depth, host build seconds and resources (with each kernel's design where
 the tree reports it: lanes a ray, how rows are read, the stack's home;
 the (32, 24) table is collapsed in Python: about 12 s at N = 180, more
-than 5 minutes at N = 913, so name ``--layout 32 12`` there). To
+than 5 minutes at N = 913, so name ``--layout 32 12`` there); the tables
+are in pack order, and ``--jax-default`` adds the JAX package's default
+table for a named L12/A32 layout (from 1M triangles in DFS order with
+grouped treelets: at N = 400, 1,920,012 triangles, phase p's scene). To
 compare the parent's kernels with the change's on one card, unpack ``git
 archive <parent>`` into a git-ignored directory and run, in one chip call,
 each tree's ``chip_smoke.py`` in the order parent, change, change, parent,
@@ -170,13 +179,49 @@ def instance_field(count: int = 1000):
     return instanced([ball], placements), cam
 
 
+def city_field(count: int = 8):
+    """``count`` instances of one 1,500-triangle BLAS, box_city n=16's
+    ground slab and first 124 boxes merged into one mesh (many leaf rows
+    at every layout), on a 4-wide grid 90 apart, and a camera that frames
+    them -> (InstancedScene, camera)."""
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+    from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
+        instanced,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import HostMesh
+
+    boxes = scenes.box_city(n=16, seed=0)[0][:125]
+    base = np.cumsum([0] + [len(m.vertex) for m in boxes[:-1]])
+    city = HostMesh(
+        vertex=np.concatenate([m.vertex for m in boxes]),
+        index=np.concatenate([m.index + b for m, b in zip(boxes, base)]
+                             ).astype(np.int32),
+        normal=np.concatenate([m.normal for m in boxes]),
+        material=boxes[1].material)
+    placements = []
+    for k in range(count):
+        m = np.eye(4)
+        m[:3, 3] = (90.0 * (k % 4), 0.0, -90.0 * (k // 4))
+        placements.append((0, m))
+    cam = Camera(eye=(135.0, 110.0, 150.0), lookat=(135.0, 0.0, -45.0),
+                 fov_y=50.0)
+    return instanced([city], placements), cam
+
+
 def field_rays(device="cuda", count: int = 1000, width: int = 960,
-               height: int = 540, schedule=None) -> dict:
+               height: int = 540, schedule=None, layouts=(),
+               field=None) -> dict:
     """The instance field (``instance_field``) under the gradient sky on
     its two-level table (``scene``) and flattened into one single-level
     table (``flat``), with the rays the kernels see on the first bounce of
     the instanced frame (``frame_rays``' keys) and the host build seconds
-    of both scenes (``build_s``, ``flat_build_s``)."""
+    of both scenes (``build_s``, ``flat_build_s``); ``wide``: the field's
+    two-level tables at each (arity, leaf_size) of ``layouts``
+    (``DeviceBVH``s) with their host build seconds (``wide_build_s``).
+    ``field``: another (InstancedScene, camera), e.g. ``city_field()``."""
     from fovpathtracing_optixcodelatest_tpu_torch.config import (
         FoveationSchedule,
         RenderConfig,
@@ -190,7 +235,7 @@ def field_rays(device="cuda", count: int = 1000, width: int = 960,
         scene_from_arrays,
     )
 
-    sc, cam = instance_field(count)
+    sc, cam = instance_field(count) if field is None else field
     probe = gradient_sky_probe()
     t0 = time.perf_counter()
     scene = scene_from_arrays(scene_arrays_instanced(sc, probe), device)
@@ -202,47 +247,84 @@ def field_rays(device="cuda", count: int = 1000, width: int = 960,
     if schedule is None:
         schedule = FoveationSchedule.reference_32_16_8()
     camera = dataclasses.replace(cam, aspect=width / height)
+    wide, wide_s = {}, {}
+    for lay in layouts:
+        t0 = time.perf_counter()
+        wide[tuple(lay)] = field_table(sc, *lay, device)
+        wide_s[tuple(lay)] = time.perf_counter() - t0
     return dict(frame_rays(scene, camera, config, schedule, device),
                 flat=flat, field=sc, build_s=build_s,
-                flat_build_s=flat_build_s)
+                flat_build_s=flat_build_s, wide=wide, wide_build_s=wide_s)
+
+
+def field_table(sc, arity: int, leaf_size: int, device):
+    """The two-level table of the instanced scene ``sc`` at (arity,
+    leaf_size) (``tlas.build_instanced``), as a ``DeviceBVH``."""
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import DeviceBVH
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import tlas
+
+    b = tlas.build_instanced(*tlas.scene_tables_from_instanced(sc),
+                             leaf_size=leaf_size, arity=arity)
+    return DeviceBVH.upload(b, device)
+
+
+def _field_bvh(rays: dict, layout=(16, 6)):
+    """The field's two-level table at ``layout``."""
+    if tuple(layout) == (16, 6):
+        return rays["scene"].bvh
+    return rays["wide"][tuple(layout)]
 
 
 def field_calls(rays: dict) -> dict:
     """One zero-argument call per field kernel and shape: the instanced K1
-    on the primary lanes, the instanced K2 on the shadow lanes, and the
-    single-level K1 and K2 on the same rays against the flattened table."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+    on the primary lanes, the instanced K2 on the shadow lanes (on the
+    (16, 6) table, "ik1_primary" and "ik2_shadow", and on each of the
+    ``wide`` tables, named by ``kernel_build.layout_name``:
+    "ik1_primary_a32_l12", ...), and the single-level K1 and K2 on the same
+    rays against the flattened table."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
 
     config = rays["config"]
-    b, fb = rays["scene"].bvh, rays["flat"].bvh
-    kargs = (config.tmin, config.tmax, *b.walk_args)
+    fb = rays["flat"].bvh
     fargs = (config.tmin, config.tmax, *fb.walk_args)
-    kw = b.instance_kwargs
     o, d, act, _ = rays["primary"]
     so, sd, sq = rays["shadow"]
-    return {
-        "ik1_primary": lambda: traverse.closest_hit(b.table, o, d, act,
-                                                    *kargs, **kw),
-        "ik2_shadow": lambda: traverse.occluded(b.table, so, sd, sq, *kargs,
-                                                **kw),
-        "flat_k1_primary": lambda: traverse.closest_hit(fb.table, o, d, act,
-                                                        *fargs),
-        "flat_k2_shadow": lambda: traverse.occluded(fb.table, so, sd, sq,
-                                                    *fargs),
-    }
+    calls = {}
+    for lay in ((16, 6), *rays.get("wide", {})):
+        b = _field_bvh(rays, lay)
+        kargs = (config.tmin, config.tmax, *b.walk_args)
+        kw = b.instance_kwargs
+        calls[kernel_build.layout_name("ik1_primary", *lay)] = (
+            lambda b=b, kargs=kargs, kw=kw: traverse.closest_hit(
+                b.table, o, d, act, *kargs, **kw))
+        calls[kernel_build.layout_name("ik2_shadow", *lay)] = (
+            lambda b=b, kargs=kargs, kw=kw: traverse.occluded(
+                b.table, so, sd, sq, *kargs, **kw))
+    calls["flat_k1_primary"] = lambda: traverse.closest_hit(
+        fb.table, o, d, act, *fargs)
+    calls["flat_k2_shadow"] = lambda: traverse.occluded(
+        fb.table, so, sd, sq, *fargs)
+    return calls
 
 
-def field_mismatches(rays: dict, calls: dict, plain=None) -> dict:
-    """Lanes where the field's instanced K1 and K2 differ from their plain
-    versions: per K1 output (t, u, v compared bit for bit) and K2's
-    answer. The kernels are exact when every count is 0. ``plain``: the
-    plain versions' (K1, K2) answers on ``rays``, where the caller has
-    them already."""
+def field_mismatches(rays: dict, calls: dict, plain=None,
+                     layout=(16, 6)) -> dict:
+    """Lanes where the field's instanced K1 and K2 on its table at
+    ``layout`` differ from their plain versions: per K1 output (t, u, v
+    compared bit for bit) and K2's answer. The kernels are exact when
+    every count is 0. ``plain``: the plain versions' (K1, K2) answers on
+    ``rays``, where the caller has them already."""
     import torch
 
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
 
-    config, b = rays["config"], rays["scene"].bvh
+    config, b = rays["config"], _field_bvh(rays, layout)
     kargs = (config.tmin, config.tmax, *b.walk_args)
     o, d, act, _ = rays["primary"]
     so, sd, sq = rays["shadow"]
@@ -252,7 +334,7 @@ def field_mismatches(rays: dict, calls: dict, plain=None) -> dict:
                  traverse.occluded_plain(b.table, so, sd, sq, *kargs,
                                          **b.instance_kwargs))
     p1, p2 = plain
-    k1 = calls["ik1_primary"]()
+    k1 = calls[kernel_build.layout_name("ik1_primary", *layout)]()
     out = {}
     for c in ("hit", "t", "u", "v", "tri_id", "inst"):
         got, want = k1[c], p1[c]
@@ -260,7 +342,9 @@ def field_mismatches(rays: dict, calls: dict, plain=None) -> dict:
             got, want = got.view(torch.int32), want.view(torch.int32)
         out[c] = int((got != want).sum())
     del k1
-    out["occluded"] = int((calls["ik2_shadow"]() != p2).sum())
+    out["occluded"] = int(
+        (calls[kernel_build.layout_name("ik2_shadow", *layout)]() != p2)
+        .sum())
     return out
 
 
@@ -307,36 +391,50 @@ def kernel_calls(rays: dict) -> dict:
     }
 
 
-def layout_tables(tris, layouts) -> dict:
+def layout_tables(tris, layouts, jax_default: bool = False) -> dict:
     """{(arity, leaf_size): (WideBVH, host build seconds)} of the triangles
-    ``tris`` packed at each of ``layouts``."""
+    ``tris`` packed at each of ``layouts`` in pack order (``dfs=False``:
+    the (16, 6) table the default build gives), and with ``jax_default``
+    under "jax" the JAX package's table for a named L12/A32 layout
+    (``bvh_native.build(tris, leaf_size=12, arity=32)``: from 1M triangles
+    in DFS order with grouped treelets)."""
     from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native
 
     out = {}
-    for arity, leaf in layouts:
+    todo = [((arity, leaf), {"leaf_size": leaf, "arity": arity,
+                             "dfs": False}) for arity, leaf in layouts]
+    if jax_default:
+        todo.append(("jax", {"leaf_size": 12, "arity": 32}))
+    for key, kw in todo:
         t0 = time.perf_counter()
-        b = bvh_native.build(tris, leaf_size=leaf, arity=arity)
-        out[(arity, leaf)] = (b, time.perf_counter() - t0)
+        b = bvh_native.build(tris, **kw)
+        out[key] = (b, time.perf_counter() - t0)
     return out
+
+
+def table_name(kernel: str, b) -> str:
+    """``kernel``'s call name on the table ``b``: its instantiation's
+    (``kernel_build.layout_name``), and "_dfs" or "_treelet" after it for
+    a table in DFS or treelet order."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    name = kernel_build.layout_name(kernel, b.arity, b.leaf_size)
+    return name + ("_treelet" if b.top_rows else "_dfs" if b.dfs else "")
 
 
 def table_calls(bvhs, config, primary, shadow) -> dict:
     """One zero-argument call per table and kernel, every table walked by
     the same rays: K1 on the ``primary`` lanes (origin, direction,
     active), K2 and the non-culling K2 on the ``shadow`` lanes (origin,
-    direction, query). ``bvhs`` are ``DeviceBVH``s of distinct layouts;
-    each call is named as its instantiation (``kernel_build.layout_name``:
-    "closest_hit", "occluded_a32_l12", ...)."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
-        kernel_build,
-        traverse,
-    )
+    direction, query). ``bvhs`` are ``DeviceBVH``s of distinct layouts or
+    row orders; each call is named by ``table_name``: "closest_hit",
+    "occluded_a32_l12", "closest_hit_a32_l12_treelet", ..."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
     calls = {}
     for b in bvhs:
         kargs = (config.tmin, config.tmax, *b.walk_args)
-        name = lambda k, b=b: kernel_build.layout_name(  # noqa: E731
-            k, b.arity, b.leaf_size)
+        name = lambda k, b=b: table_name(k, b)  # noqa: E731
         calls[name("closest_hit")] = (
             lambda b=b, kargs=kargs: traverse.closest_hit(
                 b.table, *primary, *kargs))
@@ -365,7 +463,12 @@ def main() -> int:
                     "layout instead")
     ap.add_argument("--layout", type=int, nargs=2, action="append",
                     metavar=("ARITY", "LEAF"),
-                    help="with --layouts: only these layouts (repeat)")
+                    help="with --layouts: only these layouts; with "
+                    "--field: the field's tables at these layouts too "
+                    "(repeat)")
+    ap.add_argument("--jax-default", action="store_true",
+                    help="with --layouts: also the JAX package's default "
+                    "table of a named L12/A32 layout")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -382,10 +485,12 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     if args.field:
-        result = dict(field_times(), tree=tree, device=smi, reps=REPS)
+        result = dict(field_times(args.layout or ()), tree=tree, device=smi,
+                      reps=REPS)
     elif args.layouts is not None:
-        result = dict(layout_times(args.layouts, args.layout), tree=tree,
-                      device=smi, reps=REPS)
+        result = dict(layout_times(args.layouts, args.layout,
+                                   args.jax_default),
+                      tree=tree, device=smi, reps=REPS)
     else:
         result = dict(bench_times(), tree=tree, device=smi, reps=REPS)
     if args.out:
@@ -396,37 +501,46 @@ def main() -> int:
     return 0
 
 
-def field_times() -> dict:
+def field_times(layouts=()) -> dict:
     """``--field``: the field's kernel times, the instanced kernels'
-    mismatches against their plain versions and their resources."""
+    mismatches against their plain versions and their resources at each
+    table's depth, on the (16, 6) table and at ``layouts``."""
     from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 
-    rays = field_rays("cuda")
+    layouts = [tuple(x) for x in layouts]
+    rays = field_rays("cuda", layouts=layouts)
     assert rays["primary"][0].shape[0] == PRIMARY_LANES
     calls = field_calls(rays)
-    mismatches = field_mismatches(rays, calls)
+    mismatches, depths, resources = {}, {}, {}
+    for lay in ((16, 6), *layouts):
+        key = kernel_build.layout_name("field", *lay)
+        mismatches[key] = field_mismatches(rays, calls, layout=lay)
+        depths[key] = _field_bvh(rays, lay).stack_depth
+        res = kernel_build.resources(depths[key])
+        resources.update({kernel_build.layout_name(k, *lay):
+                          res[kernel_build.layout_name(k, *lay)]
+                          for k in kernel_build.INSTANCED_KERNELS})
     times = time_kernels(calls)
-    depth = rays["scene"].bvh.stack_depth
-    res = kernel_build.resources(depth)
     ptxas = [ln.strip() for log in kernel_build.BUILD_INFO["log"].values()
              for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     return {"lanes": {"primary": PRIMARY_LANES,
                       "shadow": rays["shadow"][0].shape[0],
                       "shadow_queried": int(rays["shadow"][2].sum())},
-            "stack_depth": depth,
+            "stack_depth": depths,
             "flat_stack_depth": rays["flat"].bvh.stack_depth,
-            "ms": times, "mismatches": mismatches,
-            "resources": {k: res[k] for k in ("closest_hit_instanced",
-                                              "occluded_instanced")},
+            "ms": times, "mismatches": mismatches, "resources": resources,
             "ptxas": ptxas}
 
 
-def layout_times(city_n: int, layouts=None) -> dict:
+def layout_times(city_n: int, layouts=None, jax_default: bool = False
+                 ) -> dict:
     """``--layouts N``: K1, K2 and the non-culling K2 on ``box_city_fast(N)``
-    at each of ``layouts`` (default: every compiled layout) with the same
-    rays (the frame of the scene's (16, 6) table), and each table's rows,
-    stack depth, host build seconds and kernel resources at its depth."""
+    at each of ``layouts`` (default: every compiled layout) in pack order,
+    and with ``jax_default`` on the JAX package's default L12/A32 table,
+    with the same rays (the frame of the scene's (16, 6) table), and each
+    table's rows, stack depth, top rows, host build seconds and kernel
+    resources at its depth."""
     from fovpathtracing_optixcodelatest_tpu_torch.config import (
         FoveationSchedule,
         RenderConfig,
@@ -450,11 +564,11 @@ def layout_times(city_n: int, layouts=None) -> dict:
 
     layouts = [tuple(x) for x in layouts or traverse.KERNEL_LAYOUTS]
     meshes, cam = scenes.box_city_fast(n=city_n, seed=0)
-    tables = layout_tables(host_triangles(meshes),
-                           {(16, 6), *layouts})
+    tables = layout_tables(host_triangles(meshes), {(16, 6), *layouts},
+                           jax_default)
     scene = scene_from_arrays(scene_arrays(
         meshes, gradient_sky_probe(), bvh=tables[(16, 6)][0]), "cuda")
-    tables = {k: tables[k] for k in layouts}
+    tables = {k: tables[k] for k in (*layouts, *(["jax"] * jax_default))}
     config = RenderConfig(width=960, height=540)
     rays = frame_rays(scene, dataclasses.replace(cam, aspect=960 / 540),
                       config, FoveationSchedule.reference_32_16_8())
@@ -463,16 +577,16 @@ def layout_times(city_n: int, layouts=None) -> dict:
     calls = table_calls(bvhs.values(), config, (o, d, act), rays["shadow"])
     times = time_kernels(calls)
     info = []
-    for (arity, leaf), (b, build_s) in tables.items():
+    for key, (b, build_s) in tables.items():
         res = kernel_build.resources(b.stack_depth)
-        b = bvhs[(arity, leaf)]
-        names = [kernel_build.layout_name(k, arity, leaf)
+        b = bvhs[key]
+        names = [kernel_build.layout_name(k, b.arity, b.leaf_size)
                  for k in kernel_build.LAYOUT_KERNELS]
         info.append({
-            "layout": [arity, leaf],
-            "rows": b.num_rows, "width": b.table.shape[1],
-            "stack_depth": b.stack_depth, "build_s": build_s,
-            "resources": {k: res[k] for k in names}})
+            "layout": [b.arity, b.leaf_size], "dfs": b.dfs,
+            "top_rows": b.top_rows, "rows": b.num_rows,
+            "width": b.table.shape[1], "stack_depth": b.stack_depth,
+            "build_s": build_s, "resources": {k: res[k] for k in names}})
     return {"city_n": city_n, "triangles": scene.num_triangles,
             "lanes": {"primary": o.shape[0],
                       "shadow": rays["shadow"][0].shape[0],

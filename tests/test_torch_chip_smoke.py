@@ -84,6 +84,11 @@ def test_ptxas_spills_per_kernel():
     group = PTXAS_LOG.replace("_115occluded_kernelILi16ELi6EE",
                               "_121occluded_group_kernelILi32ELi24ELi8EE")
     assert chip_smoke._ptxas_spills(group)["occluded_a32_l24"] == 0
+    # and a two-level kernel's wide instantiation
+    inst = PTXAS_LOG.replace("_118closest_hit_kernelILi16ELi6EE",
+                             "_128closest_hit_instanced_kernelILi32ELi12EE")
+    assert chip_smoke._ptxas_spills(inst)["closest_hit_instanced_a32_l12"] \
+        == 16
 
 
 def test_k1_agreement_counts_ulps_on_hits():
@@ -384,6 +389,64 @@ def test_rehearse_instanced_phase(no_card, monkeypatch, tmp_path):
     assert out["close_share"] >= chip_smoke.FLAT_SHARE
     assert out["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
     assert out["flattened"]["finite"]
+    # the field's two-level tables at the wide layouts: exact, the frame
+    # within 1 LSB of the (16, 6) table's
+    _check_field_layouts(out["wide"])
+    chip_smoke._field_lines("instanced field", out["wide"])
+
+
+def _check_field_layouts(wide):
+    assert set(wide) == {"field_a32_l12", "field_a32_l24"}
+    for rec in wide.values():
+        k1, k2 = rec["k1"], rec["k2"]
+        assert not any(k1["mismatches"].values()) and k1["max_abs_err"] == 0
+        assert k2["mismatches"] == 0 and k2["max_abs_err"] == 0
+        assert k1["hits"] > 0 and k1["work"]["inst_rows"] > 0
+        assert k1["ms"] is None and k1["bound_ms"] > 0
+        assert rec["frame_share"] >= 0.99 and rec["finite"]
+        assert rec["resources"] is None and "frame" not in rec
+
+
+def test_rehearse_city_field_phase(no_card):
+    # phase e's second field, 8 instances of a 1,500-triangle BLAS, at
+    # 120x68 in its (16, 6) table and at the wide layouts
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    out = chip_smoke.city_field_phase(sched, 120, 68, 1, device="cpu")
+    assert out["instances"] == 8 and out["unique_triangles"] == 1500
+    assert out["world_triangles"] == 12_000 and out["finite"]
+    assert out["frame"].shape == (68, 120, 3)
+    assert not any(out["mismatches"].values())
+    assert out["k1_ms"] is None and out["k2_ms"] is None  # no device time
+    _check_field_layouts(out["wide"])
+    # many leaf rows a BLAS: the wide tables' BLASes are more than a leaf
+    assert all(r["rows"] - r["blas_base"] > 20 for r in out["wide"].values())
+    chip_smoke._field_lines("city field", out["wide"])
+
+
+def test_field_record_has_the_contract_keys():
+    def field(ms):
+        k = {"max_abs_err": 0.0, "ms": ms, "plain_ms": 900.0,
+             "bound_ms": 0.05, "bound_by": "operations", "lanes": 1923984}
+        return {"field_a32_l24": {
+            "k1": k, "k2": dict(k, lanes=1405984), "stack_depth": 60,
+            "launches": {"closest_hit_instanced_a32_l24": 16,
+                         "occluded_instanced_a32_l24": 16},
+            "resources": {"closest_hit_instanced": {
+                "registers": 90, "local_bytes": 1024, "blocks_per_sm": 5,
+                "shared_bytes": 1024}}}}
+    inst = {"wide": field(0.9), "k1": {"ms": 0.57}}
+    rec = chip_smoke._field_record(inst, {"wide": field(0.2), "k1_ms": 0.1},
+                                   "closest_hit_instanced", (32, 24),
+                                   "traverse8.py:523", {})
+    contract = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"}
+    assert contract <= set(rec)
+    assert rec["name"] == "closest_hit_instanced_a32_l24"
+    assert rec["launches"] == 16 and rec["ms"] == 0.9
+    assert rec["narrow_ms"] == 0.57 and rec["city"]["ms"] == 0.2
+    assert rec["city"]["narrow_ms"] == 0.1
+    assert rec["registers"] == 90 and rec["library_ms"] is None
 
 
 def test_rehearse_spectral_phases(no_card):
@@ -456,6 +519,57 @@ def _rehearse_deep_phase(monkeypatch, wide):
     assert sum(w["k1"]["rows_per_lane"]) < sum(g["k1"]["rows_per_lane"])
     assert "frame state" in g["memory_report"]
     chip_smoke._deep_lines("deep", g)
+
+
+def test_rehearse_jax_tables_phase(no_card, monkeypatch):
+    # phase p on box_city_fast(6) at 120x68 (444 triangles), "deep" from
+    # 100 triangles with treelets of 24 rows, so that a named L12/A32 build
+    # gives the JAX package's default table (DFS rows, grouped treelets);
+    # the npz cache forced on, each table's frames profiled through a
+    # stand-in for torch.profiler
+    import torch.profiler
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh_native
+
+    monkeypatch.setattr(bvh_native, "BVH_CACHE_MIN_TRIS", 1)
+    monkeypatch.setattr(bvh_native, "DEEP_TRIS_THRESHOLD", 100)
+    monkeypatch.setattr(bvh_native, "DEEP_TREELET_BUDGET", 24)
+    monkeypatch.setattr(torch.profiler, "profile",
+                        _fake_profiler(_path_profile_events(1)))
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    p = chip_smoke.jax_tables_phase(6, 1, sched, 120, 68, device="cpu",
+                                    subset=500)
+    assert list(p) == [label for label, _ in chip_smoke.JAX_TABLES]
+    first, plain, jax_default = p.values()
+    assert (first["layout"], first["dfs"], first["top_rows"]) == ((16, 6),
+                                                                  False, 0)
+    assert (plain["layout"], plain["dfs"]) == ((32, 12), False)
+    assert jax_default["layout"] == (32, 12) and jax_default["dfs"]
+    assert jax_default["top_rows"] > 0 and jax_default["treelet_stack"] > 0
+    assert jax_default["rows"] > plain["rows"]  # the group rows
+    for rec in p.values():
+        assert rec["triangles"] == 444 and rec["finite"]
+        assert set(rec["cold"]) == {"key_s", "collapse_s", "pack_s",
+                                    "save_s"}
+        assert set(rec["warm"]) == {"key_s", "load_s"}
+        assert rec["first_share"] >= 0.99
+        for k in ("k1", "k2", "k2_nocull"):
+            assert rec[k]["lanes"] == 500 and rec[k]["max_abs_err"] == 0.0
+            assert rec[k]["ms"] is None and rec[k]["bound_ms"] > 0
+        assert rec["profile"]["device_busy_ms"] > 0
+    for rec in (plain, jax_default):
+        assert rec["hit_equal"] and rec["t_equal"]
+        assert rec["ties"]["ties"] == rec["ties"]["lanes"]
+    assert jax_default["plain_share"] >= 0.99
+    assert 0.99 <= jax_default["plain_identical"] <= 1.0
+    chip_smoke._jax_tables_lines("p", p)
+    for rec in p.values():
+        rec["launches"] = dict.fromkeys(kernel_build.LAUNCHES, 4)
+    rows = chip_smoke._jax_tables_record(p, "k1", (32, 12))
+    assert list(rows) == ["L12/A32 plain", "JAX default"]
+    assert rows["JAX default"]["launches"] == 4
+    assert set(chip_smoke._jax_tables_record(p, "k2_nocull", (16, 6))) == {
+        "(16, 6)"}
 
 
 def test_rehearse_oracle_phase_and_nocull_check(no_card):

@@ -26,7 +26,16 @@ one-sided quad shows occlusion culling by the object-space winding. They
 test an instance's BLAS root in the instance entry's own step, so they are
 also held to the plain versions on a table whose instances enter their
 BLAS at a leaf row (``leaf_root``), where they must answer as on the same
-table entered at its root node.
+table entered at its root node. At the wide layouts (32, 12) and (32, 24)
+(``tlas.build_instanced(leaf_size=, arity=)``) they are held to the plain
+versions on 8 instances of a 1,500-triangle city BLAS and a pyramid, at
+ragged lane counts, at the deepest stack (``MAX_STACK``) and entered at a
+leaf root of 12 or 24 triangles; (8, 4) and (16, 4) raise.
+
+K1, K2 and the non-culling K2 on the JAX package's deep-scene row orders
+(``bvh8.build(dfs=True)`` and ``treelet_budget > 0``, with group rows)
+equal their plain versions exactly and answer as on the plain table of
+the same tree (hit and t equal).
 
 The kernels' resources as the CUDA runtime reports them: no kernel keeps
 local memory (no spill) but the (32, 24) ones, which keep their
@@ -51,7 +60,7 @@ the (16, 6) table of the same triangles (hit and t equal). A leaf holding
 each triangle twice pins K1's tie rule: the lower slot, as the plain
 version's serial loop keeps it, where a group's lanes hit both copies.
 Layouts that are not compiled, and rows of another compiled layout's
-width, raise; the instanced wrappers refuse the wide layouts.
+width, raise.
 
 The two-rank frames of ``parallel/`` on the card (mesh [cuda:0, cuda:0]:
 the sample slicing and the cross-rank assembly really run), sample-split
@@ -97,6 +106,7 @@ from torch_blas_fields import (
     _translate,
     leaf_root,
     leaf_slots,
+    pyramid_tris,
     small_blas_field,
     twin_tris,
 )
@@ -428,17 +438,22 @@ def _instanced_against_plain(scene, o, d, act, depth):
                                           act, depth)
 
 
-def _instanced_table_against_plain(table, kw, o, d, act, depth):
-    """``_instanced_against_plain`` on ``table``, a (16, 6) two-level table
-    whose instance rows ``kw`` places (``instance_kwargs``)."""
-    args = (table, o, d, act, TMIN, TMAX, depth, 16, 6)
+def _instanced_table_against_plain(table, kw, o, d, act, depth,
+                                   layout=(16, 6)):
+    """``_instanced_against_plain`` on ``table``, a two-level table of the
+    (arity, leaf_size) ``layout`` whose instance rows ``kw`` places
+    (``instance_kwargs``); a wide layout's launches are also counted under
+    its name."""
+    args = (table, o, d, act, TMIN, TMAX, depth, *layout)
     kernel_build.reset_launches()
     k = traverse.closest_hit(*args, **kw)
     occ = traverse.occluded(*args, **kw)
     torch.cuda.synchronize()
     launched = int(o.shape[0] > 0)
-    assert kernel_build.LAUNCHES == _launched(
-        closest_hit_instanced=launched, occluded_instanced=launched)
+    assert kernel_build.LAUNCHES == _launched(**{
+        kernel_build.layout_name(n, *lay): launched
+        for n in kernel_build.INSTANCED_KERNELS
+        for lay in {(16, 6), tuple(layout)}})
     p = traverse.closest_hit_plain(*args, **kw)
     for c in ("t", "u", "v", "tri_id", "hit", "inst"):
         assert torch.equal(k[c], p[c]), c
@@ -518,7 +533,7 @@ def test_instanced_occlusion_culls_by_object_space_winding(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", [(8, 4), (16, 4), (32, 12), (32, 24)])
+@pytest.mark.parametrize("layout", [(8, 4), (16, 4)])
 def test_instanced_kernels_refuse_other_layouts(grid, layout):
     o, d = _grid_rays(64, 0, grid.device)
     act = torch.ones(64, dtype=torch.bool, device=grid.device)
@@ -561,6 +576,161 @@ def test_instanced_kernels_on_a_leaf_root_blas(cuda_device, share):
     assert occ.any()
 
 
+# the instanced K1/K2 at the wide layouts, (32, 12) and (32, 24)
+
+
+@pytest.fixture(scope="module")
+def wide_fields():
+    """{layout: (table on the card, instance kwargs, stack depth)} of 8
+    instances, 40 apart in x, of a 1,500-triangle box_city BLAS (more than
+    one wide leaf row) and a 6-triangle pyramid, at each wide layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        host_triangles,
+    )
+
+    city = host_triangles(scenes.box_city(n=16, seed=0)[0])[:1500]
+    out = {}
+    for lay in kernel_build.WIDE_LAYOUTS:
+        b = tlas.build_instanced(
+            [city, pyramid_tris()], [0, 1] * 4,
+            [_translate(40.0 * k, 0.0, 0.0) for k in range(8)],
+            leaf_size=lay[1], arity=lay[0])
+        out[lay] = (torch.tensor(b.table, device="cuda"),
+                    {"num_instances": b.num_instances,
+                     "inst_base": b.inst_base, "blas_base": b.blas_base},
+                    b.stack_depth)
+    return out
+
+
+def _field_rays(n, seed, dev):
+    """Rays from above the field, down onto its instances."""
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-35.0, 315.0, n), rng.uniform(5.0, 25.0, n),
+                  rng.uniform(-35.0, 35.0, n)], 1)
+    d = rng.normal(size=(n, 3))
+    d[:, 1] = -np.abs(d[:, 1]) - 0.5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device=dev),
+            torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 9, 29, 4101])
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_instanced_kernels_match_plain_at_ragged_n(wide_fields, layout,
+                                                        n):
+    table, kw, depth = wide_fields[layout]
+    o, d = _field_rays(n, 21 + n, table.device)
+    act = torch.ones(n, dtype=torch.bool, device=table.device)
+    act[::5] = False
+    k, occ = _instanced_table_against_plain(table, kw, o, d, act, depth,
+                                            layout)
+    assert k["t"].shape == occ.shape == (n,)
+    if n > 1000:
+        assert k["hit"].any() and occ.any()
+        # the eight cities (the pyramids lie inside them)
+        assert len(torch.unique(k["inst"][k["hit"]])) >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_instanced_kernels_at_the_deepest_stack(wide_fields, layout):
+    # at MAX_STACK the one-thread walks' local stacks still hold a ray's
+    # whole stack, and the answers equal those at the table's own depth
+    table, kw, depth = wide_fields[layout]
+    o, d = _field_rays(20_000, 23, table.device)
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=table.device)
+    full = _instanced_table_against_plain(table, kw, o, d, act,
+                                          traverse.MAX_STACK, layout)
+    own = _instanced_table_against_plain(table, kw, o, d, act, depth, layout)
+    for c in ("t", "tri_id", "inst"):
+        assert torch.equal(full[0][c], own[0][c]), c
+    assert torch.equal(full[1], own[1])
+    res = kernel_build.resources(traverse.MAX_STACK)
+    for name in kernel_build.INSTANCED_KERNELS:
+        r = res[kernel_build.layout_name(name, *layout)]
+        assert (r["group_lanes"], r["stack"]) == (1, "local"), r
+        assert r["local_bytes"] >= 4 * traverse.MAX_STACK, r
+        assert r["blocks_per_sm"] >= 1, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_instanced_kernels_on_a_leaf_root_blas(cuda_device, layout):
+    # BLASes of a pyramid and of a leaf's worth of pyramids (12 or 24
+    # triangles): each root node has one leaf child, which ``leaf_root``
+    # makes the instances enter directly
+    arity, leaf = layout
+    big = np.concatenate([pyramid_tris() + np.float32([1.0 * j, 0.0, 0.0])
+                          for j in range(leaf // 6)])
+    b = tlas.build_instanced(
+        [pyramid_tris(), big], [0, 1] * 4,
+        [_translate(3.0 * (k % 4), 0.0, 3.0 * (k // 4)) for k in range(8)],
+        leaf_size=leaf, arity=arity)
+    kw = {"num_instances": b.num_instances, "inst_base": b.inst_base,
+          "blas_base": b.blas_base}
+    node = torch.tensor(b.table, device=cuda_device)
+    leafy = torch.tensor(leaf_root(b.table, b.inst_base, b.blas_base,
+                                   arity), device=cuda_device)
+    assert not torch.equal(node, leafy)
+    o, d = _grid_rays(8192, 31, cuda_device, extent=12.0)
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=cuda_device)
+    k, occ = _instanced_table_against_plain(leafy, kw, o, d, act,
+                                            b.stack_depth, layout)
+    k_node, occ_node = _instanced_table_against_plain(
+        node, kw, o, d, act, b.stack_depth, layout)
+    for c in ("t", "u", "v", "tri_id", "inst"):
+        assert torch.equal(k[c], k_node[c]), c
+    assert torch.equal(occ, occ_node)
+    hit_tris = torch.unique(k["tri_id"][k["hit"]]).cpu().numpy()
+    assert hit_tris.min() < 6 <= hit_tris.max()
+    assert occ.any()
+
+
+# K1, K2 and the non-culling K2 on the deep-scene row orders
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,dfs,budget", [
+    ((16, 6), True, 0), ((16, 6), False, 64), ((32, 12), False, 48),
+    ((32, 24), False, 32)])
+def test_kernels_on_dfs_and_treelet_tables(cuda_device, layout, dfs,
+                                           budget):
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import (
+        host_triangles,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import bvh8
+
+    tris = host_triangles(scenes.box_city(n=8, seed=0)[0])
+    arity, leaf = layout
+    deep = bvh8.build(tris, leaf, arity, dfs=dfs, treelet_budget=budget)
+    plain = bvh8.build(tris, leaf, arity)
+    assert deep.dfs and bool(deep.top_rows) == bool(budget)
+    if budget:
+        assert deep.num_rows > plain.num_rows  # group rows were added
+    o, d, act = _rays(20_000, 41, cuda_device)
+    got = []
+    for b in (deep, plain):
+        table = torch.tensor(b.table, device=cuda_device)
+        args = (table, o, d, act, TMIN, TMAX, b.stack_depth, arity, leaf)
+        k = traverse.closest_hit(*args)
+        occ = traverse.occluded(*args)
+        occ_n = traverse.occluded(*args, cull_backface=False)
+        p = traverse.closest_hit_plain(*args)
+        for c in ("t", "u", "v", "tri_id", "hit"):
+            assert torch.equal(k[c], p[c]), c
+        assert torch.equal(occ, traverse.occluded_plain(*args))
+        assert torch.equal(occ_n, traverse.occluded_plain(
+            *args, cull_backface=False))
+        got.append((k, occ, occ_n))
+    (kd, od, ond), (kp, op, onp) = got
+    assert torch.equal(kd["hit"], kp["hit"]) and torch.equal(kd["t"], kp["t"])
+    assert torch.equal(od, op) and torch.equal(ond, onp)
+    assert kd["hit"].any() and od.any()
+
+
 @pytest.mark.cuda
 def test_kernel_resources(cuda_device):
     # at the bench scene's stack depth (50): no kernel keeps local memory;
@@ -569,8 +739,11 @@ def test_kernel_resources(cuda_device):
     res = kernel_build.resources(50)
     wide24 = [kernel_build.layout_name(k, 32, 24)
               for k in kernel_build.LAYOUT_KERNELS]
+    wide_inst = [kernel_build.layout_name(k, *lay)
+                 for lay in kernel_build.WIDE_LAYOUTS
+                 for k in kernel_build.INSTANCED_KERNELS]
     assert all(r["local_bytes"] == 0 for k, r in res.items()
-               if k not in wide24), res
+               if k not in wide24 + wide_inst), res
     single = ("closest_hit", "occluded", "occluded_nocull",
               "closest_hit_instanced", "occluded_instanced")
     assert [res[k]["registers"] for k in single] == [69, 96, 96, 80, 96]
@@ -597,6 +770,17 @@ def test_kernel_resources(cuda_device):
             res[k]["blocks_per_sm"], res[k]["local_bytes"]) for k in names]
     assert got == [(1, "local", 80, 6, 1024), (1, "local", 96, 5, 1040),
                    (1, "local", 96, 5, 1040)], got
+    # the two-level kernels at (32, 12) and (32, 24): the one-thread walk
+    # with the MAX_STACK-entry stack in local memory
+    # (32, 12) then (32, 24), K1 then K2: K2 keeps a few spilled bytes
+    # beside its stack (8 and 16) at 96 registers, 5 blocks/SM
+    got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["row_copy"],
+            res[k]["registers"], res[k]["blocks_per_sm"],
+            res[k]["local_bytes"]) for k in wide_inst]
+    assert got == [(1, "local", "ldg", 95, 5, 1024),
+                   (1, "local", "ldg", 96, 5, 1048),
+                   (1, "local", "ldg", 95, 5, 1024),
+                   (1, "local", "ldg", 96, 5, 1040)], got
 
 
 # ---------------------------------------------------------------------------

@@ -159,9 +159,3 @@ def test_python_and_native_trees_differ():
 
     assert len(leaves(pm, po) - leaves(nm, no)) == 6  # of 38 leaves
     assert not _same_table(bvh8.build(tris), bvh_native.build(tris))
-
-
-@pytest.mark.parametrize("kwargs", [{"dfs": True}, {"treelet_budget": 16}])
-def test_wide_build_refuses_tpu_layouts(kwargs):
-    with pytest.raises(ValueError, match="out by design"):
-        bvh8.build(_scene(), 4, 8, **kwargs)

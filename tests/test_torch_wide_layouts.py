@@ -16,8 +16,8 @@
   ``build_scene(leaf_size=12, arity=32)`` (99% of the pixels within
   1 LSB, ``traces`` equal); without the arguments it keeps (16, 6).
 - The kernel wrappers' layout check takes the three compiled layouts at
-  their widths (64, 128 and 240 columns) and nothing else; the instanced
-  kernels take (16, 6) only. (The kernels themselves: the ``cuda`` tests.)
+  their widths (64, 128 and 240 columns) and nothing else, for the
+  instanced kernels too. (The kernels themselves: the ``cuda`` tests.)
 """
 
 import dataclasses
@@ -286,11 +286,6 @@ def test_kernel_layout_takes_the_compiled_layouts(arity, leaf, width):
     for bad in ((32, 6), (64, 12), (16, 12), (32, 16)):
         with pytest.raises(ValueError, match="layout"):
             traverse._kernel_layout(table, 10, *bad)
-    # the instanced kernels are compiled for (16, 6) only
-    if (arity, leaf) != (16, 6):
-        with pytest.raises(ValueError, match="layout"):
-            traverse._kernel_layout(table, 10, arity, leaf,
-                                    *traverse._SINGLE_LAYOUT)
 
 
 def test_wide_launch_counters():
