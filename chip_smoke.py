@@ -159,6 +159,18 @@ p. (after phase g) JAX's default deep scene: ``box_city_fast`` n=400
    printed), every table's within 1 LSB of the (16, 6) frame, K1's hits
    and t equal on every table (another triangle only at an exact tie).
 
+q. (after phase p) a two-level table larger than the L2: 4 instances, on
+   a 2x2 grid, of phase p's scene merged into one 1,920,012-triangle BLAS
+   (``kernel_times.deep_field``: 7,680,048 world triangles) at 960x540
+   ``reference_32_16_8``, in the (16, 6) two-level table and at (32, 12)
+   (``tlas.build_instanced(leaf_size=12, arity=32)``: about 122 MB of
+   rows, 2.4 times the L2): each table's host build seconds, rows, bytes
+   and stack depth; the instanced K1 and K2 against their plain versions
+   on 65,536 lanes of the frame's primary and bounce-0 shadow rays
+   (exact), timed on all of them with bounds and resources; 2 timed
+   frames a table, the (32, 12) frame within 1 LSB of the (16, 6) frame
+   on 99% of the pixels and launching only that layout's kernels.
+
 Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
 kernels the same way). Prints the card's name and power limit, one
@@ -166,7 +178,8 @@ kernels the same way). Prints the card's name and power limit, one
 resident blocks per SM; the wide layouts' instantiations as
 ``closest_hit_a32_l12`` and so on, with their phase-g times, the
 two-level ones as ``closest_hit_instanced_a32_l12`` and so on, with their
-phase-e times; K1, K2 and the non-culling K2 with their phase-p times
+phase-e times and, at (16, 6) and (32, 12), their phase-q times under
+``deep_field``; K1, K2 and the non-culling K2 with their phase-p times
 under ``jax_tables``), and as its
 last line ``{"ok": true, "device":
 {...}}``. Any failed check raises and exits non-zero; there is no CPU
@@ -219,6 +232,13 @@ DEEP_SCENES = ((180, 4, (32, 24)), (913, 2, (32, 12)))
 # phase p's scene: box_city_fast n=400, 1,920,012 triangles, the size of
 # the JAX package's default deep scene (models/scenes.py box_city_fast)
 JAX_SCENE_N = 400
+# phase q's field: DEEP_FIELD_COUNT instances of the BLAS of box_city_fast
+# n=JAX_SCENE_N, in the (16, 6) two-level table and at these layouts
+# ((32, 24) is left out: its Python collapse of 1.92M triangles takes
+# minutes)
+DEEP_FIELD_COUNT = 4
+DEEP_FIELD_LAYOUTS = ((32, 12),)
+DEEP_FIELD_FRAMES = 2
 
 
 def _line(msg: str) -> None:
@@ -692,15 +712,18 @@ def cli_phase(width: int, height: int, schedule: str, device="cuda",
 FLAT_MEAN_RTOL, FLAT_PIXEL_TOL, FLAT_SHARE = 0.05, 1e-3, 0.90
 
 
-def _field_layouts(rays: dict, frames: int, ref_frame, device) -> dict:
+def _field_layouts(rays: dict, frames: int, ref_frame, device,
+                   profile: bool = False) -> dict:
     """(e) The field ``rays`` on its two-level tables at the wide layouts
     (``rays["wide"]``): for each, the instanced K1 and K2 against their
     plain versions on the frame's primary and bounce-0 shadow lanes
     (exact), their times (CUDA events), bounds and resources at the
     table's depth, and ``frames`` timed frames (launches under the
     layout's names) whose last frame lies within 1 LSB of ``ref_frame``
-    (the (16, 6) table's) on 99% of the pixels. Keyed by
-    ``kernel_build.layout_name("field", arity, leaf_size)``."""
+    (the (16, 6) table's) on 99% of the pixels; with ``profile`` as many
+    frames under the profiler (``profile``: the instanced kernels' device
+    time a launch). Keyed by ``kernel_build.layout_name("field", arity,
+    leaf_size)``."""
     from fovpathtracing_optixcodelatest_tpu_torch.ops import (
         kernel_build,
         traverse,
@@ -765,6 +788,12 @@ def _field_layouts(rays: dict, frames: int, ref_frame, device) -> dict:
                             config, rays["schedule"], device=device)
         renderer.set_camera(rays["camera"])
         rec.update(timed_frames(renderer, frames))
+        rec["profile"] = None
+        if profile:
+            prof = {}
+            _profile_frames(renderer, None, prof, name=f"field {lay}",
+                            path_kernels=INSTANCED_KERNELS, frames=frames)
+            rec["profile"] = prof.popitem()[1]
         del renderer
         frame = rec.pop("frame")
         rec["frame_mean"] = float(frame.mean())
@@ -914,7 +943,8 @@ def instanced_phase(schedule, width: int, height: int, frames: int,
                  "bound_ms": b2, "bound_by": b2_by, "fetch_bytes": f2,
                  "work": st2}
     del p1, p2, calls
-    out["wide"] = _field_layouts(rays, frames, out["frame"], device)
+    out["wide"] = _field_layouts(rays, frames, out["frame"], device,
+                                 profile=bool(profile))
     del rays
 
     # subframe 0 against the flattened scene's
@@ -982,15 +1012,6 @@ def spectral_phase(scene, config, schedule, camera, frames: int,
     assert share >= 0.99, f"dispersive glass on {device} vs CPU: {share}"
     out["renderer"] = renderer
     return out
-
-def _subset(mask, count: int):
-    """``count`` lanes of the set lanes of ``mask``, evenly spread over
-    them (all of them where there are fewer)."""
-    import torch
-
-    lanes = torch.nonzero(mask).squeeze(1)
-    step = max(1, lanes.numel() // count)
-    return lanes[::step][:count]
 
 
 def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
@@ -1132,7 +1153,8 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
     rays = kernel_times.frame_rays(scene, camera, config, schedule, device)
     o, d, act, _ = rays["primary"]
     so, sd, sq = rays["shadow"]
-    sel1, sel2 = _subset(act, subset), _subset(sq, subset)
+    sel1 = kernel_times.subset_lanes(act, subset)
+    sel2 = kernel_times.subset_lanes(sq, subset)
     ones = lambda x: torch.ones((x.numel(),), dtype=torch.bool,  # noqa
                                 device=device)
     sub = ((o[sel1].contiguous(), d[sel1].contiguous(), ones(sel1)),
@@ -1378,7 +1400,8 @@ def jax_tables_phase(city_n: int, frames: int, schedule, width: int,
     rays = kernel_times.frame_rays(scene, camera, config, schedule, device)
     o, d, act, _ = rays["primary"]
     so, sd, sq = rays["shadow"]
-    sel1, sel2 = _subset(act, subset), _subset(sq, subset)
+    sel1 = kernel_times.subset_lanes(act, subset)
+    sel2 = kernel_times.subset_lanes(sq, subset)
     ones = lambda x: torch.ones((x.numel(),), dtype=torch.bool,  # noqa
                                 device=device)
     sub = ((o[sel1].contiguous(), d[sel1].contiguous(), ones(sel1)),
@@ -1442,6 +1465,163 @@ def _jax_tables_lines(name: str, recs: dict) -> None:
           f"within 1 LSB {last['plain_share']:.4f}, bit-identical "
           f"{last['plain_identical']:.4f}; K1 tri_id apart on "
           f"{last['plain_tri_id_apart']} subset lanes")
+
+
+def deep_field_phase(city_n: int, frames: int, schedule, width: int,
+                     height: int, device="cuda", subset: int = 65536,
+                     count: int = 4) -> dict:
+    """(q) A two-level table larger than the L2: ``count`` instances of
+    ``box_city_fast(city_n)``'s BLAS (``kernel_times.deep_field``: at
+    n=400 four of 1,920,012 triangles) under the gradient sky, in its
+    (16, 6) two-level table and at each of ``DEEP_FIELD_LAYOUTS``
+    (``tlas.build_instanced(leaf_size=, arity=)``): each table's host build
+    seconds, rows, bytes and stack depth; the instanced K1 and K2 against
+    their plain versions on ``subset`` lanes of the (16, 6) frame's primary
+    and bounce-0 shadow rays (exact), timed there and on all of the
+    frame's lanes, with bounds (the frame's from the subset's work a lane,
+    as ``_walk_records``) and resources; ``frames`` timed frames a table,
+    each wide frame within 1 LSB of the (16, 6) frame on 99% of the pixels
+    and launching only its layout's instantiations. Keyed by
+    ``kernel_build.layout_name("deep_field", arity, leaf_size)``."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
+        Renderer,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    rays = kernel_times.field_rays(
+        device, width=width, height=height, schedule=schedule,
+        layouts=DEEP_FIELD_LAYOUTS, flat=False,
+        field=kernel_times.deep_field(city_n, count))
+    sc, config = rays["field"], rays["config"]
+    sub = kernel_times.field_subset(rays, subset)
+    calls, sub_calls = (kernel_times.field_calls(r) for r in (rays, sub))
+    times = frame_times = dict.fromkeys(calls)
+    if device == "cuda":  # else a rehearsal: no device time
+        times, frame_times = (kernel_times.time_kernels(c)
+                              for c in (sub_calls, calls))
+    o, d, act, _ = rays["primary"]
+    so, _, sq = rays["shadow"]
+    n, n_act, ns, nq = o.shape[0], int(act.sum()), so.shape[0], int(sq.sum())
+    po, pd, ones1, _ = sub["primary"]
+    qo, qd, ones2 = sub["shadow"]
+    n1, n2 = po.shape[0], qo.shape[0]
+    out, ref_frame = {}, None
+    for lay in ((16, 6), *DEEP_FIELD_LAYOUTS):
+        b = rays["scene"].bvh if lay == (16, 6) else rays["wide"][lay]
+        kargs = (config.tmin, config.tmax, *b.walk_args)
+        kw = b.instance_kwargs
+        st1, st2 = {}, {}
+        p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
+            b.table, po, pd, ones1, *kargs, stats=st1, **kw))
+        p2, p2_ms = _plain_ms(lambda: traverse.occluded_plain(
+            b.table, qo, qd, ones2, *kargs, stats=st2, **kw))
+        mism = kernel_times.field_mismatches(sub, sub_calls, plain=(p1, p2),
+                                             layout=lay)
+        mism2 = mism.pop("occluded")
+        assert not any(mism.values()), \
+            f"the deep field's instanced K1 at {lay} disagrees with its " \
+            f"plain version: {mism}"
+        assert mism2 == 0, \
+            f"the deep field's instanced K2 at {lay} disagrees with its " \
+            "plain version"
+        assert int(p1["hit"].sum()) > 0 and 0 < int(p2.sum()) < n2
+        names = {k: kernel_build.layout_name(k, *lay) for k in
+                 ("ik1_primary", "ik2_shadow",
+                  *kernel_build.INSTANCED_KERNELS)}
+        rec = {"layout": lay, "rows": b.num_rows,
+               "stack_depth": b.stack_depth, "inst_base": b.inst_base,
+               "blas_base": b.blas_base, "table_bytes": b.table.numel() * 4,
+               "host_build_s": rays["build_s"] if lay == (16, 6)
+               else rays["wide_build_s"][lay]}
+        for key, st, p_ms, nsub, nframe, walked, n_out, name in (
+                ("k1", st1, p1_ms, n1, n, n_act, 20, "ik1_primary"),
+                ("k2", st2, p2_ms, n2, ns, nq, 1, "ik2_shadow")):
+            bound, by, fetch = _bound(st, b.table, nsub, nsub, n_out)
+            frame_bound, frame_by, _ = _bound(st, b.table, nframe, walked,
+                                              n_out, scale=walked / nsub)
+            rec[key] = {"lanes": nsub, "frame_lanes": nframe,
+                        "ms": times[names[name]],
+                        "frame_ms": frame_times[names[name]],
+                        "plain_ms": p_ms,
+                        "bound_ms": bound, "bound_by": by,
+                        "frame_bound_ms": frame_bound,
+                        "frame_bound_by": frame_by, "fetch_bytes": fetch,
+                        "work": st,
+                        "rows_per_lane": (st["node_rows"] / nsub,
+                                          st["leaf_rows"] / nsub)}
+        rec["k1"].update(hits=int(p1["hit"].sum()), mismatches=mism,
+                         max_abs_err=float(min(sum(mism.values()), 1)))
+        rec["k2"].update(occluded=int(p2.sum()), mismatches=mism2,
+                         max_abs_err=float(min(mism2, 1)), frame_queried=nq)
+        del p1, p2
+        rec["resources"] = None
+        if device == "cuda":
+            res = kernel_build.resources(b.stack_depth)
+            rec["resources"] = {k: res[names[k]]
+                                for k in kernel_build.INSTANCED_KERNELS}
+        renderer = Renderer(dataclasses.replace(rays["scene"], bvh=b),
+                            config, rays["schedule"], device=device)
+        renderer.set_camera(rays["camera"])
+        rec.update(timed_frames(renderer, frames))
+        del renderer
+        frame = rec.pop("frame")
+        rec["frame_mean"] = float(frame.mean())
+        assert rec["finite"] and 0 < rec["frame_mean"] < 255
+        if ref_frame is None:
+            ref_frame = frame
+        rec["frame_share"] = _share_within_1lsb(frame, ref_frame)
+        assert rec["frame_share"] >= 0.99, \
+            f"the deep field's {lay} frame differs from the (16, 6) frame's"
+        for k in kernel_build.INSTANCED_KERNELS:
+            assert rec["launches"][names[k]] == rec["launches"][k] > 0 \
+                or device != "cuda", \
+                f"the deep field's {lay} frame did not launch only {names[k]}"
+        out[kernel_build.layout_name("deep_field", *lay)] = rec
+    out["instances"] = len(sc.instances)
+    out["unique_triangles"] = rays["scene"].num_triangles
+    out["world_triangles"] = sc.num_world_triangles
+    return out
+
+
+def _deep_field_lines(name: str, q: dict) -> None:
+    """Phase q's lines: each table's build, kernels and frames."""
+    _line(f"{name}: {q['instances']} instances of one "
+          f"{q['unique_triangles']}-tri BLAS ({q['world_triangles']} world "
+          "tris)")
+    tables = {k: v for k, v in q.items() if isinstance(v, dict)}
+    for rec in tables.values():
+        lay = tuple(rec["layout"])
+        k1, k2 = rec["k1"], rec["k2"]
+        ms = lambda x: "not timed" if x is None else f"{x:.4f} ms"  # noqa
+        _line(f"{name} {lay}: table {rec['rows']} rows (instances "
+              f"[{rec['inst_base']}, {rec['blas_base']})), "
+              f"{rec['table_bytes'] / 1e6:.1f} MB, stack_depth "
+              f"{rec['stack_depth']}, host build {rec['host_build_s']:.2f} s;"
+              f" instanced K1 on {k1['lanes']} of the primary lanes "
+              f"({k1['hits']} hits) mismatched lanes {k1['mismatches']}, "
+              f"{ms(k1['ms'])} (plain {k1['plain_ms']:.1f} ms, bound "
+              f"{k1['bound_ms']:.6f} {k1['bound_by']}), rows a lane "
+              f"{k1['rows_per_lane']}; on all {k1['frame_lanes']}: "
+              f"{ms(k1['frame_ms'])} (bound {k1['frame_bound_ms']:.6f} "
+              f"{k1['frame_bound_by']}); instanced K2 on {k2['lanes']} "
+              f"shadow lanes ({k2['occluded']} occluded) {k2['mismatches']} "
+              f"mismatches, {ms(k2['ms'])} (plain {k2['plain_ms']:.1f} ms, "
+              f"bound {k2['bound_ms']:.6f} {k2['bound_by']}); on all "
+              f"{k2['frame_lanes']} ({k2['frame_queried']} queried): "
+              f"{ms(k2['frame_ms'])} (bound {k2['frame_bound_ms']:.6f} "
+              f"{k2['frame_bound_by']})")
+        _line(f"{name} {lay}: {len(rec['frame_ms'])} frames after 1 "
+              "warm-up: ms/frame " + ", ".join(f"{x:.1f}"
+                                               for x in rec["frame_ms"])
+              + f" (mean {rec['mean_ms']:.1f}); {rec['mrays']:.2f} Mrays/s; "
+              f"peak {rec['peak'] / 2**30:.2f} GiB; frame mean "
+              f"{rec['frame_mean']:.3f}, within 1 LSB of the (16, 6) frame "
+              f"{rec['frame_share']:.4f}; launches {rec['launches']}")
+        _resources_line(f"{name} {lay}", rec)
 
 
 def _ties(scene, o, d, lanes, a: dict, c: dict, tmin: float,
@@ -1563,6 +1743,8 @@ def _field_record(inst: dict, city: dict, kernel: str, layout,
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "lanes": r["lanes"],
             "stack_depth": w["stack_depth"], "narrow_ms": inst[k]["ms"],
+            "profile_ms_per_launch": (w["profile"]["kernel_ms_per_launch"][
+                kernel] if w.get("profile") else None),
             "spill_bytes": spills.get(name), **w["resources"][kernel],
             "city": {"lanes": cr["lanes"], "ms": cr["ms"],
                      "narrow_ms": city[f"{k}_ms"],
@@ -1571,6 +1753,26 @@ def _field_record(inst: dict, city: dict, kernel: str, layout,
                      "launches": cw["launches"][name],
                      "stack_depth": cw["stack_depth"],
                      "max_abs_err": cr["max_abs_err"]}}
+
+
+def _deep_field_record(q: dict, kernel: str, layout) -> dict:
+    """The kernels line's record of the instanced K1 or K2 (``kernel``) on
+    phase q's table of ``layout``: its times, bounds and launches there."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    rec = q[kernel_build.layout_name("deep_field", *layout)]
+    r = rec["k1" if kernel == "closest_hit_instanced" else "k2"]
+    return {"lanes": r["lanes"], "frame_lanes": r["frame_lanes"],
+            "ms": r["ms"], "frame_ms": r["frame_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "frame_bound_ms": r["frame_bound_ms"],
+            "frame_bound_by": r["frame_bound_by"],
+            "launches": rec["launches"][kernel_build.layout_name(kernel,
+                                                                 *layout)],
+            "max_abs_err": r["max_abs_err"], "stack_depth": rec["stack_depth"],
+            "rows": rec["rows"], "table_bytes": rec["table_bytes"],
+            "rows_per_lane": r["rows_per_lane"]}
 
 
 def _jax_tables_record(p: dict, k: str, layout) -> dict:
@@ -1596,6 +1798,19 @@ def _jax_tables_record(p: dict, k: str, layout) -> dict:
                     "rows_per_lane": rec[k]["rows_per_lane"]}
             for label, rec in p.items()
             if tuple(rec["layout"]) == tuple(layout)}
+
+
+def _resources_line(name: str, rec: dict) -> None:
+    """The line of a table's instanced kernels' design and resources at its
+    stack depth, where the run measured them."""
+    if rec["resources"]:
+        _line(f"{name} resources at depth {rec['stack_depth']}: "
+              + "; ".join(
+                  f"{k} {r['group_lanes']} lane(s) a ray, stack in "
+                  f"{r['stack']} memory, {r['registers']} regs, "
+                  f"{r['local_bytes']} B local, {r['shared_bytes']} B "
+                  f"shared/block, {r['blocks_per_sm']} blocks/SM"
+                  for k, r in rec["resources"].items()))
 
 
 def _field_lines(name: str, wide: dict) -> None:
@@ -1624,14 +1839,7 @@ def _field_lines(name: str, wide: dict) -> None:
               + f" (mean {rec['mean_ms']:.1f}); {rec['mrays']:.2f} Mrays/s; "
               f"peak {rec['peak'] / 2**30:.2f} GiB; frame mean "
               f"{rec['frame_mean']:.3f}; launches {rec['launches']}")
-        if rec["resources"]:
-            _line(f"{name} {lay} resources at depth {rec['stack_depth']}: "
-                  + "; ".join(
-                      f"{k} {r['group_lanes']} lane(s) a ray, stack in "
-                      f"{r['stack']} memory, {r['registers']} regs, "
-                      f"{r['local_bytes']} B local, {r['shared_bytes']} B "
-                      f"shared/block, {r['blocks_per_sm']} blocks/SM"
-                      for k, r in rec["resources"].items()))
+        _resources_line(f"{name} {lay}", rec)
 
 
 def _table_lines(name: str, g: dict, rec: dict) -> None:
@@ -3423,6 +3631,13 @@ def main() -> int:
         del rec["frame"]
     torch.cuda.empty_cache()
 
+    # -- phase q: a two-level table larger than the L2: instances of phase
+    # p's 1,920,012-triangle BLAS in the (16, 6) table and at (32, 12) ------
+    dq = deep_field_phase(JAX_SCENE_N, DEEP_FIELD_FRAMES, schedule, w, h,
+                          count=DEEP_FIELD_COUNT)
+    _deep_field_lines(f"q n={JAX_SCENE_N}", dq)
+    torch.cuda.empty_cache()
+
     # -- phase h: the oracle, the golden images and the 04 raycast ----------
     orc = oracle_phase()
     raycast_launches = orc["raycast_launches"]
@@ -3651,12 +3866,19 @@ def main() -> int:
          "deep": _deep_record(g10, "k2", "occluded"),
          "jax_tables": _jax_tables_record(jt, "k2", (16, 6)),
          "python_table": _python_record(lg, "k2", "occluded")},
-        _instanced_record("closest_hit_instanced", "traverse8.py:523", ik1,
-                          inst_launches, inst_res),
-        _instanced_record("occluded_instanced", "traverse8.py:1487", ik2,
-                          inst_launches, inst_res),
-        # the instanced kernels at the wide layouts (phase e)
-        *[_field_record(inst, city, kernel, lay, replaces, spills)
+        dict(_instanced_record("closest_hit_instanced", "traverse8.py:523",
+                               ik1, inst_launches, inst_res),
+             deep_field=_deep_field_record(dq, "closest_hit_instanced",
+                                           (16, 6))),
+        dict(_instanced_record("occluded_instanced", "traverse8.py:1487",
+                               ik2, inst_launches, inst_res),
+             deep_field=_deep_field_record(dq, "occluded_instanced",
+                                           (16, 6))),
+        # the instanced kernels at the wide layouts (phase e; phase q's
+        # deep field at its layouts)
+        *[dict(_field_record(inst, city, kernel, lay, replaces, spills),
+               **({"deep_field": _deep_field_record(dq, kernel, lay)}
+                  if lay in DEEP_FIELD_LAYOUTS else {}))
           for lay in kernel_build.WIDE_LAYOUTS
           for kernel, replaces in (
               ("closest_hit_instanced", "traverse8.py:523"),
@@ -3713,7 +3935,7 @@ def main() -> int:
         catcher=dict(cat, launches=cat_launches),
         cli=dict(cli, launches=cli_launches),
         instanced={k: v for k, v in inst.items() if k != "frame"},
-        city_field=city, jax_tables=jt,
+        city_field=city, jax_tables=jt, deep_field=dq,
         spectral={k: v for k, v in spec.items() if k != "frame"},
         spectral_cli=dict(spec_cli, launches=spec_cli_launches),
         deep=deep, oracle=orc, nocull=nocull, demand=dem,

@@ -150,9 +150,24 @@
 // one-thread walks with INSTANCED set, compiled at each layout (the
 // single-level kernels compile as without the flag). At A32/L12 and
 // A32/L24 they take the wide one-thread walks' form: the row read staged,
-// the stack in local memory (kMaxStack entries); at A32/L12 that is the
-// one-thread walk the single-level kernels left for the group walk, kept
-// here as the simple exact kernel (a group variant is not written).
+// the stack in local memory (kMaxStack entries). Their K1 has no sorting
+// network (kRankPush): most of its node steps use a child past slot 15
+// (a TLAS row holds one instance a slot; a wide BLAS root has tens of
+// leaves), where the 32-key network of the single-level walk runs 240
+// compare-exchanges and holds the 32 keys live (95 registers, 5 blocks
+// an SM). It reads a node's codes a group of four at a time and inserts
+// each hit key into the node's stack window as the slab tests find it
+// (insert_desc: about cnt^2 / 2 compares, cnt usually 1-4), which leaves
+// the stack a descending sort would, the full-stack rule included: 75
+// registers, 6 blocks an SM, no spill. Timed against the network on the
+// 1,000-instance field's primary lanes (in the L2) and on a (32, 12) table
+// 2.4 times the L2 (PERF.md): 31% less time at A32/L24, 17% and 28% less
+// at A32/L12; issuing the BLAS root row's reads before the instance
+// transform gained nothing (and spilled where the root's codes were read
+// with it), refilling at 16 idle lanes cost 8-33%, and an A32/L12 group
+// walk (the single-level K1's below, with the instance state in each lane
+// of the group) took 3.3 times as long on the field and 27% longer on the
+// larger table.
 // Rows [inst_base, blas_base) are instance rows [root code, A (3x3
 // row-major), b (3)]. Popping an instance code (kind 2, the instance id in
 // the row bits) reads its 13 words as four 16-byte loads, sets the lane's
@@ -205,6 +220,9 @@ constexpr int kMinBlocks = 5;
 // two-level K2), or reads it all at once (K2, which gains nothing from
 // staging)
 constexpr bool kK1StagedRow = true, kK2StagedRow = false, kIK2StagedRow = true;
+// resident blocks per SM asked by the two-level K1 at the wide layouts
+// (6: 80 registers; it takes 75, with its stack in local memory)
+constexpr int kIK1WideMinBlocks = 6;
 
 template <int ARITY, int LEAF>
 struct Layout {
@@ -258,18 +276,13 @@ __device__ __forceinline__ void load_vecs(const uint4* __restrict__ r,
   for (int j = lo; j <= hi; ++j) q[j] = __ldg(r + j);
 }
 
-// Start reading the row of entry code: all of it at once, or (staged) a
-// prefetch of its two 128-byte lines and, for a node, its child codes.
-template <int ARITY, int LEAF, bool STAGED>
-__device__ __forceinline__ const uint4* begin_row(
-    const uint4* __restrict__ table, uint32_t code,
-    uint4 (&q)[Layout<ARITY, LEAF>::kVecs]) {
+// Prefetch into L1 the 128-byte lines of the row of entry code that its
+// walk reads: a node's boxes and codes, a leaf's triangles.
+template <int ARITY, int LEAF>
+__device__ __forceinline__ const uint4* prefetch_row(
+    const uint4* __restrict__ table, uint32_t code) {
   using L = Layout<ARITY, LEAF>;
   const uint4* r = table + (size_t)(code >> 2) * L::kVecs;
-  if (!STAGED) {
-    load_row<ARITY, LEAF>(table, code, q);
-    return r;
-  }
   const bool node = (code & 3u) == 0u;
   constexpr int kLines =
       L::kNodeLines > L::kLeafLines ? L::kNodeLines : L::kLeafLines;
@@ -282,7 +295,24 @@ __device__ __forceinline__ const uint4* begin_row(
                        (node ? 16 * ARITY : 36 * LEAF);
     asm volatile("prefetch.global.L1 [%0];" ::"l"(last));
   }
-  if (node) load_vecs(r, q, 3 * ARITY / 4, ARITY - 1);  // the child codes
+  return r;
+}
+
+// Start reading the row of entry code: all of it at once, or (staged) a
+// prefetch of its lines and, for a node, its child codes.
+template <int ARITY, int LEAF, bool STAGED>
+__device__ __forceinline__ const uint4* begin_row(
+    const uint4* __restrict__ table, uint32_t code,
+    uint4 (&q)[Layout<ARITY, LEAF>::kVecs]) {
+  using L = Layout<ARITY, LEAF>;
+  const uint4* r = table + (size_t)(code >> 2) * L::kVecs;
+  if (!STAGED) {
+    load_row<ARITY, LEAF>(table, code, q);
+    return r;
+  }
+  prefetch_row<ARITY, LEAF>(table, code);
+  if ((code & 3u) == 0u)
+    load_vecs(r, q, 3 * ARITY / 4, ARITY - 1);  // the child codes
   return r;
 }
 
@@ -424,6 +454,30 @@ __device__ __forceinline__ void push_used(uint32_t* k, int cnt, int groups,
   } else {
     push_sorted<4>(k, cnt, depth, stk, sp);
   }
+}
+
+// Place hit key k in the node's window stk[sp .. sp + n), which holds the
+// largest of the node's hit keys so far in descending order (the nearest
+// on top) and at most room = depth - sp of them: an insertion from the top
+// (keys are distinct, as their codes are), so the window ends as a
+// descending sort of all the node's hit keys would leave it, the largest
+// room of them where they do not all fit.
+template <class Stk>
+__device__ __forceinline__ void insert_desc(Stk& stk, int sp, int room,
+                                            int& n, uint32_t k) {
+  int j = n;
+  if (n == room) {  // full: k takes the smallest's place if it is larger
+    if (room == 0 || k < stk[sp + room - 1]) return;
+    j = room - 1;
+  } else {
+    ++n;
+  }
+  for (; j > 0; --j) {
+    const uint32_t below = stk[sp + j - 1];
+    if (below > k) break;
+    stk[sp + j] = below;
+  }
+  stk[sp + j] = k;
 }
 
 struct Ray {
@@ -604,6 +658,8 @@ struct OccludedWalk {
 template <int ARITY, int LEAF, bool INSTANCED = false>
 struct ClosestWalk {
   using L = Layout<ARITY, LEAF>;
+  // the two-level walks at the wide layouts place each hit key by rank
+  static constexpr bool kRankPush = INSTANCED && L::kWide;
   const uint4* __restrict__ table;
   const float* __restrict__ orig;
   const float* __restrict__ dir;
@@ -659,36 +715,73 @@ struct ClosestWalk {
         code = in.template enter<L::kVecs>(table, code, ray);
     }
     uint4 q[L::kVecs];
+    // (kRankPush) the row's lines only: its codes are read a group of four
+    // at a time below
     const uint4* r =
-        begin_row<ARITY, LEAF, kK1StagedRow>(table, code, q);
+        kRankPush ? prefetch_row<ARITY, LEAF>(table, code)
+                  : begin_row<ARITY, LEAF, kK1StagedRow>(table, code, q);
     if ((code & 3u) == 0u) {
       float o[3], inv[3];
       node_ray<INSTANCED>(in, code, ray, o, inv);
       const uint32_t himask = ~lowmask;
-      uint32_t key[ARITY];  // a hit child's key, 0 for a miss or empty slot
-      int cnt = 0;
-      int groups = 1;  // the groups up to the last one that has a child
-      // children in groups of four; a group with no child is skipped
+      if constexpr (kRankPush) {
+        // each hit key inserted into the node's window as it is found: no
+        // key array, no sorting network
+        const int room = depth - sp;
+        int cnt = 0;
 #pragma unroll
-      for (int g = 0; g < ARITY / 4; ++g) {
-        const bool used = group_used<ARITY>(q, g);
-        if (used) groups = g + 1;
+        for (int g = 0; g < ARITY / 4; ++g) {
+          const uint4 cg = __ldg(r + 3 * ARITY / 4 + g);  // its four codes
+          if ((cg.x | cg.y | cg.z | cg.w) == 0u) continue;
+          group_boxes<kK1StagedRow>(r, q, g);
+          uint32_t k4[4];
+          unsigned hits = 0u;
 #pragma unroll
-        for (int c = 4 * g; c < 4 * g + 4; ++c) key[c] = 0u;
-        if (!used) continue;
-        group_boxes<kK1StagedRow>(r, q, g);
-#pragma unroll
-        for (int c = 4 * g; c < 4 * g + 4; ++c) {
-          const uint32_t cc = word(q, 3 * ARITY + c);
-          float lo[3], hi[3], tn;
-          child_box<ARITY>(q, c, lo, hi);
-          const bool hit =
-              slab(lo, hi, o, inv, tmin, tlimit, &tn) && cc != 0u;
-          key[c] = hit ? (mono_u32(tn) & himask) | cc : 0u;
-          cnt += hit;
+          for (int c = 0; c < 4; ++c) {
+            const uint32_t cc = c == 0 ? cg.x : c == 1 ? cg.y
+                                : c == 2 ? cg.z : cg.w;
+            float lo[3], hi[3], tn;
+            child_box<ARITY>(q, 4 * g + c, lo, hi);
+            const bool hit =
+                slab(lo, hi, o, inv, tmin, tlimit, &tn) && cc != 0u;
+            k4[c] = (mono_u32(tn) & himask) | cc;
+            hits |= (unsigned)hit << c;
+          }
+          while (hits != 0u) {
+            const int c = __ffs(hits) - 1;
+            hits &= hits - 1u;
+            const uint32_t k = c == 0 ? k4[0] : c == 1 ? k4[1]
+                               : c == 2 ? k4[2] : k4[3];
+            insert_desc(stk, sp, room, cnt, k);
+          }
         }
+        sp += cnt;
+      } else {
+        uint32_t key[ARITY];  // a hit child's key, 0 for a miss or empty
+        int cnt = 0;
+        int groups = 1;  // the groups up to the last one that has a child
+        // children in groups of four; a group with no child is skipped
+#pragma unroll
+        for (int g = 0; g < ARITY / 4; ++g) {
+          const bool used = group_used<ARITY>(q, g);
+          if (used) groups = g + 1;
+#pragma unroll
+          for (int c = 4 * g; c < 4 * g + 4; ++c) key[c] = 0u;
+          if (!used) continue;
+          group_boxes<kK1StagedRow>(r, q, g);
+#pragma unroll
+          for (int c = 4 * g; c < 4 * g + 4; ++c) {
+            const uint32_t cc = word(q, 3 * ARITY + c);
+            float lo[3], hi[3], tn;
+            child_box<ARITY>(q, c, lo, hi);
+            const bool hit =
+                slab(lo, hi, o, inv, tmin, tlimit, &tn) && cc != 0u;
+            key[c] = hit ? (mono_u32(tn) & himask) | cc : 0u;
+            cnt += hit;
+          }
+        }
+        push_used<ARITY>(key, cnt, groups, depth, stk, sp);
       }
-      push_used<ARITY>(key, cnt, groups, depth, stk, sp);
     } else {
       const int* ids = reinterpret_cast<const int*>(r) + 9 * LEAF;
       float lo[3], ld[3];
@@ -838,7 +931,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_nocull_kernel(
 }
 
 template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(
+    kThreads, (Layout<ARITY, LEAF>::kWide ? kIK1WideMinBlocks : kMinBlocks))
     closest_hit_instanced_kernel(
         const uint4* __restrict__ table, const float* __restrict__ orig,
         const float* __restrict__ dir,

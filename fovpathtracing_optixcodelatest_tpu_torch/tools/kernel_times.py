@@ -11,15 +11,17 @@ for the instance field (``instance_field``: 1,000 instances of one
 frame's primary lanes, the instanced K2 on bounce 0's shadow lanes, the
 same kernels on the field's two-level tables at the wide layouts
 (``field_rays(layouts=)``), and the single-level K1 and K2 on the
-flattened twin's table with the same rays. ``layout_tables`` and
+flattened twin's table with the same rays; ``deep_field`` is a field
+whose table does not fit in the L2 (4 instances of a 1,920,012-triangle
+BLAS: ``chip_smoke.py`` phase q). ``layout_tables`` and
 ``table_calls`` compare packings: one scene's tables at several (arity,
 leaf_size) layouts and row orders, each walked by K1, K2 and the
 non-culling K2 with the same rays (``chip_smoke.py`` phases g and p).
 ``chip_smoke.py`` reports these times in its kernels line.
 
     python3 fovpathtracing_optixcodelatest_tpu_torch/tools/kernel_times.py \\
-        --tree DIR [--field [--layout A L ...] | --layouts N [--layout A L
-        ...] [--jax-default]] [--out times.json]
+        --tree DIR [--field [--deep N] [--layout A L ...] | --layouts N
+        [--layout A L ...] [--jax-default]] [--out times.json]
 
 prints the same times for the port of another checkout ``DIR``, through
 this file's timing code: it calls only the kernel wrappers' public
@@ -34,7 +36,11 @@ plain versions (every output bit for bit), and reports the instanced
 kernels' registers, local memory, blocks per SM and shared memory at the
 field's stack depth with the tree's ``ptxas`` lines; with ``--layout A L``
 (repeatable) also the field's two-level tables at those layouts, on the
-same rays (the tree must compile the instanced kernels at those layouts).
+same rays (the tree must compile the instanced kernels at those layouts);
+``--deep N`` times ``deep_field(N)`` instead (N = 400: phase q's), at
+(16, 6) and at (32, 12) unless ``--layout`` names others, holding the
+kernels to their plain versions on ``DEEP_CHECK_LANES`` lanes of each
+kind and reporting each table's rows, bytes and host build seconds.
 ``--layouts N``
 times ``box_city_fast(N)``'s tables at every layout the kernels are
 compiled for (``traverse.KERNEL_LAYOUTS``) on the primary and bounce-0
@@ -179,6 +185,22 @@ def instance_field(count: int = 1000):
     return instanced([ball], placements), cam
 
 
+def _merged(meshes):
+    """One ``HostMesh`` of ``meshes``' triangles (in their order) with the
+    second mesh's material: a city's boxes as one BLAS."""
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import HostMesh
+
+    base = np.cumsum([0] + [len(m.vertex) for m in meshes[:-1]])
+    return HostMesh(
+        vertex=np.concatenate([m.vertex for m in meshes]),
+        index=np.concatenate([m.index + b for m, b in zip(meshes, base)]
+                             ).astype(np.int32),
+        normal=np.concatenate([m.normal for m in meshes]),
+        material=meshes[1].material)
+
+
 def city_field(count: int = 8):
     """``count`` instances of one 1,500-triangle BLAS, box_city n=16's
     ground slab and first 124 boxes merged into one mesh (many leaf rows
@@ -191,16 +213,8 @@ def city_field(count: int = 8):
     from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
         instanced,
     )
-    from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import HostMesh
 
-    boxes = scenes.box_city(n=16, seed=0)[0][:125]
-    base = np.cumsum([0] + [len(m.vertex) for m in boxes[:-1]])
-    city = HostMesh(
-        vertex=np.concatenate([m.vertex for m in boxes]),
-        index=np.concatenate([m.index + b for m, b in zip(boxes, base)]
-                             ).astype(np.int32),
-        normal=np.concatenate([m.normal for m in boxes]),
-        material=boxes[1].material)
+    city = _merged(scenes.box_city(n=16, seed=0)[0][:125])
     placements = []
     for k in range(count):
         m = np.eye(4)
@@ -211,9 +225,36 @@ def city_field(count: int = 8):
     return instanced([city], placements), cam
 
 
+def deep_field(city_n: int = 400, count: int = 4):
+    """``count`` instances, on a grid two wide and 82 apart, of one BLAS:
+    ``box_city_fast(city_n)``'s meshes merged into one mesh (at n=400
+    1,920,012 triangles, whose (32, 12) BLAS rows are about 122 MB, more
+    than twice the H100's 50 MB L2), and a camera that frames them ->
+    (InstancedScene, camera)."""
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
+    from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
+    from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
+        instanced,
+    )
+
+    city = _merged(scenes.box_city_fast(n=city_n, seed=0)[0])
+    rows = (count + 1) // 2
+    placements = []
+    for k in range(count):
+        m = np.eye(4)
+        m[:3, 3] = (82.0 * (k % 2 - 0.5), 0.0,
+                    82.0 * (k // 2 - (rows - 1) / 2))
+        placements.append((0, m))
+    cam = Camera(eye=(-98.4, 36.9, 98.4), lookat=(0.0, 0.0, 0.0),
+                 fov_y=45.0)
+    return instanced([city], placements), cam
+
+
 def field_rays(device="cuda", count: int = 1000, width: int = 960,
                height: int = 540, schedule=None, layouts=(),
-               field=None) -> dict:
+               field=None, flat: bool = True) -> dict:
     """The instance field (``instance_field``) under the gradient sky on
     its two-level table (``scene``) and flattened into one single-level
     table (``flat``), with the rays the kernels see on the first bounce of
@@ -221,7 +262,8 @@ def field_rays(device="cuda", count: int = 1000, width: int = 960,
     of both scenes (``build_s``, ``flat_build_s``); ``wide``: the field's
     two-level tables at each (arity, leaf_size) of ``layouts``
     (``DeviceBVH``s) with their host build seconds (``wide_build_s``).
-    ``field``: another (InstancedScene, camera), e.g. ``city_field()``."""
+    ``field``: another (InstancedScene, camera), e.g. ``city_field()``;
+    ``flat=False`` leaves the flattened scene out (``flat`` None)."""
     from fovpathtracing_optixcodelatest_tpu_torch.config import (
         FoveationSchedule,
         RenderConfig,
@@ -240,9 +282,13 @@ def field_rays(device="cuda", count: int = 1000, width: int = 960,
     t0 = time.perf_counter()
     scene = scene_from_arrays(scene_arrays_instanced(sc, probe), device)
     build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flat = scene_from_arrays(scene_arrays(sc.flatten(), probe), device)
-    flat_build_s = time.perf_counter() - t0
+    flat_build_s = None
+    if flat:
+        t0 = time.perf_counter()
+        flat = scene_from_arrays(scene_arrays(sc.flatten(), probe), device)
+        flat_build_s = time.perf_counter() - t0
+    else:
+        flat = None
     config = RenderConfig(width=width, height=height)
     if schedule is None:
         schedule = FoveationSchedule.reference_32_16_8()
@@ -281,15 +327,13 @@ def field_calls(rays: dict) -> dict:
     (16, 6) table, "ik1_primary" and "ik2_shadow", and on each of the
     ``wide`` tables, named by ``kernel_build.layout_name``:
     "ik1_primary_a32_l12", ...), and the single-level K1 and K2 on the same
-    rays against the flattened table."""
+    rays against the flattened table (where ``rays`` has one)."""
     from fovpathtracing_optixcodelatest_tpu_torch.ops import (
         kernel_build,
         traverse,
     )
 
     config = rays["config"]
-    fb = rays["flat"].bvh
-    fargs = (config.tmin, config.tmax, *fb.walk_args)
     o, d, act, _ = rays["primary"]
     so, sd, sq = rays["shadow"]
     calls = {}
@@ -303,11 +347,40 @@ def field_calls(rays: dict) -> dict:
         calls[kernel_build.layout_name("ik2_shadow", *lay)] = (
             lambda b=b, kargs=kargs, kw=kw: traverse.occluded(
                 b.table, so, sd, sq, *kargs, **kw))
-    calls["flat_k1_primary"] = lambda: traverse.closest_hit(
-        fb.table, o, d, act, *fargs)
-    calls["flat_k2_shadow"] = lambda: traverse.occluded(
-        fb.table, so, sd, sq, *fargs)
+    if rays["flat"] is not None:
+        fb = rays["flat"].bvh
+        fargs = (config.tmin, config.tmax, *fb.walk_args)
+        calls["flat_k1_primary"] = lambda: traverse.closest_hit(
+            fb.table, o, d, act, *fargs)
+        calls["flat_k2_shadow"] = lambda: traverse.occluded(
+            fb.table, so, sd, sq, *fargs)
     return calls
+
+
+def subset_lanes(mask, count: int):
+    """``count`` lanes of the set lanes of ``mask``, evenly spread over
+    them (all of them where there are fewer)."""
+    import torch
+
+    lanes = torch.nonzero(mask).squeeze(1)
+    step = max(1, lanes.numel() // count)
+    return lanes[::step][:count]
+
+
+def field_subset(rays: dict, count: int) -> dict:
+    """``rays`` (``field_rays``) with its primary and shadow lanes cut to
+    ``count`` of the active and of the queried ones (``subset_lanes``),
+    every one of them walked."""
+    import torch
+
+    o, d, act, ids = rays["primary"]
+    so, sd, sq = rays["shadow"]
+    s1, s2 = subset_lanes(act, count), subset_lanes(sq, count)
+    ones = lambda s: torch.ones((s.numel(),), dtype=torch.bool,  # noqa
+                                device=act.device)
+    return dict(rays, primary=(o[s1].contiguous(), d[s1].contiguous(),
+                               ones(s1), ids[s1]),
+                shadow=(so[s2].contiguous(), sd[s2].contiguous(), ones(s2)))
 
 
 def field_mismatches(rays: dict, calls: dict, plain=None,
@@ -466,6 +539,10 @@ def main() -> int:
                     help="with --layouts: only these layouts; with "
                     "--field: the field's tables at these layouts too "
                     "(repeat)")
+    ap.add_argument("--deep", type=int, default=None, metavar="N",
+                    help="with --field: the deep field (4 instances of "
+                    "box_city_fast(N)'s BLAS) instead of the sphere field, "
+                    "at (16, 6) and (32, 12) unless --layout names others")
     ap.add_argument("--jax-default", action="store_true",
                     help="with --layouts: also the JAX package's default "
                     "table of a named L12/A32 layout")
@@ -485,8 +562,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     if args.field:
-        result = dict(field_times(args.layout or ()), tree=tree, device=smi,
-                      reps=REPS)
+        result = dict(field_times(args.layout or ([(32, 12)] if args.deep
+                                                  else ()), args.deep),
+                      tree=tree, device=smi, reps=REPS)
     elif args.layouts is not None:
         result = dict(layout_times(args.layouts, args.layout,
                                    args.jax_default),
@@ -501,21 +579,37 @@ def main() -> int:
     return 0
 
 
-def field_times(layouts=()) -> dict:
+# the lanes of each kind on which --field --deep holds the kernels to
+# their plain versions (the plain walks of all the deep field's lanes
+# would take minutes)
+DEEP_CHECK_LANES = 65_536
+
+
+def field_times(layouts=(), deep=None) -> dict:
     """``--field``: the field's kernel times, the instanced kernels'
     mismatches against their plain versions and their resources at each
-    table's depth, on the (16, 6) table and at ``layouts``."""
+    table's depth, on the (16, 6) table and at ``layouts``; with ``deep``
+    (``--deep N``) on ``deep_field(N)``, the mismatches on
+    ``DEEP_CHECK_LANES`` of each kind, with each table's rows, bytes and
+    host build seconds."""
     from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 
     layouts = [tuple(x) for x in layouts]
-    rays = field_rays("cuda", layouts=layouts)
+    rays = field_rays("cuda", layouts=layouts, flat=deep is None,
+                      field=None if deep is None else deep_field(deep))
     assert rays["primary"][0].shape[0] == PRIMARY_LANES
     calls = field_calls(rays)
-    mismatches, depths, resources = {}, {}, {}
+    checked = rays if deep is None else field_subset(rays, DEEP_CHECK_LANES)
+    check_calls = calls if deep is None else field_calls(checked)
+    mismatches, depths, resources, tables = {}, {}, {}, {}
     for lay in ((16, 6), *layouts):
         key = kernel_build.layout_name("field", *lay)
-        mismatches[key] = field_mismatches(rays, calls, layout=lay)
-        depths[key] = _field_bvh(rays, lay).stack_depth
+        mismatches[key] = field_mismatches(checked, check_calls, layout=lay)
+        b = _field_bvh(rays, lay)
+        depths[key] = b.stack_depth
+        tables[key] = {"rows": b.num_rows, "bytes": b.table.numel() * 4,
+                       "build_s": rays["build_s"] if lay == (16, 6)
+                       else rays["wide_build_s"][lay]}
         res = kernel_build.resources(depths[key])
         resources.update({kernel_build.layout_name(k, *lay):
                           res[kernel_build.layout_name(k, *lay)]
@@ -527,8 +621,10 @@ def field_times(layouts=()) -> dict:
     return {"lanes": {"primary": PRIMARY_LANES,
                       "shadow": rays["shadow"][0].shape[0],
                       "shadow_queried": int(rays["shadow"][2].sum())},
-            "stack_depth": depths,
-            "flat_stack_depth": rays["flat"].bvh.stack_depth,
+            "deep": deep, "checked_lanes": checked["primary"][0].shape[0],
+            "stack_depth": depths, "tables": tables,
+            "flat_stack_depth": (rays["flat"].bvh.stack_depth
+                                 if rays["flat"] is not None else None),
             "ms": times, "mismatches": mismatches, "resources": resources,
             "ptxas": ptxas}
 

@@ -392,6 +392,10 @@ def test_rehearse_instanced_phase(no_card, monkeypatch, tmp_path):
     # the field's two-level tables at the wide layouts: exact, the frame
     # within 1 LSB of the (16, 6) table's
     _check_field_layouts(out["wide"])
+    # ... and their frames profiled: the instanced kernels' time a launch
+    assert all(r["profile"]["kernel_ms_per_launch"][k] > 0
+               for r in out["wide"].values()
+               for k in kernel_build.INSTANCED_KERNELS)
     chip_smoke._field_lines("instanced field", out["wide"])
 
 
@@ -570,6 +574,38 @@ def test_rehearse_jax_tables_phase(no_card, monkeypatch):
     assert rows["JAX default"]["launches"] == 4
     assert set(chip_smoke._jax_tables_record(p, "k2_nocull", (16, 6))) == {
         "(16, 6)"}
+
+
+def test_rehearse_deep_field_phase(no_card):
+    # phase q on two instances of a box_city_fast(6) BLAS (444 triangles)
+    # at 96x54, in its (16, 6) two-level table and at (32, 12)
+    sched = FoveationSchedule.reference_32_16_8().scaled(8)
+    q = chip_smoke.deep_field_phase(6, 1, sched, 96, 54, device="cpu",
+                                    subset=500, count=2)
+    assert (q["instances"], q["unique_triangles"], q["world_triangles"]) \
+        == (2, 444, 888)
+    tables = [q["deep_field"], q["deep_field_a32_l12"]]
+    assert [tuple(r["layout"]) for r in tables] == [(16, 6), (32, 12)]
+    for rec in tables:
+        k1, k2 = rec["k1"], rec["k2"]
+        assert not any(k1["mismatches"].values()) and k1["max_abs_err"] == 0
+        assert k2["mismatches"] == 0 and k2["max_abs_err"] == 0
+        assert k1["lanes"] == k2["lanes"] == 500
+        assert k1["hits"] > 0 and k1["work"]["inst_rows"] > 0
+        assert 0 < k2["occluded"] < 500
+        for r in (k1, k2):
+            assert r["ms"] is None and r["frame_ms"] is None
+            assert 0 < r["bound_ms"] < r["frame_bound_ms"]
+        assert rec["frame_share"] >= 0.99 and rec["finite"]
+        assert rec["resources"] is None and "frame" not in rec
+        assert rec["table_bytes"] == rec["rows"] * 4 * max(
+            4 * rec["layout"][0], 10 * rec["layout"][1])
+    assert tables[1]["rows"] < tables[0]["rows"]
+    chip_smoke._deep_field_lines("q", q)
+    for rec in tables:
+        rec["launches"] = dict.fromkeys(kernel_build.LAUNCHES, 2)
+    r = chip_smoke._deep_field_record(q, "closest_hit_instanced", (32, 12))
+    assert r["launches"] == 2 and r["lanes"] == 500 and r["ms"] is None
 
 
 def test_rehearse_oracle_phase_and_nocull_check(no_card):

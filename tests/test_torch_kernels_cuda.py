@@ -30,7 +30,12 @@ table entered at its root node. At the wide layouts (32, 12) and (32, 24)
 (``tlas.build_instanced(leaf_size=, arity=)``) they are held to the plain
 versions on 8 instances of a 1,500-triangle city BLAS and a pyramid, at
 ragged lane counts, at the deepest stack (``MAX_STACK``) and entered at a
-leaf root of 12 or 24 triangles; (8, 4) and (16, 4) raise.
+leaf root of 12 or 24 triangles; on a line of 32 instances whose TLAS root
+row's 32 children every ray hits, with the full stack and with 1-33
+entries (the full-stack rule: the largest keys kept; at 32 the nearest
+instance's entry in the last slot); and on 4 instances of a
+``box_city_fast(6)`` BLAS on a frame's lanes (``kernel_times.deep_field``);
+(8, 4) and (16, 4) raise.
 
 K1, K2 and the non-culling K2 on the JAX package's deep-scene row orders
 (``bvh8.build(dfs=True)`` and ``treelet_budget > 0``, with group rows)
@@ -82,6 +87,7 @@ import numpy as np
 import pytest
 import torch
 
+from fovpathtracing_optixcodelatest_tpu_torch.config import FoveationSchedule
 from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
 from fovpathtracing_optixcodelatest_tpu_torch.models.instance import instanced
 from fovpathtracing_optixcodelatest_tpu_torch.models.material import Material
@@ -101,6 +107,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops import (
     tlas,
     traverse,
 )
+from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 from torch_blas_fields import (
     _rot_y,
     _translate,
@@ -656,6 +663,96 @@ def test_wide_instanced_kernels_at_the_deepest_stack(wide_fields, layout):
         assert r["blocks_per_sm"] >= 1, r
 
 
+# 32 instances of a pyramid in a line along x: the TLAS root row's 32
+# children are instances, and a ray along the line hits every one's box
+
+
+@pytest.fixture(scope="module")
+def line_fields():
+    """{layout: (table on the card, instance kwargs, stack depth)} of the
+    line of 32 pyramids at each wide layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    out = {}
+    for arity, leaf in kernel_build.WIDE_LAYOUTS:
+        b = tlas.build_instanced([pyramid_tris()], [0] * 32,
+                                 [_translate(1.0 * k, 0.0, 0.0)
+                                  for k in range(32)],
+                                 leaf_size=leaf, arity=arity)
+        codes = b.table[0, 3 * arity:4 * arity].view(np.int32)
+        assert bool((codes & 3 == 2).all()), "the root's 32 instances"
+        out[(arity, leaf)] = (torch.tensor(b.table, device="cuda"),
+                              {"num_instances": b.num_instances,
+                               "inst_base": b.inst_base,
+                               "blas_base": b.blas_base}, b.stack_depth)
+    return out
+
+
+def _line_rays(n, seed, dev):
+    """Rays along the line of pyramids, from before its first one."""
+    rng = np.random.default_rng(seed)
+    o = np.stack([np.full(n, -3.0), rng.uniform(0.05, 0.3, n),
+                  rng.uniform(-0.1, 0.1, n)], 1)
+    d = np.tile([1.0, 0.0, 0.0], (n, 1)) + rng.normal(0.0, 1e-3, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device=dev),
+            torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_instanced_kernels_with_every_tlas_child_hit(line_fields,
+                                                          layout):
+    table, kw, depth = line_fields[layout]
+    o, d = _line_rays(4101, 41, table.device)
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=table.device)
+    k, occ = _instanced_table_against_plain(table, kw, o, d, act, depth,
+                                            layout)
+    # the nearest pyramid, first on the line
+    assert bool(k["hit"].all()) and bool((k["inst"] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 5, 16, 31, 32, 33])
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_instanced_kernels_keep_the_full_stack_rule(line_fields, layout,
+                                                         depth):
+    # the root's 32 hit instances against a stack of 1-31 free slots: the
+    # largest keys are kept, the farthest instances, as the plain versions
+    # keep them; at 32 the nearest instance's entry takes the last slot and
+    # its BLAS root's children then have one slot
+    table, kw, _ = line_fields[layout]
+    o, d = _line_rays(4101, 43, table.device)
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=table.device)
+    k, _ = _instanced_table_against_plain(table, kw, o, d, act, depth,
+                                          layout)
+    # (at depth 1 a ray may miss its farthest pyramid and end)
+    assert float(k["hit"].float().mean()) > 0.99
+    assert bool((k["inst"] == 0).all()) == (depth >= 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_instanced_kernels_on_a_box_city_blas(cuda_device, layout):
+    # kernel_times' deep field at n=6: 4 instances of a 444-triangle
+    # box_city_fast BLAS, on a frame's primary and bounce-0 shadow lanes
+    sched = FoveationSchedule.reference_32_16_8().scaled(4)
+    rays = kernel_times.field_rays("cuda", width=240, height=136,
+                                   schedule=sched, layouts=[layout],
+                                   field=kernel_times.deep_field(6),
+                                   flat=False)
+    calls = kernel_times.field_calls(rays)
+    kernel_build.reset_launches()
+    mism = kernel_times.field_mismatches(rays, calls, layout=layout)
+    assert not any(mism.values()), mism
+    for k in kernel_build.INSTANCED_KERNELS:
+        assert kernel_build.LAUNCHES[kernel_build.layout_name(k, *layout)] \
+            == 1
+    got = calls[kernel_build.layout_name("ik1_primary", *layout)]()
+    assert got["hit"].any() and len(torch.unique(got["inst"][got["hit"]])) \
+        == 4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
 def test_wide_instanced_kernels_on_a_leaf_root_blas(cuda_device, layout):
@@ -772,14 +869,15 @@ def test_kernel_resources(cuda_device):
                    (1, "local", 96, 5, 1040)], got
     # the two-level kernels at (32, 12) and (32, 24): the one-thread walk
     # with the MAX_STACK-entry stack in local memory
-    # (32, 12) then (32, 24), K1 then K2: K2 keeps a few spilled bytes
+    # (32, 12) then (32, 24), K1 then K2: K1 without a sorting network at
+    # 75 registers, 6 blocks/SM, no spill; K2 keeps a few spilled bytes
     # beside its stack (8 and 16) at 96 registers, 5 blocks/SM
     got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["row_copy"],
             res[k]["registers"], res[k]["blocks_per_sm"],
             res[k]["local_bytes"]) for k in wide_inst]
-    assert got == [(1, "local", "ldg", 95, 5, 1024),
+    assert got == [(1, "local", "ldg", 75, 6, 1024),
                    (1, "local", "ldg", 96, 5, 1048),
-                   (1, "local", "ldg", 95, 5, 1024),
+                   (1, "local", "ldg", 75, 6, 1024),
                    (1, "local", "ldg", 96, 5, 1040)], got
 
 

@@ -128,6 +128,49 @@ def test_plain_instanced_walks_match_jax_at_wide_layouts(arity, leaf, entry):
     assert 0 < occ.sum() < len(occ)
 
 
+def test_plain_walks_match_jax_on_a_box_city_blas():
+    # the deep field's BLAS at a small size (kernel_times.deep_field: two
+    # instances of box_city_fast(6)'s 444 triangles, 82 apart) at (32, 12):
+    # both packages' tables bit for bit, the plain walks against traverse8's
+    sc, _ = kernel_times.deep_field(6, 2)
+    field = tlas.scene_tables_from_instanced(sc)
+    assert [len(t) for t in field[0]] == [444] and field[1] == [0, 0]
+    jb, pb = _tables(field, 32, 12)
+    assert pb.num_rows - pb.blas_base > 10  # a BLAS of many rows
+    n = 1024
+    rng = np.random.default_rng(17)
+    o = np.stack([rng.uniform(-85.0, 85.0, n), rng.uniform(10.0, 30.0, n),
+                  rng.uniform(-45.0, 45.0, n)], 1).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d[:, 1] = -np.abs(d[:, 1]) - 0.3
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    with jax.disable_jit():  # op by op, as above
+        want = traverse8.closest_hit(jb, jnp.asarray(o), jnp.asarray(d),
+                                     TMIN, TMAX)
+        jocc = traverse8.occluded(jb, jnp.asarray(o), jnp.asarray(d), TMIN,
+                                  TMAX)
+    args = (torch.tensor(pb.table), torch.tensor(o), torch.tensor(d),
+            torch.ones(n, dtype=torch.bool), TMIN, TMAX, pb.stack_depth, 32,
+            12)
+    kw = {"num_instances": 2, "inst_base": pb.inst_base,
+          "blas_base": pb.blas_base}
+    got = traverse.closest_hit_plain(*args, **kw)
+    for f in ("hit", "tri_id", "inst"):
+        assert np.array_equal(got[f].numpy(), np.asarray(want[f])), f
+    hit = got["hit"].numpy()
+    assert hit.mean() > 0.5 and set(got["inst"].numpy()[hit]) == {0, 1}
+    np.testing.assert_allclose(got["t"].numpy()[hit],
+                               np.asarray(want["t"])[hit], rtol=2e-5,
+                               atol=1e-4)
+    for f in ("u", "v"):
+        np.testing.assert_allclose(got[f].numpy()[hit],
+                                   np.asarray(want[f])[hit], rtol=0,
+                                   atol=2e-5)
+    occ = traverse.occluded_plain(*args, **kw).numpy()
+    assert np.array_equal(occ, np.asarray(jocc))
+    assert 0 < occ.sum() < n
+
+
 def test_wrappers_take_wide_two_level_tables():
     """No layout of the compiled ones is refused for a two-level table: on
     CPU tensors the wrappers run the plain versions, and a launch would
