@@ -61,10 +61,10 @@
 //   queue in shared memory, so an inactive lane never takes a thread. A lane
 //   whose ray is done takes the next queued ray once kK2RefillIdle (16)
 //   lanes of its warp are idle in K2, whose rays end early and unevenly
-//   (kIK2RefillIdle, 8, in the two-level K2), and kK1RefillIdle (32, the
-//   whole warp) in K1 and its two-level variant, which lose their
-//   coherence and 20-35% of their speed when part of a warp refills (at 16
-//   or 8 idle lanes).
+//   (kIK2RefillIdle, 8, in the two-level K2; 4 in its lockstep loop at the
+//   wide layouts), and kK1RefillIdle (32, the whole warp) in K1 and its
+//   two-level variant, which lose their coherence and 20-35% of their
+//   speed when part of a warp refills (at 16 or 8 idle lanes).
 // - K1 computes its children's keys in registers and sorts them there with
 //   a bitonic network (over 4, 8 or 16 keys, as far as the node's children
 //   reach) before pushing the hits.
@@ -188,9 +188,34 @@
 // resident warps do not speed K1 up: keeping the world ray in shared
 // memory (one ray a lane in registers, 71 registers and 7 blocks/SM) timed
 // 1-2% slower than this walk (80 registers, 6 blocks/SM). The two-level K2
-// reads its rows staged, as K1 does: 96 registers without the spill that
-// whole-row reads cost it, and 10% faster; and its idle lanes refill at 8
-// (5% faster than at 16). PERF.md has the times of every alternative.
+// reads its rows staged, as K1 does: at A16/L6 96 registers without the
+// spill that whole-row reads cost it, and 10% faster; and its idle lanes
+// refill at 8 (5% faster than at 16).
+// At A32/L12 and A32/L24 the two-level K2 (kWideTwoLevel) steps in
+// lockstep: it runs in the group walks' persistent loop (walk_group_rays)
+// with one lane a group, so each lane pops its next entry (entering an
+// instance there), and only the lanes whose rows are of the kind more of
+// the warp's lanes hold, node or leaf, visit them; the others keep their
+// rows for a later step, and idle lanes take new rays once 4 are idle.
+// Its node step (32 slab tests in eight groups) and leaf step (12 or 24
+// triangle tests) are both long, and a warp whose lanes hold both kinds
+// pays for both in a step; in lockstep it pays for one. It also reads a
+// node's codes a group of four at a time, as K1 does (75 registers, 6
+// blocks an SM, no spill, where reading them with the row held 96 and
+// spilled 8-16 B at 5 blocks an SM), and leaves a leaf at the first third
+// of its triangles that occludes. Timed against the walk it replaces (the
+// one-thread step of walk_rays, a node's codes read with its row) on the
+// 1,000-instance field's shadow lanes (in the L2) and on a (32, 12) table
+// 2.4 times the L2 (PERF.md), the kept walk takes 15% less time at
+// A32/L12, 25% less at A32/L24 and 12% less on the larger table; lockstep
+// alone 10-17% less than the same walk without it, the code reads alone,
+// with their registers, 1-5%; without the leaf exit it timed within 1%
+// (80 registers). Not kept, each slower on some shape: 7 blocks an SM,
+// refilling at 1, 2 or 8 idle lanes, prefetching a row's lines when it is
+// popped, and an A32/L12 group walk (the single-level A32/L12 K2's, 8
+// lanes a ray, each entering the instance: 2.6 times as long on the
+// field, 34% longer on the larger table). PERF.md has the times of every
+// alternative.
 //
 // Built with --fmad=false: with no FMA contraction the slab tests and the
 // Möller-Trumbore arithmetic round exactly as the plain PyTorch versions
@@ -211,7 +236,9 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 // lanes of a warp that must be idle before they take new rays: K1 and its
 // two-level variant, K2 and its non-culling instantiation, the two-level K2
-constexpr int kK1RefillIdle = 32, kK2RefillIdle = 16, kIK2RefillIdle = 8;
+// (at the wide layouts: in its lockstep loop)
+constexpr int kK1RefillIdle = 32, kK2RefillIdle = 16, kIK2RefillIdle = 8,
+              kIK2WideRefillIdle = 4;
 // resident blocks per SM asked of the register allocator by every kernel
 // (4 gives K2 109 registers, 6 spills)
 constexpr int kMinBlocks = 5;
@@ -220,9 +247,10 @@ constexpr int kMinBlocks = 5;
 // two-level K2), or reads it all at once (K2, which gains nothing from
 // staging)
 constexpr bool kK1StagedRow = true, kK2StagedRow = false, kIK2StagedRow = true;
-// resident blocks per SM asked by the two-level K1 at the wide layouts
-// (6: 80 registers; it takes 75, with its stack in local memory)
-constexpr int kIK1WideMinBlocks = 6;
+// resident blocks per SM asked by the two-level K1 and K2 at the wide
+// layouts (6: 80 registers; with their stacks in local memory both take
+// 75 and neither spills)
+constexpr int kInstWideMinBlocks = 6;
 
 template <int ARITY, int LEAF>
 struct Layout {
@@ -587,6 +615,10 @@ template <int ARITY, int LEAF, bool INSTANCED = false, bool CULL = true,
           bool STAGED = Layout<ARITY, LEAF>::kK2Staged>
 struct OccludedWalk {
   using L = Layout<ARITY, LEAF>;
+  // the two-level walks at the wide layouts step in lockstep (pop, then
+  // visit: walk_group_rays), read a node's codes a group of four at a time
+  // and leave a leaf at the first third that occludes
+  static constexpr bool kWideTwoLevel = INSTANCED && L::kWide;
   const uint4* __restrict__ table;
   const float* __restrict__ orig;
   const float* __restrict__ dir;
@@ -609,27 +641,54 @@ struct OccludedWalk {
     if constexpr (INSTANCED) in.reset(ray);
   }
 
-  // One pop; true when the ray is done.
-  __device__ __forceinline__ bool step() {
+  // The next row to visit: an instance entry's BLAS root, which it tests
+  // in the same step.
+  __device__ __forceinline__ uint32_t next() {
     uint32_t code = stk[--sp];
-    // an instance entry tests its BLAS root in the same step
     if constexpr (INSTANCED) {
       if ((code & 3u) == kKindInst)
         code = in.template enter<L::kVecs>(table, code, ray);
     }
+    return code;
+  }
+
+  // One pop; true when the ray is done.
+  __device__ __forceinline__ bool step() { return visit(next()); }
+
+  // (kWideTwoLevel) the steps of walk_group_rays, a lane a group: pop
+  // (there is an entry: a ray is done when its stack empties), then visit
+  __device__ __forceinline__ bool pop(uint32_t& code) {
+    code = next();
+    return true;
+  }
+  __device__ __forceinline__ void issue(uint32_t) const {}
+
+  // Visit the row of code; true when the ray is done.
+  __device__ __forceinline__ bool visit(uint32_t code) {
     uint4 q[L::kVecs];
-    const uint4* r = begin_row<ARITY, LEAF, STAGED>(table, code, q);
+    // (kWideTwoLevel) the row's lines only: its codes are read a group of
+    // four at a time below
+    const uint4* r = kWideTwoLevel
+                         ? prefetch_row<ARITY, LEAF>(table, code)
+                         : begin_row<ARITY, LEAF, STAGED>(table, code, q);
     if ((code & 3u) == 0u) {
       float o[3], inv[3];
       node_ray<INSTANCED>(in, code, ray, o, inv);
       // children in groups of four; a group with no child is skipped
 #pragma unroll
       for (int g = 0; g < ARITY / 4; ++g) {
-        if (!group_used<ARITY>(q, g)) continue;
+        uint4 cg{};  // (kWideTwoLevel) the group's four codes
+        if constexpr (kWideTwoLevel) {
+          cg = __ldg(r + 3 * ARITY / 4 + g);
+          if ((cg.x | cg.y | cg.z | cg.w) == 0u) continue;
+        } else if (!group_used<ARITY>(q, g)) {
+          continue;
+        }
         group_boxes<STAGED>(r, q, g);
 #pragma unroll
         for (int c = 4 * g; c < 4 * g + 4; ++c) {
-          const uint32_t cc = word(q, 3 * ARITY + c);
+          const uint32_t cc =
+              kWideTwoLevel ? word(&cg, c - 4 * g) : word(q, 3 * ARITY + c);
           float lo[3], hi[3], tn;
           child_box<ARITY>(q, c, lo, hi);
           const bool hit = slab(lo, hi, o, inv, tmin, tmax, &tn);
@@ -641,7 +700,12 @@ struct OccludedWalk {
       leaf_ray<INSTANCED>(in, ray, lo, ld);
 #pragma unroll
       for (int k = 0; k < LEAF; ++k) {
-        if (k % 3 == 0) leaf_half<STAGED>(r, q, k / 3);
+        if (k % 3 == 0) {
+          // (kWideTwoLevel) no further third once one occludes: the answer
+          // is the same bool
+          if (kWideTwoLevel && occ) break;
+          leaf_half<STAGED>(r, q, k / 3);
+        }
         float tri[9];
         triangle(q, k, tri);
         occ |= tri_test(tri, lo[0], lo[1], lo[2], ld[0], ld[1], ld[2], tmin,
@@ -932,7 +996,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_nocull_kernel(
 
 template <int ARITY, int LEAF>
 __global__ void __launch_bounds__(
-    kThreads, (Layout<ARITY, LEAF>::kWide ? kIK1WideMinBlocks : kMinBlocks))
+    kThreads, (Layout<ARITY, LEAF>::kWide ? kInstWideMinBlocks : kMinBlocks))
     closest_hit_instanced_kernel(
         const uint4* __restrict__ table, const float* __restrict__ orig,
         const float* __restrict__ dir,
@@ -961,32 +1025,6 @@ __global__ void __launch_bounds__(
   w.in.blas_base = blas_base;
   w.inst_out = inst_out;
   walk_rays<kK1RefillIdle>(
-      w, active, n, counter,
-      reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
-}
-
-template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    occluded_instanced_kernel(
-        const uint4* __restrict__ table, const float* __restrict__ orig,
-        const float* __restrict__ dir,
-        const unsigned char* __restrict__ active, int n, float tmin,
-        float tmax, int depth, bool* __restrict__ occ_out,
-        int* __restrict__ counter, int inst_base, int blas_base) {
-  extern __shared__ uint32_t smem[];
-  OccludedWalk<ARITY, LEAF, true, true, kIK2StagedRow> w;
-  w.table = table;
-  w.orig = orig;
-  w.dir = dir;
-  w.out = occ_out;
-  w.tmin = tmin;
-  w.tmax = tmax;
-  w.depth = depth;
-  typename decltype(w.stk)::Storage stack;
-  w.stk.init(smem, depth, stack);
-  w.in.inst_base = inst_base;
-  w.in.blas_base = blas_base;
-  walk_rays<kIK2RefillIdle>(
       w, active, n, counter,
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
@@ -1387,14 +1425,15 @@ struct ClosestGroupWalk : GroupRay<ARITY, LEAF, true> {
 
 // The persistent loop of one warp whose groups of G lanes each walk a ray:
 // walk_rays with a group, not a lane, taking each queued ray, once
-// kGroupRefillIdle groups are idle. A group's lanes hold its ray
+// REFILL_IDLE groups are idle (G = 1: the two-level K2's lockstep steps at
+// the wide layouts, a lane a ray). A group's lanes hold its ray
 // (mine) alike; every branch that decides whether the warp goes on is
 // taken on values all 32 lanes hold alike. The groups of a
 // warp step in lockstep: each pops its next entry and starts its row's
 // copy, the warp waits once for all of them, then the groups whose rows
 // are of the kind more groups hold (node or leaf) visit them; the others
 // keep their rows for a later step.
-template <int G, class Walk>
+template <int G, class Walk, int REFILL_IDLE = kGroupRefillIdle>
 __device__ __forceinline__ void walk_group_rays(
     Walk& w, const unsigned char* __restrict__ active, int n,
     int* __restrict__ counter, int* __restrict__ queue) {
@@ -1428,7 +1467,7 @@ __device__ __forceinline__ void walk_group_rays(
     if (__ballot_sync(kFull, mine >= 0) == 0) return;
     // walk until enough groups are idle to refill (to the end once no ray
     // is left to fetch)
-    const int limit = drained && queued == 0 ? kGroups : kGroupRefillIdle;
+    const int limit = drained && queued == 0 ? kGroups : REFILL_IDLE;
     while (true) {
       __syncwarp();  // the last visits' pushes and buffer reads are done
       if (mine >= 0 && !held) {
@@ -1458,6 +1497,38 @@ __device__ __forceinline__ void walk_group_rays(
       if (__popc(__ballot_sync(kFull, mine < 0) & kLeaders) >= limit) break;
     }
   }
+}
+
+// The two-level K2: at the wide layouts in the group walks' lockstep loop
+// with one lane a group (below their loop, walk_group_rays).
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(
+    kThreads, (Layout<ARITY, LEAF>::kWide ? kInstWideMinBlocks : kMinBlocks))
+    occluded_instanced_kernel(
+        const uint4* __restrict__ table, const float* __restrict__ orig,
+        const float* __restrict__ dir,
+        const unsigned char* __restrict__ active, int n, float tmin,
+        float tmax, int depth, bool* __restrict__ occ_out,
+        int* __restrict__ counter, int inst_base, int blas_base) {
+  extern __shared__ uint32_t smem[];
+  OccludedWalk<ARITY, LEAF, true, true, kIK2StagedRow> w;
+  w.table = table;
+  w.orig = orig;
+  w.dir = dir;
+  w.out = occ_out;
+  w.tmin = tmin;
+  w.tmax = tmax;
+  w.depth = depth;
+  typename decltype(w.stk)::Storage stack;
+  w.stk.init(smem, depth, stack);
+  w.in.inst_base = inst_base;
+  w.in.blas_base = blas_base;
+  int* queue = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue;
+  if constexpr (Layout<ARITY, LEAF>::kWide)  // lockstep steps, a lane a ray
+    walk_group_rays<1, decltype(w), kIK2WideRefillIdle>(w, active, n,
+                                                        counter, queue);
+  else
+    walk_rays<kIK2RefillIdle>(w, active, n, counter, queue);
 }
 
 // stack: the global stack buffer, kRays * depth entries a block

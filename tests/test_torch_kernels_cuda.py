@@ -35,7 +35,14 @@ row's 32 children every ray hits, with the full stack and with 1-33
 entries (the full-stack rule: the largest keys kept; at 32 the nearest
 instance's entry in the last slot); and on 4 instances of a
 ``box_city_fast(6)`` BLAS on a frame's lanes (``kernel_times.deep_field``);
-(8, 4) and (16, 4) raise.
+(8, 4) and (16, 4) raise. Their K2 steps in lockstep, reads a node's
+codes a group of four at a time and leaves a leaf at the first third of
+its triangles that occludes, so it is also held to its plain version on
+one BLAS leaf whose occluder sits at slots 0, 2, 3, 11 (and 23 at L24)
+behind back faces and before farther triangles, under an instance as is
+and a mirrored one, and on the field with its node rows' children spread
+over the row, empty groups of four between used ones (both answering as
+the tables as built).
 
 K1, K2 and the non-culling K2 on the JAX package's deep-scene row orders
 (``bvh8.build(dfs=True)`` and ``treelet_budget > 0``, with group rows)
@@ -43,9 +50,10 @@ equal their plain versions exactly and answer as on the plain table of
 the same tree (hit and t equal).
 
 The kernels' resources as the CUDA runtime reports them: no kernel keeps
-local memory (no spill) but the (32, 24) ones, which keep their
-``MAX_STACK``-entry stack there; the (16, 6), two-level and K3 kernels
-keep their registers and resident blocks; the (32, 12) group-per-ray walks
+local memory (no spill) but the (32, 24) and the wide two-level ones,
+which keep their ``MAX_STACK``-entry stack there; the (16, 6), two-level
+and K3 kernels keep their registers and resident blocks; the wide
+two-level ones spill nothing besides; the (32, 12) group-per-ray walks
 report their lanes a ray, stack home, registers, blocks/SM and shared
 memory.
 
@@ -111,10 +119,16 @@ from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 from torch_blas_fields import (
     _rot_y,
     _translate,
+    gap_rows,
     leaf_root,
     leaf_slots,
+    occluder_field,
+    occluder_order,
+    occluder_rays,
+    place_leaf_slots,
     pyramid_tris,
     small_blas_field,
+    spread_children,
     twin_tris,
 )
 
@@ -786,6 +800,68 @@ def test_wide_instanced_kernels_on_a_leaf_root_blas(cuda_device, layout):
     assert occ.any()
 
 
+# the two-level K2's exit inside a leaf: the occluder at each slot, back
+# faces and farther triangles around it (tests/torch_blas_fields.py)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,slot", [
+    *[((32, 12), s) for s in (0, 2, 3, 11)],
+    *[((32, 24), s) for s in (0, 2, 3, 11, 23)]])
+def test_wide_instanced_k2_leaves_a_leaf_at_its_occluder(cuda_device, layout,
+                                                         slot):
+    # one BLAS leaf under two instances, the second mirrored in y: the
+    # first's rays meet back faces, then the occluder at ``slot``, then
+    # farther triangles; the second's meet the occluders the back faces
+    # become in its object-space winding, in slots on both sides
+    arity, leaf = layout
+    b = tlas.build_instanced(*occluder_field(leaf), leaf_size=leaf,
+                             arity=arity)
+    table = place_leaf_slots(b.table, b.inst_base, b.blas_base, arity, leaf,
+                             occluder_order(leaf, slot))
+    kw = {"num_instances": b.num_instances, "inst_base": b.inst_base,
+          "blas_base": b.blas_base}
+    o, d = (torch.tensor(a, device=cuda_device)
+            for a in occluder_rays(8192, 51 + slot))
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=cuda_device)
+    got = torch.tensor(table, device=cuda_device)
+    _, occ = _instanced_table_against_plain(got, kw, o, d, act,
+                                            b.stack_depth, layout)
+    # the answer does not depend on the slots
+    _, occ_built = _instanced_table_against_plain(
+        torch.tensor(b.table, device=cuda_device), kw, o, d, act,
+        b.stack_depth, layout)
+    assert torch.equal(occ, occ_built)
+    for half in (occ[0::2], occ[1::2]):  # each instance's rays
+        assert half.any() and not half.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(32, 12), (32, 24)])
+def test_wide_instanced_kernels_with_empty_groups_between_children(
+        wide_fields, layout):
+    # the field's node rows with their children spread over the row, empty
+    # groups of four between used ones: the same answers as the table as
+    # built (K1's t and hit, K2's occlusion), each exact against its plain
+    # version
+    table, kw, depth = wide_fields[layout]
+    arity = layout[0]
+    host = table.cpu().numpy()
+    spread = spread_children(host, kw["inst_base"], kw["blas_base"], arity)
+    assert gap_rows(host, kw["inst_base"], kw["blas_base"], arity) == 0
+    assert gap_rows(spread, kw["inst_base"], kw["blas_base"], arity) > 10
+    o, d = _field_rays(4101, 61, table.device)
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=table.device)
+    k, occ = _instanced_table_against_plain(
+        torch.tensor(spread, device=table.device), kw, o, d, act, depth,
+        layout)
+    k_built, occ_built = _instanced_table_against_plain(table, kw, o, d, act,
+                                                        depth, layout)
+    assert torch.equal(k["hit"], k_built["hit"])
+    assert torch.equal(k["t"], k_built["t"])
+    assert torch.equal(occ, occ_built) and occ.any()
+
+
 # K1, K2 and the non-culling K2 on the deep-scene row orders
 
 
@@ -869,16 +945,16 @@ def test_kernel_resources(cuda_device):
                    (1, "local", 96, 5, 1040)], got
     # the two-level kernels at (32, 12) and (32, 24): the one-thread walk
     # with the MAX_STACK-entry stack in local memory
-    # (32, 12) then (32, 24), K1 then K2: K1 without a sorting network at
-    # 75 registers, 6 blocks/SM, no spill; K2 keeps a few spilled bytes
-    # beside its stack (8 and 16) at 96 registers, 5 blocks/SM
+    # (32, 12) then (32, 24), K1 then K2: K1 without a sorting network and
+    # K2 reading a node's codes a group of four at a time, both at 75
+    # registers, 6 blocks/SM, nothing spilled beside the stack
     got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["row_copy"],
             res[k]["registers"], res[k]["blocks_per_sm"],
             res[k]["local_bytes"]) for k in wide_inst]
     assert got == [(1, "local", "ldg", 75, 6, 1024),
-                   (1, "local", "ldg", 96, 5, 1048),
                    (1, "local", "ldg", 75, 6, 1024),
-                   (1, "local", "ldg", 96, 5, 1040)], got
+                   (1, "local", "ldg", 75, 6, 1024),
+                   (1, "local", "ldg", 75, 6, 1024)], got
 
 
 # ---------------------------------------------------------------------------

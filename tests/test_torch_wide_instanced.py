@@ -6,7 +6,11 @@ PyTorch port, against the JAX package on the CPU.
 ``traverse8``'s walks do, and on a CUDA tensor the instanced wrappers now
 launch the kernels compiled at those layouts (``tests/
 test_torch_kernels_cuda.py`` holds those to the plain versions on the
-card).
+card). The plain occlusion walk is also held to JAX's on the tables the
+card's two-level K2 is tested on for its exit inside a leaf (one BLAS
+leaf, its occluder at each slot, ``torch_blas_fields.place_leaf_slots``)
+and its code reads a group of four at a time (children spread over a
+node row, ``spread_children``), answering as on the tables as built.
 
 Tolerances (``tests/test_torch_instancing.py``'s): ``hit``, ``tri_id``,
 ``inst`` and the occlusion answer exact; ``t`` within rtol 2e-5 / atol
@@ -49,7 +53,17 @@ from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import render_fram
 from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 from test_instancing import _grid_scene, _rays_grid
 from test_torch_textures import jax_scene_arrays
-from torch_blas_fields import _translate, leaf_root, pyramid_tris
+from torch_blas_fields import (
+    _translate,
+    gap_rows,
+    leaf_root,
+    occluder_field,
+    occluder_order,
+    occluder_rays,
+    place_leaf_slots,
+    pyramid_tris,
+    spread_children,
+)
 
 torch.set_num_threads(2)
 
@@ -169,6 +183,69 @@ def test_plain_walks_match_jax_on_a_box_city_blas():
     occ = traverse.occluded_plain(*args, **kw).numpy()
     assert np.array_equal(occ, np.asarray(jocc))
     assert 0 < occ.sum() < n
+
+
+def _occluded_against_jax(jb, pb, table, o, d, arity, leaf):
+    """The plain two-level K2 on ``table`` (``pb``'s, its words moved)
+    against ``traverse8.occluded`` on the same words (``jb`` its table's
+    JAX build), op by op; returns the port's answer."""
+    jb = dataclasses.replace(jb, table=jnp.asarray(table))
+    with jax.disable_jit():  # op by op, as above
+        want = traverse8.occluded(jb, jnp.asarray(o), jnp.asarray(d), TMIN,
+                                  TMAX)
+    args = (torch.tensor(table), torch.tensor(o), torch.tensor(d),
+            torch.ones(o.shape[0], dtype=torch.bool), TMIN, TMAX,
+            pb.stack_depth, arity, leaf)
+    occ = traverse.occluded_plain(*args, num_instances=pb.num_instances,
+                                  inst_base=pb.inst_base,
+                                  blas_base=pb.blas_base)
+    assert np.array_equal(occ.numpy(), np.asarray(want))
+    return occ.numpy()
+
+
+@pytest.mark.parametrize("arity,leaf,slot", [
+    *[(32, 12, s) for s in (0, 2, 3, 11)],
+    *[(32, 24, s) for s in (0, 2, 3, 11, 23)]])
+def test_plain_occlusion_matches_jax_with_the_occluder_at_each_slot(
+        arity, leaf, slot):
+    # the leaf layouts the card's exit inside a leaf is held to
+    # (tests/test_torch_kernels_cuda.py): one BLAS leaf, the occluder at
+    # ``slot`` behind back faces and before farther triangles, under an
+    # instance as is and one mirrored in y, whose object-space winding
+    # makes the back faces occlude and the occluder a back face
+    jb, pb = _tables(occluder_field(leaf), arity, leaf)
+    order = occluder_order(leaf, slot)
+    assert sorted(order) == list(range(leaf)) and order[slot] == 0
+    table = place_leaf_slots(pb.table, pb.inst_base, pb.blas_base, arity,
+                             leaf, order)
+    o, d = occluder_rays(512, 71 + slot)
+    occ = _occluded_against_jax(jb, pb, table, o, d, arity, leaf)
+    # the slots do not change the answer
+    assert np.array_equal(
+        occ, _occluded_against_jax(jb, pb, pb.table, o, d, arity, leaf))
+    first, mirrored = occ[0::2], occ[1::2]
+    assert 0 < first.sum() < len(first) and 0 < mirrored.sum() < len(
+        mirrored)
+    # the mirrored instance's rays come from below: only the back faces
+    # (above the occluder) stop them, over a wider area
+    assert mirrored.mean() > first.mean()
+
+
+@pytest.mark.parametrize("arity,leaf", WIDE)
+def test_plain_walks_match_jax_with_empty_groups_between_children(arity,
+                                                                  leaf):
+    # the grid field's node rows with their children spread over the row
+    # (empty groups of four between used ones), as the card's group-at-a-
+    # time code reads are held to: the plain walk equals traverse8's and
+    # the answers of the table as built
+    jb, pb = _tables(_grid_field(), arity, leaf)
+    spread = spread_children(pb.table, pb.inst_base, pb.blas_base, arity)
+    assert gap_rows(spread, pb.inst_base, pb.blas_base, arity) > 0
+    o, d = (np.asarray(a) for a in _rays_grid(1024, seed=5, extent=9.0))
+    occ = _occluded_against_jax(jb, pb, spread, o, d, arity, leaf)
+    assert np.array_equal(
+        occ, _occluded_against_jax(jb, pb, pb.table, o, d, arity, leaf))
+    assert 0 < occ.sum() < len(occ)
 
 
 def test_wrappers_take_wide_two_level_tables():
