@@ -61,10 +61,11 @@
 //   queue in shared memory, so an inactive lane never takes a thread. A lane
 //   whose ray is done takes the next queued ray once kK2RefillIdle (16)
 //   lanes of its warp are idle in K2, whose rays end early and unevenly
-//   (kIK2RefillIdle, 8, in the two-level K2; 4 in its lockstep loop at the
-//   wide layouts), and kK1RefillIdle (32, the whole warp) in K1 and its
-//   two-level variant, which lose their coherence and 20-35% of their
-//   speed when part of a warp refills (at 16 or 8 idle lanes).
+//   (kIK2RefillIdle, 8, in the two-level K2; kWideK2RefillIdle, 4, in every
+//   K2's lockstep loop at the wide layouts), and kK1RefillIdle (32, the
+//   whole warp) in K1 and its two-level variant, which lose their
+//   coherence and 20-35% of their speed when part of a warp refills (at 16
+//   or 8 idle lanes; 18% at 16 in the A32/L24 lockstep K1).
 // - K1 computes its children's keys in registers and sorts them there with
 //   a bitonic network (over 4, 8 or 16 keys, as far as the node's children
 //   reach) before pushing the hits.
@@ -78,22 +79,51 @@
 // main-path shape against the kept one (PERF.md has the numbers).
 //
 // A32/L24 runs the same walks with these differences, which keep every
-// instantiation exact against its plain version and out of spills:
+// instantiation exact against its plain version:
 //
-// - Thirty-two children. A node's keys sort in registers by a 32-key
-//   bitonic network where more than four of its groups of four children
-//   are used (16, 8 or 4 keys where fewer are); any sort of the same keys
-//   leaves the same stack, since hit keys are distinct (their codes are).
-// - Staged reads everywhere. A row is 60 uint4, more than registers hold,
-//   so K2 and the non-culling K2 read staged as K1 does: the node's eight
-//   code uint4s, then three box uint4s a group of four children, or seven
-//   uint4s a third of a leaf. The prefetch covers the lines of the row's
-//   used part (four for a node, seven for a leaf, and the line of its last
-//   word: 960-byte rows do not start on a line).
+// - Staged reads everywhere. A row is 60 uint4, more than registers hold:
+//   the prefetch covers the lines of the row's used part (four for a node,
+//   seven for a leaf, and the line of its last word: 960-byte rows do not
+//   start on a line), then a node's codes are read a group of four at a
+//   time (one uint4, a group with no child skipped on it), three box
+//   uint4s a used group, or seven uint4s a third of a leaf.
+// - No sorting network (kRankPush): K1 inserts each hit key into the
+//   node's stack window as the slab tests find it (insert_desc, about
+//   cnt^2 / 2 compares), which leaves the stack a descending sort would,
+//   the full-stack rule included; the two-level K1 below does the same.
+// - Lockstep steps (kLockstep): K1, K2 and the non-culling K2 run in the
+//   group walks' persistent loop (walk_group_rays) with one lane a group.
+//   Each lane pops its next entry (K1 skipping stale ones), and only the
+//   lanes whose rows are of the kind more of the warp's lanes hold, node
+//   or leaf, visit them; the others keep their rows for a later step. A
+//   wide node step (up to 32 slab tests) and leaf step (24 triangle
+//   tests) are both long, and a warp that holds both kinds pays for both
+//   in a step; in lockstep it pays for one. K1's t does not change while a
+//   lane holds its row, so each lane visits the rows of walk_rays in
+//   their order.
 // - The stack in local memory: kMaxStack entries a thread, interleaved by
 //   the hardware so a warp's pushes at one depth share lines as the
 //   strided shared stack's do; it costs no shared memory, and the
-//   registers alone set the resident blocks (6 for K1, 5 for K2).
+//   registers alone set the resident blocks: 9 for K1 (56 registers, 14 B
+//   spilled), 8 for K2 (63 registers).
+//
+// Timed on the 388,812-triangle frame's lanes (box_city_fast(180); PERF.md has
+// every design's time), against the walk these replace (a 32-key bitonic
+// network in K1, whole code rows, walk_rays; 3.50 ms K1, 0.92 ms K2, at 80 /
+// 96 registers and 6 / 5 blocks an SM, on an H100 at 700 W): the kept K1 takes
+// 2.42 ms, 31% less (rank insertion alone 23%; lockstep 2% more; 8, then 9
+// blocks an SM, 3% and 4% more), the kept K2 0.68 ms, 26% less (lockstep with
+// the code reads 25%; 8 blocks an SM and no leaf exit 1% more). Not kept:
+// skipping a leaf's thirds from the first whose first slot is padding (id -1),
+// in every form tried (the next third's id read with each third's loads, or
+// with the third itself, its line prefetched or not, or the leaf's used thirds
+// read once): K1 6-11% slower, K2 0-4%. A leaf row holds 19.2 of its 24 slots,
+// but a warp's leaf step lasts as long as its fullest lane's leaf, and half of
+// the table's leaves use seven or eight of their eight thirds (87% six or
+// more); the skip's branches cost more than the tests it saves. Nor kept:
+// refilling K1 at 16 idle lanes (18% slower), K2 at 2, 8 or 16 (the same to 2%
+// slower), the leaf exit in the single-level K2 (1% slower), and 10 blocks an
+// SM (both spilled, 5-8% slower than 8).
 //
 // A32/L12 walks each ray with a group of G lanes instead (group-per-ray
 // walks, below). What bounds one thread's wide step is its serial work
@@ -191,12 +221,13 @@
 // reads its rows staged, as K1 does: at A16/L6 96 registers without the
 // spill that whole-row reads cost it, and 10% faster; and its idle lanes
 // refill at 8 (5% faster than at 16).
-// At A32/L12 and A32/L24 the two-level K2 (kWideTwoLevel) steps in
-// lockstep: it runs in the group walks' persistent loop (walk_group_rays)
-// with one lane a group, so each lane pops its next entry (entering an
-// instance there), and only the lanes whose rows are of the kind more of
-// the warp's lanes hold, node or leaf, visit them; the others keep their
-// rows for a later step, and idle lanes take new rays once 4 are idle.
+// At A32/L12 and A32/L24 the two-level K2 (kLockstep) steps in lockstep
+// as the single-level A32/L24 walks do: it runs in the group walks'
+// persistent loop (walk_group_rays) with one lane a group, so each lane
+// pops its next entry (entering an instance there), and only the lanes
+// whose rows are of the kind more of the warp's lanes hold, node or leaf,
+// visit them; the others keep their rows for a later step, and idle lanes
+// take new rays once 4 are idle.
 // Its node step (32 slab tests in eight groups) and leaf step (12 or 24
 // triangle tests) are both long, and a warp whose lanes hold both kinds
 // pays for both in a step; in lockstep it pays for one. It also reads a
@@ -235,10 +266,10 @@ constexpr uint32_t kKindInst = 2u;     // ops/bvh8.py KIND_INST
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 // lanes of a warp that must be idle before they take new rays: K1 and its
-// two-level variant, K2 and its non-culling instantiation, the two-level K2
-// (at the wide layouts: in its lockstep loop)
+// two-level variant, K2 and its non-culling instantiation, the two-level K2,
+// and every K2 at the wide layouts (in its lockstep loop)
 constexpr int kK1RefillIdle = 32, kK2RefillIdle = 16, kIK2RefillIdle = 8,
-              kIK2WideRefillIdle = 4;
+              kWideK2RefillIdle = 4;
 // resident blocks per SM asked of the register allocator by every kernel
 // (4 gives K2 109 registers, 6 spills)
 constexpr int kMinBlocks = 5;
@@ -251,6 +282,11 @@ constexpr bool kK1StagedRow = true, kK2StagedRow = false, kIK2StagedRow = true;
 // layouts (6: 80 registers; with their stacks in local memory both take
 // 75 and neither spills)
 constexpr int kInstWideMinBlocks = 6;
+// resident blocks per SM asked by the single-level K1 and K2 at A32/L24
+// (K1 9: 56 registers and 14 B spilled, 4% faster than 8 at 63 registers
+// and none; K2 8: 63 registers; 10 spilled hundreds of bytes and was
+// slower)
+constexpr int kWideK1MinBlocks = 9, kWideK2MinBlocks = 8;
 
 template <int ARITY, int LEAF>
 struct Layout {
@@ -615,10 +651,13 @@ template <int ARITY, int LEAF, bool INSTANCED = false, bool CULL = true,
           bool STAGED = Layout<ARITY, LEAF>::kK2Staged>
 struct OccludedWalk {
   using L = Layout<ARITY, LEAF>;
-  // the two-level walks at the wide layouts step in lockstep (pop, then
-  // visit: walk_group_rays), read a node's codes a group of four at a time
-  // and leave a leaf at the first third that occludes
-  static constexpr bool kWideTwoLevel = INSTANCED && L::kWide;
+  // the one-thread walks at the wide layouts step in lockstep (pop, then
+  // visit: walk_group_rays) and read a node's codes a group of four at a
+  // time
+  static constexpr bool kLockstep = L::kWide;
+  // (kLockstep) the two-level ones leave a leaf at the first third that
+  // occludes (the single-level one, 1% faster without, tests it all)
+  static constexpr bool kLeafExit = kLockstep && INSTANCED;
   const uint4* __restrict__ table;
   const float* __restrict__ orig;
   const float* __restrict__ dir;
@@ -655,7 +694,7 @@ struct OccludedWalk {
   // One pop; true when the ray is done.
   __device__ __forceinline__ bool step() { return visit(next()); }
 
-  // (kWideTwoLevel) the steps of walk_group_rays, a lane a group: pop
+  // (kLockstep) the steps of walk_group_rays, a lane a group: pop
   // (there is an entry: a ray is done when its stack empties), then visit
   __device__ __forceinline__ bool pop(uint32_t& code) {
     code = next();
@@ -666,9 +705,9 @@ struct OccludedWalk {
   // Visit the row of code; true when the ray is done.
   __device__ __forceinline__ bool visit(uint32_t code) {
     uint4 q[L::kVecs];
-    // (kWideTwoLevel) the row's lines only: its codes are read a group of
-    // four at a time below
-    const uint4* r = kWideTwoLevel
+    // (kLockstep) the row's lines only: its codes are read a group of four
+    // at a time below
+    const uint4* r = kLockstep
                          ? prefetch_row<ARITY, LEAF>(table, code)
                          : begin_row<ARITY, LEAF, STAGED>(table, code, q);
     if ((code & 3u) == 0u) {
@@ -677,8 +716,8 @@ struct OccludedWalk {
       // children in groups of four; a group with no child is skipped
 #pragma unroll
       for (int g = 0; g < ARITY / 4; ++g) {
-        uint4 cg{};  // (kWideTwoLevel) the group's four codes
-        if constexpr (kWideTwoLevel) {
+        uint4 cg{};  // (kLockstep) the group's four codes
+        if constexpr (kLockstep) {
           cg = __ldg(r + 3 * ARITY / 4 + g);
           if ((cg.x | cg.y | cg.z | cg.w) == 0u) continue;
         } else if (!group_used<ARITY>(q, g)) {
@@ -688,7 +727,7 @@ struct OccludedWalk {
 #pragma unroll
         for (int c = 4 * g; c < 4 * g + 4; ++c) {
           const uint32_t cc =
-              kWideTwoLevel ? word(&cg, c - 4 * g) : word(q, 3 * ARITY + c);
+              kLockstep ? word(&cg, c - 4 * g) : word(q, 3 * ARITY + c);
           float lo[3], hi[3], tn;
           child_box<ARITY>(q, c, lo, hi);
           const bool hit = slab(lo, hi, o, inv, tmin, tmax, &tn);
@@ -701,9 +740,9 @@ struct OccludedWalk {
 #pragma unroll
       for (int k = 0; k < LEAF; ++k) {
         if (k % 3 == 0) {
-          // (kWideTwoLevel) no further third once one occludes: the answer
-          // is the same bool
-          if (kWideTwoLevel && occ) break;
+          // (kLeafExit) no further third once one occludes: the answer is
+          // the same bool
+          if (kLeafExit && occ) break;
           leaf_half<STAGED>(r, q, k / 3);
         }
         float tri[9];
@@ -722,8 +761,11 @@ struct OccludedWalk {
 template <int ARITY, int LEAF, bool INSTANCED = false>
 struct ClosestWalk {
   using L = Layout<ARITY, LEAF>;
-  // the two-level walks at the wide layouts place each hit key by rank
-  static constexpr bool kRankPush = INSTANCED && L::kWide;
+  // the walks at the wide layouts place each hit key by rank
+  static constexpr bool kRankPush = L::kWide;
+  // the single-level one steps in lockstep (pop, then visit:
+  // walk_group_rays)
+  static constexpr bool kLockstep = L::kWide && !INSTANCED;
   const uint4* __restrict__ table;
   const float* __restrict__ orig;
   const float* __restrict__ dir;
@@ -763,6 +805,7 @@ struct ClosestWalk {
     }
   }
 
+  // One pop; true when the ray is done.
   __device__ __forceinline__ bool step() {
     const float tlimit = fminf(t, tmax);
     const uint32_t fresh = mono_u32(tlimit) | lowmask;
@@ -778,6 +821,31 @@ struct ClosestWalk {
       if ((code & 3u) == kKindInst)
         code = in.template enter<L::kVecs>(table, code, ray);
     }
+    return visit_row(code, tlimit);
+  }
+
+  // (kLockstep) the steps of walk_group_rays, a lane a group: pop the next
+  // entry that is not stale, false when none is left (the ray is done);
+  // then visit its row. t does not change while a lane holds its row, so
+  // the visit tests it against the tlimit of the pop.
+  __device__ __forceinline__ bool pop(uint32_t& code) {
+    const uint32_t fresh = mono_u32(fminf(t, tmax)) | lowmask;
+    uint32_t e;
+    do {
+      if (sp == 0) return false;
+      e = stk[--sp];
+    } while (e > fresh);
+    code = e & lowmask;
+    return true;
+  }
+  __device__ __forceinline__ void issue(uint32_t) const {}
+  __device__ __forceinline__ bool visit(uint32_t code) {
+    return visit_row(code, fminf(t, tmax));
+  }
+
+  // Test the row of code against tlimit = min(t, tmax); true when the ray
+  // is done.
+  __device__ __forceinline__ bool visit_row(uint32_t code, float tlimit) {
     uint4 q[L::kVecs];
     // (kRankPush) the row's lines only: its codes are read a group of four
     // at a time below
@@ -923,8 +991,103 @@ __device__ __forceinline__ void walk_rays(Walk& w,
   }
 }
 
+// groups of a warp that must be idle before they take new rays: one (K1
+// waiting for all its groups was 4% faster on the 10M frame's primary
+// lanes but 2% slower over the frame's four launches, whose bounce rays
+// end unevenly; K2 17% slower)
+constexpr int kGroupRefillIdle = 1;
+
+// the lowest lane of every group of g lanes of a warp
+__host__ __device__ constexpr unsigned group_leaders(int g) {
+  unsigned m = 0u;
+  for (int l = 0; l < 32; l += g) m |= 1u << l;
+  return m;
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The persistent loop of one warp whose groups of G lanes each walk a ray:
+// walk_rays with a group, not a lane, taking each queued ray, once
+// REFILL_IDLE groups are idle (G = 1: the one-thread walks' lockstep steps
+// at the wide layouts, a lane a ray). A group's lanes hold its ray
+// (mine) alike; every branch that decides whether the warp goes on is
+// taken on values all 32 lanes hold alike. The groups of a
+// warp step in lockstep: each pops its next entry and starts its row's
+// copy, the warp waits once for all of them, then the groups whose rows
+// are of the kind more groups hold (node or leaf) visit them; the others
+// keep their rows for a later step.
+template <int G, class Walk, int REFILL_IDLE = kGroupRefillIdle>
+__device__ __forceinline__ void walk_group_rays(
+    Walk& w, const unsigned char* __restrict__ active, int n,
+    int* __restrict__ counter, int* __restrict__ queue) {
+  constexpr int kGroups = 32 / G;
+  constexpr unsigned kLeaders = group_leaders(G);
+  const int lane = threadIdx.x & 31;
+  const unsigned before = (1u << (lane & ~(G - 1))) - 1u;  // earlier groups
+  int mine = -1;  // this group's ray, -1 = idle
+  int head = 0, queued = 0;  // the warp's queue window [head, head + queued)
+  bool drained = false;      // the counter has passed n
+  uint32_t code = 0u;        // the group's entry popped and copied
+  bool held = false;         // ... and not visited yet
+  while (true) {
+    // fetch chunks of 32 lanes until every idle group has a ray waiting
+    const unsigned idle = __ballot_sync(kFull, mine < 0) & kLeaders;
+    const int want = __popc(idle);
+    fill_queue(active, n, counter, queue, head, queued, drained, want,
+               [&](int i) { w.miss(i); });
+    __syncwarp();
+    if (mine < 0) {
+      const int r = __popc(idle & before);
+      if (r < queued) {
+        mine = queue[(head + r) & (kQueue - 1)];
+        w.begin(mine);
+      }
+    }
+    const int took = min(want, queued);
+    head += took;
+    queued -= took;
+    __syncwarp();
+    if (__ballot_sync(kFull, mine >= 0) == 0) return;
+    // walk until enough groups are idle to refill (to the end once no ray
+    // is left to fetch)
+    const int limit = drained && queued == 0 ? kGroups : REFILL_IDLE;
+    while (true) {
+      __syncwarp();  // the last visits' pushes and buffer reads are done
+      if (mine >= 0 && !held) {
+        if (w.pop(code)) {
+          w.issue(code);
+          held = true;
+        } else {
+          w.end(mine);
+          mine = -1;
+        }
+      }
+      cp_async_wait_all();
+      __syncwarp();
+      // visit one kind of row a step, the kind more groups hold, so the
+      // warp runs one of the node and leaf paths (the others keep theirs)
+      const bool node = (code & 3u) == 0u;
+      const int nodes = __popc(__ballot_sync(kFull, held && node) & kLeaders);
+      const int leaves =
+          __popc(__ballot_sync(kFull, held && !node) & kLeaders);
+      if (held && node == (nodes >= leaves)) {
+        held = false;
+        if (w.visit(code)) {
+          w.end(mine);
+          mine = -1;
+        }
+      }
+      if (__popc(__ballot_sync(kFull, mine < 0) & kLeaders) >= limit) break;
+    }
+  }
+}
+
 template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) closest_hit_kernel(
+__global__ void __launch_bounds__(
+    kThreads, (Layout<ARITY, LEAF>::kWide ? kWideK1MinBlocks : kMinBlocks))
+    closest_hit_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
     int n, float tmin, float tmax, int depth, unsigned int lowmask,
@@ -946,9 +1109,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) closest_hit_kernel(
   w.lowmask = lowmask;
   typename decltype(w.stk)::Storage stack;
   w.stk.init(smem, depth, stack);
-  walk_rays<kK1RefillIdle>(
-      w, active, n, counter,
-      reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
+  int* queue = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue;
+  if constexpr (decltype(w)::kLockstep)  // lockstep steps, a lane a ray
+    walk_group_rays<1, decltype(w), kK1RefillIdle>(w, active, n, counter,
+                                                   queue);
+  else
+    walk_rays<kK1RefillIdle>(w, active, n, counter, queue);
 }
 
 // The single-level K2 of both kernels below.
@@ -969,13 +1135,18 @@ __device__ __forceinline__ void occluded_walk(
   w.depth = depth;
   typename decltype(w.stk)::Storage stack;
   w.stk.init(smem, depth, stack);
-  walk_rays<kK2RefillIdle>(
-      w, active, n, counter,
-      reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
+  int* queue = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue;
+  if constexpr (decltype(w)::kLockstep)  // lockstep steps, a lane a ray
+    walk_group_rays<1, decltype(w), kWideK2RefillIdle>(w, active, n,
+                                                       counter, queue);
+  else
+    walk_rays<kK2RefillIdle>(w, active, n, counter, queue);
 }
 
 template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_kernel(
+__global__ void __launch_bounds__(
+    kThreads, (Layout<ARITY, LEAF>::kWide ? kWideK2MinBlocks : kMinBlocks))
+    occluded_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
     int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
@@ -985,7 +1156,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_kernel(
 }
 
 template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) occluded_nocull_kernel(
+__global__ void __launch_bounds__(
+    kThreads, (Layout<ARITY, LEAF>::kWide ? kWideK2MinBlocks : kMinBlocks))
+    occluded_nocull_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
     int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
@@ -1044,21 +1217,9 @@ struct GroupDesign {
   static constexpr int kLanes = CLOSEST ? 4 : 8;
   static constexpr bool kGlobalStack = CLOSEST;
 };
-// groups of a warp that must be idle before they take new rays: one (K1
-// waiting for all its groups was 4% faster on the 10M frame's primary
-// lanes but 2% slower over the frame's four launches, whose bounce rays
-// end unevenly; K2 17% slower)
-constexpr int kGroupRefillIdle = 1;
 // resident blocks per SM asked of the register allocator by the group
 // walks (8: 64 registers)
 constexpr int kGroupMinBlocks = 8;
-
-// the lowest lane of every group of g lanes of a warp
-__host__ __device__ constexpr unsigned group_leaders(int g) {
-  unsigned m = 0u;
-  for (int l = 0; l < 32; l += g) m |= 1u << l;
-  return m;
-}
 
 template <int ARITY, int LEAF, int G>
 struct Grouped {
@@ -1101,10 +1262,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
                "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // n words of shared memory from s (16-byte aligned) into w
@@ -1423,82 +1580,6 @@ struct ClosestGroupWalk : GroupRay<ARITY, LEAF, true> {
   }
 };
 
-// The persistent loop of one warp whose groups of G lanes each walk a ray:
-// walk_rays with a group, not a lane, taking each queued ray, once
-// REFILL_IDLE groups are idle (G = 1: the two-level K2's lockstep steps at
-// the wide layouts, a lane a ray). A group's lanes hold its ray
-// (mine) alike; every branch that decides whether the warp goes on is
-// taken on values all 32 lanes hold alike. The groups of a
-// warp step in lockstep: each pops its next entry and starts its row's
-// copy, the warp waits once for all of them, then the groups whose rows
-// are of the kind more groups hold (node or leaf) visit them; the others
-// keep their rows for a later step.
-template <int G, class Walk, int REFILL_IDLE = kGroupRefillIdle>
-__device__ __forceinline__ void walk_group_rays(
-    Walk& w, const unsigned char* __restrict__ active, int n,
-    int* __restrict__ counter, int* __restrict__ queue) {
-  constexpr int kGroups = 32 / G;
-  constexpr unsigned kLeaders = group_leaders(G);
-  const int lane = threadIdx.x & 31;
-  const unsigned before = (1u << (lane & ~(G - 1))) - 1u;  // earlier groups
-  int mine = -1;  // this group's ray, -1 = idle
-  int head = 0, queued = 0;  // the warp's queue window [head, head + queued)
-  bool drained = false;      // the counter has passed n
-  uint32_t code = 0u;        // the group's entry popped and copied
-  bool held = false;         // ... and not visited yet
-  while (true) {
-    // fetch chunks of 32 lanes until every idle group has a ray waiting
-    const unsigned idle = __ballot_sync(kFull, mine < 0) & kLeaders;
-    const int want = __popc(idle);
-    fill_queue(active, n, counter, queue, head, queued, drained, want,
-               [&](int i) { w.miss(i); });
-    __syncwarp();
-    if (mine < 0) {
-      const int r = __popc(idle & before);
-      if (r < queued) {
-        mine = queue[(head + r) & (kQueue - 1)];
-        w.begin(mine);
-      }
-    }
-    const int took = min(want, queued);
-    head += took;
-    queued -= took;
-    __syncwarp();
-    if (__ballot_sync(kFull, mine >= 0) == 0) return;
-    // walk until enough groups are idle to refill (to the end once no ray
-    // is left to fetch)
-    const int limit = drained && queued == 0 ? kGroups : REFILL_IDLE;
-    while (true) {
-      __syncwarp();  // the last visits' pushes and buffer reads are done
-      if (mine >= 0 && !held) {
-        if (w.pop(code)) {
-          w.issue(code);
-          held = true;
-        } else {
-          w.end(mine);
-          mine = -1;
-        }
-      }
-      cp_async_wait_all();
-      __syncwarp();
-      // visit one kind of row a step, the kind more groups hold, so the
-      // warp runs one of the node and leaf paths (the others keep theirs)
-      const bool node = (code & 3u) == 0u;
-      const int nodes = __popc(__ballot_sync(kFull, held && node) & kLeaders);
-      const int leaves =
-          __popc(__ballot_sync(kFull, held && !node) & kLeaders);
-      if (held && node == (nodes >= leaves)) {
-        held = false;
-        if (w.visit(code)) {
-          w.end(mine);
-          mine = -1;
-        }
-      }
-      if (__popc(__ballot_sync(kFull, mine < 0) & kLeaders) >= limit) break;
-    }
-  }
-}
-
 // The two-level K2: at the wide layouts in the group walks' lockstep loop
 // with one lane a group (below their loop, walk_group_rays).
 template <int ARITY, int LEAF>
@@ -1525,8 +1606,8 @@ __global__ void __launch_bounds__(
   w.in.blas_base = blas_base;
   int* queue = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue;
   if constexpr (Layout<ARITY, LEAF>::kWide)  // lockstep steps, a lane a ray
-    walk_group_rays<1, decltype(w), kIK2WideRefillIdle>(w, active, n,
-                                                        counter, queue);
+    walk_group_rays<1, decltype(w), kWideK2RefillIdle>(w, active, n,
+                                                       counter, queue);
   else
     walk_rays<kIK2RefillIdle>(w, active, n, counter, queue);
 }

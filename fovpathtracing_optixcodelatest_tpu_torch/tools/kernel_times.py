@@ -45,13 +45,17 @@ kind and reporting each table's rows, bytes and host build seconds.
 times ``box_city_fast(N)``'s tables at every layout the kernels are
 compiled for (``traverse.KERNEL_LAYOUTS``) on the primary and bounce-0
 shadow lanes of that scene's 960x540 frame, with each table's rows, stack
-depth, host build seconds and resources (with each kernel's design where
-the tree reports it: lanes a ray, how rows are read, the stack's home;
+depth, host build seconds, structure (``table_structure``) and resources
+(with each kernel's design where the tree reports it: lanes a ray, how
+rows are read, the stack's home;
 the (32, 24) table is collapsed in Python: about 12 s at N = 180, more
 than 5 minutes at N = 913, so name ``--layout 32 12`` there); the tables
 are in pack order, and ``--jax-default`` adds the JAX package's default
 table for a named L12/A32 layout (from 1M triangles in DFS order with
-grouped treelets: at N = 400, 1,920,012 triangles, phase p's scene). To
+grouped treelets: at N = 400, 1,920,012 triangles, phase p's scene); it
+also counts the lanes where each of the tree's kernels differs from its
+plain version on ``DEEP_CHECK_LANES`` lanes of each kind
+(``table_mismatches``). To
 compare the parent's kernels with the change's on one card, unpack ``git
 archive <parent>`` into a git-ignored directory and run, in one chip call,
 each tree's ``chip_smoke.py`` in the order parent, change, change, parent,
@@ -520,6 +524,71 @@ def table_calls(bvhs, config, primary, shadow) -> dict:
     return calls
 
 
+def table_mismatches(bvhs, config, primary, shadow, count: int) -> dict:
+    """{call name: lanes where the kernel's answer differs from its plain
+    version's} for every ``table_calls`` call on ``count`` of the active
+    ``primary`` lanes and of the queried ``shadow`` lanes
+    (``subset_lanes``): K1's hit, t, u, v (bit for bit) and tri_id
+    summed, K2's and the non-culling K2's answers."""
+    import torch
+
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+
+    s1, s2 = subset_lanes(primary[2], count), subset_lanes(shadow[2], count)
+    o, d = (x[s1].contiguous() for x in primary[:2])
+    so, sd = (x[s2].contiguous() for x in shadow[:2])
+    act = torch.ones((s1.numel(),), dtype=torch.bool, device=o.device)
+    sq = torch.ones((s2.numel(),), dtype=torch.bool, device=o.device)
+    out = {}
+    for b in bvhs:
+        args = (b.table, o, d, act, config.tmin, config.tmax, *b.walk_args)
+        k, p = traverse.closest_hit(*args), traverse.closest_hit_plain(*args)
+        out[table_name("closest_hit", b)] = sum(
+            int((k[c].view(torch.int32) != p[c].view(torch.int32)).sum())
+            if k[c].dtype == torch.float32 else int((k[c] != p[c]).sum())
+            for c in ("hit", "t", "u", "v", "tri_id"))
+        sargs = (b.table, so, sd, sq, config.tmin, config.tmax,
+                 *b.walk_args)
+        for name, cull in (("occluded", True), ("occluded_nocull", False)):
+            out[table_name(name, b)] = int(
+                (traverse.occluded(*sargs, cull_backface=cull)
+                 != traverse.occluded_plain(*sargs, cull_backface=cull))
+                .sum())
+    return out
+
+
+def table_structure(b) -> dict:
+    """The shape of a packed single-level table (``WideBVH``, numpy) as
+    its walks meet it: its rows, the node and leaf rows reached from the
+    root, children a node row holds, the node rows with a child past slot 15,
+    triangles a leaf row holds, and how many leaf rows use each count of
+    thirds (``used_thirds[k]``: leaves whose real triangles fill k thirds
+    of three slots; a leaf's padding is a suffix, id -1)."""
+    import numpy as np
+
+    arity, leaf = b.arity, b.leaf_size
+    codes = np.ascontiguousarray(b.table[:, 3 * arity: 4 * arity]).view(
+        np.uint32)
+    ids = np.ascontiguousarray(b.table[:, 9 * leaf: 10 * leaf]).view(
+        np.int32)
+    nodes, leaves, todo = [], [], [0]
+    while todo:
+        row = todo.pop()
+        nodes.append(row)
+        for c in codes[row][codes[row] != 0]:
+            (todo if c & 3 == 0 else leaves).append(int(c) >> 2)
+    kids = codes[nodes] != 0
+    real = (ids[leaves] >= 0).sum(axis=1)
+    thirds = np.bincount((real + 2) // 3, minlength=leaf // 3 + 1)
+    return {"rows": int(b.table.shape[0]), "node_rows": len(nodes),
+            "leaf_rows": len(leaves),
+            "children_per_node": float(kids.sum() / len(nodes)),
+            "node_rows_past_slot_15": int(kids[:, 16:].any(axis=1).sum()),
+            "triangles_per_leaf": float(real.mean()),
+            "used_thirds": [int(x) for x in thirds],
+            "thirds_per_leaf": float(((real + 2) // 3).mean())}
+
+
 def time_kernels(calls: dict) -> dict:
     """{shape: mean ms} of every ``kernel_calls`` entry, in its order."""
     return {name: events_ms(fn) for name, fn in calls.items()}
@@ -634,9 +703,11 @@ def layout_times(city_n: int, layouts=None, jax_default: bool = False
     """``--layouts N``: K1, K2 and the non-culling K2 on ``box_city_fast(N)``
     at each of ``layouts`` (default: every compiled layout) in pack order,
     and with ``jax_default`` on the JAX package's default L12/A32 table,
-    with the same rays (the frame of the scene's (16, 6) table), and each
-    table's rows, stack depth, top rows, host build seconds and kernel
-    resources at its depth."""
+    with the same rays (the frame of the scene's (16, 6) table); the lanes
+    where each differs from its plain version on ``DEEP_CHECK_LANES`` lanes
+    of each kind (``table_mismatches``); and each table's rows, stack depth,
+    top rows, host build seconds, structure (``table_structure``, pack
+    order only) and kernel resources at its depth."""
     from fovpathtracing_optixcodelatest_tpu_torch.config import (
         FoveationSchedule,
         RenderConfig,
@@ -671,10 +742,13 @@ def layout_times(city_n: int, layouts=None, jax_default: bool = False
     o, d, act, _ = rays["primary"]
     bvhs = {k: DeviceBVH.upload(b, "cuda") for k, (b, _) in tables.items()}
     calls = table_calls(bvhs.values(), config, (o, d, act), rays["shadow"])
+    mismatches = table_mismatches(bvhs.values(), config, (o, d, act),
+                                  rays["shadow"], DEEP_CHECK_LANES)
     times = time_kernels(calls)
     info = []
     for key, (b, build_s) in tables.items():
         res = kernel_build.resources(b.stack_depth)
+        structure = None if b.dfs else table_structure(b)
         b = bvhs[key]
         names = [kernel_build.layout_name(k, b.arity, b.leaf_size)
                  for k in kernel_build.LAYOUT_KERNELS]
@@ -682,12 +756,13 @@ def layout_times(city_n: int, layouts=None, jax_default: bool = False
             "layout": [b.arity, b.leaf_size], "dfs": b.dfs,
             "top_rows": b.top_rows, "rows": b.num_rows,
             "width": b.table.shape[1], "stack_depth": b.stack_depth,
-            "build_s": build_s, "resources": {k: res[k] for k in names}})
+            "build_s": build_s, "structure": structure,
+            "resources": {k: res[k] for k in names}})
     return {"city_n": city_n, "triangles": scene.num_triangles,
             "lanes": {"primary": o.shape[0],
                       "shadow": rays["shadow"][0].shape[0],
                       "shadow_queried": int(rays["shadow"][2].sum())},
-            "ms": times, "tables": info}
+            "ms": times, "mismatches": mismatches, "tables": info}
 
 
 def bench_times() -> dict:

@@ -53,7 +53,8 @@ The kernels' resources as the CUDA runtime reports them: no kernel keeps
 local memory (no spill) but the (32, 24) and the wide two-level ones,
 which keep their ``MAX_STACK``-entry stack there; the (16, 6), two-level
 and K3 kernels keep their registers and resident blocks; the wide
-two-level ones spill nothing besides; the (32, 12) group-per-ray walks
+two-level ones and the (32, 24) K2s spill nothing besides, the (32, 24) K1
+14 bytes; the (32, 12) group-per-ray walks
 report their lanes a ray, stack home, registers, blocks/SM and shared
 memory.
 
@@ -73,7 +74,14 @@ the (16, 6) table of the same triangles (hit and t equal). A leaf holding
 each triangle twice pins K1's tie rule: the lower slot, as the plain
 version's serial loop keeps it, where a group's lanes hit both copies.
 Layouts that are not compiled, and rows of another compiled layout's
-width, raise.
+width, raise. The (32, 24) kernels step in lockstep and K1 inserts each
+hit key by rank, so they are also held to their plain versions on the
+city's table with every leaf cut to each fill from 1 to 24 triangles
+(padding as the packers write it), on one leaf whose real degenerate
+triangle at the origin (nine zero words) sits at the first slot of a
+third before every triangle the rays hit, and on a root row whose 32
+leaves every ray hits, with 1-33 stack entries (the full-stack rule: K1
+keeps the farthest leaves' keys).
 
 The two-rank frames of ``parallel/`` on the card (mesh [cuda:0, cuda:0]:
 the sample slicing and the cross-rank assembly really run), sample-split
@@ -936,13 +944,15 @@ def test_kernel_resources(cuda_device):
                    (8, "shared", 48, 10, 12928)], got
     assert all(res[k]["row_copy"] == "cp.async" for k in names)
     # (32, 24): one thread a ray (the group walks were slower there), the
-    # MAX_STACK-entry stack in local memory (K2 16 bytes more, no spill)
+    # MAX_STACK-entry stack in local memory; K1 asks 9 blocks/SM and
+    # spills 14 B (24 B more local memory), K2 and the non-culling K2 ask 8
+    # and spill nothing
     names = [kernel_build.layout_name(k, 32, 24)
              for k in kernel_build.LAYOUT_KERNELS]
     got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["registers"],
             res[k]["blocks_per_sm"], res[k]["local_bytes"]) for k in names]
-    assert got == [(1, "local", 80, 6, 1024), (1, "local", 96, 5, 1040),
-                   (1, "local", 96, 5, 1040)], got
+    assert got == [(1, "local", 56, 9, 1048), (1, "local", 63, 8, 1024),
+                   (1, "local", 63, 8, 1024)], got
     # the two-level kernels at (32, 12) and (32, 24): the one-thread walk
     # with the MAX_STACK-entry stack in local memory
     # (32, 12) then (32, 24), K1 then K2: K1 without a sorting network and
@@ -1371,3 +1381,142 @@ def test_wide_k1_keeps_the_lower_slot_of_a_tie(cuda_device, layout):
         other = tid + half if tid < half else tid - half
         assert slots[tid][0] == slots[other][0]
         assert slots[tid][1] < slots[other][1]
+
+
+# ---------------------------------------------------------------------------
+# The (32, 24) single-level kernels skip a leaf's thirds from the first whose
+# first slot is padding (id -1), and K1 inserts each hit key by rank
+# ---------------------------------------------------------------------------
+
+
+def _single_against_plain(table, o, d, act, depth, layout=(32, 24)):
+    """K1, K2 and the non-culling K2 on a single-level numpy ``table`` at
+    ``layout``, each held to its plain version bit for bit; returns their
+    answers."""
+    t = torch.tensor(table, device=o.device)
+    args = (t, o, d, act, TMIN, TMAX, depth, *layout)
+    kernel_build.reset_launches()
+    k = traverse.closest_hit(*args)
+    occ = traverse.occluded(*args)
+    occ_n = traverse.occluded(*args, cull_backface=False)
+    torch.cuda.synchronize()
+    assert kernel_build.LAUNCHES[kernel_build.layout_name(
+        "closest_hit", *layout)] == 1
+    p = traverse.closest_hit_plain(*args)
+    for c in ("t", "u", "v"):
+        assert torch.equal(k[c].view(torch.int32), p[c].view(torch.int32)), c
+    assert torch.equal(k["tri_id"], p["tri_id"])
+    assert torch.equal(occ, traverse.occluded_plain(*args))
+    assert torch.equal(occ_n, traverse.occluded_plain(*args,
+                                                      cull_backface=False))
+    return k, occ, occ_n
+
+
+def _cut_leaves(table, leaf, fill):
+    """A copy of the single-level ``table`` (numpy) whose leaf rows hold at
+    most ``fill`` triangles: the rest become padding (id -1, nine zero
+    words), as the packers write it. Returns (copy, the fills it holds)."""
+    out = np.array(table, dtype=np.float32, copy=True)
+    words = out.view(np.uint32)
+    ids = words[:, 9 * leaf: 10 * leaf].view(np.int32)
+    fills = set()
+    for row in np.nonzero((ids >= 0).any(axis=1))[0]:
+        n = int((ids[row] >= 0).sum())
+        if n > fill:
+            words[row, 9 * fill: 9 * n] = 0
+            ids[row, fill:n] = -1
+        fills.add(min(n, fill))
+    return out, fills
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", range(1, 25))
+def test_wide24_kernels_on_leaves_of_every_fill(wide_cities, fill):
+    # every leaf row of the (32, 24) city cut to at most ``fill`` triangles
+    # (its box left as built, so larger than its triangles): leaves of 1 to
+    # 24 triangles, the skip stopping at every third
+    b = wide_cities[(32, 24)].bvh
+    table, fills = _cut_leaves(b.table.cpu().numpy(), 24, fill)
+    assert fill in fills
+    o, d, act = _rays(8192, 60 + fill, b.table.device)
+    k, occ, _ = _single_against_plain(table, o, d, act, b.stack_depth)
+    assert k["hit"].any() and occ.any()
+
+
+def _degenerate_leaf(slot: int, fill: int):
+    """One (32, 24) leaf under the root: slots 0 .. slot - 1 hold vertical
+    triangles a ray going straight down never hits (det = 0), slot ``slot``
+    a real degenerate triangle at the origin (nine zero words, id 0), the
+    slots after it up to ``fill`` horizontal triangles stacked in y, facing
+    up, and the rest padding. Returns (table, id of the topmost triangle)."""
+    horizontal = [np.array([[-1.0, 0.01 * i, -1.0], [0.0, 0.01 * i, 1.0],
+                            [1.0, 0.01 * i, -1.0]]) for i in range(fill)]
+    vertical = [np.array([[-1.0, 0.05, 0.02 * i], [1.0, 0.05, 0.02 * i],
+                          [0.0, 0.2, 0.02 * i]]) for i in range(slot)]
+    tris = np.stack([np.zeros((3, 3))] + vertical
+                    + horizontal[: fill - slot - 1]).astype(np.float32)
+    b = bvh_native.build(tris, leaf_size=24, arity=32)
+    words = b.table.view(np.uint32)
+    assert (words[0, 96:128] != 0).sum() == 1 and words[0, 96] & 3 == 1
+    row = int(words[0, 96]) >> 2
+    ids = words[row, 216:240].view(np.int32)
+    assert sorted(ids[ids >= 0]) == list(range(fill))
+    out = np.array(b.table, copy=True)
+    ow = out.view(np.uint32)
+    order = list(range(1, slot + 1)) + [0] + list(range(slot + 1, fill))
+    for k, tid in enumerate(order):  # slot k holds triangle order[k]
+        at = int(np.nonzero(ids == tid)[0][0])
+        ow[row, 9 * k: 9 * k + 9] = words[row, 9 * at: 9 * at + 9]
+        ow[row, 216 + k] = np.uint32(tid)
+    assert not ow[row, 9 * slot: 9 * slot + 9].any()
+    return out, fill - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot,fill", [(0, 24), (3, 24), (12, 24), (21, 24),
+                                       (3, 7), (21, 23)])
+def test_wide24_kernels_read_padding_from_the_id(cuda_device, slot, fill):
+    # a real degenerate triangle at the origin (all nine words 0) at the
+    # first slot of a third, before every triangle the rays hit: a walk
+    # that took zero words for padding would leave the leaf there
+    table, top = _degenerate_leaf(slot, fill)
+    rng = np.random.default_rng(slot)
+    n = 4096
+    o = np.stack([rng.uniform(-0.3, 0.3, n), np.full(n, 5.0),
+                  rng.uniform(-0.5, 0.3, n)], 1)
+    d = np.tile([0.0, -1.0, 0.0], (n, 1))
+    o, d = (torch.tensor(x, dtype=torch.float32, device=cuda_device)
+            for x in (o, d))
+    act = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    k, occ, occ_n = _single_against_plain(table, o, d, act, 2)
+    assert bool(k["hit"].all()) and bool((k["tri_id"] == top).all())
+    assert bool(occ.all()) and bool(occ_n.all())
+
+
+@pytest.fixture(scope="module")
+def line24():
+    """A line of 128 pyramids along x packed at (32, 24): the root row's 32
+    children are leaves of four pyramids, and a ray along the line hits
+    every one's box."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    tris = np.concatenate([pyramid_tris() + np.float32([1.0 * k, 0.0, 0.0])
+                           for k in range(128)])
+    b = bvh_native.build(tris, leaf_size=24, arity=32)
+    codes = b.table[0, 96:128].view(np.uint32)
+    assert bool((codes & 3 == 1).all()), "the root's 32 leaves"
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 5, 16, 31, 32, 33])
+def test_wide24_kernels_keep_the_full_stack_rule(line24, depth):
+    # the root's 32 hit leaves against 1-33 free slots: K1 keeps the
+    # largest keys (the farthest leaves) as the plain version keeps them,
+    # so only at 32 and more does it find the nearest pyramid (at depths
+    # 1-5 a ray may miss the few pyramids it keeps and end)
+    o, d = _line_rays(4101, 47, "cuda")
+    act = torch.ones(o.shape[0], dtype=torch.bool, device="cuda")
+    k, occ, _ = _single_against_plain(line24.table, o, d, act, depth)
+    assert float(k["hit"].float().mean()) > 0.9 and bool(occ.all())
+    assert bool((k["tri_id"] < 6).all()) == (depth >= 32)
