@@ -171,6 +171,18 @@ q. (after phase p) a two-level table larger than the L2: 4 instances, on
    frames a table, the (32, 12) frame within 1 LSB of the (16, 6) frame
    on 99% of the pixels and launching only that layout's kernels.
 
+r. (after phase o) the 04 raycast of a render-time-instanced scene: phase
+   e's 1,000-instance field built by ``build_scene_instanced(...,
+   shading_normals=True)`` and rendered by ``render/simple.raycast`` at
+   960x540 from its (16, 6) two-level table and from its tables at
+   (32, 12) and (32, 24), whose shadow rays launch the two-level K2's
+   non-culling instantiation (``occluded_nocull_instanced``): at each
+   layout that kernel against its plain version on every queried shadow
+   lane (0 lanes differ), timed with CUDA events beside the culling
+   two-level K2 on the same lanes, its bound and resources; the frame the
+   kernels render byte for byte equal to the frame the plain versions
+   render on the card; no single-level kernel launched.
+
 Kernel times are CUDA events over ``kernel_times.REPS`` launches on each
 of those shapes (``tools/kernel_times.py``, which times another checkout's
 kernels the same way). Prints the card's name and power limit, one
@@ -180,7 +192,8 @@ resident blocks per SM; the wide layouts' instantiations as
 two-level ones as ``closest_hit_instanced_a32_l12`` and so on, with their
 phase-e times and, at (16, 6) and (32, 12), their phase-q times under
 ``deep_field``; K1, K2 and the non-culling K2 with their phase-p times
-under ``jax_tables``), and as its
+under ``jax_tables``; the non-culling two-level K2 at each layout with its
+phase-r times), and as its
 last line ``{"ok": true, "device":
 {...}}``. Any failed check raises and exits non-zero; there is no CPU
 fallback.
@@ -194,6 +207,7 @@ phase g's and phase p's profiled frames, which are profiled in every run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -317,11 +331,11 @@ def _kernel_of(name: str):
     """Which of the port's kernels a device function belongs to, from its
     name as the profiler or ptxas gives it (plain, templated, namespaced or
     mangled): "closest_hit", "occluded", "occluded_packets",
-    "closest_hit_instanced", "occluded_instanced", "occluded_nocull" or
-    None."""
+    "closest_hit_instanced", "occluded_instanced", "occluded_nocull",
+    "occluded_nocull_instanced" or None."""
     for kernel in ("occluded_packets", "closest_hit_instanced",
-                   "occluded_instanced", "occluded_nocull", "closest_hit",
-                   "occluded"):
+                   "occluded_nocull_instanced", "occluded_instanced",
+                   "occluded_nocull", "closest_hit", "occluded"):
         # the wide layouts' group walks: "closest_hit_group_kernel", ...
         if f"{kernel}_kernel" in name or f"{kernel}_group_kernel" in name:
             return kernel
@@ -2213,6 +2227,190 @@ def nocull_check(bvh, so, sd, sq, tmin: float, tmax: float,
             "fetch_bytes": fetch, "work": st}
 
 
+@contextlib.contextmanager
+def _plain_walks():
+    """Inside: ``ops/traverse``'s ``closest_hit`` and ``occluded`` run
+    their plain versions on the tensors' device (a frame rendered by the
+    plain walks on the card)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+
+    saved = traverse.closest_hit, traverse.occluded
+    traverse.closest_hit = traverse.closest_hit_plain
+    traverse.occluded = traverse.occluded_plain
+    try:
+        yield
+    finally:
+        traverse.closest_hit, traverse.occluded = saved
+
+
+def raycast_field_phase(width: int, height: int, device="cuda",
+                        count: int = 1000,
+                        layouts=((16, 6), (32, 12), (32, 24))) -> dict:
+    """(r) The 04 raycast of the instance field (``kernel_times.
+    instance_field``, built by ``build_scene_instanced(...,
+    shading_normals=True)``) at ``width`` x ``height`` from its two-level
+    table at each of ``layouts`` (phase e's tables): the frame rendered
+    by the kernels (launches counted) and by the plain versions on the
+    same device, byte for byte; the non-culling two-level K2 against its
+    plain version on every queried shadow lane, timed (CUDA events) beside
+    the culling two-level K2 on the same lanes, with its bound; each
+    frame's share of pixels within 1 LSB of the first layout's. Keyed by
+    ``kernel_build.layout_name("raycast_field", arity, leaf_size)``."""
+    import numpy as np
+
+    from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
+        build_scene_instanced,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
+    from fovpathtracing_optixcodelatest_tpu_torch.render import simple
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+
+    sc, cam = kernel_times.instance_field(count)
+    t0 = time.perf_counter()
+    scene = build_scene_instanced(sc, shading_normals=True, device=device)
+    build_s = time.perf_counter() - t0
+    camp = dataclasses.replace(cam, aspect=width / height).device_params(
+        device)
+    out, first = {}, None
+    for lay in layouts:
+        t0 = time.perf_counter()
+        b = (scene.bvh if tuple(lay) == (16, 6)
+             else kernel_times.field_table(sc, *lay, device))
+        table_s = build_s if tuple(lay) == (16, 6) else (
+            time.perf_counter() - t0)
+        sc_lay = dataclasses.replace(scene, bvh=b)
+        kernel_build.reset_launches()
+        frame = simple.raycast(sc_lay, camp, width, height)
+        _sync(device)
+        launches = dict(kernel_build.LAUNCHES)
+        t0 = time.perf_counter()
+        with _plain_walks():
+            plain_frame = simple.raycast(sc_lay, camp, width, height)
+        _sync(device)
+        plain_frame_s = time.perf_counter() - t0
+        frame, plain_frame = frame.cpu().numpy(), plain_frame.cpu().numpy()
+        first = frame if first is None else first
+
+        so, sd, sq = simple.shadow_rays(sc_lay, camp, width, height)
+        kargs = (1e-3, 1.0 - 1e-3, *b.walk_args)
+        kw = b.instance_kwargs
+        call = lambda: traverse.occluded(  # noqa: E731
+            b.table, so, sd, sq, *kargs, cull_backface=False, **kw)
+        culling = lambda: traverse.occluded(  # noqa: E731
+            b.table, so, sd, sq, *kargs, **kw)
+        got = call()
+        st = {}
+        want, plain_ms = _plain_ms(lambda: traverse.occluded_plain(
+            b.table, so, sd, sq, *kargs, stats=st, cull_backface=False,
+            **kw))
+        culled = culling()
+        mism = int((got != want).sum().item())
+        times = dict.fromkeys(("nocull", "culling"))
+        if device == "cuda":  # else a rehearsal: no device time
+            times = kernel_times.time_kernels({"nocull": call,
+                                               "culling": culling})
+        ns, nq = so.shape[0], int(sq.sum())
+        bound, by, fetch = _bound(st, b.table, ns, nq, 1)
+        name = kernel_build.layout_name(kernel_build.NOCULL_INSTANCED, *lay)
+        res = None
+        if device == "cuda":
+            res = kernel_build.resources(b.stack_depth)[name]
+        out[kernel_build.layout_name("raycast_field", *lay)] = {
+            "layout": list(lay), "rows": b.num_rows,
+            "stack_depth": b.stack_depth, "host_build_s": table_s,
+            "frame_shape": list(frame.shape),
+            "lit_share": float((frame.max(-1) > 0).mean()),
+            "frame_mean": float(frame.mean()),
+            "plain_identical": bool(np.array_equal(frame, plain_frame)),
+            "share_vs_first": _share_within_1lsb(frame, first),
+            "plain_frame_s": plain_frame_s, "launches": launches,
+            "kernel": name, "lanes": ns, "queried": nq,
+            "occluded": int(want.sum()),
+            "occluded_culling": int(culled.sum()),
+            "only_without_culling": int((want & ~culled).sum()),
+            "mismatches": mism, "max_abs_err": float(min(mism, 1)),
+            "ms": times["nocull"], "culling_ms": times["culling"],
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "fetch_bytes": fetch, "work": st, "resources": res}
+    return out
+
+
+def _raycast_field_lines(rf: dict) -> None:
+    """Phase r's lines (``raycast_field_phase``)."""
+    for rec in rf.values():
+        lay = tuple(rec["layout"])
+        ms = lambda x: "not timed" if x is None else f"{x:.4f} ms"  # noqa
+        _line(f"r raycast of the instance field {lay}: table {rec['rows']} "
+              f"rows, stack_depth {rec['stack_depth']}, host build "
+              f"{rec['host_build_s']:.2f} s; frame {rec['frame_shape']}, lit "
+              f"{rec['lit_share']:.4f}, byte for byte the plain walks' frame "
+              f"{rec['plain_identical']} (plain frame "
+              f"{rec['plain_frame_s']:.2f} s), within 1 LSB of the first "
+              f"layout's frame {rec['share_vs_first']:.4f}; {rec['kernel']} on "
+              f"{rec['lanes']} shadow lanes ({rec['queried']} queried, "
+              f"{rec['occluded']} occluded, {rec['occluded_culling']} by the "
+              f"culling K2, {rec['only_without_culling']} only without): "
+              f"{rec['mismatches']} lanes differ; {ms(rec['ms'])} (culling "
+              f"two-level K2 {ms(rec['culling_ms'])}); plain "
+              f"{rec['plain_ms']:.1f} ms; bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']}); work {rec['work']}; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }")
+        if rec["resources"]:
+            r = rec["resources"]
+            _line(f"r {rec['kernel']} resources at depth "
+                  f"{rec['stack_depth']}: {r['registers']} regs, "
+                  f"{r['local_bytes']} B local, {r['shared_bytes']} B "
+                  f"shared/block, {r['blocks_per_sm']} blocks/SM")
+
+
+def _check_raycast_field(rf: dict, device="cuda") -> None:
+    """Phase r's gates: each layout's kernel exact on every queried lane,
+    its frame the plain walks' byte for byte and within 1 LSB of the first
+    layout's on 99% of the pixels, the two-level kernels (and no
+    single-level one) launched, under the layout's names too."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+
+    for rec in rf.values():
+        lay = tuple(rec["layout"])
+        assert rec["mismatches"] == 0, \
+            f"the non-culling two-level K2 at {lay} disagrees with its " \
+            "plain version"
+        assert rec["plain_identical"], \
+            f"the raycast at {lay} differs from the plain walks' frame"
+        assert rec["share_vs_first"] >= 0.99, \
+            f"the raycast at {lay} differs from the first layout's"
+        assert rec["occluded"] > 0 and rec["lit_share"] > 0.1
+        n = rec["launches"]
+        if device == "cuda":
+            for k in ("closest_hit_instanced", kernel_build.NOCULL_INSTANCED):
+                name = kernel_build.layout_name(k, *lay)
+                assert n[k] > 0 and n[name] == n[k], \
+                    f"the raycast at {lay} did not launch {name}"
+        for k in ("closest_hit", "occluded", "occluded_nocull",
+                  "occluded_instanced"):
+            assert n[k] == 0, f"the raycast at {lay} launched {k}"
+
+
+def _raycast_field_record(rec: dict, spills: dict) -> dict:
+    """The kernels line's entry of the non-culling two-level K2 at one
+    layout: its phase-r record (launches: the raycast's)."""
+    return {"name": rec["kernel"], "route": "cuda",
+            "source": KERNEL_SRC + "traverse.cu",
+            "replaces": JAX_OPS + "traverse8.py:1487",
+            "launches": rec["launches"][rec["kernel"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "layout": rec["layout"], "lanes": rec["lanes"],
+            "queried": rec["queried"], "stack_depth": rec["stack_depth"],
+            "culling_ms": rec["culling_ms"],
+            "spill_bytes": spills.get(rec["kernel"]),
+            **(rec["resources"] or {})}
+
+
 def _write_textured_obj(directory: str) -> str:
     """A 10 x 10 floor quad with a checkerboard ``map_Kd`` (an OBJ, its MTL
     and a PNG in ``directory``) -> the OBJ's path."""
@@ -3803,6 +4001,11 @@ def main() -> int:
     for k in ("closest_hit", "occluded", "occluded_packets"):
         assert lg["launches"][k] >= 1, f"phase o never launched {k}"
 
+    # -- phase r: the 04 raycast of the instance field, two-level tables ----
+    rf = raycast_field_phase(w, h)
+    _raycast_field_lines(rf)
+    _check_raycast_field(rf)
+
     # -- phase 8: the kernels line ---------------------------------------------
     per_frame = lambda k: launches[k] / FRAMES  # noqa: E731
     # a kernel of the main path reports its launches there, one off it the
@@ -3909,6 +4112,8 @@ def main() -> int:
               ("k1", "closest_hit", "traverse8.py:795"),
               ("k2", "occluded", "traverse8.py:1367"),
               ("k2_nocull", "occluded_nocull", "traverse8.py:1376"))],
+        # the non-culling two-level K2 at each layout (phase r's raycast)
+        *[_raycast_field_record(rec, spills) for rec in rf.values()],
         {"name": "occluded_packets", "route": "cuda",
          "source": KERNEL_SRC + "packet_traverse.cu",
          "replaces": JAX_OPS + "pallas_traverse.py:53", "launches":
@@ -3942,7 +4147,7 @@ def main() -> int:
         stereo={k: v for k, v in st.items() if k != "pairs"},
         multidevice=md, multiprocess={k: v for k, v in mp.items()
                                       if k != "frame"},
-        viewer=vw, sweep=sw, bsdf=bs, gif=gf, legacy=lg,
+        viewer=vw, sweep=sw, bsdf=bs, gif=gf, legacy=lg, raycast_field=rf,
     )
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

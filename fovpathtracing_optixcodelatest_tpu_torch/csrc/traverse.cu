@@ -171,8 +171,11 @@
 // :1376, its leaf test :247; the 04 raycast's shadow ray): the occlusion
 // walk has a compile-time CULL flag, and occluded_nocull_kernel is its
 // CULL = false instantiation for single-level tables of each layout, in
-// which a triangle occludes where |det| > 1e-9. The culling kernels
-// compile as without the flag.
+// which a triangle occludes where |det| > 1e-9;
+// occluded_nocull_instanced_kernel is the same instantiation of the
+// two-level K2 (traverse8.py :1487-1580 passes cull_backface to its leaf
+// test too), the 04 raycast of a render-time-instanced scene. The culling
+// kernels compile as without the flag.
 //
 // Two-level tables (ops/tlas.py; the instance steps of traverse8.py
 // _ch_step :523-632 and of the occlusion loop :1487-1580):
@@ -1580,19 +1583,17 @@ struct ClosestGroupWalk : GroupRay<ARITY, LEAF, true> {
   }
 };
 
-// The two-level K2: at the wide layouts in the group walks' lockstep loop
-// with one lane a group (below their loop, walk_group_rays).
-template <int ARITY, int LEAF>
-__global__ void __launch_bounds__(
-    kThreads, (Layout<ARITY, LEAF>::kWide ? kInstWideMinBlocks : kMinBlocks))
-    occluded_instanced_kernel(
-        const uint4* __restrict__ table, const float* __restrict__ orig,
-        const float* __restrict__ dir,
-        const unsigned char* __restrict__ active, int n, float tmin,
-        float tmax, int depth, bool* __restrict__ occ_out,
-        int* __restrict__ counter, int inst_base, int blas_base) {
+// The two-level K2 of both kernels below: at the wide layouts in the group
+// walks' lockstep loop with one lane a group (below their loop,
+// walk_group_rays).
+template <int ARITY, int LEAF, bool CULL>
+__device__ __forceinline__ void occluded_instanced_walk(
+    const uint4* __restrict__ table, const float* __restrict__ orig,
+    const float* __restrict__ dir, const unsigned char* __restrict__ active,
+    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int* __restrict__ counter, int inst_base, int blas_base) {
   extern __shared__ uint32_t smem[];
-  OccludedWalk<ARITY, LEAF, true, true, kIK2StagedRow> w;
+  OccludedWalk<ARITY, LEAF, true, CULL, kIK2StagedRow> w;
   w.table = table;
   w.orig = orig;
   w.dir = dir;
@@ -1610,6 +1611,36 @@ __global__ void __launch_bounds__(
                                                        counter, queue);
   else
     walk_rays<kIK2RefillIdle>(w, active, n, counter, queue);
+}
+
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(
+    kThreads, (Layout<ARITY, LEAF>::kWide ? kInstWideMinBlocks : kMinBlocks))
+    occluded_instanced_kernel(
+        const uint4* __restrict__ table, const float* __restrict__ orig,
+        const float* __restrict__ dir,
+        const unsigned char* __restrict__ active, int n, float tmin,
+        float tmax, int depth, bool* __restrict__ occ_out,
+        int* __restrict__ counter, int inst_base, int blas_base) {
+  occluded_instanced_walk<ARITY, LEAF, true>(table, orig, dir, active, n,
+                                             tmin, tmax, depth, occ_out,
+                                             counter, inst_base, blas_base);
+}
+
+// The two-level K2 without back-face culling (the 04 raycast of an
+// instanced scene): a triangle occludes where |det| > 1e-9.
+template <int ARITY, int LEAF>
+__global__ void __launch_bounds__(
+    kThreads, (Layout<ARITY, LEAF>::kWide ? kInstWideMinBlocks : kMinBlocks))
+    occluded_nocull_instanced_kernel(
+        const uint4* __restrict__ table, const float* __restrict__ orig,
+        const float* __restrict__ dir,
+        const unsigned char* __restrict__ active, int n, float tmin,
+        float tmax, int depth, bool* __restrict__ occ_out,
+        int* __restrict__ counter, int inst_base, int blas_base) {
+  occluded_instanced_walk<ARITY, LEAF, false>(table, orig, dir, active, n,
+                                              tmin, tmax, depth, occ_out,
+                                              counter, inst_base, blas_base);
 }
 
 // stack: the global stack buffer, kRays * depth entries a block
@@ -1691,9 +1722,9 @@ __global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
                                           counter);
 }
 
-// K1 (which = 0), K2 (1), their instanced variants (2, 3) and the
-// non-culling K2 (4), at each layout
-constexpr int kKernels = 5;
+// K1 (which = 0), K2 (1), their instanced variants (2, 3), the
+// non-culling K2 (4) and its instanced variant (5), at each layout
+constexpr int kKernels = 6;
 constexpr int kLayouts = 3;
 
 template <int ARITY, int LEAF>
@@ -1726,7 +1757,9 @@ auto with_layout(int layout, F f) {
 // every other kernel and layout with a lane
 template <int A, int L>
 constexpr bool kGrouped = A == 32 && L == 12;
-constexpr bool grouped_kernel(int which) { return which != 2 && which != 3; }
+constexpr bool grouped_kernel(int which) {
+  return which != 2 && which != 3 && which != 5;
+}
 
 // K2 (CULL) or the non-culling K2 at a layout
 template <int A, int L, bool CULL>
@@ -1759,6 +1792,8 @@ const void* kernel_of(int which, int layout) {
         return (const void*)occluded_instanced_kernel<A, L>;
       case 4:
         return (const void*)occluded_kernel_at<A, L, false>();
+      case 5:
+        return (const void*)occluded_nocull_instanced_kernel<A, L>;
     }
     return nullptr;
   });
@@ -1968,6 +2003,38 @@ extern "C" int fov_closest_hit_instanced(
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// the two-level K2 (which 3) or its non-culling variant (5) at the table's
+// layout
+int launch_occluded_instanced(int which, const float* table,
+                              const float* orig, const float* dir,
+                              const unsigned char* active, int n, float tmin,
+                              float tmax, int stack_depth, bool* occ_out,
+                              int* counter, int inst_base, int blas_base,
+                              int arity, int leaf, void* stream) {
+  const int layout = layout_of(arity, leaf);
+  if (layout < 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    size_t smem = 0;
+    int blocks = 0;
+    const int rc = launch_grid(which, layout, n, stack_depth, &smem, &blocks);
+    if (rc != 0) return rc;
+    with_layout(layout, [&](auto tag) {
+      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
+      const auto kernel = which == 3 ? occluded_instanced_kernel<A, L>
+                                     : occluded_nocull_instanced_kernel<A, L>;
+      kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+          reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
+          tmax, stack_depth, occ_out, counter, inst_base, blas_base);
+      return 0;
+    });
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int fov_occluded_instanced(const float* table, const float* orig,
                                       const float* dir,
                                       const unsigned char* active, int n,
@@ -1975,30 +2042,28 @@ extern "C" int fov_occluded_instanced(const float* table, const float* orig,
                                       bool* occ_out, int* counter,
                                       int inst_base, int blas_base, int arity,
                                       int leaf, void* stream) {
-  const int layout = layout_of(arity, leaf);
-  if (layout < 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    size_t smem = 0;
-    int blocks = 0;
-    const int rc = launch_grid(3, layout, n, stack_depth, &smem, &blocks);
-    if (rc != 0) return rc;
-    with_layout(layout, [&](auto tag) {
-      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
-      occluded_instanced_kernel<A, L>
-          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-              reinterpret_cast<const uint4*>(table), orig, dir, active, n,
-              tmin, tmax, stack_depth, occ_out, counter, inst_base,
-              blas_base);
-      return 0;
-    });
-  }
-  return (int)cudaGetLastError();
+  return launch_occluded_instanced(3, table, orig, dir, active, n, tmin, tmax,
+                                   stack_depth, occ_out, counter, inst_base,
+                                   blas_base, arity, leaf, stream);
+}
+
+// the two-level K2 with back faces occluding: fov_occluded_instanced's
+// arguments
+extern "C" int fov_occluded_nocull_instanced(
+    const float* table, const float* orig, const float* dir,
+    const unsigned char* active, int n, float tmin, float tmax,
+    int stack_depth, bool* occ_out, int* counter, int inst_base,
+    int blas_base, int arity, int leaf, void* stream) {
+  return launch_occluded_instanced(5, table, orig, dir, active, n, tmin, tmax,
+                                   stack_depth, occ_out, counter, inst_base,
+                                   blas_base, arity, leaf, stream);
 }
 
 // Registers per thread, local memory per thread (spills and any stack
 // frame), resident blocks per SM and dynamic shared memory per block of
 // kernel ``which`` (K1 0, K2 1, instanced K1 2, instanced K2 3, non-culling
-// K2 4) at layout (arity, leaf) and stack_depth.
+// K2 4, non-culling instanced K2 5) at layout (arity, leaf) and
+// stack_depth.
 extern "C" int fov_traverse_info(int which, int arity, int leaf,
                                  int stack_depth, int* regs,
                                  int* local_bytes, int* blocks_per_sm,

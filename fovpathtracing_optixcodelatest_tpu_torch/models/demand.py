@@ -52,7 +52,13 @@ class DemandContext:
 
     @property
     def total_pages(self) -> int:
+        """The page table's length: every tile of every texture."""
         return self.page_table.shape[0]
+
+    @property
+    def num_pages(self) -> int:
+        """The atlas's slots: the pages resident at once."""
+        return self.atlas.shape[0]
 
     @property
     def device(self) -> torch.device:

@@ -13,6 +13,11 @@ import dataclasses
 
 import numpy as np
 
+# the JAX package's models/probe.py luminance: its 0.3/0.6/0.1 weights
+from fovpathtracing_optixcodelatest_tpu_torch.ops.sampling import (  # noqa: F401
+    luminance,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class ProbeParams:

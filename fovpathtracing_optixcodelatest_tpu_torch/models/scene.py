@@ -366,38 +366,50 @@ def _host_arrays(meshes, bvh, probe, texture_images) -> Dict[str, np.ndarray]:
 
 def scene_arrays_instanced(instanced_scene,
                            probe: Optional[ProbeParams] = None,
-                           texture_images: Optional[Sequence[np.ndarray]] = None
+                           texture_images: Optional[Sequence[np.ndarray]] = None,
+                           shading_normals: bool = False
                            ) -> Dict[str, np.ndarray]:
     """Host build of an ``InstancedScene``: the two-level table
     (``ops/tlas.py``) and the unique meshes' ``tri_pack`` -> the
-    ``scene_from_arrays`` dict. Textures default to the scene's own."""
+    ``scene_from_arrays`` dict. Textures default to the scene's own.
+    ``shading_normals`` adds the unique meshes' corner normals, in their
+    triangle order (that of ``tri_pack`` and of the two-level walks'
+    ``tri_id``), in object space."""
     unique_tris, mesh_ids, mats = tlas.scene_tables_from_instanced(
         instanced_scene)
     bvh = tlas.build_instanced(unique_tris, mesh_ids, mats)
     if texture_images is None:
         texture_images = instanced_scene.textures
-    return _host_arrays(instanced_scene.unique, bvh, probe, texture_images)
+    arrays = _host_arrays(instanced_scene.unique, bvh, probe, texture_images)
+    if shading_normals:
+        arrays["shading_normals"] = shading_normal_rows(instanced_scene.unique)
+    return arrays
 
 
 def build_scene_instanced(instanced_scene,
                           probe: Optional[ProbeParams] = None,
                           texture_images: Optional[Sequence[np.ndarray]] = None,
-                          device="cuda") -> Scene:
+                          device="cuda", shading_normals: bool = False
+                          ) -> Scene:
     """Render-time instancing: device geometry and table scale with the
     unique meshes; the instances live as a TLAS and transform rows in the
     one table K1 and K2 walk. ``build_scene(instanced_scene.flatten())``
-    builds the same scene single-level."""
+    builds the same scene single-level. ``shading_normals`` adds the
+    corner normals the 04 raycast reads: the unique meshes' object-space
+    normals, which the raycast uses without the instance's transform, as
+    the JAX package's does."""
     return scene_from_arrays(
-        scene_arrays_instanced(instanced_scene, probe, texture_images), device
+        scene_arrays_instanced(instanced_scene, probe, texture_images,
+                               shading_normals), device
     )
 
 
 def build_scene(meshes: Sequence[HostMesh], probe: Optional[ProbeParams] = None,
                 texture_images: Optional[Sequence[np.ndarray]] = None,
-                device="cuda", legacy8: bool = False, demand=None,
-                shading_normals: bool = False,
                 leaf_size: Optional[int] = None,
-                arity: Optional[int] = None) -> Scene:
+                arity: Optional[int] = None, device="cuda",
+                legacy8: bool = False, demand=None,
+                shading_normals: bool = False) -> Scene:
     """Flatten meshes, build the BVH, pack the textures (a mesh's
     ``diffuse_texture_id`` indexes ``texture_images``, or the textures of
     the demand context ``demand``), attach the probe (default: the constant

@@ -46,7 +46,7 @@ LEAF_SIZE = 6
 KIND_NODE, KIND_LEAF, KIND_INST = 0, 1, 2
 EMPTY = np.int32(0)
 
-WIDTH8 = 8
+WIDTH = 8
 LEAF_SIZE8 = 4
 
 
@@ -80,6 +80,10 @@ class WideBVH:
     @property
     def num_rows(self) -> int:
         return self.table.shape[0]
+
+    @property
+    def instanced(self) -> bool:
+        return self.num_instances > 0
 
 
 def codebits(num_rows: int) -> int:

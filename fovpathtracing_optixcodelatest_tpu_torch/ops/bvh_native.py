@@ -94,6 +94,11 @@ def cache_dir() -> str:
     return path
 
 
+def collapse_native(tris: np.ndarray, leaf_size: int, arity: int):
+    """The JAX package's name of ``collapse``."""
+    return collapse(tris, leaf_size, arity)
+
+
 def collapse(tris: np.ndarray, leaf_size: int, arity: int):
     """Native binned-SAH BVH2 + collapse -> (boxes (M, A, 6), meta (M, A, 2),
     order_slots), or None where the native builder refuses the layout."""

@@ -43,6 +43,11 @@ WIDE_LAYOUTS = ((32, 12), (32, 24))
 LAYOUT_KERNELS = ("closest_hit", "occluded", "occluded_nocull")
 # the two-level kernels, also compiled at every layout
 INSTANCED_KERNELS = ("closest_hit_instanced", "occluded_instanced")
+# the two-level K2 without back-face culling (the 04 raycast of an
+# instanced scene), compiled at every layout too
+NOCULL_INSTANCED = "occluded_nocull_instanced"
+# every kernel compiled at the wide layouts
+WIDE_KERNELS = LAYOUT_KERNELS + INSTANCED_KERNELS + (NOCULL_INSTANCED,)
 
 
 def layout_name(kernel: str, arity: int, leaf_size: int) -> str:
@@ -59,9 +64,9 @@ def layout_name(kernel: str, arity: int, leaf_size: int) -> str:
 # layout's are also counted under its ``layout_name``.
 LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0,
             "closest_hit_instanced": 0, "occluded_instanced": 0,
-            "occluded_nocull": 0,
+            "occluded_nocull": 0, NOCULL_INSTANCED: 0,
             **{layout_name(k, *lay): 0 for lay in WIDE_LAYOUTS
-               for k in LAYOUT_KERNELS + INSTANCED_KERNELS}}
+               for k in WIDE_KERNELS}}
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points: the launches take (table, origin, direction, active, n,
@@ -82,6 +87,9 @@ SIGNATURES = {
                                   _P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
     "fov_occluded_instanced": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _I,
                                _I, _I, _I, _P),
+    # the two-level K2 with back faces occluding: fov_occluded_instanced's
+    "fov_occluded_nocull_instanced": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P,
+                                      _I, _I, _I, _I, _P),
     "fov_occluded_packets": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P,
                              _P),
     "fov_packet_spill": (_I, _I, _P),
@@ -195,7 +203,8 @@ def resources(stack_depth: int) -> dict:
     """Registers per thread, local memory per thread (spills and stack
     frames), resident blocks per SM and dynamic shared memory per block of
     each kernel, as the CUDA runtime reports them for the loaded build; K1/K2
-    and their instanced and non-culling variants at ``stack_depth`` (K3's
+    and their instanced and non-culling variants (and the non-culling
+    instanced K2) at ``stack_depth`` (K3's
     shared memory does not depend on it), the wide layouts' K1/K2 and
     non-culling K2 under their ``layout_name``. K1/K2's entries also give
     their design: ``group_lanes`` (the lanes that walk one ray),
@@ -205,15 +214,15 @@ def resources(stack_depth: int) -> dict:
     ``layout_name``, the two-level ones too."""
     out = {}
     which = {"closest_hit": 0, "occluded": 1, "closest_hit_instanced": 2,
-             "occluded_instanced": 3, "occluded_nocull": 4}
+             "occluded_instanced": 3, "occluded_nocull": 4,
+             NOCULL_INSTANCED: 5}
     queries = [(k, "traverse", "fov_traverse_info", (w, 16, 6, stack_depth))
                for k, w in which.items()]
     queries.append(("occluded_packets", "packet_traverse", "fov_packet_info",
                     ()))
     queries += [(layout_name(k, *lay), "traverse", "fov_traverse_info",
                  (which[k], *lay, stack_depth))
-                for lay in WIDE_LAYOUTS
-                for k in LAYOUT_KERNELS + INSTANCED_KERNELS]
+                for lay in WIDE_LAYOUTS for k in WIDE_KERNELS]
     keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes")
     for kernel, lib, fn, args in queries:
         vals = [ctypes.c_int(0) for _ in keys]

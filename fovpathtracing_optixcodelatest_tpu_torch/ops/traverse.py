@@ -39,8 +39,11 @@ does.
 
 ``occluded(..., cull_backface=False)`` lets back faces occlude too (the 04
 raycast's shadow ray, ``render/simple.py``): on a CUDA tensor it launches
-K2's non-culling instantiation, compiled for single-level tables of each
-layout.
+K2's non-culling instantiation, or on a two-level table the two-level
+K2's (``kernel_build.NOCULL_INSTANCED``), each compiled for every layout.
+
+``ops/traverse8.py`` gives these walks under the JAX package's names and
+signatures.
 """
 
 from __future__ import annotations
@@ -549,8 +552,8 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
     occlude unless ``cull_backface`` is False. CUDA tensors launch K2 at
     the table's layout (``KERNEL_LAYOUTS``), walking only the active lanes:
     its instanced variant where ``num_instances > 0``, its non-culling
-    instantiation where ``cull_backface`` is False (single-level tables
-    only); CPU tensors run ``occluded_plain``."""
+    instantiation where ``cull_backface`` is False (of either, on a
+    two-level table); CPU tensors run ``occluded_plain``."""
     inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
                "blas_base": blas_base}
     _check(table, o, d, active, stack_depth, **inst_kw)
@@ -560,8 +563,6 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
                               **inst_kw)
     n, dev = o.shape[0], o.device
     _kernel_layout(table, n, arity, leaf_size)
-    if num_instances and not cull_backface:
-        raise ValueError("the non-culling K2 takes single-level tables only")
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:  # nothing to launch
         return occ
@@ -570,9 +571,12 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
             n, tmin, tmax, stack_depth, occ.data_ptr(), counter.data_ptr())
     lib = kernel_build.library("traverse")
     if num_instances:
-        rc = lib.fov_occluded_instanced(*args, inst_base, blas_base, arity,
-                                        leaf_size, kernel_build.stream())
-        name = "occluded_instanced"
+        launch = (lib.fov_occluded_instanced if cull_backface
+                  else lib.fov_occluded_nocull_instanced)
+        rc = launch(*args, inst_base, blas_base, arity, leaf_size,
+                    kernel_build.stream())
+        name = ("occluded_instanced" if cull_backface
+                else kernel_build.NOCULL_INSTANCED)
     elif not cull_backface:
         rc = lib.fov_occluded_nocull(*args, arity, leaf_size,
                                      kernel_build.stream())

@@ -56,13 +56,16 @@ def pass_pixels(p: FoveationPass, width: int, height: int, gaze_x: int,
 
 def generate_pass_rays(camera, p: FoveationPass, width: int, height: int,
                        gaze_x: int, gaze_y: int, key, antialias: bool = True,
-                       sampler: str = "random", sample_ids=None):
+                       sample_ids=None, ray_id_base: int = 0,
+                       sampler: str = "random"):
     """The ray batch of one foveation pass, pixel-major (ray = pixel * k +
     i, the i-th of the k sample slots made). ``sample_ids`` (k,) selects the
     slots (default all ``spp``): a multi-device render gives each rank a
     disjoint slice, and each ray is the one the full pass makes for that
     pixel and slot, since its id, jitter and stratum follow the slot. Slots
-    >= spp (the padding of an uneven split) are made but inactive. Returns
+    >= spp (the padding of an uneven split) are made but inactive.
+    ``ray_id_base`` is the JAX package's argument, which it does not use
+    either: a ray's id follows its pixel and slot alone. Returns
     dict(origin, direction (N, 3), active (N,), ray_ids (N,) int64, ring
     (LH, LW), launch, offset, spp, samples_here = k)."""
     dev = camera.eye.device

@@ -37,9 +37,12 @@ from fovpathtracing_optixcodelatest_tpu_torch.render import film, raygen
 from fovpathtracing_optixcodelatest_tpu_torch.render.integrator import trace_paths
 
 
-def pass_backplate(scene, camera, width: int, height: int, p, gaze_x: int,
-                   gaze_y: int) -> torch.Tensor:
-    """Pixel-center probe radiance over the pass's launch grid (P, 3)."""
+def pass_backplate(scene, camera, rays, width: int, height: int, p,
+                   gaze_x: int, gaze_y: int) -> torch.Tensor:
+    """Pixel-center probe radiance over the pass's launch grid (P, 3).
+    ``rays`` is the pass's ray batch (``generate_pass_rays``), in the JAX
+    package's argument order; the grid is the pass's own, which is the
+    batch's."""
     idx_x, idx_y = raygen.pass_pixels(p, width, height, gaze_x, gaze_y,
                                       scene.device)
     dirs = raygen.pixel_center_directions(camera, idx_x, idx_y, width, height)
@@ -132,7 +135,8 @@ def composite_passes(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
         lw, lh = rays["launch"]
         rad_sum = v["radiance"].sum(1)
         alpha_sum = v["alpha"].sum(1)
-        backplate = pass_backplate(scene, camera, w, h, p, gaze_x, gaze_y)
+        backplate = pass_backplate(scene, camera, rays, w, h, p, gaze_x,
+                                   gaze_y)
         accum_color = film.shade_to_accum_color(
             rad_sum, alpha_sum, backplate, p.spp, rays["launch"]
         )

@@ -11,7 +11,12 @@ JAX package's ``render/simple.py``):
   |dot(dir, Ns)|``; misses are black.
 
 ``raycast`` reads the scene's corner shading normals: build its scene with
-``build_scene(..., shading_normals=True)``.
+``build_scene(..., shading_normals=True)``, or a render-time-instanced
+one with ``build_scene_instanced(..., shading_normals=True)`` (its walks
+then launch the two-level K1 and the two-level K2's non-culling
+instantiation). On an instanced scene the normals are the unique meshes'
+in object space, the instance's transform not applied, as the JAX
+package's raycast shades them.
 """
 
 from __future__ import annotations
@@ -104,7 +109,8 @@ def raycast(scene, camera, width: int, height: int,
     (height, width, 3) uint8."""
     if scene.shading_normals is None:
         raise ValueError("raycast needs the scene's shading normals: "
-                         "build_scene(..., shading_normals=True)")
+                         "build_scene(..., shading_normals=True) or "
+                         "build_scene_instanced(..., shading_normals=True)")
     origin, direction, hit, attr, ng = _primary_hits(scene, camera, width,
                                                      height)
     hm = hit["hit"]

@@ -64,6 +64,14 @@ def test_kernel_of_reads_plain_templated_and_mangled_names():
         "uint4 const*)": "occluded",
         "_ZN12_GLOBAL__N_128occluded_nocull_group_kernelILi32ELi12ELi8EEEv"
         "PK5uint4": "occluded_nocull",
+        # the two-level K2's non-culling instantiation (the 04 raycast of
+        # an instanced scene), at (16, 6) and at a wide layout
+        "void (anonymous namespace)::occluded_nocull_instanced_kernel<16, 6>("
+        "uint4 const*)": "occluded_nocull_instanced",
+        "_ZN12_GLOBAL__N_132occluded_nocull_instanced_kernelILi16ELi6EEEv"
+        "PK5uint4": "occluded_nocull_instanced",
+        "_ZN12_GLOBAL__N_132occluded_nocull_instanced_kernelILi32ELi24EEEv"
+        "PK5uint4": "occluded_nocull_instanced",
         "void at::native::elementwise_kernel<128, 2>(int)": None,
         "aten::mul": None,
     }
@@ -89,6 +97,12 @@ def test_ptxas_spills_per_kernel():
                              "_128closest_hit_instanced_kernelILi32ELi12EE")
     assert chip_smoke._ptxas_spills(inst)["closest_hit_instanced_a32_l12"] \
         == 16
+    # and the non-culling two-level K2's, apart from the culling one's
+    nocull = PTXAS_LOG.replace(
+        "_115occluded_kernelILi16ELi6EE",
+        "_132occluded_nocull_instanced_kernelILi32ELi24EE")
+    assert chip_smoke._ptxas_spills(nocull) == {
+        "occluded_nocull_instanced_a32_l24": 0, "closest_hit": 16}
 
 
 def test_k1_agreement_counts_ulps_on_hits():
@@ -635,6 +649,33 @@ def test_rehearse_oracle_phase_and_nocull_check(no_card):
     assert out["mismatches"] == 0 and out["ms"] is None
     assert out["occluded"] >= out["occluded_culling"]
     assert out["bound_ms"] > 0 and out["queried"] == int(sq.sum())
+
+
+def test_rehearse_raycast_field_phase(no_card):
+    # phase r at 64x36 on 256 instances: the 04 raycast of the instance
+    # field from its two-level tables at every compiled layout, the
+    # non-culling two-level walk against its plain version (on the CPU the
+    # wrappers run the plain versions: no kernel launches)
+    rf = chip_smoke.raycast_field_phase(64, 36, device="cpu", count=256)
+    assert list(rf) == [kernel_build.layout_name("raycast_field", *lay)
+                        for lay in ((16, 6), (32, 12), (32, 24))]
+    chip_smoke._raycast_field_lines(rf)
+    chip_smoke._check_raycast_field(rf, device="cpu")
+    for rec in rf.values():
+        assert rec["frame_shape"] == [36, 64, 3] and rec["plain_identical"]
+        assert rec["mismatches"] == 0 and rec["ms"] is None
+        assert rec["occluded"] > rec["occluded_culling"] >= 0
+        assert rec["bound_ms"] > 0 and rec["queried"] > 0
+        assert rec["share_vs_first"] >= 0.99
+        assert rec["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
+    rec = next(iter(rf.values()))
+    rec["launches"] = dict.fromkeys(kernel_build.LAUNCHES, 3)
+    r = chip_smoke._raycast_field_record(rec, {})
+    assert r["name"] == "occluded_nocull_instanced" and r["launches"] == 3
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in r, key
 
 
 def test_rehearse_readme_example(no_card):

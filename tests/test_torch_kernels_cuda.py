@@ -61,7 +61,13 @@ memory.
 K2's non-culling instantiation (``occluded(..., cull_backface=False)``, the
 04 raycast's shadow ray) is held to its plain version at the same sparse
 masks, ragged lane counts and small stacks; it must find the back faces
-the culling K2 skips, and refuse two-level tables and other layouts.
+the culling K2 skips, and refuse other layouts. On a two-level table the
+same call launches the two-level K2's non-culling instantiation
+(``occluded_nocull_instanced``, the 04 raycast of an instanced scene),
+held to its plain version at every compiled layout on a grid with a
+mirrored box and a quad mirrored in y (negative determinants), at active
+shares of 0 and 100% and 0, 1 and 33 lanes; it sees both sides of the
+mirrored quad, where the culling kernel sees one.
 
 K1, K2 and the non-culling K2 at the wide layouts (32, 12) and (32, 24)
 (``build_scene(leaf_size=, arity=)``) are held to their plain versions the
@@ -923,12 +929,16 @@ def test_kernel_resources(cuda_device):
     wide_inst = [kernel_build.layout_name(k, *lay)
                  for lay in kernel_build.WIDE_LAYOUTS
                  for k in kernel_build.INSTANCED_KERNELS]
+    wide_nocull = [kernel_build.layout_name(kernel_build.NOCULL_INSTANCED,
+                                            *lay)
+                   for lay in kernel_build.WIDE_LAYOUTS]
     assert all(r["local_bytes"] == 0 for k, r in res.items()
-               if k not in wide24 + wide_inst), res
+               if k not in wide24 + wide_inst + wide_nocull), res
     single = ("closest_hit", "occluded", "occluded_nocull",
-              "closest_hit_instanced", "occluded_instanced")
-    assert [res[k]["registers"] for k in single] == [69, 96, 96, 80, 96]
-    assert [res[k]["blocks_per_sm"] for k in single] == [7, 5, 5, 6, 5]
+              "closest_hit_instanced", "occluded_instanced",
+              kernel_build.NOCULL_INSTANCED)
+    assert [res[k]["registers"] for k in single] == [69, 96, 96, 80, 96, 96]
+    assert [res[k]["blocks_per_sm"] for k in single] == [7, 5, 5, 6, 5, 5]
     assert all(res[k]["group_lanes"] == 1 and res[k]["row_copy"] == "ldg"
                for k in single)
     assert (res["occluded_packets"]["registers"],
@@ -965,6 +975,11 @@ def test_kernel_resources(cuda_device):
                    (1, "local", "ldg", 75, 6, 1024),
                    (1, "local", "ldg", 75, 6, 1024),
                    (1, "local", "ldg", 75, 6, 1024)], got
+    # the two-level K2's non-culling instantiation: the culling one's design
+    got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["row_copy"],
+            res[k]["blocks_per_sm"], res[k]["local_bytes"])
+           for k in wide_nocull]
+    assert got == [(1, "local", "ldg", 6, 1024)] * 2, got
 
 
 # ---------------------------------------------------------------------------
@@ -1030,10 +1045,143 @@ def test_nocull_k2_refuses_two_level_tables_and_other_layouts(city, grid):
     with pytest.raises(ValueError, match="layout"):
         traverse.occluded(b.table, o, d, act, TMIN, TMAX, b.stack_depth,
                           8, 4, cull_backface=False)
+    # a two-level table is no longer refused: it launches the two-level
+    # K2's non-culling instantiation, not the single-level one
     gb = grid.bvh
-    with pytest.raises(ValueError, match="single-level"):
-        traverse.occluded(gb.table, o, d, act, TMIN, TMAX, *gb.walk_args,
-                          cull_backface=False, **gb.instance_kwargs)
+    kernel_build.reset_launches()
+    occ = traverse.occluded(gb.table, o, d, act, TMIN, TMAX, *gb.walk_args,
+                            cull_backface=False, **gb.instance_kwargs)
+    torch.cuda.synchronize()
+    assert kernel_build.LAUNCHES == _launched(occluded_nocull_instanced=1)
+    assert torch.equal(occ, traverse.occluded_plain(
+        gb.table, o, d, act, TMIN, TMAX, *gb.walk_args, cull_backface=False,
+        **gb.instance_kwargs))
+
+
+# the two-level K2 without back-face culling (the 04 raycast of an
+# instanced scene), at every compiled layout
+
+
+@pytest.fixture(scope="module")
+def nocull_grids():
+    """{layout: (table on the card, instance kwargs, stack depth)}: the
+    rotated grid of boxes and balls with a mirrored box (negative
+    determinant) beside it, and a one-sided quad placed as is and mirrored
+    in y, as two-level tables at every compiled layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    box = make_box((-0.4, 0.0, -0.4), (0.4, 0.8, 0.4),
+                   Material(color=(0.8, 0.6, 0.4), roughness=0.8))
+    ball = make_icosphere((0.0, 1.1, 0.0), 0.25, 1,
+                          Material(color=(0.3, 0.5, 0.9), roughness=0.4))
+    quad = make_quad((-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1),
+                     Material(color=(1, 1, 1), roughness=1.0))
+    placements = []
+    for k in range(25):
+        m = _translate((k // 5) * 1.5, 0.0, (k % 5) * 1.5)
+        if k % 3 == 1:
+            m = m @ _rot_y(35.0)
+        placements.append((k % 2, m))
+    placements += [(0, _translate(3.0, 0.0, 8.0) @ np.diag([-1, 1, 1, 1])),
+                   (2, _translate(-3.0, 0.5, 3.0)),
+                   (2, _translate(-3.0, 0.5, 6.0) @ np.diag([1, -1, 1, 1]))]
+    tables = tlas.scene_tables_from_instanced(
+        instanced([box, ball, quad], placements))
+    out = {}
+    for lay in traverse.KERNEL_LAYOUTS:
+        b = tlas.build_instanced(*tables, leaf_size=lay[1], arity=lay[0])
+        out[lay] = (torch.tensor(b.table, device="cuda"),
+                    {"num_instances": b.num_instances,
+                     "inst_base": b.inst_base, "blas_base": b.blas_base},
+                    b.stack_depth)
+    return out
+
+
+def _nocull_grid_rays(n, seed, dev):
+    """Rays from inside and around the grid's boxes in every direction
+    (many meet back faces), and down onto the two quads."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform((-4.0, 0.05, -1.0), (7.0, 1.5, 9.0), (n, 3))
+    d = rng.normal(size=(n, 3))
+    down = rng.random(n) < 0.25
+    o[down] = np.stack([rng.uniform(-4.0, -2.0, int(down.sum())),
+                        np.full(int(down.sum()), 3.0),
+                        rng.uniform(2.0, 7.0, int(down.sum()))], 1)
+    d[down] = (0.0, -1.0, 0.0)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device=dev),
+            torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+def _nocull_instanced_against_plain(grids, layout, n, share, seed=3):
+    """Launch the two-level K2's non-culling instantiation once on ``n``
+    rays (``share`` of them active) at ``layout`` and hold it to its plain
+    version; returns (its answer, the culling kernel's)."""
+    table, kw, depth = grids[layout]
+    o, d = _nocull_grid_rays(n, seed, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    act = torch.tensor(rng.random(n) < share, device="cuda")
+    args = (table, o, d, act, TMIN, 30.0, depth, *layout)
+    kernel_build.reset_launches()
+    occ = traverse.occluded(*args, cull_backface=False, **kw)
+    torch.cuda.synchronize()
+    launched = int(n > 0)
+    assert kernel_build.LAUNCHES == _launched(**{
+        kernel_build.layout_name(kernel_build.NOCULL_INSTANCED, *lay):
+        launched for lay in {(16, 6), tuple(layout)}})
+    assert torch.equal(occ, traverse.occluded_plain(
+        *args, cull_backface=False, **kw))
+    assert not occ[~act].any()
+    return occ, traverse.occluded(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 1.0])
+@pytest.mark.parametrize("layout", sorted(traverse.KERNEL_LAYOUTS))
+def test_nocull_instanced_k2_matches_plain_at_active_share(nocull_grids,
+                                                           layout, share):
+    occ, culled = _nocull_instanced_against_plain(nocull_grids, layout, 8192,
+                                                  share)
+    # a culled answer is also an answer without culling; back faces (inside
+    # the boxes, under the mirrored quad) add more
+    assert not (culled & ~occ).any()
+    assert bool((occ & ~culled).any()) == (share > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 33])
+@pytest.mark.parametrize("layout", sorted(traverse.KERNEL_LAYOUTS))
+def test_nocull_instanced_k2_matches_plain_at_ragged_n(nocull_grids, layout,
+                                                       n):
+    occ, _ = _nocull_instanced_against_plain(nocull_grids, layout, n, 1.0,
+                                             seed=n)
+    assert occ.shape == (n,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(traverse.KERNEL_LAYOUTS))
+def test_nocull_instanced_k2_sees_both_sides_of_a_mirrored_quad(
+        nocull_grids, layout):
+    # straight down onto the quad and its copy mirrored in y: the culling
+    # kernel sees exactly one of them from its front, this one both
+    table, kw, depth = nocull_grids[layout]
+    n = 256
+    rng = np.random.default_rng(2)
+    z = np.where(np.arange(n) < n // 2, 3.0, 6.0) + rng.uniform(-0.5, 0.5, n)
+    o = torch.tensor(np.stack([rng.uniform(-3.5, -2.5, n), np.full(n, 3.0),
+                               z], 1), dtype=torch.float32, device="cuda")
+    d = torch.tensor(np.tile([0.0, -1.0, 0.0], (n, 1)), dtype=torch.float32,
+                     device="cuda")
+    act = torch.ones(n, dtype=torch.bool, device="cuda")
+    args = (table, o, d, act, TMIN, 30.0, depth, *layout)
+    occ = traverse.occluded(*args, cull_backface=False, **kw)
+    culled = traverse.occluded(*args, **kw)
+    assert torch.equal(occ, traverse.occluded_plain(
+        *args, cull_backface=False, **kw))
+    assert bool(occ.all())
+    first, second = culled[: n // 2], culled[n // 2:]
+    assert bool((first != second[0]).all()) and bool(
+        (second == second[0]).all())
 
 
 @pytest.mark.cuda
