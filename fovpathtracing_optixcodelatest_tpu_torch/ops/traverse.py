@@ -43,7 +43,8 @@ K2's non-culling instantiation, or on a two-level table the two-level
 K2's (``kernel_build.NOCULL_INSTANCED``), each compiled for every layout.
 
 ``ops/traverse8.py`` gives these walks under the JAX package's names and
-signatures.
+signatures. Each call of ``closest_hit`` or ``occluded``, on either
+device, is the span ``fov.k1`` or ``fov.k2`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.bvh8 import (
     LEAF_SIZE,
     codebits,
 )
+from fovpathtracing_optixcodelatest_tpu_torch.utils import tracing
 
 _MASK = 0xFFFFFFFF
 # deepest stack the wrappers take: the wide tables need up to 164 entries
@@ -418,6 +420,7 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
     return out
 
 
+@tracing.spanned(tracing.K1)
 def closest_hit(table, o, d, active, tmin: float, tmax: float,
                 stack_depth: int, arity: int, leaf_size: int, *,
                 num_instances: int = 0, inst_base: int = 0,
@@ -544,6 +547,7 @@ def occluded_plain(table, o, d, active, tmin: float, tmax: float,
     return occ
 
 
+@tracing.spanned(tracing.K2)
 def occluded(table, o, d, active, tmin: float, tmax: float,
              stack_depth: int, arity: int, leaf_size: int, *,
              num_instances: int = 0, inst_base: int = 0, blas_base: int = 0,

@@ -33,6 +33,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.render import film
 from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
     render_frame,
 )
+from fovpathtracing_optixcodelatest_tpu_torch.utils import tracing
 
 
 def eye_cameras_from_pose(
@@ -110,14 +111,18 @@ class StereoRenderer:
         if gaze is None:
             gaze = (w // 2, h // 2)
         frames, traces, rays = [], 0, 0
-        for e, cam in enumerate((left, right)):
-            self.canvases[e], frame, st = render_frame(
-                self.scene, cam.device_params(self.device), gaze[0], gaze[1],
-                self.subframe, self.canvases[e], self.eye_key(e),
-                self.config, self.schedule)
-            frames.append(frame)
-            traces = traces + st["traces"]
-            rays += st["rays"]
-        self.stats = {"traces": int(traces), "rays": rays}
-        self.subframe += 1
-        return torch.stack(frames).cpu().numpy()
+        with tracing.frame():  # the pair is one displayed frame
+            for e, cam in enumerate((left, right)):
+                self.canvases[e], frame, st = render_frame(
+                    self.scene, cam.device_params(self.device), gaze[0],
+                    gaze[1], self.subframe, self.canvases[e],
+                    self.eye_key(e), self.config, self.schedule)
+                frames.append(frame)
+                traces = traces + st["traces"]
+                rays += st["rays"]
+            with tracing.sync("download"):
+                pixels = torch.stack(frames).cpu().numpy()
+            with tracing.sync("traces"):
+                self.stats = {"traces": int(traces), "rays": rays}
+            self.subframe += 1
+            return pixels

@@ -20,6 +20,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.config import (
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import tonemap
 from fovpathtracing_optixcodelatest_tpu_torch.render.raygen import pass_launch_dims
+from fovpathtracing_optixcodelatest_tpu_torch.utils import tracing
 
 
 def schedule_padding(schedule: FoveationSchedule, width: int, height: int) -> int:
@@ -69,6 +70,7 @@ def composite_pass(canvas, accum_color, ring, p: FoveationPass,
     return canvas
 
 
+@tracing.spanned(tracing.TONEMAP)
 def finalize(canvas, pad: int, config: RenderConfig) -> torch.Tensor:
     """Crop the canvas and tone-map -> (H, W, 3) uint8."""
     h = canvas.shape[0] - 2 * pad

@@ -57,6 +57,12 @@ result as masking every lane. A catcher lane whose sample failed is alive
 in the bounce that finds it, so its occlusion answer and its alpha come in
 that bounce before it leaves. ``traces`` counts alive rays per bounce, the
 occlusion queries walked and the pass-through re-traces.
+
+``trace_paths`` is the span ``fov.paths`` and each bounce's loop body the
+span ``fov.bounce.<depth>`` (``utils/tracing.py``); the live-lane
+``nonzero`` and each narrowing, which wait for the device, are the syncs
+``live_lanes`` and ``narrow``, and the lanes entering each depth are
+counted under ``lanes``.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops import spectrum as sp
 from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import fold_in, ray_uniforms
 from fovpathtracing_optixcodelatest_tpu_torch.render.spectral import cauchy_eta
+from fovpathtracing_optixcodelatest_tpu_torch.utils import tracing
 from fovpathtracing_optixcodelatest_tpu_torch.ops.sampling import (
     basis_from_vector,
     dot,
@@ -375,6 +382,7 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
     }
 
 
+@tracing.spanned(tracing.PATHS)
 def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
                 active: torch.Tensor, key, config: RenderConfig,
                 ray_ids: torch.Tensor | None = None) -> Dict[str, torch.Tensor]:
@@ -407,34 +415,41 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
     if scene.demand is not None:
         demand_req = torch.zeros((scene.demand.total_pages,),
                                  dtype=torch.uint8, device=dev)
-    idx = torch.nonzero(active).squeeze(1)
+    with tracing.sync("live_lanes"):
+        idx = torch.nonzero(active).squeeze(1)
     for depth in range(config.max_depth):
+        # the lanes entering this bounce, every depth counted: idx's length,
+        # which the host knows since the last narrowing
+        tracing.count("lanes", depth, idx.numel())
         if idx.numel() == 0:
-            break
-        spec = () if lam is None else (lam[idx], lam_alive[idx])
-        b = bounce(scene, o[idx], d[idx], throughput[idx], eta[idx],
-                   ray_ids[idx], fold_in(key, depth), depth == 0, config,
-                   *spec)
-        hm = b["hit_mask"]
-        o[idx] = b["origin"]
-        d[idx] = b["direction"]
-        throughput[idx] = b["throughput"]
-        if lam is not None:
-            lam_alive[idx] = b["lam_alive"]
-        eta[idx] = b["eta"]
-        radiance[idx] = radiance[idx] + b["contrib"]
-        kept = alpha[idx]
-        if b["alpha_add"] is not None:
-            kept = kept + b["alpha_add"]
-        alpha[idx] = torch.where(b["alpha_set"][:, None], 1.0, kept)
-        if depth == 0:
-            normal[idx] = torch.where(hm[:, None], b["normal"], 0.0)
-            albedo[idx] = torch.where(hm[:, None], b["albedo"], 0.0)
-        traces = (traces + idx.numel() + b["occl_queries"]
-                  + b["passthrough_traces"])
-        if scene.demand is not None:
-            fold_requests(demand_req, b["demand_page"], b["demand_missing"])
-        idx = idx[b["alive"]]
+            continue
+        with tracing.bounce(depth):
+            spec = () if lam is None else (lam[idx], lam_alive[idx])
+            b = bounce(scene, o[idx], d[idx], throughput[idx], eta[idx],
+                       ray_ids[idx], fold_in(key, depth), depth == 0, config,
+                       *spec)
+            hm = b["hit_mask"]
+            o[idx] = b["origin"]
+            d[idx] = b["direction"]
+            throughput[idx] = b["throughput"]
+            if lam is not None:
+                lam_alive[idx] = b["lam_alive"]
+            eta[idx] = b["eta"]
+            radiance[idx] = radiance[idx] + b["contrib"]
+            kept = alpha[idx]
+            if b["alpha_add"] is not None:
+                kept = kept + b["alpha_add"]
+            alpha[idx] = torch.where(b["alpha_set"][:, None], 1.0, kept)
+            if depth == 0:
+                normal[idx] = torch.where(hm[:, None], b["normal"], 0.0)
+                albedo[idx] = torch.where(hm[:, None], b["albedo"], 0.0)
+            traces = (traces + idx.numel() + b["occl_queries"]
+                      + b["passthrough_traces"])
+            if scene.demand is not None:
+                fold_requests(demand_req, b["demand_page"],
+                              b["demand_missing"])
+            with tracing.sync("narrow"):
+                idx = idx[b["alive"]]
     out = {"radiance": radiance, "alpha": alpha, "normal": normal,
            "albedo": albedo, "traces": traces}
     if scene.demand is not None:

@@ -12,6 +12,11 @@ however they were gathered: both are the multi-device paths' parts.
 Keys follow the JAX package's chain: frame key = fold_in(PRNGKey(seed),
 subframe), jitter key = fold_in(frame key, 0), path key = fold_in(frame
 key, 1) (``ops.rng``).
+
+Spans (``utils/tracing.py``): a ``Renderer`` frame is ``fov.frame`` and
+counts one displayed frame, its download the sync ``download``; ray
+generation with the passes' merge is ``fov.raygen``, ``composite_passes``
+``fov.film``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling as probe
 from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import fold_in, prng_key
 from fovpathtracing_optixcodelatest_tpu_torch.render import film, raygen
 from fovpathtracing_optixcodelatest_tpu_torch.render.integrator import trace_paths
+from fovpathtracing_optixcodelatest_tpu_torch.utils import tracing
 
 
 def pass_backplate(scene, camera, rays, width: int, height: int, p,
@@ -83,18 +89,19 @@ def frame_wavefront(scene, camera, gaze_x: int, gaze_y: int, key,
     w, h = config.width, config.height
     jitter_key = fold_in(key, 0)
     path_key = fold_in(key, 1)
-    rays_list = [
-        raygen.generate_pass_rays(
-            camera, p, w, h, gaze_x, gaze_y, jitter_key,
-            antialias=config.antialias, sampler=config.sampler,
-            sample_ids=None if sample_ids_per_pass is None
-            else sample_ids_per_pass[i])
-        for i, p in enumerate(schedule.passes)
-    ]
-    merged = {
-        k: torch.cat([r[k] for r in rays_list], dim=0)
-        for k in ("origin", "direction", "active", "ray_ids")
-    }
+    with tracing.span(tracing.RAYGEN):
+        rays_list = [
+            raygen.generate_pass_rays(
+                camera, p, w, h, gaze_x, gaze_y, jitter_key,
+                antialias=config.antialias, sampler=config.sampler,
+                sample_ids=None if sample_ids_per_pass is None
+                else sample_ids_per_pass[i])
+            for i, p in enumerate(schedule.passes)
+        ]
+        merged = {
+            k: torch.cat([r[k] for r in rays_list], dim=0)
+            for k in ("origin", "direction", "active", "ray_ids")
+        }
     out = trace_paths(scene, merged["origin"], merged["direction"],
                       merged["active"], path_key, config,
                       ray_ids=merged["ray_ids"])
@@ -118,6 +125,7 @@ def pass_slot_values(rays_list, out, offsets,
     return vals
 
 
+@tracing.spanned(tracing.FILM)
 def composite_passes(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
                      canvas: torch.Tensor, rays_list, slot_values,
                      config: RenderConfig, schedule: FoveationSchedule,
@@ -327,15 +335,17 @@ class Renderer:
     def render(self, gaze: Optional[Tuple[int, int]] = None) -> np.ndarray:
         """Render one frame (gaze defaults to the frame center) ->
         (H, W, 3) uint8."""
-        args = self._frame_args(gaze)
-        if self.multichip:
-            self.canvas, frame, traces = self._sharded_frame(*args)
-            self._stats = {"traces": traces}
-        else:
-            self.canvas, frame, self._stats = render_frame(*args)
-        self.subframe += 1
-        self.last_frame = frame
-        return frame.cpu().numpy()
+        with tracing.frame():
+            args = self._frame_args(gaze)
+            if self.multichip:
+                self.canvas, frame, traces = self._sharded_frame(*args)
+                self._stats = {"traces": traces}
+            else:
+                self.canvas, frame, self._stats = render_frame(*args)
+            self.subframe += 1
+            self.last_frame = frame
+            with tracing.sync("download"):
+                return frame.cpu().numpy()
 
     def _sharded_frame(self, *args):
         from fovpathtracing_optixcodelatest_tpu_torch.parallel import (
@@ -354,11 +364,13 @@ class Renderer:
         """One frame through ``render_frame_aov``, with ``render``'s
         accumulation -> (frame (H, W, 3) uint8, dict of the linear
         ``accum``/``normal``/``albedo`` (H, W, 3) float32 tensors)."""
-        self.canvas, frame, aovs, self._stats = render_frame_aov(
-            *self._frame_args(gaze))
-        self.subframe += 1
-        self.last_frame = frame
-        return frame.cpu().numpy(), aovs
+        with tracing.frame():
+            self.canvas, frame, aovs, self._stats = render_frame_aov(
+                *self._frame_args(gaze))
+            self.subframe += 1
+            self.last_frame = frame
+            with tracing.sync("download"):
+                return frame.cpu().numpy(), aovs
 
     def download_pixels(self) -> np.ndarray:
         if self.last_frame is None:
