@@ -22,6 +22,10 @@ n=24, seed 0, gradient sky probe: 6,924 triangles), then:
 3. drives the main path, ``Renderer.render`` on ``FRAMES`` 960x540 frames
    after one warm-up frame, counting the
    kernel launches of those frames only, and checks the frame;
+   every bounce's shading runs in ``csrc/shade.cu``'s two kernels (one
+   ``shade`` and one ``resolve`` launch a K1), which are held to the plain
+   bounce on the frame's primary lanes at depth 0 and its survivors at
+   depth 1 (masks exact, every float output bit for bit) and timed there;
 4. renders a small frame on the GPU and on the CPU (the plain versions) and
    requires 99% of the pixels within 1 LSB;
 
@@ -507,6 +511,17 @@ def _frames_line(name: str, t: dict) -> str:
             f"{t['mrays']:.2f} Mrays/s; peak {t['peak'] / 2**30:.2f} GiB; "
             f"frame mean {t['frame'].mean():.3f}; finite {t['finite']}; "
             f"launches {t['launches']}")
+
+
+def shade_phase(scene, config, rays: dict) -> dict:
+    """(6b) The bounce's shading kernels (``csrc/shade.cu``) against the
+    plain bounce on the bench frame's primary lanes at depth 0 and on its
+    survivors at depth 1 (masks exact, every float output bit for bit), and
+    ``shade`` / ``resolve`` timed at depth 0's lanes with their resources
+    (``tools/shade_check.py`` ``check_frame``)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import shade_check
+
+    return shade_check.check_frame(scene, config, rays["primary"])
 
 
 def textured_phase(untextured_scene, n: int, schedule, width: int,
@@ -3640,6 +3655,22 @@ def main() -> int:
     assert 0 < frame.mean() < 255
     for k in PATH_KERNELS:
         assert launches[k] > 0, f"main path never launched {k}"
+    # every bounce shaded by the two shading kernels, one launch each
+    assert launches["shade"] == launches["resolve"] == launches[
+        "closest_hit"] > 0, launches
+
+    # -- phase 6b: the bounce's shading kernels against the plain bounce -------
+    results["shade"] = shade_phase(scene, config, rays)
+    for depth in (0, 1):
+        r = results["shade"][f"depth{depth}"]
+        _line(f"shade/resolve against the plain bounce at depth {depth}: "
+              f"{r['lanes']} lanes, {r['hits']} hits, {r['queries']} "
+              f"queried; {json.dumps(r)}")
+    _line(f"shade kernels: shade {results['shade']['shade_ms']:.4f} ms, "
+          f"resolve {results['shade']['resolve_ms']:.4f} ms at bounce 0's "
+          f"lanes; {json.dumps(results['shade']['resources'])}")
+    assert results["shade"]["exact"], \
+        "the shading kernels disagree with the plain bounce"
 
     if args.profile:
         _profile_frames(renderer, args.profile, results)

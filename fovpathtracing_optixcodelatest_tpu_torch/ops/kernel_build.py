@@ -29,7 +29,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.build_dir import build_dir
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-SOURCES = ("traverse", "packet_traverse")
+SOURCES = ("traverse", "packet_traverse", "shade")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +65,7 @@ def layout_name(kernel: str, arity: int, leaf_size: int) -> str:
 LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0,
             "closest_hit_instanced": 0, "occluded_instanced": 0,
             "occluded_nocull": 0, NOCULL_INSTANCED: 0,
+            "shade": 0, "resolve": 0,
             **{layout_name(k, *lay): 0 for lay in WIDE_LAYOUTS
                for k in WIDE_KERNELS}}
 
@@ -97,6 +98,11 @@ SIGNATURES = {
     "fov_traverse_design": (_I, _I, _I, _P, _P, _P),
     "fov_traverse_stack": (_I, _I, _I, _I, _I, _P),
     "fov_packet_info": (_P, _P, _P, _P),
+    # the bounce's shading (csrc/shade.cu): a pointer to the kernel's
+    # argument struct (ops/shade.py), then the stream
+    "fov_shade": (_P, _P),
+    "fov_resolve": (_P, _P),
+    "fov_shade_info": (_I, _P, _P, _P, _P),
 }
 
 _LOCK = threading.Lock()

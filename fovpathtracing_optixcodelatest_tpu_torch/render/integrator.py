@@ -58,15 +58,25 @@ in the bounce that finds it, so its occlusion answer and its alpha come in
 that bounce before it leaves. ``traces`` counts alive rays per bounce, the
 occlusion queries walked and the pass-through re-traces.
 
+On CUDA tensors in RGB, without a demand context, row-sharded triangles
+or the oracle (``shades_on_kernels``), a bounce is K1, ``csrc/shade.cu``'s
+``shade_kernel``, K2 and its ``resolve_kernel`` (``kernel_bounce``, through
+``ops/shade.py``): the shading between the hits and the state update runs
+in two launches instead of some 1,400 PyTorch ops, on the same arithmetic.
+Everywhere else it is ``plain_bounce`` (``bounce`` and its scatter), the
+kernels' plain version, which the card tests hold them to.
+
 ``trace_paths`` is the span ``fov.paths`` and each bounce's loop body the
 span ``fov.bounce.<depth>`` (``utils/tracing.py``); the live-lane
 ``nonzero`` and each narrowing, which wait for the device, are the syncs
-``live_lanes`` and ``narrow``, and the lanes entering each depth are
-counted under ``lanes``.
+``live_lanes`` and ``narrow``, the lanes entering each depth are counted
+under ``lanes``, and each bounce under ``shade``, keyed ``"kernel"`` or
+``"plain"`` by the path it took.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
@@ -88,6 +98,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
 from fovpathtracing_optixcodelatest_tpu_torch.ops import bsdf as bsdf_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import intersect
 from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling as probe_ops
+from fovpathtracing_optixcodelatest_tpu_torch.ops import shade as shade_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import spectrum as sp
 from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import fold_in, ray_uniforms
@@ -382,6 +393,99 @@ def bounce(scene, o, d, throughput, eta_in, ray_ids, key, primary: bool,
     }
 
 
+@dataclasses.dataclass
+class PathState:
+    """The full-size per-path arrays ``trace_paths`` carries from bounce to
+    bounce (N rows each; ``lam_alive`` in spectral mode, ``demand_req`` on
+    a scene with a demand-texture context)."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    throughput: torch.Tensor
+    eta: torch.Tensor
+    radiance: torch.Tensor
+    alpha: torch.Tensor
+    normal: torch.Tensor
+    albedo: torch.Tensor
+    traces: torch.Tensor
+    lam_alive: torch.Tensor | None = None
+    demand_req: torch.Tensor | None = None
+
+    @classmethod
+    def start(cls, origin, direction, throughput, lam_alive=None):
+        """N paths before their first bounce: copies of their rays, eta 1,
+        radiance, alpha, normal and albedo 0, no traces."""
+        n, dev = origin.shape[0], origin.device
+        f3 = lambda: torch.zeros((n, 3), dtype=torch.float32,  # noqa: E731
+                                 device=dev)
+        return cls(o=origin.contiguous().clone(),
+                   d=direction.contiguous().clone(), throughput=throughput,
+                   eta=torch.ones((n,), dtype=torch.float32, device=dev),
+                   radiance=f3(), alpha=f3(), normal=f3(), albedo=f3(),
+                   traces=torch.zeros((), dtype=torch.int64, device=dev),
+                   lam_alive=lam_alive)
+
+
+def shades_on_kernels(scene, config: RenderConfig, device) -> bool:
+    """Whether ``trace_paths`` shades its bounces with ``csrc/shade.cu``'s
+    kernels (``kernel_bounce``): on CUDA tensors, in RGB, on a scene
+    without a demand-texture context or row-sharded triangles, walked by
+    the BVH kernels. Textures, catchers and two-level tables are arguments
+    of the kernels. Everything else takes ``plain_bounce``."""
+    return (torch.device(device).type == "cuda" and not config.spectral
+            and scene.demand is None and config.traversal != "oracle"
+            and scene.pack_blocks is None)
+
+
+def plain_bounce(scene, st: PathState, idx, ray_ids, key, primary: bool,
+                 config: RenderConfig, lam=None) -> torch.Tensor:
+    """One bounce of the lanes ``idx`` in plain PyTorch: ``bounce`` on
+    their gathered state, then the scatter of its results into ``st`` ->
+    the lanes' alive mask. The plain version of ``kernel_bounce``."""
+    spec = () if lam is None else (lam[idx], st.lam_alive[idx])
+    b = bounce(scene, st.o[idx], st.d[idx], st.throughput[idx], st.eta[idx],
+               ray_ids[idx], key, primary, config, *spec)
+    hm = b["hit_mask"]
+    st.o[idx] = b["origin"]
+    st.d[idx] = b["direction"]
+    st.throughput[idx] = b["throughput"]
+    if lam is not None:
+        st.lam_alive[idx] = b["lam_alive"]
+    st.eta[idx] = b["eta"]
+    st.radiance[idx] = st.radiance[idx] + b["contrib"]
+    kept = st.alpha[idx]
+    if b["alpha_add"] is not None:
+        kept = kept + b["alpha_add"]
+    st.alpha[idx] = torch.where(b["alpha_set"][:, None], 1.0, kept)
+    if primary:
+        st.normal[idx] = torch.where(hm[:, None], b["normal"], 0.0)
+        st.albedo[idx] = torch.where(hm[:, None], b["albedo"], 0.0)
+    st.traces = (st.traces + idx.numel() + b["occl_queries"]
+                 + b["passthrough_traces"])
+    if scene.demand is not None:
+        fold_requests(st.demand_req, b["demand_page"], b["demand_missing"])
+    return b["alive"]
+
+
+def kernel_bounce(scene, st: PathState, idx, ray_ids, key, primary: bool,
+                  config: RenderConfig) -> torch.Tensor:
+    """One bounce of the lanes ``idx`` on the card: K1 on their gathered
+    rays, the catcher pass-through, ``shade_kernel``, K2, then
+    ``resolve_kernel``, which updates ``st`` in place -> the lanes' alive
+    mask. ``ray_ids`` must be int64. The result is ``plain_bounce``'s."""
+    o, d = st.o[idx], st.d[idx]
+    every = torch.ones((idx.numel(),), dtype=torch.bool, device=o.device)
+    hit = _closest(scene, o, d, every, config)
+    if scene.has_catcher and not primary and config.catcher_passthrough > 0:
+        o, hit, passthrough = _catcher_passthrough(scene, o, d, hit, config)
+        st.traces += passthrough
+    p, wi, query, rec = shade_ops.shade(scene, idx, o, d, hit, st.eta, ray_ids,
+                                        key, primary)
+    occ = _occluded(scene, p, wi, query, config)
+    return shade_ops.resolve(idx, rec, p, occ, query, st, primary,
+                             scene.has_catcher)
+
+
 @tracing.spanned(tracing.PATHS)
 def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
                 active: torch.Tensor, key, config: RenderConfig,
@@ -398,9 +502,6 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
     n, dev = origin.shape[0], origin.device
     if ray_ids is None:
         ray_ids = torch.arange(n, device=dev)
-    f3 = lambda v: torch.full((n, 3), v, dtype=torch.float32, device=dev)  # noqa: E731
-    o = origin.contiguous().clone()
-    d = direction.contiguous().clone()
     lam = lam_alive = None
     if config.spectral:
         lam = sp.sample_hero_wavelengths(
@@ -408,13 +509,14 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
         lam_alive = torch.ones_like(lam, dtype=torch.bool)
         throughput = torch.ones_like(lam)
     else:
-        throughput = f3(1.0)
-    eta = torch.ones((n,), dtype=torch.float32, device=dev)
-    radiance, alpha, normal, albedo = f3(0.0), f3(0.0), f3(0.0), f3(0.0)
-    traces = torch.zeros((), dtype=torch.int64, device=dev)
+        throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    st = PathState.start(origin, direction, throughput, lam_alive)
     if scene.demand is not None:
-        demand_req = torch.zeros((scene.demand.total_pages,),
-                                 dtype=torch.uint8, device=dev)
+        st.demand_req = torch.zeros((scene.demand.total_pages,),
+                                    dtype=torch.uint8, device=dev)
+    kernels = shades_on_kernels(scene, config, dev)
+    if kernels:
+        ray_ids = ray_ids.to(torch.int64).contiguous()
     with tracing.sync("live_lanes"):
         idx = torch.nonzero(active).squeeze(1)
     for depth in range(config.max_depth):
@@ -423,35 +525,20 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
         tracing.count("lanes", depth, idx.numel())
         if idx.numel() == 0:
             continue
+        tracing.count("shade", "kernel" if kernels else "plain", 1)
         with tracing.bounce(depth):
-            spec = () if lam is None else (lam[idx], lam_alive[idx])
-            b = bounce(scene, o[idx], d[idx], throughput[idx], eta[idx],
-                       ray_ids[idx], fold_in(key, depth), depth == 0, config,
-                       *spec)
-            hm = b["hit_mask"]
-            o[idx] = b["origin"]
-            d[idx] = b["direction"]
-            throughput[idx] = b["throughput"]
-            if lam is not None:
-                lam_alive[idx] = b["lam_alive"]
-            eta[idx] = b["eta"]
-            radiance[idx] = radiance[idx] + b["contrib"]
-            kept = alpha[idx]
-            if b["alpha_add"] is not None:
-                kept = kept + b["alpha_add"]
-            alpha[idx] = torch.where(b["alpha_set"][:, None], 1.0, kept)
-            if depth == 0:
-                normal[idx] = torch.where(hm[:, None], b["normal"], 0.0)
-                albedo[idx] = torch.where(hm[:, None], b["albedo"], 0.0)
-            traces = (traces + idx.numel() + b["occl_queries"]
-                      + b["passthrough_traces"])
-            if scene.demand is not None:
-                fold_requests(demand_req, b["demand_page"],
-                              b["demand_missing"])
+            if kernels:
+                alive = kernel_bounce(scene, st, idx, ray_ids,
+                                      fold_in(key, depth), depth == 0,
+                                      config)
+            else:
+                alive = plain_bounce(scene, st, idx, ray_ids,
+                                     fold_in(key, depth), depth == 0,
+                                     config, lam)
             with tracing.sync("narrow"):
-                idx = idx[b["alive"]]
-    out = {"radiance": radiance, "alpha": alpha, "normal": normal,
-           "albedo": albedo, "traces": traces}
+                idx = idx[alive]
+    out = {"radiance": st.radiance, "alpha": st.alpha, "normal": st.normal,
+           "albedo": st.albedo, "traces": st.traces}
     if scene.demand is not None:
-        out["demand_requests"] = demand_req > 0
+        out["demand_requests"] = st.demand_req > 0
     return out

@@ -14,7 +14,8 @@ records is read once, when the outermost span opens (a frame's
 for the device (the live-lane ``nonzero``, a bounce's boolean narrowing,
 the frame's download) and counts one sync under ``"syncs"``. ``count``
 adds to an integer counter, such as ``"lanes"`` (the lanes that enter each
-bounce, keyed by depth). ``frame()`` is the span ``fov.frame`` and counts
+bounce, keyed by depth) and ``"shade"`` (the bounces shaded, keyed
+``"kernel"`` or ``"plain"`` by the path ``trace_paths`` took). ``frame()`` is the span ``fov.frame`` and counts
 one displayed frame under ``"frames"``.
 
 Nothing here reads a tensor: a count that only the device knows is never
@@ -54,7 +55,7 @@ TONEMAP = "fov.tonemap"
 BOUNCE_PREFIX = "fov.bounce."
 SYNC_PREFIX = "fov.sync."
 
-GROUPS = ("ns", "ns_total", "syncs", "lanes")
+GROUPS = ("ns", "ns_total", "syncs", "lanes", "shade")
 COUNTERS: dict = {"frames": 0, **{g: {} for g in GROUPS}}
 
 _lock = threading.Lock()  # COUNTERS' updates (the viewer renders on two

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain PyTorch versions.
+"""The port's CUDA kernels (K1, K2, K3) against their plain PyTorch versions,
+and the launches a frame's bounce makes (the shading kernels of
+``csrc/shade.cu`` are held to their plain version in
+``test_torch_shade_cuda.py``).
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU
 mode) and skip without one. They import nothing of JAX, so they run on a
@@ -109,7 +112,10 @@ import numpy as np
 import pytest
 import torch
 
-from fovpathtracing_optixcodelatest_tpu_torch.config import FoveationSchedule
+from fovpathtracing_optixcodelatest_tpu_torch.config import (
+    FoveationSchedule,
+    RenderConfig,
+)
 from fovpathtracing_optixcodelatest_tpu_torch.models import scenes
 from fovpathtracing_optixcodelatest_tpu_torch.models.instance import instanced
 from fovpathtracing_optixcodelatest_tpu_torch.models.material import Material
@@ -129,7 +135,9 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops import (
     tlas,
     traverse,
 )
+from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import Renderer
 from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
+from fovpathtracing_optixcodelatest_tpu_torch.utils import tracing
 from torch_blas_fields import (
     _rot_y,
     _translate,
@@ -197,6 +205,26 @@ def test_kernels_match_plain_versions(cuda_device, n, seed):
     torch.cuda.synchronize()
     assert kernel_build.LAUNCHES == _launched(closest_hit=1, occluded=1,
                                               occluded_packets=2)
+
+
+@pytest.mark.cuda
+def test_a_frame_shades_each_bounce_in_two_launches(city):
+    """On the card each bounce of a frame launches K1, the shading kernels
+    ``shade`` and ``resolve`` (``csrc/shade.cu``) and K2 once each, and
+    counts under ``shade`` / ``"kernel"`` (no catcher, so no re-trace)."""
+    config = RenderConfig(width=96, height=54, max_depth=4)
+    r = Renderer(city, config, FoveationSchedule.uniform(2), seed=0,
+                 device="cuda")
+    r.set_camera(scenes.box_city(n=4, seed=0)[1])
+    kernel_build.reset_launches()
+    before = tracing.snapshot()
+    r.render()
+    torch.cuda.synchronize()
+    got = tracing.diff(before, tracing.snapshot())
+    assert got["shade"] == {"kernel": config.max_depth}
+    b = config.max_depth
+    assert kernel_build.LAUNCHES == _launched(closest_hit=b, occluded=b,
+                                              shade=b, resolve=b)
 
 
 # ---------------------------------------------------------------------------

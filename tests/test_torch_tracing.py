@@ -185,7 +185,7 @@ def test_diff_keeps_what_changed():
          "lanes": {0: 7}}
     assert tracing.diff(a, b) == {
         "frames": 1, "ns": {"x": 4, "y": 1}, "ns_total": {},
-        "syncs": {"d": 1}, "lanes": {0: 7}}
+        "syncs": {"d": 1}, "lanes": {0: 7}, "shade": {}}
 
 
 def test_a_span_keeps_its_self_time_apart_from_its_children():
@@ -300,4 +300,8 @@ def test_on_the_card_syncs_are_spans_and_device_work_is_spanned(card,
         s = _innermost(inside, launch["ts"])
         assert s is not None, (e["name"], launch["name"])
         launched += 1
-    assert launched > 1000
+    # ray generation, the film and each bounce's K1, shading kernels and
+    # K2 (about 660 launches a frame; each bounce's shading is two)
+    assert launched > 500
+    for kernel in ("shade_kernel", "resolve_kernel"):
+        assert sum(kernel in e["name"] for e in device) == DEPTH, kernel
