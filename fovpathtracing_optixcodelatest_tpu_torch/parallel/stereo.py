@@ -9,7 +9,14 @@ half angles. ``StereoRenderer`` renders the two eyes one after the other
 through ``render_frame``, each with its own canvas and accumulation, eye
 ``e`` of subframe ``s`` keyed fold_in(fold_in(PRNGKey(0), s), e) as in the
 JAX package. (The JAX package runs both eyes as one vmapped program; here
-the two eyes are two wavefronts.)
+the two eyes are two wavefronts.) Each eye's ``render_frame`` is the span
+``fov.eye.<e>`` inside the pair's ``fov.frame`` (``utils/tracing.py``).
+Each eye's pixels are copied into its half of the pair's host array as
+soon as the eye is queued; on the card that array is page-locked, so the
+copies run on the copy engine without the host and the pair's
+``download`` waits once, for the right eye's tail. (On an H100 a pageable
+copy of a 1800x1920 pair, 20.7 MB, took 1.75 to 13.5 ms of the copy engine
+from one profiled run to the next; the page-locked copies take 0.41 ms.)
 """
 
 from __future__ import annotations
@@ -110,19 +117,23 @@ class StereoRenderer:
         w, h = self.config.width, self.config.height
         if gaze is None:
             gaze = (w // 2, h // 2)
-        frames, traces, rays = [], 0, 0
+        cuda = self.device.type == "cuda"
+        pixels = torch.empty((2, h, w, 3), dtype=torch.uint8, pin_memory=cuda)
+        traces, rays = 0, 0
         with tracing.frame():  # the pair is one displayed frame
             for e, cam in enumerate((left, right)):
-                self.canvases[e], frame, st = render_frame(
-                    self.scene, cam.device_params(self.device), gaze[0],
-                    gaze[1], self.subframe, self.canvases[e],
-                    self.eye_key(e), self.config, self.schedule)
-                frames.append(frame)
+                with tracing.eye(e):
+                    self.canvases[e], frame, st = render_frame(
+                        self.scene, cam.device_params(self.device), gaze[0],
+                        gaze[1], self.subframe, self.canvases[e],
+                        self.eye_key(e), self.config, self.schedule)
+                pixels[e].copy_(frame, non_blocking=cuda)
                 traces = traces + st["traces"]
                 rays += st["rays"]
             with tracing.sync("download"):
-                pixels = torch.stack(frames).cpu().numpy()
+                if cuda:
+                    torch.cuda.current_stream(self.device).synchronize()
             with tracing.sync("traces"):
                 self.stats = {"traces": int(traces), "rays": rays}
             self.subframe += 1
-            return pixels
+            return pixels.numpy()

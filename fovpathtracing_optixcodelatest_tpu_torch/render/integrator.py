@@ -71,7 +71,7 @@ span ``fov.bounce.<depth>`` (``utils/tracing.py``); the live-lane
 ``nonzero`` and each narrowing, which wait for the device, are the syncs
 ``live_lanes`` and ``narrow``, the lanes entering each depth are counted
 under ``lanes``, and each bounce under ``shade``, keyed ``"kernel"`` or
-``"plain"`` by the path it took.
+``"plain"`` by the path it took; each call counts one wavefront.
 """
 
 from __future__ import annotations
@@ -499,6 +499,7 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
     ``demand_requests``, the (total_pages,) bool bitmap of the pages its
     textured hits sampled while not resident."""
     config.check_supported()
+    tracing.wavefront()
     n, dev = origin.shape[0], origin.device
     if ray_ids is None:
         ray_ids = torch.arange(n, device=dev)

@@ -15,8 +15,11 @@ for the device (the live-lane ``nonzero``, a bounce's boolean narrowing,
 the frame's download) and counts one sync under ``"syncs"``. ``count``
 adds to an integer counter, such as ``"lanes"`` (the lanes that enter each
 bounce, keyed by depth) and ``"shade"`` (the bounces shaded, keyed
-``"kernel"`` or ``"plain"`` by the path ``trace_paths`` took). ``frame()`` is the span ``fov.frame`` and counts
-one displayed frame under ``"frames"``.
+``"kernel"`` or ``"plain"`` by the path ``trace_paths`` took).
+``frame()`` is the span ``fov.frame`` and counts one displayed frame under
+``"frames"``; ``wavefront()`` counts one ``trace_paths`` call under
+``"wavefronts"`` (a mono frame makes one, a stereo pair two, a
+multi-device frame one a slice).
 
 Nothing here reads a tensor: a count that only the device knows is never
 read on the frame path, so the tracing adds no sync. With the profiler off
@@ -27,7 +30,8 @@ Each thread keeps its own stack of open spans; the counters are shared.
 between two snapshots.
 
 The frame's spans: ``fov.frame`` (``Renderer.render`` and ``render_aov``,
-``StereoRenderer.render`` a pair), ``fov.raygen`` (the passes' rays and
+``StereoRenderer.render`` a pair), ``fov.eye.<e>`` (eye ``e``'s
+``render_frame`` in a stereo pair), ``fov.raygen`` (the passes' rays and
 their merge in ``frame_wavefront``), ``fov.paths`` (``trace_paths``),
 ``fov.bounce.<depth>`` (a bounce of its loop), ``fov.k1`` and ``fov.k2``
 (the traversal wrappers), ``fov.film`` (``composite_passes``),
@@ -53,10 +57,12 @@ K2 = "fov.k2"
 FILM = "fov.film"
 TONEMAP = "fov.tonemap"
 BOUNCE_PREFIX = "fov.bounce."
+EYE_PREFIX = "fov.eye."
 SYNC_PREFIX = "fov.sync."
 
+SCALARS = ("frames", "wavefronts")
 GROUPS = ("ns", "ns_total", "syncs", "lanes", "shade")
-COUNTERS: dict = {"frames": 0, **{g: {} for g in GROUPS}}
+COUNTERS: dict = {**{s: 0 for s in SCALARS}, **{g: {} for g in GROUPS}}
 
 _lock = threading.Lock()  # COUNTERS' updates (the viewer renders on two
 # threads at once)
@@ -132,6 +138,11 @@ def bounce(depth: int) -> _Span:
     return _Span(BOUNCE_PREFIX + str(depth))
 
 
+def eye(e: int) -> _Span:
+    """The span of eye ``e`` of a stereo pair."""
+    return _Span(EYE_PREFIX + str(e))
+
+
 def sync(site: str) -> _Span:
     """The span ``fov.sync.<site>`` around a call that waits for the
     device; counts one sync at ``site``."""
@@ -147,6 +158,16 @@ def frame() -> _Span:
     return _Span(FRAME)
 
 
+def wavefront() -> None:
+    """Count one ``trace_paths`` wavefront. (Each call also makes one
+    ``live_lanes`` sync today; the count is kept apart from it so that it
+    still reads when that sync goes.)"""
+    with _lock:
+        # a table made from ``GROUPS`` and ``"frames"`` alone, as callers
+        # that restart the counters have made it, lacks the key
+        COUNTERS["wavefronts"] = COUNTERS.get("wavefronts", 0) + 1
+
+
 def count(group: str, key, n: int) -> None:
     """Add the host integer ``n`` to counter ``key`` of ``group``."""
     with _lock:
@@ -160,9 +181,10 @@ def snapshot() -> dict:
 
 
 def diff(a: dict, b: dict) -> dict:
-    """Snapshot ``b`` less snapshot ``a``: ``frames`` and, in each group,
-    the keys whose count changed."""
-    out = {"frames": b["frames"] - a["frames"]}
+    """Snapshot ``b`` less snapshot ``a``: each scalar count that either
+    holds (``frames``, ``wavefronts``) and, in each group, the keys whose
+    count changed."""
+    out = {s: b.get(s, 0) - a.get(s, 0) for s in SCALARS if s in a or s in b}
     for group in GROUPS:
         was, now = a.get(group, {}), b.get(group, {})
         out[group] = {k: now.get(k, 0) - was.get(k, 0)
