@@ -26,6 +26,13 @@ n=24, seed 0, gradient sky probe: 6,924 triangles), then:
    ``shade`` and one ``resolve`` launch a K1), which are held to the plain
    bounce on the frame's primary lanes at depth 0 and its survivors at
    depth 1 (masks exact, every float output bit for bit) and timed there;
+   each frame generates its rays in one ``raygen`` launch and composites
+   and tone-maps its passes in one ``film`` launch (``csrc/frame.cu``),
+   which are held to their plain versions at the frame's size and gaze
+   (rays, rings, canvas and uint8 frame bit for bit, over subframes 0, 1
+   and 7, on slot values of six decades and on the frame's own traced
+   values) and timed there beside their byte bounds
+   (``tools/frame_check.py`` ``check_size``);
 4. renders a small frame on the GPU and on the CPU (the plain versions) and
    requires 99% of the pixels within 1 LSB;
 
@@ -237,6 +244,7 @@ INST_OPS = 45
 RAY_SHAPE = "960x540 reference_32_16_8, box_city n=24 seed 0"
 KERNEL_SRC = "fovpathtracing_optixcodelatest_tpu_torch/csrc/"
 JAX_OPS = "fovpathtracing_optixcodelatest_tpu/ops/"
+JAX_RENDER = "fovpathtracing_optixcodelatest_tpu/render/"
 # the kernels the main path launches: closest hit (K1) and occlusion (K2),
 # both on the packed table, and their two-level variants on an instanced
 # scene's
@@ -522,6 +530,24 @@ def shade_phase(scene, config, rays: dict) -> dict:
     from fovpathtracing_optixcodelatest_tpu_torch.tools import shade_check
 
     return shade_check.check_frame(scene, config, rays["primary"])
+
+
+def frame_phase(scene, config, rays: dict) -> dict:
+    """(6c) The frame's ray generation and film kernels (``csrc/frame.cu``)
+    against their plain versions at the bench frame's size, schedule and
+    camera, the gaze at the centre (rays, rings, canvas and uint8 frame
+    bit for bit over subframes 0, 1 and 7), each timed alone beside its
+    byte bound, with their resources (``tools/frame_check.py``)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import frame as fo
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import (
+        frame_check,
+        kernel_times,
+    )
+
+    out = frame_check.check_size(scene, rays["camera"], config.width,
+                                 config.height, kernel_times.REPS)
+    out["resources"] = fo.resources()
+    return out
 
 
 def textured_phase(untextured_scene, n: int, schedule, width: int,
@@ -3658,6 +3684,9 @@ def main() -> int:
     # every bounce shaded by the two shading kernels, one launch each
     assert launches["shade"] == launches["resolve"] == launches[
         "closest_hit"] > 0, launches
+    # one wavefront a mono frame: its rays in one raygen launch, its
+    # composite and tone map in one film launch
+    assert launches["raygen"] == launches["film"] == FRAMES, launches
 
     # -- phase 6b: the bounce's shading kernels against the plain bounce -------
     results["shade"] = shade_phase(scene, config, rays)
@@ -3671,6 +3700,15 @@ def main() -> int:
           f"lanes; {json.dumps(results['shade']['resources'])}")
     assert results["shade"]["exact"], \
         "the shading kernels disagree with the plain bounce"
+
+    # -- phase 6c: the frame's raygen and film kernels against their plain
+    # versions ----------------------------------------------------------------
+    fr = results["frame_kernels"] = frame_phase(scene, config, rays)
+    _line(f"raygen/film against their plain versions at {w}x{h}: "
+          f"{json.dumps({k: v for k, v in fr.items() if k != 'resources'})}; "
+          f"{json.dumps(fr['resources'])}")
+    assert fr["exact"], \
+        "the frame's raygen or film kernel disagrees with its plain version"
 
     if args.profile:
         _profile_frames(renderer, args.profile, results)
@@ -4153,9 +4191,19 @@ def main() -> int:
          "plain_ms": p3_ms, "bound_ms": b3, "bound_by": b3_by,
          "library_ms": None, **res["occluded_packets"],
          "python_table": _python_record(lg, "k3", "occluded_packets")},
+        # the frame's raygen and film kernels at the bench frame (phase 6c)
+        *[{"name": k, "route": "cuda", "source": KERNEL_SRC + "frame.cu",
+           "replaces": JAX_RENDER + replaces, "launches": launches[k],
+           "max_abs_err": 0.0, "ms": fr[f"{k}_ms"],
+           "plain_ms": fr[f"plain_{k}_ms"], "bound_ms": fr["bound_ms"][k],
+           "bound_by": "bytes", "least_bytes": fr["least_bytes"][k],
+           "library_ms": None, **fr["resources"][k]}
+          for k, replaces in (("raygen", "raygen.py:111"),
+                              ("film", "film.py:68"))],
     ]
     for k in kernels:
-        k["main_path"] = k["name"] in PATH_KERNELS + INSTANCED_KERNELS
+        k["main_path"] = k["name"] in (PATH_KERNELS + INSTANCED_KERNELS
+                                       + ("raygen", "film"))
     results.update(
         kernels=kernels, frame_ms=frame_ms, traces=traces, mrays_s=mrays,
         peak_bytes=peak, launches_per_frame={k: per_frame(k) for k in launches},

@@ -42,9 +42,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "rng.cuh"
+#include "vec.cuh"
 
-#define F(x) static_cast<float>(x)
+namespace {
 
 constexpr double kPiD = 3.141592653589793;
 constexpr float kPi = F(kPiD);
@@ -52,7 +53,6 @@ constexpr float kTwoPi = F(6.283185307179586);
 constexpr float kInvPi = F(1.0 / kPiD);
 constexpr float kInv2Pi = F(0.5 / kPiD);
 constexpr float kTwoPiPi = F(2.0 * kPiD * kPiD);
-constexpr float kInv24 = F(1.0 / (1 << 24));
 constexpr int kThreads = 256;
 
 // record rows
@@ -61,38 +61,11 @@ constexpr int kLight = 0, kDir = 3, kThr = 6, kEta = 9, kEmit = 10,
 // flag bits
 constexpr int kHit = 1, kSampleOk = 2, kCatcher = 4, kTransmitted = 8;
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 operator*(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
-}
 __device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
-
-// ops/sampling.py dot: summed left to right
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return (a.x * b.x + a.y * b.y) + a.z * b.z;
-}
 
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
   return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
           a.x * b.y - a.y * b.x};
-}
-
-// torch.clamp(x, min=lo), torch.clamp(x, max=hi), torch.clamp(x, lo, hi):
-// NaN passes through
-__device__ __forceinline__ float clamp_lo(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-__device__ __forceinline__ float clamp_hi(float x, float hi) {
-  return isnan(x) ? x : fminf(x, hi);
-}
-__device__ __forceinline__ float clamp2(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
 }
 
 // local_to_world(d, u, v, n)
@@ -337,15 +310,6 @@ __device__ __forceinline__ void bsdf_sample(const Mat& m, float eta_i,
   pdf = bsdf_pdf(m, eta_i, eta_o, n, view, light);
 }
 
-__device__ __forceinline__ uint32_t mix(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
 // torch.remainder on int64: the sign of the divisor
 __device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t b) {
   int64_t r = a % b;
@@ -425,11 +389,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // the lane's 8 uniforms (ops/rng.py ray_uniform_cols): stream s of the
   // counter hash keyed by the bounce key's two words and the ray id
-  const uint32_t id = (uint32_t)((uint64_t)a.ray_ids[j] & 0xFFFFFFFFull);
-  const uint32_t base = mix(mix(id ^ a.key0) ^ a.key1);
-  const auto uniform = [base](uint32_t s) {
-    return (float)(mix(base + 0x9E3779B9u * (s + 1)) >> 8) * kInv24;
-  };
+  const uint32_t base = ray_hash(a.ray_ids[j], a.key0, a.key1);
+  const auto uniform = [base](uint32_t s) { return ray_uniform(base, s); };
 
   // probe_sample(probe, uniform(0), uniform(1))
   V3 wi, sky_col;

@@ -29,7 +29,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.build_dir import build_dir
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-SOURCES = ("traverse", "packet_traverse", "shade")
+SOURCES = ("traverse", "packet_traverse", "shade", "frame")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,7 +65,7 @@ def layout_name(kernel: str, arity: int, leaf_size: int) -> str:
 LAUNCHES = {"closest_hit": 0, "occluded": 0, "occluded_packets": 0,
             "closest_hit_instanced": 0, "occluded_instanced": 0,
             "occluded_nocull": 0, NOCULL_INSTANCED: 0,
-            "shade": 0, "resolve": 0,
+            "shade": 0, "resolve": 0, "raygen": 0, "film": 0,
             **{layout_name(k, *lay): 0 for lay in WIDE_LAYOUTS
                for k in WIDE_KERNELS}}
 
@@ -103,6 +103,12 @@ SIGNATURES = {
     "fov_shade": (_P, _P),
     "fov_resolve": (_P, _P),
     "fov_shade_info": (_I, _P, _P, _P, _P),
+    # the frame's ray generation and film (csrc/frame.cu): a pointer to the
+    # kernel's argument struct (ops/frame.py), then the stream
+    "fov_raygen": (_P, _P),
+    "fov_film": (_P, _P),
+    "fov_frame_info": (_I, _P, _P, _P, _P),
+    "fov_frame_sizes": (_P, _P),
 }
 
 _LOCK = threading.Lock()

@@ -117,9 +117,8 @@ def worker(rank: int, world_size: int, init_method: str, device="cuda",
         prng_key,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.parallel import tiles
-    from fovpathtracing_optixcodelatest_tpu_torch.render import film
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
-        composite_passes,
+        composite_and_finalize,
         frame_wavefront,
         pass_slot_values,
     )
@@ -158,10 +157,9 @@ def worker(rank: int, world_size: int, init_method: str, device="cuda",
                         dist.all_gather(parts, x)
                         joined[f] = tiles.join_slots(parts, p.spp)
                     slot_values.append(joined)
-                composite_passes(scene, camp, gx, gy, i, canvas, rays_list,
-                                 slot_values, config, schedule)
-                pad = film.schedule_padding(schedule, job.width, job.height)
-                frame = film.finalize(canvas, pad, config)
+                _, frame = composite_and_finalize(
+                    scene, camp, gx, gy, i, canvas, rays_list, slot_values,
+                    config, schedule)
                 traces = out["traces"].clone()
                 dist.all_reduce(traces)
                 total += traces

@@ -10,11 +10,12 @@ its pixel and slot (``render/raygen.py``), so each rank traces exactly the
 rays the single-device frame traces for those slots.
 
 Assembly: each rank's per-slot values go to the first device, are joined
-in slot order and summed over the slots by ``renderer.composite_passes``,
-the same code on the same values as the single-device frame, which is
-therefore reproduced bit for bit. (Summing per-rank partial sums instead
-would not be: torch's ``sum`` over a slot axis of more than three slots
-is not a left-to-right fold, so a different grouping rounds differently.)
+in slot order and summed over the slots by
+``renderer.composite_and_finalize``, the same code on the same values as
+the single-device frame, which is therefore reproduced bit for bit.
+(Summing per-rank partial sums instead would not be: torch's ``sum`` over
+a slot axis of more than three slots is not a left-to-right fold, so a
+different grouping rounds differently.)
 The scene is replicated once per distinct device.
 """
 
@@ -30,9 +31,8 @@ from fovpathtracing_optixcodelatest_tpu_torch.config import (
     FoveationSchedule,
     RenderConfig,
 )
-from fovpathtracing_optixcodelatest_tpu_torch.render import film
 from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
-    composite_passes,
+    composite_and_finalize,
     frame_wavefront,
     pass_slot_values,
 )
@@ -139,11 +139,9 @@ def render_frame_sharded(scene, camera, gaze_x: int, gaze_y: int,
         for i, p in enumerate(schedule.passes)
     ]
     with device_scope(first):
-        composite_passes(rank_scenes[0], to_device(camera, first), gaze_x,
-                         gaze_y, subframe, canvas, ranks[0][0], slot_values,
-                         config, schedule)
-        pad = film.schedule_padding(schedule, config.width, config.height)
-        frame = film.finalize(canvas, pad, config)
+        _, frame = composite_and_finalize(
+            rank_scenes[0], to_device(camera, first), gaze_x, gaze_y,
+            subframe, canvas, ranks[0][0], slot_values, config, schedule)
     return canvas, frame, traces
 
 

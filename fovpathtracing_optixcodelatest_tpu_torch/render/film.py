@@ -47,6 +47,17 @@ def shade_to_accum_color(rad_sum, alpha_sum, backplate, spp: int,
     return (color / spp).reshape(lh, lw, 3)
 
 
+def progressive_weight(p: FoveationPass, subframe: int,
+                       accumulate: bool):
+    """The weight of a pass's new colour against a pixel's history in the
+    progressive lerp, as a Python float of the float32 value; None where
+    the pass overwrites (it redraws, the film does not accumulate, or this
+    is subframe 0)."""
+    if accumulate and not p.redraw and subframe > 0:
+        return float(np.float32(1.0) / np.float32(subframe + 1.0))
+    return None
+
+
 def composite_pass(canvas, accum_color, ring, p: FoveationPass,
                    offset: Tuple[int, int], subframe: int, pad: int,
                    accumulate: bool) -> torch.Tensor:
@@ -62,10 +73,8 @@ def composite_pass(canvas, accum_color, ring, p: FoveationPass,
     new_rep = accum_color.repeat_interleave(f, 0).repeat_interleave(f, 1)
     ring_rep = ring.repeat_interleave(f, 0).repeat_interleave(f, 1)[..., None]
     prev = canvas[sy: sy + lh * f, sx: sx + lw * f]
-    val = new_rep
-    if accumulate and not p.redraw and subframe > 0:
-        a = float(np.float32(1.0) / np.float32(subframe + 1.0))
-        val = prev + (new_rep - prev) * a
+    a = progressive_weight(p, subframe, accumulate)
+    val = new_rep if a is None else prev + (new_rep - prev) * a
     canvas[sy: sy + lh * f, sx: sx + lw * f] = torch.where(ring_rep, val, prev)
     return canvas
 

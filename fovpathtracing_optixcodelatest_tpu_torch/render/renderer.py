@@ -6,8 +6,17 @@ carries the canvas, the subframe index and the camera between frames,
 given a ``DemandLoader`` pages the textures its frames request in between
 frames (``process_demand_requests``), and with ``multichip`` renders over
 several devices (``parallel/``). ``frame_wavefront`` can trace a slice of
-each pass's sample slots and ``composite_passes`` composites slot values
-however they were gathered: both are the multi-device paths' parts.
+each pass's sample slots and ``composite_and_finalize`` composites slot
+values however they were gathered: both are the multi-device paths' parts.
+
+On CUDA tensors, for whole passes of the ``random`` sampler (or none,
+without antialiasing) and no AOV canvases (``frame_on_kernels``), a
+frame's ray generation is one launch of ``csrc/frame.cu``'s
+``raygen_kernel`` (``kernel_frame_rays``) and its film and tone map one
+launch of its ``film_kernel`` (``kernel_film``), through ``ops/frame.py``,
+on the same arithmetic as their plain versions (``plain_frame_rays``, and
+``plain_composite_passes`` with ``film.finalize``: some 800 PyTorch ops a
+frame), which run everywhere else.
 
 Keys follow the JAX package's chain: frame key = fold_in(PRNGKey(seed),
 subframe), jitter key = fold_in(frame key, 0), path key = fold_in(frame
@@ -15,8 +24,10 @@ key, 1) (``ops.rng``).
 
 Spans (``utils/tracing.py``): a ``Renderer`` frame is ``fov.frame`` and
 counts one displayed frame, its download the sync ``download``; ray
-generation with the passes' merge is ``fov.raygen``, ``composite_passes``
-``fov.film``.
+generation with the passes' merge is ``fov.raygen``, the film
+``fov.film`` (the plain path's tone map ``fov.tonemap``). Each wavefront's
+ray generation counts under ``raygen`` and each frame's film under
+``film``, keyed ``"kernel"`` or ``"plain"`` by the path it took.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
     Scene,
     build_scene,
 )
+from fovpathtracing_optixcodelatest_tpu_torch.ops import frame as frame_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling as probe_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import fold_in, prng_key
 from fovpathtracing_optixcodelatest_tpu_torch.render import film, raygen
@@ -79,6 +91,65 @@ def render_pass_partial(scene, camera, p, width: int, height: int,
             {f: sums[f] for f in ("normal", "albedo")})
 
 
+def frame_on_kernels(device, config: RenderConfig,
+                     sample_ids_per_pass=None, aov_canvas=None) -> bool:
+    """Whether a frame generates its rays and composites and tone-maps its
+    passes with ``csrc/frame.cu``'s kernels (``kernel_frame_rays``,
+    ``kernel_film``): on CUDA tensors, with the ``random`` sampler or no
+    antialiasing, for whole passes (no ``sample_ids_per_pass``) and
+    without AOV canvases. The scene, spectral or RGB paths and demand
+    textures do not matter: the film takes RGB slot values. As
+    ``integrator.shades_on_kernels`` decides the bounce."""
+    return (torch.device(device).type == "cuda"
+            and (config.sampler == "random" or not config.antialias)
+            and sample_ids_per_pass is None and not aov_canvas)
+
+
+def pass_grids(schedule: FoveationSchedule, width: int, height: int,
+               gaze_x: int, gaze_y: int) -> list:
+    """Each pass's launch grid, frame offset and ring radii at the gaze
+    (``raygen.pass_launch_dims``, ``pass_offset``), as the frame's kernels
+    take them (``ops/frame.py`` ``PassGrid``: the radii in float32)."""
+    return [frame_ops.PassGrid(p.factor, p.spp,
+                               *raygen.pass_launch_dims(p, width, height),
+                               *raygen.pass_offset(p, gaze_x, gaze_y),
+                               p.r_inner, p.r_outer)
+            for p in schedule.passes]
+
+
+def plain_frame_rays(camera, gaze_x: int, gaze_y: int, jitter_key,
+                     config: RenderConfig, schedule: FoveationSchedule,
+                     sample_ids_per_pass=None):
+    """Every pass's rays (``raygen.generate_pass_rays``) and their merge in
+    PyTorch -> (per-pass ray dicts, merged dict of ``origin``,
+    ``direction``, ``active``, ``ray_ids``). The plain version of
+    ``kernel_frame_rays``."""
+    rays_list = [
+        raygen.generate_pass_rays(
+            camera, p, config.width, config.height, gaze_x, gaze_y,
+            jitter_key, antialias=config.antialias, sampler=config.sampler,
+            sample_ids=None if sample_ids_per_pass is None
+            else sample_ids_per_pass[i])
+        for i, p in enumerate(schedule.passes)
+    ]
+    merged = {
+        k: torch.cat([r[k] for r in rays_list], dim=0)
+        for k in ("origin", "direction", "active", "ray_ids")
+    }
+    return rays_list, merged
+
+
+def kernel_frame_rays(camera, gaze_x: int, gaze_y: int, jitter_key,
+                      config: RenderConfig, schedule: FoveationSchedule):
+    """``plain_frame_rays`` for whole passes of the ``random`` sampler (or
+    none) in one launch of ``raygen_kernel`` (``ops/frame.py``
+    ``generate_rays``), bit for bit."""
+    w, h = config.width, config.height
+    return frame_ops.generate_rays(
+        camera, pass_grids(schedule, w, h, gaze_x, gaze_y), w, h, gaze_x,
+        gaze_y, jitter_key, config.antialias)
+
+
 def frame_wavefront(scene, camera, gaze_x: int, gaze_y: int, key,
                     config: RenderConfig, schedule: FoveationSchedule,
                     sample_ids_per_pass=None):
@@ -86,22 +157,19 @@ def frame_wavefront(scene, camera, gaze_x: int, gaze_y: int, key,
     ``sample_ids_per_pass`` narrows each pass to those of its sample slots
     (``parallel/tiles.py``). Returns (per-pass ray dicts, trace_paths
     output, per-pass offsets)."""
-    w, h = config.width, config.height
     jitter_key = fold_in(key, 0)
     path_key = fold_in(key, 1)
+    kernels = frame_on_kernels(camera.eye.device, config,
+                               sample_ids_per_pass)
+    tracing.count("raygen", "kernel" if kernels else "plain", 1)
     with tracing.span(tracing.RAYGEN):
-        rays_list = [
-            raygen.generate_pass_rays(
-                camera, p, w, h, gaze_x, gaze_y, jitter_key,
-                antialias=config.antialias, sampler=config.sampler,
-                sample_ids=None if sample_ids_per_pass is None
-                else sample_ids_per_pass[i])
-            for i, p in enumerate(schedule.passes)
-        ]
-        merged = {
-            k: torch.cat([r[k] for r in rays_list], dim=0)
-            for k in ("origin", "direction", "active", "ray_ids")
-        }
+        if kernels:
+            rays_list, merged = kernel_frame_rays(
+                camera, gaze_x, gaze_y, jitter_key, config, schedule)
+        else:
+            rays_list, merged = plain_frame_rays(
+                camera, gaze_x, gaze_y, jitter_key, config, schedule,
+                sample_ids_per_pass)
     out = trace_paths(scene, merged["origin"], merged["direction"],
                       merged["active"], path_key, config,
                       ray_ids=merged["ray_ids"])
@@ -126,19 +194,20 @@ def pass_slot_values(rays_list, out, offsets,
 
 
 @tracing.spanned(tracing.FILM)
-def composite_passes(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
-                     canvas: torch.Tensor, rays_list, slot_values,
-                     config: RenderConfig, schedule: FoveationSchedule,
-                     aov_canvas=None) -> int:
+def plain_composite_passes(scene, camera, gaze_x: int, gaze_y: int,
+                           subframe: int, canvas: torch.Tensor, rays_list,
+                           slot_values, config: RenderConfig,
+                           schedule: FoveationSchedule,
+                           aov_canvas=None) -> None:
     """Composite every pass into ``canvas`` (in place) from its (P, spp, 3)
     slot values, summed over the slots here and nowhere else, so that every
     path that assembles the same values gets the same frame. Where
     ``aov_canvas`` maps AOV names to canvases, each pass's mean AOV goes
     into them too, always overwriting. Inner passes composite after outer
-    ones and overwrite the ring overlap. Returns the rays of the frame."""
+    ones and overwrite the ring overlap. With ``film.finalize``, the plain
+    version of ``kernel_film``."""
     w, h = config.width, config.height
     pad = film.schedule_padding(schedule, w, h)
-    total_rays = 0
     for p, rays, v in zip(schedule.passes, rays_list, slot_values):
         lw, lh = rays["launch"]
         rad_sum = v["radiance"].sum(1)
@@ -155,25 +224,79 @@ def composite_passes(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
             img = (v[name].sum(1) / p.spp).reshape(lh, lw, 3)
             film.composite_pass(target, img, rays["ring"], overwrite,
                                 rays["offset"], subframe, pad, False)
-        total_rays += lw * lh * p.spp
-    return total_rays
+
+
+def film_arguments(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
+                   canvas: torch.Tensor, slot_values, config: RenderConfig,
+                   schedule: FoveationSchedule) -> dict:
+    """``ops/frame.py`` ``film``'s arguments for the frame: the canvas's
+    padding, the passes' grids, each pass's progressive weight
+    (``film.progressive_weight``) and the tone map's settings."""
+    w, h = config.width, config.height
+    return dict(
+        canvas=canvas, width=w, height=h,
+        pad=film.schedule_padding(schedule, w, h),
+        grids=pass_grids(schedule, w, h, gaze_x, gaze_y),
+        slot_values=slot_values,
+        weights=[film.progressive_weight(p, subframe, config.accumulate)
+                 for p in schedule.passes],
+        camera=camera, probe=scene.probe.data, gaze_x=gaze_x, gaze_y=gaze_y,
+        exposure_stops=config.exposure_stops, white=config.white,
+        exposure_on=config.exposure_correction,
+        tonemap_on=config.tone_mapping)
+
+
+def kernel_film(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
+                canvas: torch.Tensor, slot_values, config: RenderConfig,
+                schedule: FoveationSchedule) -> torch.Tensor:
+    """``plain_composite_passes`` (without AOV canvases) and
+    ``film.finalize`` in one launch of ``film_kernel`` (``ops/frame.py``
+    ``film``), bit for bit -> the (H, W, 3) uint8 frame."""
+    return frame_ops.film(**film_arguments(
+        scene, camera, gaze_x, gaze_y, subframe, canvas, slot_values, config,
+        schedule))
+
+
+def composite_and_finalize(scene, camera, gaze_x: int, gaze_y: int,
+                           subframe: int, canvas: torch.Tensor, rays_list,
+                           slot_values, config: RenderConfig,
+                           schedule: FoveationSchedule, aov_canvas=None):
+    """Composite every pass into ``canvas`` (in place; the AOV canvases
+    too, where given) from its (P, spp, 3) slot values, however they were
+    gathered, and tone-map the crop -> (rays of the frame, frame (H, W, 3)
+    uint8)."""
+    total_rays = sum(r["launch"][0] * r["launch"][1] * p.spp
+                     for p, r in zip(schedule.passes, rays_list))
+    kernels = frame_on_kernels(canvas.device, config, aov_canvas=aov_canvas)
+    tracing.count("film", "kernel" if kernels else "plain", 1)
+    if kernels:
+        with tracing.span(tracing.FILM):
+            return total_rays, kernel_film(
+                scene, camera, gaze_x, gaze_y, subframe, canvas, slot_values,
+                config, schedule)
+    plain_composite_passes(scene, camera, gaze_x, gaze_y, subframe, canvas,
+                           rays_list, slot_values, config, schedule,
+                           aov_canvas)
+    pad = film.schedule_padding(schedule, config.width, config.height)
+    return total_rays, film.finalize(canvas, pad, config)
 
 
 def _trace_and_composite(scene, camera, gaze_x: int, gaze_y: int,
                          subframe: int, canvas: torch.Tensor, key,
                          config: RenderConfig, schedule: FoveationSchedule,
                          aov_canvas=None):
-    """Trace the frame's wavefront and composite it into ``canvas`` (and
-    the AOV canvases). Returns (trace_paths output, rays per frame)."""
+    """Trace the frame's wavefront, composite it into ``canvas`` (and the
+    AOV canvases) and tone-map it. Returns (trace_paths output, rays per
+    frame, frame (H, W, 3) uint8)."""
     rays_list, out, offsets = frame_wavefront(
         scene, camera, gaze_x, gaze_y, key, config, schedule
     )
     fields = ("radiance", "alpha") + tuple(aov_canvas or ())
-    total_rays = composite_passes(
+    total_rays, frame = composite_and_finalize(
         scene, camera, gaze_x, gaze_y, subframe, canvas, rays_list,
         pass_slot_values(rays_list, out, offsets, fields), config, schedule,
         aov_canvas)
-    return out, total_rays
+    return out, total_rays, frame
 
 
 def render_frame(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
@@ -181,11 +304,9 @@ def render_frame(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
                  schedule: FoveationSchedule):
     """One full frame -> (canvas, frame uint8 (H, W, 3), stats). The canvas
     is updated in place and returned."""
-    out, total_rays = _trace_and_composite(
+    out, total_rays, frame = _trace_and_composite(
         scene, camera, gaze_x, gaze_y, subframe, canvas, key, config,
         schedule)
-    pad = film.schedule_padding(schedule, config.width, config.height)
-    frame = film.finalize(canvas, pad, config)
     stats = {"traces": out["traces"], "rays": total_rays}
     if "demand_requests" in out:
         stats["demand_requests"] = out["demand_requests"]
@@ -203,10 +324,9 @@ def render_frame_aov(scene, camera, gaze_x: int, gaze_y: int, subframe: int,
     pad = film.schedule_padding(schedule, w, h)
     aov_canvas = {name: film.new_canvas(w, h, pad, canvas.device)
                   for name in ("normal", "albedo")}
-    out, _ = _trace_and_composite(
+    out, _, frame = _trace_and_composite(
         scene, camera, gaze_x, gaze_y, subframe, canvas, key, config,
         schedule, aov_canvas)
-    frame = film.finalize(canvas, pad, config)
     crop = lambda c: c[pad: pad + h, pad: pad + w]  # noqa: E731
     # a copy: later frames write the canvas in place
     aovs = {"accum": crop(canvas).clone(),

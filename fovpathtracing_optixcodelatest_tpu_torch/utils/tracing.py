@@ -14,8 +14,10 @@ records is read once, when the outermost span opens (a frame's
 for the device (the live-lane ``nonzero``, a bounce's boolean narrowing,
 the frame's download) and counts one sync under ``"syncs"``. ``count``
 adds to an integer counter, such as ``"lanes"`` (the lanes that enter each
-bounce, keyed by depth) and ``"shade"`` (the bounces shaded, keyed
-``"kernel"`` or ``"plain"`` by the path ``trace_paths`` took).
+bounce, keyed by depth), ``"shade"`` (the bounces shaded, keyed
+``"kernel"`` or ``"plain"`` by the path ``trace_paths`` took), and
+``"raygen"`` and ``"film"`` (a wavefront's ray generation and a frame's
+film and tone map, keyed so by the path ``render/renderer.py`` took).
 ``frame()`` is the span ``fov.frame`` and counts one displayed frame under
 ``"frames"``; ``wavefront()`` counts one ``trace_paths`` call under
 ``"wavefronts"`` (a mono frame makes one, a stereo pair two, a
@@ -34,9 +36,10 @@ The frame's spans: ``fov.frame`` (``Renderer.render`` and ``render_aov``,
 ``render_frame`` in a stereo pair), ``fov.raygen`` (the passes' rays and
 their merge in ``frame_wavefront``), ``fov.paths`` (``trace_paths``),
 ``fov.bounce.<depth>`` (a bounce of its loop), ``fov.k1`` and ``fov.k2``
-(the traversal wrappers), ``fov.film`` (``composite_passes``),
-``fov.tonemap`` (``film.finalize``); its syncs ``live_lanes``, ``narrow``,
-``download`` and, for a stereo pair, ``traces``.
+(the traversal wrappers), ``fov.film`` (``plain_composite_passes``, or
+on the kernel path the film's one launch, which tone-maps too),
+``fov.tonemap`` (``film.finalize``, the plain path's tone map); its syncs ``live_lanes``, ``narrow``, ``download``
+and, for a stereo pair, ``traces``.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ EYE_PREFIX = "fov.eye."
 SYNC_PREFIX = "fov.sync."
 
 SCALARS = ("frames", "wavefronts")
-GROUPS = ("ns", "ns_total", "syncs", "lanes", "shade")
+GROUPS = ("ns", "ns_total", "syncs", "lanes", "shade", "raygen", "film")
 COUNTERS: dict = {**{s: 0 for s in SCALARS}, **{g: {} for g in GROUPS}}
 
 _lock = threading.Lock()  # COUNTERS' updates (the viewer renders on two

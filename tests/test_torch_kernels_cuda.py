@@ -211,7 +211,9 @@ def test_kernels_match_plain_versions(cuda_device, n, seed):
 def test_a_frame_shades_each_bounce_in_two_launches(city):
     """On the card each bounce of a frame launches K1, the shading kernels
     ``shade`` and ``resolve`` (``csrc/shade.cu``) and K2 once each, and
-    counts under ``shade`` / ``"kernel"`` (no catcher, so no re-trace)."""
+    counts under ``shade`` / ``"kernel"`` (no catcher, so no re-trace); the
+    frame's ray generation and film are one launch each
+    (``csrc/frame.cu``)."""
     config = RenderConfig(width=96, height=54, max_depth=4)
     r = Renderer(city, config, FoveationSchedule.uniform(2), seed=0,
                  device="cuda")
@@ -224,7 +226,8 @@ def test_a_frame_shades_each_bounce_in_two_launches(city):
     assert got["shade"] == {"kernel": config.max_depth}
     b = config.max_depth
     assert kernel_build.LAUNCHES == _launched(closest_hit=b, occluded=b,
-                                              shade=b, resolve=b)
+                                              shade=b, resolve=b, raygen=1,
+                                              film=1)
 
 
 # ---------------------------------------------------------------------------

@@ -185,7 +185,8 @@ def test_diff_keeps_what_changed():
          "lanes": {0: 7}}
     assert tracing.diff(a, b) == {
         "frames": 1, "ns": {"x": 4, "y": 1}, "ns_total": {},
-        "syncs": {"d": 1}, "lanes": {0: 7}, "shade": {}}
+        "syncs": {"d": 1}, "lanes": {0: 7}, "shade": {}, "raygen": {},
+        "film": {}}
 
 
 def test_a_span_keeps_its_self_time_apart_from_its_children():
@@ -300,8 +301,11 @@ def test_on_the_card_syncs_are_spans_and_device_work_is_spanned(card,
         s = _innermost(inside, launch["ts"])
         assert s is not None, (e["name"], launch["name"])
         launched += 1
-    # ray generation, the film and each bounce's K1, shading kernels and
-    # K2 (about 660 launches a frame; each bounce's shading is two)
-    assert launched > 500
+    # ray generation and the film (one launch each), each bounce's K1,
+    # shading kernels and K2, and the state's set-up and narrowing (about
+    # 80 launches a frame)
+    assert launched > 50
     for kernel in ("shade_kernel", "resolve_kernel"):
         assert sum(kernel in e["name"] for e in device) == DEPTH, kernel
+    for kernel in ("raygen_kernel", "film_kernel"):
+        assert sum(kernel in e["name"] for e in device) == 1, kernel
