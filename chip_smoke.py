@@ -356,8 +356,8 @@ def _kernel_of(name: str):
 
 def _ptxas_spills(log: str) -> dict:
     """Spill-store bytes per kernel from an ``nvcc -Xptxas -v`` log; a
-    wide layout's instantiation under its ``kernel_build.layout_name``."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    wide layout's instantiation under its ``traverse.layout_name``."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
     out, current = {}, None
     for ln in log.splitlines():
@@ -366,7 +366,7 @@ def _ptxas_spills(log: str) -> dict:
             current = _kernel_of(fn)
             lay = re.search(r"_kernelILi(\d+)ELi(\d+)E", fn)
             if current and lay:
-                current = kernel_build.layout_name(current, int(lay[1]),
+                current = traverse.layout_name(current, int(lay[1]),
                                                    int(lay[2]))
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and current:
@@ -502,7 +502,7 @@ def timed_frames(renderer, frames: int, warm_up: bool = True) -> dict:
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         traces.append(renderer.stats["traces"])
-    launches = dict(kernel_build.LAUNCHES)
+    launches = kernel_build.LAUNCHES.copy()
     lin = renderer.linear_frame()
     return {
         "frame": frame, "frame_ms": frame_ms, "traces": traces,
@@ -777,12 +777,9 @@ def _field_layouts(rays: dict, frames: int, ref_frame, device,
     layout's names) whose last frame lies within 1 LSB of ``ref_frame``
     (the (16, 6) table's) on 99% of the pixels; with ``profile`` as many
     frames under the profiler (``profile``: the instanced kernels' device
-    time a launch). Keyed by ``kernel_build.layout_name("field", arity,
+    time a launch). Keyed by ``traverse.layout_name("field", arity,
     leaf_size)``."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
-        kernel_build,
-        traverse,
-    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
         Renderer,
     )
@@ -809,8 +806,8 @@ def _field_layouts(rays: dict, frames: int, ref_frame, device,
             f"instanced K1 at {lay} disagrees with its plain version: {mism}"
         assert mism2 == 0, f"instanced K2 at {lay} disagrees with its plain version"
         assert int(p1["hit"].sum()) > 0 and int(p2.sum()) > 0
-        names = {k: kernel_build.layout_name(k, *lay) for k in
-                 ("ik1_primary", "ik2_shadow", *kernel_build.INSTANCED_KERNELS)}
+        names = {k: traverse.layout_name(k, *lay) for k in
+                 ("ik1_primary", "ik2_shadow", *traverse.INSTANCED_KERNELS)}
         times = dict.fromkeys(names.values())
         if device == "cuda":  # else a rehearsal: no device time
             times = kernel_times.time_kernels(
@@ -836,9 +833,9 @@ def _field_layouts(rays: dict, frames: int, ref_frame, device,
         del p1, p2
         rec["resources"] = None
         if device == "cuda":
-            res = kernel_build.resources(b.stack_depth)
+            res = traverse.resources(b.stack_depth)
             rec["resources"] = {k: res[names[k]]
-                                for k in kernel_build.INSTANCED_KERNELS}
+                                for k in traverse.INSTANCED_KERNELS}
         renderer = Renderer(dataclasses.replace(rays["scene"], bvh=b),
                             config, rays["schedule"], device=device)
         renderer.set_camera(rays["camera"])
@@ -855,11 +852,11 @@ def _field_layouts(rays: dict, frames: int, ref_frame, device,
         rec["frame_share"] = _share_within_1lsb(frame, ref_frame)
         assert rec["frame_share"] >= 0.99, \
             f"the field's {lay} frame differs from the (16, 6) frame's"
-        for k in kernel_build.INSTANCED_KERNELS:
+        for k in traverse.INSTANCED_KERNELS:
             assert rec["launches"][names[k]] == rec["launches"][k] > 0 \
                 or device != "cuda", \
                 f"the {lay} field frame did not launch only {names[k]}"
-        out[kernel_build.layout_name("field", *lay)] = rec
+        out[traverse.layout_name("field", *lay)] = rec
     return out
 
 
@@ -870,7 +867,7 @@ def city_field_phase(schedule, width: int, height: int, frames: int,
     frames, its instanced K1 and K2 against their plain versions on the
     frame's lanes (exact), and the same at the wide layouts
     (``_field_layouts``)."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
         Renderer,
     )
@@ -878,7 +875,7 @@ def city_field_phase(schedule, width: int, height: int, frames: int,
 
     rays = kernel_times.field_rays(device, width=width, height=height,
                                    schedule=schedule,
-                                   layouts=kernel_build.WIDE_LAYOUTS,
+                                   layouts=traverse.WIDE_LAYOUTS,
                                    field=kernel_times.city_field())
     b = rays["scene"].bvh
     calls = kernel_times.field_calls(rays)
@@ -920,17 +917,14 @@ def instanced_phase(schedule, width: int, height: int, frames: int,
     layouts (``_field_layouts``, under ``wide``)."""
     import numpy as np
 
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
-        kernel_build,
-        traverse,
-    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
         Renderer,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 
     rays = kernel_times.field_rays(device, count, width, height, schedule,
-                                   layouts=kernel_build.WIDE_LAYOUTS)
+                                   layouts=traverse.WIDE_LAYOUTS)
     scene, flat, sc = rays["scene"], rays["flat"], rays["field"]
     config, camera = rays["config"], rays["camera"]
     b = scene.bvh
@@ -1109,7 +1103,7 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.ops import (
         bvh_native,
-        kernel_build,
+        traverse,
     )
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
         Renderer,
@@ -1184,7 +1178,7 @@ def deep_phase(city_n: int, frames: int, schedule, width: int, height: int,
     root, ext = os.path.splitext(profile) if profile else (None, None)
     for rec, sc in ((out, scene), (w, wscene)):
         lay = (sc.bvh.arity, sc.bvh.leaf_size)
-        name = kernel_build.layout_name(f"deep{city_n}", *lay)
+        name = traverse.layout_name(f"deep{city_n}", *lay)
         renderer = Renderer(sc, config, schedule, device=device)
         renderer.set_camera(camera)
         rec.update(timed_frames(renderer, frames))
@@ -1258,10 +1252,7 @@ def _walk_records(rec: dict, b, calls: dict, sub, config, times,
     frame's walked lanes (the subset is spread evenly over them; the plain
     walk of every frame lane would take minutes), at least the subset's
     distinct rows."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
-        kernel_build,
-        traverse,
-    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
     from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 
     (po, pd, ones1), (qo, qd, ones2) = sub
@@ -1269,7 +1260,7 @@ def _walk_records(rec: dict, b, calls: dict, sub, config, times,
     layout = (b.arity, b.leaf_size)
     # the records' keys and the instantiations' names
     names = {key: kernel_times.table_name(k, b) for key, k in
-             zip(("k1", "k2", "k2_nocull"), kernel_build.LAYOUT_KERNELS)}
+             zip(("k1", "k2", "k2_nocull"), traverse.LAYOUT_KERNELS)}
     got1 = calls[names["k1"]]()
     got2 = calls[names["k2"]]()
     got3 = calls[names["k2_nocull"]]()
@@ -1318,9 +1309,9 @@ def _walk_records(rec: dict, b, calls: dict, sub, config, times,
                             frame_queried=n_queried)
     rec["resources"] = None
     if device == "cuda":
-        res = kernel_build.resources(b.stack_depth)
-        rec["resources"] = {k: res[kernel_build.layout_name(k, *layout)]
-                            for k in kernel_build.LAYOUT_KERNELS}
+        res = traverse.resources(b.stack_depth)
+        rec["resources"] = {k: res[traverse.layout_name(k, *layout)]
+                            for k in traverse.LAYOUT_KERNELS}
     return got1, got2, got3
 
 
@@ -1537,11 +1528,8 @@ def deep_field_phase(city_n: int, frames: int, schedule, width: int,
     as ``_walk_records``) and resources; ``frames`` timed frames a table,
     each wide frame within 1 LSB of the (16, 6) frame on 99% of the pixels
     and launching only its layout's instantiations. Keyed by
-    ``kernel_build.layout_name("deep_field", arity, leaf_size)``."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
-        kernel_build,
-        traverse,
-    )
+    ``traverse.layout_name("deep_field", arity, leaf_size)``."""
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
     from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import (
         Renderer,
     )
@@ -1584,9 +1572,9 @@ def deep_field_phase(city_n: int, frames: int, schedule, width: int,
             f"the deep field's instanced K2 at {lay} disagrees with its " \
             "plain version"
         assert int(p1["hit"].sum()) > 0 and 0 < int(p2.sum()) < n2
-        names = {k: kernel_build.layout_name(k, *lay) for k in
+        names = {k: traverse.layout_name(k, *lay) for k in
                  ("ik1_primary", "ik2_shadow",
-                  *kernel_build.INSTANCED_KERNELS)}
+                  *traverse.INSTANCED_KERNELS)}
         rec = {"layout": lay, "rows": b.num_rows,
                "stack_depth": b.stack_depth, "inst_base": b.inst_base,
                "blas_base": b.blas_base, "table_bytes": b.table.numel() * 4,
@@ -1615,9 +1603,9 @@ def deep_field_phase(city_n: int, frames: int, schedule, width: int,
         del p1, p2
         rec["resources"] = None
         if device == "cuda":
-            res = kernel_build.resources(b.stack_depth)
+            res = traverse.resources(b.stack_depth)
             rec["resources"] = {k: res[names[k]]
-                                for k in kernel_build.INSTANCED_KERNELS}
+                                for k in traverse.INSTANCED_KERNELS}
         renderer = Renderer(dataclasses.replace(rays["scene"], bvh=b),
                             config, rays["schedule"], device=device)
         renderer.set_camera(rays["camera"])
@@ -1631,11 +1619,11 @@ def deep_field_phase(city_n: int, frames: int, schedule, width: int,
         rec["frame_share"] = _share_within_1lsb(frame, ref_frame)
         assert rec["frame_share"] >= 0.99, \
             f"the deep field's {lay} frame differs from the (16, 6) frame's"
-        for k in kernel_build.INSTANCED_KERNELS:
+        for k in traverse.INSTANCED_KERNELS:
             assert rec["launches"][names[k]] == rec["launches"][k] > 0 \
                 or device != "cuda", \
                 f"the deep field's {lay} frame did not launch only {names[k]}"
-        out[kernel_build.layout_name("deep_field", *lay)] = rec
+        out[traverse.layout_name("deep_field", *lay)] = rec
     out["instances"] = len(sc.instances)
     out["unique_triangles"] = rays["scene"].num_triangles
     out["world_triangles"] = sc.num_world_triangles
@@ -1741,11 +1729,11 @@ def _wide_record(g: dict, k: str, kernel: str, replaces: str,
     rays (``narrow_ms``, ``narrow_frame_ms``), its design and resources,
     with ``launches`` from the path that ran it (the wide frames; the
     raycast for the non-culling K2)."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
     w = g["wide"]
     r = w[k]
-    name = kernel_build.layout_name(kernel, *w["layout"])
+    name = traverse.layout_name(kernel, *w["layout"])
     return {"name": name, "route": "cuda",
             "source": KERNEL_SRC + "traverse.cu",
             "replaces": JAX_OPS + replaces, "launches": launches,
@@ -1783,11 +1771,11 @@ def _field_record(inst: dict, city: dict, kernel: str, layout,
     (launches: the field's wide frames; ``narrow_ms``: the (16, 6) table's
     kernel on the same rays), and ``city``, its record on the city field
     (8 instances of a 1,500-triangle BLAS)."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
-    key = kernel_build.layout_name("field", *layout)
+    key = traverse.layout_name("field", *layout)
     k = "k1" if kernel == "closest_hit_instanced" else "k2"
-    name = kernel_build.layout_name(kernel, *layout)
+    name = traverse.layout_name(kernel, *layout)
     w, cw = inst["wide"][key], city["wide"][key]
     r, cr = w[k], cw[k]
     return {"name": name, "route": "cuda",
@@ -1813,9 +1801,9 @@ def _field_record(inst: dict, city: dict, kernel: str, layout,
 def _deep_field_record(q: dict, kernel: str, layout) -> dict:
     """The kernels line's record of the instanced K1 or K2 (``kernel``) on
     phase q's table of ``layout``: its times, bounds and launches there."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
-    rec = q[kernel_build.layout_name("deep_field", *layout)]
+    rec = q[traverse.layout_name("deep_field", *layout)]
     r = rec["k1" if kernel == "closest_hit_instanced" else "k2"]
     return {"lanes": r["lanes"], "frame_lanes": r["frame_lanes"],
             "ms": r["ms"], "frame_ms": r["frame_ms"],
@@ -1823,7 +1811,7 @@ def _deep_field_record(q: dict, kernel: str, layout) -> dict:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "frame_bound_ms": r["frame_bound_ms"],
             "frame_bound_by": r["frame_bound_by"],
-            "launches": rec["launches"][kernel_build.layout_name(kernel,
+            "launches": rec["launches"][traverse.layout_name(kernel,
                                                                  *layout)],
             "max_abs_err": r["max_abs_err"], "stack_depth": rec["stack_depth"],
             "rows": rec["rows"], "table_bytes": rec["table_bytes"],
@@ -1835,11 +1823,11 @@ def _jax_tables_record(p: dict, k: str, layout) -> dict:
     on phase p's tables of ``layout``, keyed by table, with the frames'
     launches of the kernel's instantiation there (0 for the non-culling K2,
     which the frames do not launch)."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
     kernel = dict(zip(("k1", "k2", "k2_nocull"),
-                      kernel_build.LAYOUT_KERNELS))[k]
-    name = kernel_build.layout_name(kernel, *layout)
+                      traverse.LAYOUT_KERNELS))[k]
+    name = traverse.layout_name(kernel, *layout)
     return {label: {"lanes": rec[k]["lanes"], "ms": rec[k]["ms"],
                     "frame_ms": rec[k]["frame_ms"],
                     "frame_lanes": rec[k]["frame_lanes"],
@@ -2153,7 +2141,7 @@ def oracle_phase(device="cuda") -> dict:
         frames[dev] = simple.raycast(sc, cam.device_params(dev), 64, 48,
                                      light_pos=light).cpu().numpy()
         if dev == device:
-            out["raycast_launches"] = dict(kernel_build.LAUNCHES)
+            out["raycast_launches"] = kernel_build.LAUNCHES.copy()
             scene = sc
     frame = frames[device]
     r, g = frame[..., 0].astype(int), frame[..., 1].astype(int)
@@ -2171,14 +2159,14 @@ def oracle_phase(device="cuda") -> dict:
         f"raycast on {device} vs CPU: {out['raycast_share']}"
     # the raycast from the wide tables: their non-culling K2 on a user's path
     out["raycast_wide"] = {}
-    for lay in kernel_build.WIDE_LAYOUTS:
+    for lay in traverse.WIDE_LAYOUTS:
         sc = build_scene(meshes, texture_images=images, device=device,
                          shading_normals=True, arity=lay[0],
                          leaf_size=lay[1])
         kernel_build.reset_launches()
         wide = simple.raycast(sc, cam.device_params(device), 64, 48,
                               light_pos=light).cpu().numpy()
-        name = kernel_build.layout_name("occluded_nocull", *lay)
+        name = traverse.layout_name("occluded_nocull", *lay)
         out["raycast_wide"][name] = {
             "launches": kernel_build.LAUNCHES[name],
             "share": _share_within_1lsb(wide, frame)}
@@ -2232,7 +2220,7 @@ def readme_example(width: int, height: int, schedule=None,
     _sync(device)
     return {"shape": frame.shape, "mean": float(frame.mean()),
             "device": str(r.scene.device), "traces": r.stats["traces"],
-            "launches": dict(kernel_build.LAUNCHES)}
+            "launches": kernel_build.LAUNCHES.copy()}
 
 
 def nocull_check(bvh, so, sd, sq, tmin: float, tmax: float,
@@ -2296,7 +2284,7 @@ def raycast_field_phase(width: int, height: int, device="cuda",
     plain version on every queried shadow lane, timed (CUDA events) beside
     the culling two-level K2 on the same lanes, with its bound; each
     frame's share of pixels within 1 LSB of the first layout's. Keyed by
-    ``kernel_build.layout_name("raycast_field", arity, leaf_size)``."""
+    ``traverse.layout_name("raycast_field", arity, leaf_size)``."""
     import numpy as np
 
     from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
@@ -2326,7 +2314,7 @@ def raycast_field_phase(width: int, height: int, device="cuda",
         kernel_build.reset_launches()
         frame = simple.raycast(sc_lay, camp, width, height)
         _sync(device)
-        launches = dict(kernel_build.LAUNCHES)
+        launches = kernel_build.LAUNCHES.copy()
         t0 = time.perf_counter()
         with _plain_walks():
             plain_frame = simple.raycast(sc_lay, camp, width, height)
@@ -2355,11 +2343,11 @@ def raycast_field_phase(width: int, height: int, device="cuda",
                                                "culling": culling})
         ns, nq = so.shape[0], int(sq.sum())
         bound, by, fetch = _bound(st, b.table, ns, nq, 1)
-        name = kernel_build.layout_name(kernel_build.NOCULL_INSTANCED, *lay)
+        name = traverse.layout_name(traverse.NOCULL_INSTANCED, *lay)
         res = None
         if device == "cuda":
-            res = kernel_build.resources(b.stack_depth)[name]
-        out[kernel_build.layout_name("raycast_field", *lay)] = {
+            res = traverse.resources(b.stack_depth)[name]
+        out[traverse.layout_name("raycast_field", *lay)] = {
             "layout": list(lay), "rows": b.num_rows,
             "stack_depth": b.stack_depth, "host_build_s": table_s,
             "frame_shape": list(frame.shape),
@@ -2412,7 +2400,7 @@ def _check_raycast_field(rf: dict, device="cuda") -> None:
     its frame the plain walks' byte for byte and within 1 LSB of the first
     layout's on 99% of the pixels, the two-level kernels (and no
     single-level one) launched, under the layout's names too."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
     for rec in rf.values():
         lay = tuple(rec["layout"])
@@ -2426,8 +2414,8 @@ def _check_raycast_field(rf: dict, device="cuda") -> None:
         assert rec["occluded"] > 0 and rec["lit_share"] > 0.1
         n = rec["launches"]
         if device == "cuda":
-            for k in ("closest_hit_instanced", kernel_build.NOCULL_INSTANCED):
-                name = kernel_build.layout_name(k, *lay)
+            for k in ("closest_hit_instanced", traverse.NOCULL_INSTANCED):
+                name = traverse.layout_name(k, *lay)
                 assert n[k] > 0 and n[name] == n[k], \
                     f"the raycast at {lay} did not launch {name}"
         for k in ("closest_hit", "occluded", "occluded_nocull",
@@ -2541,7 +2529,7 @@ def demand_phase(city_n: int, schedule, width: int, height: int,
             r.render()
             sync()
             ms = (time.perf_counter() - t0) * 1e3
-            launches = dict(kernel_build.LAUNCHES)
+            launches = kernel_build.LAUNCHES.copy()
             loaded = loader.num_tiles_loaded
             req = r._stats["demand_requests"].cpu().numpy()
             requested = r.process_demand_requests()
@@ -2603,7 +2591,7 @@ def demand_phase(city_n: int, schedule, width: int, height: int,
         assert all(v > 0 for v in sizes.values()), sizes
         out["cli"] = {"argv": " ".join(argv).replace(tmp, "<tmp>"),
                       "files": sizes,
-                      "launches": dict(kernel_build.LAUNCHES)}
+                      "launches": kernel_build.LAUNCHES.copy()}
     return out
 
 
@@ -2708,7 +2696,7 @@ def stereo_phase(scene, config, schedule, camera, pairs: int, device="cuda",
         frames.append(sr.render(*eyes))  # a host array: the pair is done
         pair_ms.append((time.perf_counter() - t0) * 1e3)
         traces.append(sr.stats["traces"])
-    launches = dict(kernel_build.LAUNCHES)
+    launches = kernel_build.LAUNCHES.copy()
     out = {
         "pairs": frames, "pair_ms": pair_ms,
         "mean_ms": sum(pair_ms) / len(pair_ms), "traces": traces,
@@ -2796,7 +2784,7 @@ def _timed(fn, frames: int) -> dict:
         fn(i)
         ms.append((time.perf_counter() - t0) * 1e3)
     return {"frame_ms": ms, "mean_ms": sum(ms) / len(ms),
-            "launches": dict(kernel_build.LAUNCHES)}
+            "launches": kernel_build.LAUNCHES.copy()}
 
 
 _MP_WORKER = r"""
@@ -2994,7 +2982,7 @@ def viewer_phase(scene, config, schedule, camera, device="cuda",
     assert not alive, f"viewer threads still running: {alive}"
     return dict(seen, frames=got.get("frames"), swapped=swapped.is_set(),
                 wall_s=time.perf_counter() - t0,
-                launches=dict(kernel_build.LAUNCHES))
+                launches=kernel_build.LAUNCHES.copy())
 
 
 def sweep_phase(width: int, height: int, frames: int, device="cuda",
@@ -3014,7 +3002,7 @@ def sweep_phase(width: int, height: int, frames: int, device="cuda",
                 "--out-dir", tmp, *extra]
         kernel_build.reset_launches()
         rc = benchmark_sweep.main(argv)
-        launches = dict(kernel_build.LAUNCHES)
+        launches = kernel_build.LAUNCHES.copy()
         assert rc == 0, f"the sweep returned {rc}"
         files = {f: os.path.getsize(os.path.join(tmp, f))
                  for f in sorted(os.listdir(tmp))}
@@ -3335,7 +3323,7 @@ def legacy_phase(rays: dict, tris, device="cuda") -> dict:
     k1p, k2p, k3p = (calls[k]() for k in calls)
     if device == "cuda":
         torch.cuda.synchronize()
-    out["launches"] = dict(kernel_build.LAUNCHES)
+    out["launches"] = kernel_build.LAUNCHES.copy()
     st1, st2, st3 = {}, {}, {}
     p1, p1_ms = _plain_ms(lambda: traverse.closest_hit_plain(
         pt, o, d, act, *pargs, stats=st1))
@@ -3644,7 +3632,7 @@ def main() -> int:
     assert mism2 == 0, "K2 disagrees with its plain version (shadow rays)"
     assert mism3 == 0, "K3 disagrees with its plain version"
     assert mism32 == 0, "K3 disagrees with K2 on the same rays"
-    check_launches = dict(kernel_build.LAUNCHES)  # of this phase's checks
+    check_launches = kernel_build.LAUNCHES.copy()  # of this phase's checks
     del p1, p2, p3, p2p, k2p, p3p, k3p
 
     # K1 again on bounce 0's continuation rays: incoherent, off-camera, the
@@ -3774,7 +3762,7 @@ def main() -> int:
     # -- phase c: textured catcher frame and AOVs, GPU against the CPU -------
     kernel_build.reset_launches()
     cat = catcher_phase(sw, sh, small_sched)
-    cat_launches = dict(kernel_build.LAUNCHES)
+    cat_launches = kernel_build.LAUNCHES.copy()
     _line(f"catcher cornell {sw}x{sh}, 2 subframes through render_aov: GPU vs "
           f"CPU pixels within 1 LSB {cat['share']:.4f}; AOV and denoise max "
           f"error relative to the CPU image's largest value "
@@ -3787,7 +3775,7 @@ def main() -> int:
     # -- phase d: the CLI ---------------------------------------------------
     kernel_build.reset_launches()
     cli = cli_phase(w, h, "32_16_8")
-    cli_launches = dict(kernel_build.LAUNCHES)
+    cli_launches = kernel_build.LAUNCHES.copy()
     _line(f"CLI: {cli['argv']} -> 0 in {cli['wall_s']:.1f} s; TSV render ms/"
           "frame " + ", ".join(f"{x:.1f}" for x in cli["render_ms"])
           + f"; files {cli['files']}; launches {cli_launches}")
@@ -3858,7 +3846,7 @@ def main() -> int:
     del spec_renderer
     kernel_build.reset_launches()
     spec_cli = cli_phase(w, h, "32_16_8", spectral=True)
-    spec_cli_launches = dict(kernel_build.LAUNCHES)
+    spec_cli_launches = kernel_build.LAUNCHES.copy()
     _line(f"CLI: {spec_cli['argv']} -> 0 in {spec_cli['wall_s']:.1f} s; TSV "
           "render ms/frame " + ", ".join(f"{x:.1f}"
                                          for x in spec_cli["render_ms"])
@@ -3875,7 +3863,7 @@ def main() -> int:
         deep[city_n] = g
         _deep_lines(f"deep n={city_n}", g)
         for k in PATH_KERNELS:
-            wk = kernel_build.layout_name(k, *wide)
+            wk = traverse.layout_name(k, *wide)
             assert g["launches"][k] > 0, f"the deep frame never launched {k}"
             assert g["launches"][wk] == 0, f"the (16, 6) frame launched {wk}"
             assert g["wide"]["launches"][wk] == g["wide"]["launches"][k] > 0, \
@@ -3892,7 +3880,7 @@ def main() -> int:
     _jax_tables_lines(f"p n={JAX_SCENE_N}", jt)
     for label, rec in jt.items():
         for k in PATH_KERNELS:
-            name = kernel_build.layout_name(k, *rec["layout"])
+            name = traverse.layout_name(k, *rec["layout"])
             assert rec["launches"][name] == rec["launches"][k] > 0, \
                 f"the {label} frame did not launch {name}"
         del rec["frame"]
@@ -4080,7 +4068,7 @@ def main() -> int:
     # a kernel of the main path reports its launches there, one off it the
     # launches of its check on the shadow rays (phase 5)
     path_launches = {k: launches[k] if k in PATH_KERNELS else check_launches[k]
-                     for k in launches}
+                     for k in launches.keys() | check_launches.keys()}
     b1, b1_by, f1 = _bound(st1, bvh.table, n, n_act, 16)
     b2, b2_by, f2 = _bound(st2, bvh.table, ns, nq, 1)
     b3, b3_by, _ = _bound(st3, leg.table, ns, nq, 1)
@@ -4092,7 +4080,7 @@ def main() -> int:
     _line(f"row fetches (L2 traffic): K1 {f1 / 1e6:.1f} MB primary, "
           f"{f1b / 1e6:.1f} MB continuation, K2 {f2 / 1e6:.1f} MB, K3 "
           f"{f3 / 1e6:.1f} MB ({fetched3['packets']} packets)")
-    res = kernel_build.resources(bvh.stack_depth)
+    res = traverse.resources(bvh.stack_depth)
     spills = {}
     for log in kernel_build.BUILD_INFO["log"].values():
         spills.update(_ptxas_spills(log))
@@ -4101,7 +4089,7 @@ def main() -> int:
     for k, r in (g10["resources"] or {}).items():
         r["spill_bytes"] = spills.get(k)
     # the instanced kernels at the field's stack depth
-    inst_res = kernel_build.resources(inst["stack_depth"])
+    inst_res = traverse.resources(inst["stack_depth"])
     for k, r in inst_res.items():
         r["spill_bytes"] = spills.get(k)
     for title, kernel_res in (
@@ -4151,7 +4139,7 @@ def main() -> int:
         *[dict(_field_record(inst, city, kernel, lay, replaces, spills),
                **({"deep_field": _deep_field_record(dq, kernel, lay)}
                   if lay in DEEP_FIELD_LAYOUTS else {}))
-          for lay in kernel_build.WIDE_LAYOUTS
+          for lay in traverse.WIDE_LAYOUTS
           for kernel, replaces in (
               ("closest_hit_instanced", "traverse8.py:523"),
               ("occluded_instanced", "traverse8.py:1487"))],
@@ -4171,10 +4159,10 @@ def main() -> int:
         # raycast from a wide table (phase h)
         *[dict(_wide_record(
             deep[city_n], k, kernel, replaces,
-            orc["raycast_wide"][kernel_build.layout_name(kernel, *wide)][
+            orc["raycast_wide"][traverse.layout_name(kernel, *wide)][
                 "launches"] if k == "k2_nocull" else
             deep[city_n]["wide"]["launches"][
-                kernel_build.layout_name(kernel, *wide)], spills),
+                traverse.layout_name(kernel, *wide)], spills),
             jax_tables=_jax_tables_record(jt, k, wide))
           for city_n, _, wide in DEEP_SCENES
           for k, kernel, replaces in (

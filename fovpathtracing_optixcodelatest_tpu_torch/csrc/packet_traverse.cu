@@ -306,23 +306,32 @@ extern "C" int fov_packet_spill(int stack_depth, int n, long long* entries) {
   return (int)err;
 }
 
-// spill: fov_packet_spill(stack_depth, n) uint2 entries of scratch.
-// counter: 4 zeroed int32. counter[0] hands out the lanes; K3 adds the
-// packets it walked and the node and leaf rows it fetched to counter[1..3].
-extern "C" int fov_occluded_packets(const float* table, const float* orig,
-                                    const float* dir,
-                                    const unsigned char* active, int n,
-                                    float tmin, float tmax, int stack_depth,
-                                    bool* occ_out, void* spill, int* counter,
-                                    void* stream) {
-  if (n > 0) {
+// K3's launch
+struct PacketArgs {
+  const float* table;
+  const float* orig;            // (n, 3)
+  const float* dir;             // (n, 3)
+  const unsigned char* active;  // (n,)
+  bool* occ_out;                // (n,)
+  void* spill;  // fov_packet_spill(stack_depth, n) uint2 entries of scratch
+  // 4 zeroed int32. counter[0] hands out the lanes; K3 adds the packets it
+  // walked and the node and leaf rows it fetched to counter[1..3].
+  int* counter;
+  int n;
+  float tmin;
+  float tmax;
+  int stack_depth;
+};
+
+extern "C" int fov_occluded_packets(const PacketArgs* a, cudaStream_t stream) {
+  if (a->n > 0) {
     int blocks = 0;
-    const cudaError_t err = launch_blocks(n, &blocks);
+    const cudaError_t err = launch_blocks(a->n, &blocks);
     if (err != cudaSuccess) return (int)err;
-    occluded_packets_kernel<<<blocks, kThreads, kSharedBytes,
-                              (cudaStream_t)stream>>>(
-        reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
-        tmax, stack_depth, occ_out, reinterpret_cast<uint2*>(spill), counter);
+    occluded_packets_kernel<<<blocks, kThreads, kSharedBytes, stream>>>(
+        reinterpret_cast<const uint4*>(a->table), a->orig, a->dir, a->active,
+        a->n, a->tmin, a->tmax, a->stack_depth, a->occ_out,
+        reinterpret_cast<uint2*>(a->spill), a->counter);
   }
   return (int)cudaGetLastError();
 }

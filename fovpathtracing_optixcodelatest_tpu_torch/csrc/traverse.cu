@@ -1877,37 +1877,93 @@ int global_stack_entries(int which, int layout, int n, int depth,
 
 }  // namespace
 
-// K1, K2 and the non-culling K2 take the table's (arity, leaf_size) and
-// launch the instantiation of that layout; any other returns
-// cudaErrorInvalidValue. K1's stack: fov_traverse_stack entries of scratch
-// (none at the layouts whose stacks lie in shared or local memory).
-extern "C" int fov_closest_hit(const float* table, const float* orig,
-                               const float* dir, const unsigned char* active,
-                               int n, float tmin, float tmax, int stack_depth,
-                               unsigned int lowmask, float* t_out,
-                               int* tri_out, float* u_out, float* v_out,
-                               int* counter, unsigned int* stack, int arity,
-                               int leaf, void* stream) {
-  const int layout = layout_of(arity, leaf);
-  if (layout < 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
+// A traversal launch: kernel ``which`` (K1 0, K2 1, instanced K1 2,
+// instanced K2 3, non-culling K2 4, non-culling instanced K2 5) at the
+// table's (arity, leaf). Each kernel reads the fields it takes and ignores
+// the rest.
+struct TraverseArgs {
+  const float* table;
+  const float* orig;            // (n, 3)
+  const float* dir;             // (n, 3)
+  const unsigned char* active;  // (n,)
+  float* t_out;                 // (n,) K1's
+  int* tri_out;
+  float* u_out;
+  float* v_out;
+  int* inst_out;  // (n,) the instanced K1's
+  bool* occ_out;  // (n,) K2's
+  int* counter;   // 1 zeroed int32: hands out the lanes
+  // the single-level K1's global stack: fov_traverse_stack entries (none,
+  // a null pointer, at the layouts whose stacks lie in shared or local
+  // memory)
+  unsigned int* stack;
+  int which;
+  int n;
+  float tmin;
+  float tmax;
+  int stack_depth;
+  unsigned int lowmask;  // K1's
+  int inst_base;         // the instanced kernels'
+  int blas_base;
+  int arity;
+  int leaf;
+};
+
+// Launches the instantiation of the table's layout; any other layout, or
+// a ``which`` outside 0-5, returns cudaErrorInvalidValue.
+extern "C" int fov_traverse(const TraverseArgs* a, cudaStream_t stream) {
+  const int layout = layout_of(a->arity, a->leaf);
+  if (layout < 0 || a->which < 0 || a->which >= kKernels)
+    return (int)cudaErrorInvalidValue;
+  if (a->n > 0) {
     size_t smem = 0;
     int blocks = 0;
-    const int rc = launch_grid(0, layout, n, stack_depth, &smem, &blocks);
+    const int rc =
+        launch_grid(a->which, layout, a->n, a->stack_depth, &smem, &blocks);
     if (rc != 0) return rc;
     with_layout(layout, [&](auto tag) {
       constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
-      const uint4* t = reinterpret_cast<const uint4*>(table);
-      if constexpr (kGrouped<A, L>)
-        closest_hit_group_kernel<A, L>
-            <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-                t, orig, dir, active, n, tmin, tmax, stack_depth, lowmask,
-                t_out, tri_out, u_out, v_out, counter, stack);
-      else
-        closest_hit_kernel<A, L>
-            <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-                t, orig, dir, active, n, tmin, tmax, stack_depth, lowmask,
-                t_out, tri_out, u_out, v_out, counter);
+      const uint4* t = reinterpret_cast<const uint4*>(a->table);
+      switch (a->which) {
+        case 0:
+          if constexpr (kGrouped<A, L>)
+            closest_hit_group_kernel<A, L><<<blocks, kThreads, smem, stream>>>(
+                t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
+                a->stack_depth, a->lowmask, a->t_out, a->tri_out, a->u_out,
+                a->v_out, a->counter, a->stack);
+          else
+            closest_hit_kernel<A, L><<<blocks, kThreads, smem, stream>>>(
+                t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
+                a->stack_depth, a->lowmask, a->t_out, a->tri_out, a->u_out,
+                a->v_out, a->counter);
+          break;
+        case 2:
+          closest_hit_instanced_kernel<A, L>
+              <<<blocks, kThreads, smem, stream>>>(
+                  t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
+                  a->stack_depth, a->lowmask, a->t_out, a->tri_out, a->u_out,
+                  a->v_out, a->counter, a->inst_base, a->blas_base,
+                  a->inst_out);
+          break;
+        case 3:
+        case 5: {
+          const auto kernel = a->which == 3
+                                  ? occluded_instanced_kernel<A, L>
+                                  : occluded_nocull_instanced_kernel<A, L>;
+          kernel<<<blocks, kThreads, smem, stream>>>(
+              t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
+              a->stack_depth, a->occ_out, a->counter, a->inst_base,
+              a->blas_base);
+          break;
+        }
+        default: {  // K2 (1) or the non-culling K2 (4)
+          const auto kernel = a->which == 1 ? occluded_kernel_at<A, L, true>()
+                                            : occluded_kernel_at<A, L, false>();
+          kernel<<<blocks, kThreads, smem, stream>>>(
+              t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
+              a->stack_depth, a->occ_out, a->counter);
+        }
+      }
       return 0;
     });
   }
@@ -1925,138 +1981,6 @@ extern "C" int fov_traverse_stack(int which, int arity, int leaf,
       kernel_of(which, layout) == nullptr)
     return (int)cudaErrorInvalidValue;
   return global_stack_entries(which, layout, n, stack_depth, entries);
-}
-
-namespace {
-
-// K2 (which 1) or the non-culling K2 (4) at the table's layout
-int launch_occluded(int which, const float* table, const float* orig,
-                    const float* dir, const unsigned char* active, int n,
-                    float tmin, float tmax, int stack_depth, bool* occ_out,
-                    int* counter, int arity, int leaf, void* stream) {
-  const int layout = layout_of(arity, leaf);
-  if (layout < 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    size_t smem = 0;
-    int blocks = 0;
-    const int rc = launch_grid(which, layout, n, stack_depth, &smem, &blocks);
-    if (rc != 0) return rc;
-    with_layout(layout, [&](auto tag) {
-      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
-      const auto kernel = which == 1 ? occluded_kernel_at<A, L, true>()
-                                     : occluded_kernel_at<A, L, false>();
-      kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-          reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
-          tmax, stack_depth, occ_out, counter);
-      return 0;
-    });
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int fov_occluded(const float* table, const float* orig,
-                            const float* dir, const unsigned char* active,
-                            int n, float tmin, float tmax, int stack_depth,
-                            bool* occ_out, int* counter, int arity, int leaf,
-                            void* stream) {
-  return launch_occluded(1, table, orig, dir, active, n, tmin, tmax,
-                         stack_depth, occ_out, counter, arity, leaf, stream);
-}
-
-extern "C" int fov_occluded_nocull(const float* table, const float* orig,
-                                   const float* dir,
-                                   const unsigned char* active, int n,
-                                   float tmin, float tmax, int stack_depth,
-                                   bool* occ_out, int* counter, int arity,
-                                   int leaf, void* stream) {
-  return launch_occluded(4, table, orig, dir, active, n, tmin, tmax,
-                         stack_depth, occ_out, counter, arity, leaf, stream);
-}
-
-// The two-level K1 and K2 take the table's (arity, leaf) as the
-// single-level ones do.
-extern "C" int fov_closest_hit_instanced(
-    const float* table, const float* orig, const float* dir,
-    const unsigned char* active, int n, float tmin, float tmax,
-    int stack_depth, unsigned int lowmask, float* t_out, int* tri_out,
-    float* u_out, float* v_out, int* counter, int inst_base, int blas_base,
-    int* inst_out, int arity, int leaf, void* stream) {
-  const int layout = layout_of(arity, leaf);
-  if (layout < 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    size_t smem = 0;
-    int blocks = 0;
-    const int rc = launch_grid(2, layout, n, stack_depth, &smem, &blocks);
-    if (rc != 0) return rc;
-    with_layout(layout, [&](auto tag) {
-      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
-      closest_hit_instanced_kernel<A, L>
-          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-              reinterpret_cast<const uint4*>(table), orig, dir, active, n,
-              tmin, tmax, stack_depth, lowmask, t_out, tri_out, u_out, v_out,
-              counter, inst_base, blas_base, inst_out);
-      return 0;
-    });
-  }
-  return (int)cudaGetLastError();
-}
-
-namespace {
-
-// the two-level K2 (which 3) or its non-culling variant (5) at the table's
-// layout
-int launch_occluded_instanced(int which, const float* table,
-                              const float* orig, const float* dir,
-                              const unsigned char* active, int n, float tmin,
-                              float tmax, int stack_depth, bool* occ_out,
-                              int* counter, int inst_base, int blas_base,
-                              int arity, int leaf, void* stream) {
-  const int layout = layout_of(arity, leaf);
-  if (layout < 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    size_t smem = 0;
-    int blocks = 0;
-    const int rc = launch_grid(which, layout, n, stack_depth, &smem, &blocks);
-    if (rc != 0) return rc;
-    with_layout(layout, [&](auto tag) {
-      constexpr int A = decltype(tag)::kArity, L = decltype(tag)::kLeaf;
-      const auto kernel = which == 3 ? occluded_instanced_kernel<A, L>
-                                     : occluded_nocull_instanced_kernel<A, L>;
-      kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-          reinterpret_cast<const uint4*>(table), orig, dir, active, n, tmin,
-          tmax, stack_depth, occ_out, counter, inst_base, blas_base);
-      return 0;
-    });
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int fov_occluded_instanced(const float* table, const float* orig,
-                                      const float* dir,
-                                      const unsigned char* active, int n,
-                                      float tmin, float tmax, int stack_depth,
-                                      bool* occ_out, int* counter,
-                                      int inst_base, int blas_base, int arity,
-                                      int leaf, void* stream) {
-  return launch_occluded_instanced(3, table, orig, dir, active, n, tmin, tmax,
-                                   stack_depth, occ_out, counter, inst_base,
-                                   blas_base, arity, leaf, stream);
-}
-
-// the two-level K2 with back faces occluding: fov_occluded_instanced's
-// arguments
-extern "C" int fov_occluded_nocull_instanced(
-    const float* table, const float* orig, const float* dir,
-    const unsigned char* active, int n, float tmin, float tmax,
-    int stack_depth, bool* occ_out, int* counter, int inst_base,
-    int blas_base, int arity, int leaf, void* stream) {
-  return launch_occluded_instanced(5, table, orig, dir, active, n, tmin, tmax,
-                                   stack_depth, occ_out, counter, inst_base,
-                                   blas_base, arity, leaf, stream);
 }
 
 // Registers per thread, local memory per thread (spills and any stack

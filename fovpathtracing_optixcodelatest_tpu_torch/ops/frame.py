@@ -77,22 +77,17 @@ class FilmArgs(ctypes.Structure):
                 ("passes", FilmPass * MAX_PASSES)]
 
 
+# the tensors of ``RaygenArgs``, ``FilmArgs`` and ``FilmPass``, and the
+# shapes of the camera's vectors
+_RAYGEN = dict.fromkeys(("eye", "u", "v", "w"), torch.float32)
+_FILM = dict.fromkeys(("canvas", "u", "v", "w", "probe"), torch.float32)
+_PASS = dict.fromkeys(("radiance", "alpha"), torch.float32)
+_VEC3 = dict.fromkeys(("eye", "u", "v", "w"), (3,))
+
+
 def _f32(x: float) -> float:
     """``x`` rounded to float32, as PyTorch converts a Python scalar."""
     return float(np.float32(x))
-
-
-def _ptr(name: str, x: torch.Tensor, dtype, device, shape=None) -> int:
-    """``x``'s data pointer; raises ``ValueError`` unless it is a contiguous
-    ``dtype`` tensor on ``device`` (of ``shape``, where given)."""
-    if (x.dtype != dtype or not x.is_contiguous() or x.device != device
-            or (shape is not None and tuple(x.shape) != tuple(shape))):
-        raise ValueError(
-            f"{name}: a contiguous {dtype} tensor"
-            f"{'' if shape is None else f' of shape {tuple(shape)}'} on "
-            f"{device} is needed, got {x.dtype} {tuple(x.shape)}"
-            f"{'' if x.is_contiguous() else ' (strided)'} on {x.device}")
-    return x.data_ptr()
 
 
 def _check_grids(grids) -> None:
@@ -104,11 +99,6 @@ def _check_grids(grids) -> None:
         if not 1 <= g.spp <= RNG_STRIDE:
             raise ValueError(f"spp {g.spp}: the kernels take 1 to "
                              f"RNG_STRIDE {RNG_STRIDE}")
-
-
-def _camera_ptrs(camera, names, device) -> dict:
-    return {k: _ptr(f"camera.{k}", getattr(camera, k), torch.float32,
-                    device, (3,)) for k in names}
 
 
 def raygen_inputs(camera, grids, width: int, height: int, gaze_x: int,
@@ -138,11 +128,12 @@ def raygen_inputs(camera, grids, width: int, height: int, gaze_x: int,
            "ray_ids": torch.empty((n,), dtype=torch.int64, device=dev),
            "ring": torch.empty((rings,), dtype=torch.bool, device=dev)}
     key0, key1 = key_words(key)
-    args = RaygenArgs(
-        **_camera_ptrs(camera, ("eye", "u", "v", "w"), dev),
+    args = kernel_build.fill(RaygenArgs(
         **{k: v.data_ptr() for k, v in out.items()},
         n=n, width=width, height=height, gaze_x=gaze_x, gaze_y=gaze_y,
-        antialias=int(antialias), num_passes=len(grids), key0=key0, key1=key1)
+        antialias=int(antialias), num_passes=len(grids), key0=key0,
+        key1=key1), dev, _RAYGEN, {"eye": camera.eye, "u": camera.u,
+                                   "v": camera.v, "w": camera.w}, _VEC3)
     for i, (g, (ray0, ring0)) in enumerate(zip(grids, bases)):
         args.ray_base[i], args.ring_base[i], args.passes[i] = ray0, ring0, g
     return args, out
@@ -157,10 +148,7 @@ def generate_rays(camera, grids, width: int, height: int, gaze_x: int,
     args, out = raygen_inputs(camera, grids, width, height, gaze_x, gaze_y,
                               key, antialias)
     if args.n:
-        rc = kernel_build.library("frame").fov_raygen(
-            ctypes.addressof(args), kernel_build.stream())
-        kernel_build.check(rc, "raygen")
-        kernel_build.LAUNCHES["raygen"] += 1
+        kernel_build.launch("frame", "fov_raygen", "raygen", args)
     rays_list = []
     for i, g in enumerate(grids):
         ray0, ring0 = args.ray_base[i], args.ring_base[i]
@@ -210,28 +198,26 @@ def film_inputs(canvas: torch.Tensor, width: int, height: int, pad: int,
                          f"{len(weights)} weights for {len(grids)} passes")
     w, h = width, height
     canvas_h, canvas_w = h + 2 * pad, w + 2 * pad
-    ptr = _ptr("canvas", canvas, torch.float32, dev, (canvas_h, canvas_w, 3))
     frame = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
-    args = FilmArgs(
-        canvas=ptr, frame=frame.data_ptr(),
-        **_camera_ptrs(camera, ("u", "v", "w"), dev),
-        probe=_ptr("probe", probe, torch.float32, dev),
-        canvas_w=canvas_w, canvas_h=canvas_h, pad=pad, width=w, height=h,
+    args = kernel_build.fill(FilmArgs(
+        frame=frame.data_ptr(), canvas_w=canvas_w, canvas_h=canvas_h,
+        pad=pad, width=w, height=h,
         gaze_x=gaze_x, gaze_y=gaze_y, probe_w=probe.shape[1],
         probe_h=probe.shape[0], exposure_on=int(exposure_on),
         tonemap_on=int(tonemap_on),
         exposure_scale=_f32(2.0 ** exposure_stops),
         inv_white=float(np.float32(1.0) / np.float32(white)),
-        num_passes=len(grids))
+        num_passes=len(grids)), dev, _FILM,
+        {"canvas": canvas, "u": camera.u, "v": camera.v, "w": camera.w,
+         "probe": probe}, {**_VEC3, "canvas": (canvas_h, canvas_w, 3)})
     (args.box_x0, args.box_y0, args.box_x1,
      args.box_y1) = film_box(grids, pad, w, h)
     for i, (g, v, a) in enumerate(zip(grids, slot_values, weights)):
         shape = (g.lw * g.lh, g.spp, 3)
-        args.passes[i] = FilmPass(
-            _ptr(f"pass {i} radiance", v["radiance"], torch.float32, dev,
-                 shape),
-            _ptr(f"pass {i} alpha", v["alpha"], torch.float32, dev, shape),
-            int(a is not None), 0.0 if a is None else _f32(a), g)
+        args.passes[i] = kernel_build.fill(
+            FilmPass(blend=int(a is not None),
+                     lerp=0.0 if a is None else _f32(a), grid=g),
+            dev, _PASS, v, {"radiance": shape, "alpha": shape})
     return args, frame
 
 
@@ -240,10 +226,7 @@ def film(*args, **kwargs):
     pass into the canvas in place and tone-map the crop -> the (H, W, 3)
     uint8 frame."""
     fargs, frame = film_inputs(*args, **kwargs)
-    rc = kernel_build.library("frame").fov_film(ctypes.addressof(fargs),
-                                                kernel_build.stream())
-    kernel_build.check(rc, "film")
-    kernel_build.LAUNCHES["film"] += 1
+    kernel_build.launch("frame", "fov_film", "film", fargs)
     return frame
 
 
@@ -252,17 +235,12 @@ def resources() -> dict:
     blocks per SM and threads a block of ``raygen`` and ``film``, as the
     CUDA runtime reports them for the loaded build, and the argument
     structs' sizes in the build (``struct_bytes``)."""
-    lib = kernel_build.library("frame")
     keys = ("registers", "local_bytes", "blocks_per_sm", "threads")
-    out = {}
-    for which, name in enumerate(("raygen", "film")):
-        vals = [ctypes.c_int(0) for _ in keys]
-        kernel_build.check(lib.fov_frame_info(
-            which, *(ctypes.addressof(v) for v in vals)), "fov_frame_info")
-        out[name] = dict(zip(keys, (v.value for v in vals)))
-    sizes = [ctypes.c_int(0), ctypes.c_int(0)]
-    kernel_build.check(lib.fov_frame_sizes(
-        *(ctypes.addressof(v) for v in sizes)), "fov_frame_sizes")
-    out["struct_bytes"] = {"RaygenArgs": sizes[0].value,
-                           "FilmArgs": sizes[1].value}
+    out = {name: dict(zip(keys, kernel_build.query("frame", "fov_frame_info",
+                                                   which)))
+           for which, name in enumerate(("raygen", "film"))}
+    out["struct_bytes"] = dict(zip(("RaygenArgs", "FilmArgs"),
+                                   kernel_build.query("frame",
+                                                      "fov_frame_sizes",
+                                                      outs=2)))
     return out

@@ -24,6 +24,7 @@ import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
 from fovpathtracing_optixcodelatest_tpu_torch.ops.traverse import (
+    RAYS,
     STATS,
     _add_stats,
     _check,
@@ -40,6 +41,16 @@ KERNEL_LEAF_SIZE = 4  # the leaf size K3 is compiled for
 # what K3 counts of its own walk (``fetched``): packets, and rows fetched
 # once per packet step
 FETCHES = ("packets", "node_rows", "leaf_rows")
+
+
+class PacketArgs(ctypes.Structure):
+    """``fov_occluded_packets``' argument struct (csrc/packet_traverse.cu)."""
+
+    _fields_ = [*((k, ctypes.c_void_p) for k in (
+                    "table", "orig", "dir", "active", "occ_out", "spill",
+                    "counter")),
+                ("n", ctypes.c_int), ("tmin", ctypes.c_float),
+                ("tmax", ctypes.c_float), ("stack_depth", ctypes.c_int)]
 
 
 def occluded_packets_plain(table, o, d, active, tmin: float, tmax: float,
@@ -113,28 +124,25 @@ def occluded_packets(table, o, d, active, tmin: float, tmax: float,
             raise ValueError("fetched counts K3's walk: CUDA tensors only")
         return occluded_packets_plain(table, o, d, active, tmin, tmax,
                                       stack_depth, leaf_size)
-    n = o.shape[0]
+    n, dev = o.shape[0], o.device
     _kernel_layout(table, n, WIDTH, leaf_size, want=(WIDTH, KERNEL_LEAF_SIZE),
                    width=64)
-    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:  # nothing to launch
         return occ
-    lib = kernel_build.library("packet_traverse")
     # the packets' stack entries beyond what shared memory holds
-    entries = ctypes.c_longlong(0)
-    kernel_build.check(
-        lib.fov_packet_spill(stack_depth, n, ctypes.addressof(entries)),
-        "occluded_packets")
-    spill = torch.empty((entries.value, 2), dtype=torch.int32,
-                        device=o.device)
-    counter = torch.zeros((4,), dtype=torch.int32, device=o.device)
-    rc = lib.fov_occluded_packets(
-        table.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(), n,
-        tmin, tmax, stack_depth, occ.data_ptr(), spill.data_ptr(),
-        counter.data_ptr(), kernel_build.stream(),
-    )
-    kernel_build.check(rc, "occluded_packets")
-    kernel_build.LAUNCHES["occluded_packets"] += 1
+    entries, = kernel_build.query("packet_traverse", "fov_packet_spill",
+                                  stack_depth, n, outs=1,
+                                  out_type=ctypes.c_longlong)
+    spill = torch.empty((entries, 2), dtype=torch.int32, device=dev)
+    counter = torch.zeros((4,), dtype=torch.int32, device=dev)
+    args = kernel_build.fill(
+        PacketArgs(occ_out=occ.data_ptr(), spill=spill.data_ptr(),
+                   counter=counter.data_ptr(), n=n, tmin=tmin, tmax=tmax,
+                   stack_depth=stack_depth),
+        dev, RAYS, {"table": table, "orig": o, "dir": d, "active": active})
+    kernel_build.launch("packet_traverse", "fov_occluded_packets",
+                        "occluded_packets", args)
     if fetched is not None:
         for name, count in zip(FETCHES, counter[1:].tolist()):
             fetched[name] = fetched.get(name, 0) + count

@@ -161,23 +161,11 @@ def resolve_inputs(idx, rec, p, occ, query, state, primary: bool,
 
 
 def pack(cls, dtypes: dict, tensors: dict, ints: dict):
-    """The struct ``cls`` of ``tensors`` (each of its ``dtypes`` entry,
-    contiguous, on the first tensor's device; None gives a null pointer)
-    and ``ints``. Raises ``ValueError`` on any other tensor."""
-    dev = tensors["idx"].device
-    ptrs = {}
-    for name, want in dtypes.items():
-        x = tensors[name]
-        if x is None:
-            ptrs[name] = None
-            continue
-        if x.dtype != want or not x.is_contiguous() or x.device != dev:
-            raise ValueError(
-                f"{name}: a contiguous {want} tensor on {dev} is needed, got "
-                f"{x.dtype}{'' if x.is_contiguous() else ' (strided)'} on "
-                f"{x.device}")
-        ptrs[name] = x.data_ptr()
-    return cls(**ptrs, **ints)
+    """The struct ``cls`` of ``ints`` and ``tensors`` (each of its ``dtypes``
+    entry, contiguous, on the first tensor's device: ``kernel_build.fill``;
+    None gives a null pointer)."""
+    return kernel_build.fill(cls(**ints), tensors["idx"].device, dtypes,
+                             tensors)
 
 
 def shade(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool):
@@ -187,10 +175,7 @@ def shade(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool):
                                  primary)
     args = pack(ShadeArgs, SHADE_TENSORS, tensors, ints)
     if ints["n"]:
-        rc = kernel_build.library("shade").fov_shade(
-            ctypes.addressof(args), kernel_build.stream())
-        kernel_build.check(rc, "shade")
-        kernel_build.LAUNCHES["shade"] += 1
+        kernel_build.launch("shade", "fov_shade", "shade", args)
     return tensors["p_out"], tensors["wi_out"], tensors["query"], \
         tensors["rec"]
 
@@ -203,10 +188,7 @@ def resolve(idx, rec, p, occ, query, state, primary: bool,
                                    has_catcher)
     args = pack(ResolveArgs, RESOLVE_TENSORS, tensors, ints)
     if ints["n"]:
-        rc = kernel_build.library("shade").fov_resolve(
-            ctypes.addressof(args), kernel_build.stream())
-        kernel_build.check(rc, "resolve")
-        kernel_build.LAUNCHES["resolve"] += 1
+        kernel_build.launch("shade", "fov_resolve", "resolve", args)
     return tensors["alive"]
 
 
@@ -215,10 +197,6 @@ def resources() -> dict:
     blocks per SM and threads a block of ``shade`` and ``resolve``, as the
     CUDA runtime reports them for the loaded build."""
     keys = ("registers", "local_bytes", "blocks_per_sm", "threads")
-    out = {}
-    for which, name in enumerate(("shade", "resolve")):
-        vals = [ctypes.c_int(0) for _ in keys]
-        kernel_build.check(kernel_build.library("shade").fov_shade_info(
-            which, *(ctypes.addressof(v) for v in vals)), "fov_shade_info")
-        out[name] = dict(zip(keys, (v.value for v in vals)))
-    return out
+    return {name: dict(zip(keys, kernel_build.query("shade",
+                                                    "fov_shade_info", which)))
+            for which, name in enumerate(("shade", "resolve"))}

@@ -7,7 +7,7 @@ raise if the launch fails; on a CPU tensor they run ``closest_hit_plain`` /
 ``occluded_plain``. The kernels are compiled for the packed layouts the
 port builds (``KERNEL_LAYOUTS``): (arity, leaf_size) = (16, 6), the
 default, and the JAX package's wide (32, 12) and (32, 24); a wide launch
-also counts under ``kernel_build.layout_name``. On a CUDA tensor any other
+also counts under ``layout_name``. On a CUDA tensor any other
 (arity, leaf_size), rows of another width, or a table that is not 16-byte
 aligned raises ``ValueError``. The plain versions take any layout: they
 walk every ray's stack as one (N, stack_depth) int64 tensor with masked
@@ -40,7 +40,10 @@ does.
 ``occluded(..., cull_backface=False)`` lets back faces occlude too (the 04
 raycast's shadow ray, ``render/simple.py``): on a CUDA tensor it launches
 K2's non-culling instantiation, or on a two-level table the two-level
-K2's (``kernel_build.NOCULL_INSTANCED``), each compiled for every layout.
+K2's (``NOCULL_INSTANCED``), each compiled for every layout.
+
+All six kernels launch through one entry, ``fov_traverse``, which takes a
+``TraverseArgs`` whose ``which`` names the kernel (``WHICH``).
 
 ``ops/traverse8.py`` gives these walks under the JAX package's names and
 signatures. Each call of ``closest_hit`` or ``occluded``, on either
@@ -50,6 +53,7 @@ device, is the span ``fov.k1`` or ``fov.k2`` (``utils/tracing.py``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -66,10 +70,33 @@ _MASK = 0xFFFFFFFF
 # deepest stack the wrappers take: the wide tables need up to 164 entries
 # (A32/L12 at 10M triangles); csrc/traverse.cu kMaxStack
 MAX_STACK = 256
-# the (arity, leaf_size) layouts K1, K2 and the non-culling K2 are compiled
-# for, with their rows' widths (bvh8: max(4 arity, 10 leaf_size) columns)
+# the layouts (arity, leaf_size) every kernel is compiled for besides the
+# default (16, 6): the JAX package's wide packings ((32, 12) as
+# group-per-ray walks, (32, 24) as one thread a ray)
+WIDE_LAYOUTS = ((32, 12), (32, 24))
+# the (arity, leaf_size) layouts the kernels are compiled for, with their
+# rows' widths (bvh8: max(4 arity, 10 leaf_size) columns)
 KERNEL_LAYOUTS = {lay: max(4 * lay[0], 10 * lay[1])
-                  for lay in ((ARITY, LEAF_SIZE), *kernel_build.WIDE_LAYOUTS)}
+                  for lay in ((ARITY, LEAF_SIZE), *WIDE_LAYOUTS)}
+# the single-level kernels
+LAYOUT_KERNELS = ("closest_hit", "occluded", "occluded_nocull")
+# the two-level kernels
+INSTANCED_KERNELS = ("closest_hit_instanced", "occluded_instanced")
+# the two-level K2 without back-face culling (the 04 raycast of an
+# instanced scene)
+NOCULL_INSTANCED = "occluded_nocull_instanced"
+WIDE_KERNELS = LAYOUT_KERNELS + INSTANCED_KERNELS + (NOCULL_INSTANCED,)
+# each kernel's index ``which`` in csrc/traverse.cu
+WHICH = {"closest_hit": 0, "occluded": 1, "closest_hit_instanced": 2,
+         "occluded_instanced": 3, "occluded_nocull": 4, NOCULL_INSTANCED: 5}
+# the K2 that ``occluded`` launches, by (two-level table, culls back faces)
+_OCCLUDED = {(False, True): "occluded", (False, False): "occluded_nocull",
+             (True, True): "occluded_instanced",
+             (True, False): NOCULL_INSTANCED}
+# how a kernel's rows reach its walk, and where its stacks lie
+# (``fov_traverse_design``)
+ROW_COPIES = ("ldg", "cp.async")
+STACK_HOMES = ("shared", "global", "local")
 # what the plain versions' ``stats`` count: rows fetched, the distinct rows
 # among them (each call's, summed over calls: what the calls must read from
 # memory at least once), and the tests done on them (non-empty children
@@ -236,32 +263,61 @@ def _real_triangles(lrows: torch.Tensor, leaf_size: int) -> int:
     return int((ids.view(torch.int32) >= 0).sum())
 
 
+# the rays' and the table's fields of ``TraverseArgs`` and ``PacketArgs``
+RAYS = {"table": torch.float32, "orig": torch.float32, "dir": torch.float32,
+        "active": torch.bool}
+
+
+class TraverseArgs(ctypes.Structure):
+    """``fov_traverse``'s argument struct (csrc/traverse.cu)."""
+
+    _fields_ = [*((k, ctypes.c_void_p) for k in (
+                    "table", "orig", "dir", "active", "t_out", "tri_out",
+                    "u_out", "v_out", "inst_out", "occ_out", "counter",
+                    "stack")),
+                ("which", ctypes.c_int), ("n", ctypes.c_int),
+                ("tmin", ctypes.c_float), ("tmax", ctypes.c_float),
+                ("stack_depth", ctypes.c_int), ("lowmask", ctypes.c_uint),
+                *((k, ctypes.c_int) for k in ("inst_base", "blas_base",
+                                               "arity", "leaf"))]
+
+
+def layout_name(kernel: str, arity: int, leaf_size: int) -> str:
+    """The name of ``kernel``'s (arity, leaf_size) instantiation, which
+    keys its launch count and its resources: the kernel's own at the
+    default (16, 6), else e.g. "closest_hit_a32_l12"."""
+    if (arity, leaf_size) == (ARITY, LEAF_SIZE):
+        return kernel
+    return f"{kernel}_a{arity}_l{leaf_size}"
+
+
 def _check(table, o, d, active, stack_depth, num_instances=0, inst_base=0,
            blas_base=0):
+    """Refuse what no walk takes: shapes, instance rows, stack depth and
+    device; on the CPU also dtypes and devices, which on CUDA the launch's
+    ``kernel_build.fill`` checks with contiguity."""
     dev = table.device
     if num_instances and not (
             0 < inst_base and inst_base + num_instances == blas_base
             < table.shape[0] and table.shape[1] >= 13):
         raise ValueError("instance rows must lie in [inst_base, blas_base) "
                          "of a table with BLAS rows after them")
-    if table.dtype != torch.float32 or table.ndim != 2:
-        raise ValueError("table must be a 2-D float32 tensor")
-    for name, x in (("origin", o), ("direction", d)):
-        if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != 3:
-            raise ValueError(f"{name} must be (N, 3) float32")
-        if x.shape[0] != o.shape[0]:
-            raise ValueError("origin and direction differ in length")
-    if active.dtype != torch.bool or active.shape != (o.shape[0],):
-        raise ValueError("active must be an (N,) bool tensor")
-    if any(x.device != dev for x in (o, d, active)):
-        raise ValueError("table and rays must lie on one device")
+    if table.ndim != 2:
+        raise ValueError("table must be a 2-D tensor")
+    if o.ndim != 2 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError("origin and direction must be (N, 3)")
+    if active.shape != (o.shape[0],):
+        raise ValueError("active must be (N,)")
     if not 1 <= stack_depth <= MAX_STACK:
         raise ValueError(f"stack_depth {stack_depth} outside [1, {MAX_STACK}]")
-    if dev.type == "cuda":
-        for x in (table, o, d, active):
-            if not x.is_contiguous():
-                raise ValueError("kernel inputs must be contiguous")
-    elif dev.type != "cpu":
+    if dev.type == "cpu":
+        if (table.dtype != torch.float32 or o.dtype != torch.float32
+                or d.dtype != torch.float32 or active.dtype != torch.bool):
+            raise ValueError("table, origin and direction must be float32 "
+                             "and active bool")
+        if o.device != dev or d.device != dev or active.device != dev:
+            raise ValueError("table and rays must lie on one device")
+    elif dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
 
 
@@ -287,27 +343,77 @@ def _kernel_layout(table, n: int, arity: int, leaf_size: int,
         raise ValueError("too many rays for one launch")
 
 
-def _count(name: str, arity: int, leaf_size: int) -> None:
-    """Count a launch of kernel ``name``, and under its layout's name where
-    the layout is a wide one."""
-    kernel_build.LAUNCHES[name] += 1
-    if (arity, leaf_size) != (ARITY, LEAF_SIZE):
-        kernel_build.LAUNCHES[
-            kernel_build.layout_name(name, arity, leaf_size)] += 1
+@functools.cache
+def _stack_home(arity: int, leaf_size: int) -> str:
+    """Where K1's stacks lie at the layout (``STACK_HOMES``)."""
+    return STACK_HOMES[kernel_build.query(
+        "traverse", "fov_traverse_design", 0, arity, leaf_size, outs=3)[2]]
 
 
-def _global_stack(lib, arity: int, leaf_size: int, stack_depth: int, n: int,
+def _global_stack(arity: int, leaf_size: int, stack_depth: int, n: int,
                   dev):
     """The global-memory stack buffer K1 takes at the layout for n lanes
     (at (32, 12) its rays' stacks lie there; elsewhere in shared or local
-    memory: None)."""
-    entries = ctypes.c_longlong(0)
-    kernel_build.check(lib.fov_traverse_stack(
-        0, arity, leaf_size, stack_depth, n, ctypes.addressof(entries)),
-        "fov_traverse_stack")
-    if entries.value == 0:
+    memory: None, and no query a launch)."""
+    if _stack_home(arity, leaf_size) != "global":
         return None
-    return torch.empty((entries.value,), dtype=torch.int32, device=dev)
+    entries, = kernel_build.query("traverse", "fov_traverse_stack", 0, arity,
+                                  leaf_size, stack_depth, n, outs=1,
+                                  out_type=ctypes.c_longlong)
+    if entries == 0:
+        return None
+    return torch.empty((entries,), dtype=torch.int32, device=dev)
+
+
+def _launch(name: str, args: TraverseArgs, table, o, d, active,
+            tmin: float, tmax: float, stack_depth: int, arity: int,
+            leaf_size: int) -> None:
+    """Launch kernel ``name`` (``WHICH``) over the rays: ``args`` holds its
+    outputs and any other fields it takes; this fills in the rays and the
+    table (``kernel_build.fill`` checks them), the kernel and the walk's
+    parameters. Counts the launch, also under its ``layout_name`` at a
+    wide layout."""
+    dev = table.device
+    kernel_build.fill(args, dev, RAYS, {"table": table, "orig": o, "dir": d,
+                                        "active": active})
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    args.counter = counter.data_ptr()
+    args.which = WHICH[name]
+    args.n = o.shape[0]
+    args.tmin = tmin
+    args.tmax = tmax
+    args.stack_depth = stack_depth
+    args.arity = arity
+    args.leaf = leaf_size
+    kernel_build.launch("traverse", "fov_traverse", name, args)
+    if (arity, leaf_size) != (ARITY, LEAF_SIZE):
+        kernel_build.LAUNCHES[layout_name(name, arity, leaf_size)] += 1
+
+
+def resources(stack_depth: int) -> dict:
+    """Registers per thread, local memory per thread (spills and stack
+    frames), resident blocks per SM and dynamic shared memory per block of
+    each kernel of ``WHICH`` at ``stack_depth``, and of K3
+    (``occluded_packets``, whose shared memory does not depend on it), as
+    the CUDA runtime reports them for the loaded build; the wide layouts'
+    kernels under their ``layout_name``. Every traversal kernel's entry
+    also gives its design: ``group_lanes`` (the lanes that walk one ray),
+    ``row_copy`` (``ROW_COPIES``: 16-byte loads into registers, or
+    ``cp.async`` into the ray's shared-memory row buffer) and ``stack``
+    (``STACK_HOMES``)."""
+    keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes")
+    out = {"occluded_packets": dict(zip(keys, kernel_build.query(
+        "packet_traverse", "fov_packet_info")))}
+    for lay in ((ARITY, LEAF_SIZE), *WIDE_LAYOUTS):
+        for kernel, which in WHICH.items():
+            rec = dict(zip(keys, kernel_build.query(
+                "traverse", "fov_traverse_info", which, *lay, stack_depth)))
+            group, copy, home = kernel_build.query(
+                "traverse", "fov_traverse_design", which, *lay, outs=3)
+            rec.update(group_lanes=group, row_copy=ROW_COPIES[copy],
+                       stack=STACK_HOMES[home])
+            out[layout_name(kernel, *lay)] = rec
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -449,25 +555,21 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
     if num_instances:
         out["inst"] = torch.empty_like(tri)
     if n > 0:  # else nothing to launch
-        counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-        args = (table.data_ptr(), o.data_ptr(), d.data_ptr(),
-                active.data_ptr(), n, tmin, tmax, stack_depth, (1 << cb) - 1,
-                t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-                counter.data_ptr())
-        lib = kernel_build.library("traverse")
+        args = TraverseArgs()
+        args.t_out, args.tri_out = t.data_ptr(), tri.data_ptr()
+        args.u_out, args.v_out = u.data_ptr(), v.data_ptr()
+        args.lowmask = (1 << cb) - 1
         if num_instances:
-            rc = lib.fov_closest_hit_instanced(
-                *args, inst_base, blas_base, out["inst"].data_ptr(), arity,
-                leaf_size, kernel_build.stream())
+            args.inst_out = out["inst"].data_ptr()
+            args.inst_base, args.blas_base = inst_base, blas_base
             name = "closest_hit_instanced"
         else:
-            stack = _global_stack(lib, arity, leaf_size, stack_depth, n, dev)
-            rc = lib.fov_closest_hit(
-                *args, 0 if stack is None else stack.data_ptr(), arity,
-                leaf_size, kernel_build.stream())
+            stack = _global_stack(arity, leaf_size, stack_depth, n, dev)
+            if stack is not None:
+                args.stack = stack.data_ptr()
             name = "closest_hit"
-        kernel_build.check(rc, name)
-        _count(name, arity, leaf_size)
+        _launch(name, args, table, o, d, active, tmin, tmax, stack_depth,
+                arity, leaf_size)
     out["hit"] = tri >= 0
     return out
 
@@ -570,24 +672,10 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:  # nothing to launch
         return occ
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-    args = (table.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(),
-            n, tmin, tmax, stack_depth, occ.data_ptr(), counter.data_ptr())
-    lib = kernel_build.library("traverse")
+    args = TraverseArgs()
+    args.occ_out = occ.data_ptr()
     if num_instances:
-        launch = (lib.fov_occluded_instanced if cull_backface
-                  else lib.fov_occluded_nocull_instanced)
-        rc = launch(*args, inst_base, blas_base, arity, leaf_size,
-                    kernel_build.stream())
-        name = ("occluded_instanced" if cull_backface
-                else kernel_build.NOCULL_INSTANCED)
-    elif not cull_backface:
-        rc = lib.fov_occluded_nocull(*args, arity, leaf_size,
-                                     kernel_build.stream())
-        name = "occluded_nocull"
-    else:
-        rc = lib.fov_occluded(*args, arity, leaf_size, kernel_build.stream())
-        name = "occluded"
-    kernel_build.check(rc, name)
-    _count(name, arity, leaf_size)
+        args.inst_base, args.blas_base = inst_base, blas_base
+    _launch(_OCCLUDED[bool(num_instances), bool(cull_backface)], args, table,
+            o, d, active, tmin, tmax, stack_depth, arity, leaf_size)
     return occ

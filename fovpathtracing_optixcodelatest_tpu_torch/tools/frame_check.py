@@ -30,7 +30,6 @@ the passes' regions (12 B) and each frame pixel (3 B).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import json
 import statistics
@@ -140,15 +139,14 @@ def check_size(scene, cam, width: int, height: int, reps: int) -> dict:
                bound_ms={k: v / HBM_BYTES_S * 1e3 for k, v in least.items()})
     # the kernels alone: their structs built once, then launched
     canvas = film.new_canvas(width, height, pad, "cuda")
-    lib, stream = kernel_build.library("frame"), kernel_build.stream()
     rargs = fo.raygen_inputs(camp, grids, width, height, gx, gy, key,
                              True)[0]
     fargs = fo.film_inputs(**renderer.film_arguments(
         scene, camp, gx, gy, 1, canvas, vals, config, sched))[0]
-    out["raygen_ms"] = _time(lambda: lib.fov_raygen(
-        ctypes.addressof(rargs), stream), reps)
-    out["film_ms"] = _time(lambda: lib.fov_film(
-        ctypes.addressof(fargs), stream), reps)
+    out["raygen_ms"] = _time(lambda: kernel_build.launch(
+        "frame", "fov_raygen", "raygen", rargs), reps)
+    out["film_ms"] = _time(lambda: kernel_build.launch(
+        "frame", "fov_film", "film", fargs), reps)
     # with their wrappers, as a frame calls them
     out["raygen_call_ms"] = _time(lambda: renderer.kernel_frame_rays(
         camp, gx, gy, key, config, sched), reps)

@@ -329,13 +329,10 @@ def field_calls(rays: dict) -> dict:
     """One zero-argument call per field kernel and shape: the instanced K1
     on the primary lanes, the instanced K2 on the shadow lanes (on the
     (16, 6) table, "ik1_primary" and "ik2_shadow", and on each of the
-    ``wide`` tables, named by ``kernel_build.layout_name``:
+    ``wide`` tables, named by ``traverse.layout_name``:
     "ik1_primary_a32_l12", ...), and the single-level K1 and K2 on the same
     rays against the flattened table (where ``rays`` has one)."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
-        kernel_build,
-        traverse,
-    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
     config = rays["config"]
     o, d, act, _ = rays["primary"]
@@ -345,10 +342,10 @@ def field_calls(rays: dict) -> dict:
         b = _field_bvh(rays, lay)
         kargs = (config.tmin, config.tmax, *b.walk_args)
         kw = b.instance_kwargs
-        calls[kernel_build.layout_name("ik1_primary", *lay)] = (
+        calls[traverse.layout_name("ik1_primary", *lay)] = (
             lambda b=b, kargs=kargs, kw=kw: traverse.closest_hit(
                 b.table, o, d, act, *kargs, **kw))
-        calls[kernel_build.layout_name("ik2_shadow", *lay)] = (
+        calls[traverse.layout_name("ik2_shadow", *lay)] = (
             lambda b=b, kargs=kargs, kw=kw: traverse.occluded(
                 b.table, so, sd, sq, *kargs, **kw))
     if rays["flat"] is not None:
@@ -396,10 +393,7 @@ def field_mismatches(rays: dict, calls: dict, plain=None,
     ``rays``, where the caller has them already."""
     import torch
 
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
-        kernel_build,
-        traverse,
-    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
     config, b = rays["config"], _field_bvh(rays, layout)
     kargs = (config.tmin, config.tmax, *b.walk_args)
@@ -411,7 +405,7 @@ def field_mismatches(rays: dict, calls: dict, plain=None,
                  traverse.occluded_plain(b.table, so, sd, sq, *kargs,
                                          **b.instance_kwargs))
     p1, p2 = plain
-    k1 = calls[kernel_build.layout_name("ik1_primary", *layout)]()
+    k1 = calls[traverse.layout_name("ik1_primary", *layout)]()
     out = {}
     for c in ("hit", "t", "u", "v", "tri_id", "inst"):
         got, want = k1[c], p1[c]
@@ -420,7 +414,7 @@ def field_mismatches(rays: dict, calls: dict, plain=None,
         out[c] = int((got != want).sum())
     del k1
     out["occluded"] = int(
-        (calls[kernel_build.layout_name("ik2_shadow", *layout)]() != p2)
+        (calls[traverse.layout_name("ik2_shadow", *layout)]() != p2)
         .sum())
     return out
 
@@ -491,11 +485,11 @@ def layout_tables(tris, layouts, jax_default: bool = False) -> dict:
 
 def table_name(kernel: str, b) -> str:
     """``kernel``'s call name on the table ``b``: its instantiation's
-    (``kernel_build.layout_name``), and "_dfs" or "_treelet" after it for
+    (``traverse.layout_name``), and "_dfs" or "_treelet" after it for
     a table in DFS or treelet order."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
-    name = kernel_build.layout_name(kernel, b.arity, b.leaf_size)
+    name = traverse.layout_name(kernel, b.arity, b.leaf_size)
     return name + ("_treelet" if b.top_rows else "_dfs" if b.dfs else "")
 
 
@@ -661,7 +655,10 @@ def field_times(layouts=(), deep=None) -> dict:
     (``--deep N``) on ``deep_field(N)``, the mismatches on
     ``DEEP_CHECK_LANES`` of each kind, with each table's rows, bytes and
     host build seconds."""
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
+        kernel_build,
+        traverse,
+    )
 
     layouts = [tuple(x) for x in layouts]
     rays = field_rays("cuda", layouts=layouts, flat=deep is None,
@@ -672,17 +669,17 @@ def field_times(layouts=(), deep=None) -> dict:
     check_calls = calls if deep is None else field_calls(checked)
     mismatches, depths, resources, tables = {}, {}, {}, {}
     for lay in ((16, 6), *layouts):
-        key = kernel_build.layout_name("field", *lay)
+        key = traverse.layout_name("field", *lay)
         mismatches[key] = field_mismatches(checked, check_calls, layout=lay)
         b = _field_bvh(rays, lay)
         depths[key] = b.stack_depth
         tables[key] = {"rows": b.num_rows, "bytes": b.table.numel() * 4,
                        "build_s": rays["build_s"] if lay == (16, 6)
                        else rays["wide_build_s"][lay]}
-        res = kernel_build.resources(depths[key])
-        resources.update({kernel_build.layout_name(k, *lay):
-                          res[kernel_build.layout_name(k, *lay)]
-                          for k in kernel_build.INSTANCED_KERNELS})
+        res = traverse.resources(depths[key])
+        resources.update({traverse.layout_name(k, *lay):
+                          res[traverse.layout_name(k, *lay)]
+                          for k in traverse.INSTANCED_KERNELS})
     times = time_kernels(calls)
     ptxas = [ln.strip() for log in kernel_build.BUILD_INFO["log"].values()
              for ln in log.splitlines()
@@ -724,10 +721,7 @@ def layout_times(city_n: int, layouts=None, jax_default: bool = False
         scene_arrays,
         scene_from_arrays,
     )
-    from fovpathtracing_optixcodelatest_tpu_torch.ops import (
-        kernel_build,
-        traverse,
-    )
+    from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 
     layouts = [tuple(x) for x in layouts or traverse.KERNEL_LAYOUTS]
     meshes, cam = scenes.box_city_fast(n=city_n, seed=0)
@@ -747,11 +741,11 @@ def layout_times(city_n: int, layouts=None, jax_default: bool = False
     times = time_kernels(calls)
     info = []
     for key, (b, build_s) in tables.items():
-        res = kernel_build.resources(b.stack_depth)
+        res = traverse.resources(b.stack_depth)
         structure = None if b.dfs else table_structure(b)
         b = bvhs[key]
-        names = [kernel_build.layout_name(k, b.arity, b.leaf_size)
-                 for k in kernel_build.LAYOUT_KERNELS]
+        names = [traverse.layout_name(k, b.arity, b.leaf_size)
+                 for k in traverse.LAYOUT_KERNELS]
         info.append({
             "layout": [b.arity, b.leaf_size], "dfs": b.dfs,
             "top_rows": b.top_rows, "rows": b.num_rows,

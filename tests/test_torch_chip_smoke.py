@@ -4,6 +4,7 @@ a rehearsal of the smoke's phases a-n at a small size, on the CPU (no card:
 the wrappers run the plain versions; a stand-in for ``torch.profiler``
 reports the device's kernels where a phase profiles)."""
 
+import collections
 import dataclasses
 import types
 
@@ -17,6 +18,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.config import (
     FoveationSchedule,
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
 from fovpathtracing_optixcodelatest_tpu_torch.tools import kernel_times
 
 torch.set_num_threads(2)
@@ -409,7 +411,7 @@ def test_rehearse_instanced_phase(no_card, monkeypatch, tmp_path):
     # ... and their frames profiled: the instanced kernels' time a launch
     assert all(r["profile"]["kernel_ms_per_launch"][k] > 0
                for r in out["wide"].values()
-               for k in kernel_build.INSTANCED_KERNELS)
+               for k in traverse.INSTANCED_KERNELS)
     chip_smoke._field_lines("instanced field", out["wide"])
 
 
@@ -582,7 +584,7 @@ def test_rehearse_jax_tables_phase(no_card, monkeypatch):
     assert 0.99 <= jax_default["plain_identical"] <= 1.0
     chip_smoke._jax_tables_lines("p", p)
     for rec in p.values():
-        rec["launches"] = dict.fromkeys(kernel_build.LAUNCHES, 4)
+        rec["launches"] = collections.defaultdict(lambda: 4)
     rows = chip_smoke._jax_tables_record(p, "k1", (32, 12))
     assert list(rows) == ["L12/A32 plain", "JAX default"]
     assert rows["JAX default"]["launches"] == 4
@@ -617,7 +619,7 @@ def test_rehearse_deep_field_phase(no_card):
     assert tables[1]["rows"] < tables[0]["rows"]
     chip_smoke._deep_field_lines("q", q)
     for rec in tables:
-        rec["launches"] = dict.fromkeys(kernel_build.LAUNCHES, 2)
+        rec["launches"] = collections.defaultdict(lambda: 2)
     r = chip_smoke._deep_field_record(q, "closest_hit_instanced", (32, 12))
     assert r["launches"] == 2 and r["lanes"] == 500 and r["ms"] is None
 
@@ -635,9 +637,9 @@ def test_rehearse_oracle_phase_and_nocull_check(no_card):
     assert rs["mismatches"] == 0 and rs["occluded"] > rs["occluded_culling"]
     # the raycast from the wide tables (no kernel runs on the CPU)
     assert orc["raycast_wide"] == {
-        kernel_build.layout_name("occluded_nocull", *lay): {
+        traverse.layout_name("occluded_nocull", *lay): {
             "launches": 0, "share": 1.0}
-        for lay in kernel_build.WIDE_LAYOUTS}
+        for lay in traverse.WIDE_LAYOUTS}
 
     sched = FoveationSchedule.reference_32_16_8().scaled(10)
     rays = kernel_times.bench_rays("cpu", city_n=4, width=96, height=54,
@@ -657,7 +659,7 @@ def test_rehearse_raycast_field_phase(no_card):
     # non-culling two-level walk against its plain version (on the CPU the
     # wrappers run the plain versions: no kernel launches)
     rf = chip_smoke.raycast_field_phase(64, 36, device="cpu", count=256)
-    assert list(rf) == [kernel_build.layout_name("raycast_field", *lay)
+    assert list(rf) == [traverse.layout_name("raycast_field", *lay)
                         for lay in ((16, 6), (32, 12), (32, 24))]
     chip_smoke._raycast_field_lines(rf)
     chip_smoke._check_raycast_field(rf, device="cpu")
@@ -669,7 +671,7 @@ def test_rehearse_raycast_field_phase(no_card):
         assert rec["share_vs_first"] >= 0.99
         assert rec["launches"] == {k: 0 for k in kernel_build.LAUNCHES}
     rec = next(iter(rf.values()))
-    rec["launches"] = dict.fromkeys(kernel_build.LAUNCHES, 3)
+    rec["launches"] = collections.defaultdict(lambda: 3)
     r = chip_smoke._raycast_field_record(rec, {})
     assert r["name"] == "occluded_nocull_instanced" and r["launches"] == 3
     for key in ("name", "route", "source", "replaces", "launches",

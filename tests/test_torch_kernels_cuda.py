@@ -108,6 +108,8 @@ too, and ``probe_sample_cdf`` on the card picks the CPU's texels
 (directions within 1e-6, pdfs within 1e-6 relative).
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -158,8 +160,9 @@ TMIN, TMAX = 0.01, 1e16
 
 
 def _launched(**counts):
-    """The launch counters with ``counts`` and every other kernel at 0."""
-    return {k: counts.get(k, 0) for k in kernel_build.LAUNCHES}
+    """The launch counters with ``counts`` and every other kernel at 0 (a
+    Counter compares equal where the only difference is zero counts)."""
+    return collections.Counter(counts)
 
 
 @pytest.fixture
@@ -517,8 +520,8 @@ def _instanced_table_against_plain(table, kw, o, d, act, depth,
     torch.cuda.synchronize()
     launched = int(o.shape[0] > 0)
     assert kernel_build.LAUNCHES == _launched(**{
-        kernel_build.layout_name(n, *lay): launched
-        for n in kernel_build.INSTANCED_KERNELS
+        traverse.layout_name(n, *lay): launched
+        for n in traverse.INSTANCED_KERNELS
         for lay in {(16, 6), tuple(layout)}})
     p = traverse.closest_hit_plain(*args, **kw)
     for c in ("t", "u", "v", "tri_id", "hit", "inst"):
@@ -658,7 +661,7 @@ def wide_fields():
 
     city = host_triangles(scenes.box_city(n=16, seed=0)[0])[:1500]
     out = {}
-    for lay in kernel_build.WIDE_LAYOUTS:
+    for lay in traverse.WIDE_LAYOUTS:
         b = tlas.build_instanced(
             [city, pyramid_tris()], [0, 1] * 4,
             [_translate(40.0 * k, 0.0, 0.0) for k in range(8)],
@@ -714,9 +717,9 @@ def test_wide_instanced_kernels_at_the_deepest_stack(wide_fields, layout):
     for c in ("t", "tri_id", "inst"):
         assert torch.equal(full[0][c], own[0][c]), c
     assert torch.equal(full[1], own[1])
-    res = kernel_build.resources(traverse.MAX_STACK)
-    for name in kernel_build.INSTANCED_KERNELS:
-        r = res[kernel_build.layout_name(name, *layout)]
+    res = traverse.resources(traverse.MAX_STACK)
+    for name in traverse.INSTANCED_KERNELS:
+        r = res[traverse.layout_name(name, *layout)]
         assert (r["group_lanes"], r["stack"]) == (1, "local"), r
         assert r["local_bytes"] >= 4 * traverse.MAX_STACK, r
         assert r["blocks_per_sm"] >= 1, r
@@ -733,7 +736,7 @@ def line_fields():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     out = {}
-    for arity, leaf in kernel_build.WIDE_LAYOUTS:
+    for arity, leaf in traverse.WIDE_LAYOUTS:
         b = tlas.build_instanced([pyramid_tris()], [0] * 32,
                                  [_translate(1.0 * k, 0.0, 0.0)
                                   for k in range(32)],
@@ -804,10 +807,10 @@ def test_wide_instanced_kernels_on_a_box_city_blas(cuda_device, layout):
     kernel_build.reset_launches()
     mism = kernel_times.field_mismatches(rays, calls, layout=layout)
     assert not any(mism.values()), mism
-    for k in kernel_build.INSTANCED_KERNELS:
-        assert kernel_build.LAUNCHES[kernel_build.layout_name(k, *layout)] \
+    for k in traverse.INSTANCED_KERNELS:
+        assert kernel_build.LAUNCHES[traverse.layout_name(k, *layout)] \
             == 1
-    got = calls[kernel_build.layout_name("ik1_primary", *layout)]()
+    got = calls[traverse.layout_name("ik1_primary", *layout)]()
     assert got["hit"].any() and len(torch.unique(got["inst"][got["hit"]])) \
         == 4
 
@@ -954,20 +957,20 @@ def test_kernel_resources(cuda_device):
     # at the bench scene's stack depth (50): no kernel keeps local memory;
     # the (16, 6), two-level and K3 kernels keep their registers and
     # resident blocks, one lane a ray, rows read by 16-byte loads
-    res = kernel_build.resources(50)
-    wide24 = [kernel_build.layout_name(k, 32, 24)
-              for k in kernel_build.LAYOUT_KERNELS]
-    wide_inst = [kernel_build.layout_name(k, *lay)
-                 for lay in kernel_build.WIDE_LAYOUTS
-                 for k in kernel_build.INSTANCED_KERNELS]
-    wide_nocull = [kernel_build.layout_name(kernel_build.NOCULL_INSTANCED,
+    res = traverse.resources(50)
+    wide24 = [traverse.layout_name(k, 32, 24)
+              for k in traverse.LAYOUT_KERNELS]
+    wide_inst = [traverse.layout_name(k, *lay)
+                 for lay in traverse.WIDE_LAYOUTS
+                 for k in traverse.INSTANCED_KERNELS]
+    wide_nocull = [traverse.layout_name(traverse.NOCULL_INSTANCED,
                                             *lay)
-                   for lay in kernel_build.WIDE_LAYOUTS]
+                   for lay in traverse.WIDE_LAYOUTS]
     assert all(r["local_bytes"] == 0 for k, r in res.items()
                if k not in wide24 + wide_inst + wide_nocull), res
     single = ("closest_hit", "occluded", "occluded_nocull",
               "closest_hit_instanced", "occluded_instanced",
-              kernel_build.NOCULL_INSTANCED)
+              traverse.NOCULL_INSTANCED)
     assert [res[k]["registers"] for k in single] == [69, 96, 96, 80, 96, 96]
     assert [res[k]["blocks_per_sm"] for k in single] == [7, 5, 5, 6, 5, 5]
     assert all(res[k]["group_lanes"] == 1 and res[k]["row_copy"] == "ldg"
@@ -977,8 +980,8 @@ def test_kernel_resources(cuda_device):
     # (32, 12): the group-per-ray walks, rows copied into shared memory; K1
     # 4 lanes a ray with its stack in global memory, K2 and the non-culling
     # K2 8 lanes a ray with the stack in shared memory
-    names = [kernel_build.layout_name(k, 32, 12)
-             for k in kernel_build.LAYOUT_KERNELS]
+    names = [traverse.layout_name(k, 32, 12)
+             for k in traverse.LAYOUT_KERNELS]
     got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["registers"],
             res[k]["blocks_per_sm"], res[k]["shared_bytes"]) for k in names]
     assert got == [(4, "global", 64, 8, 22528), (8, "shared", 48, 10, 12928),
@@ -988,8 +991,8 @@ def test_kernel_resources(cuda_device):
     # MAX_STACK-entry stack in local memory; K1 asks 9 blocks/SM and
     # spills 14 B (24 B more local memory), K2 and the non-culling K2 ask 8
     # and spill nothing
-    names = [kernel_build.layout_name(k, 32, 24)
-             for k in kernel_build.LAYOUT_KERNELS]
+    names = [traverse.layout_name(k, 32, 24)
+             for k in traverse.LAYOUT_KERNELS]
     got = [(res[k]["group_lanes"], res[k]["stack"], res[k]["registers"],
             res[k]["blocks_per_sm"], res[k]["local_bytes"]) for k in names]
     assert got == [(1, "local", 56, 9, 1048), (1, "local", 63, 8, 1024),
@@ -1158,7 +1161,7 @@ def _nocull_instanced_against_plain(grids, layout, n, share, seed=3):
     torch.cuda.synchronize()
     launched = int(n > 0)
     assert kernel_build.LAUNCHES == _launched(**{
-        kernel_build.layout_name(kernel_build.NOCULL_INSTANCED, *lay):
+        traverse.layout_name(traverse.NOCULL_INSTANCED, *lay):
         launched for lay in {(16, 6), tuple(layout)}})
     assert torch.equal(occ, traverse.occluded_plain(
         *args, cull_backface=False, **kw))
@@ -1426,8 +1429,8 @@ def _wide_against_plain(scene, o, d, act, depth):
     lay = (b.arity, b.leaf_size)
     assert kernel_build.LAUNCHES == _launched(
         closest_hit=launched, occluded=launched, occluded_nocull=launched,
-        **{kernel_build.layout_name(n, *lay): launched
-           for n in kernel_build.LAYOUT_KERNELS})
+        **{traverse.layout_name(n, *lay): launched
+           for n in traverse.LAYOUT_KERNELS})
     p = traverse.closest_hit_plain(*args)
     for c in ("t", "u", "v", "tri_id", "hit"):
         assert torch.equal(k[c], p[c]), c
@@ -1515,9 +1518,9 @@ def test_wide_kernels_at_the_deepest_stack(wide_cities, layout):
     scene = wide_cities[layout]
     o, d, act = _rays(20_000, 17, scene.device)
     _wide_against_plain(scene, o, d, act, traverse.MAX_STACK)
-    res = kernel_build.resources(traverse.MAX_STACK)
-    for k in kernel_build.LAYOUT_KERNELS:
-        r = res[kernel_build.layout_name(k, *layout)]
+    res = traverse.resources(traverse.MAX_STACK)
+    for k in traverse.LAYOUT_KERNELS:
+        r = res[traverse.layout_name(k, *layout)]
         assert r["blocks_per_sm"] >= 1, r
         rays = 128 // r["group_lanes"]
         if r["stack"] == "shared":
@@ -1579,7 +1582,7 @@ def _single_against_plain(table, o, d, act, depth, layout=(32, 24)):
     occ = traverse.occluded(*args)
     occ_n = traverse.occluded(*args, cull_backface=False)
     torch.cuda.synchronize()
-    assert kernel_build.LAUNCHES[kernel_build.layout_name(
+    assert kernel_build.LAUNCHES[traverse.layout_name(
         "closest_hit", *layout)] == 1
     p = traverse.closest_hit_plain(*args)
     for c in ("t", "u", "v"):

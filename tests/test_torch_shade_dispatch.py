@@ -12,7 +12,6 @@ probe rows or alias arrays, texture sizes and key words the kernels
 expect, and refuses a tensor of another dtype or a strided one.
 """
 
-import ctypes
 import dataclasses
 import os
 import re
@@ -117,47 +116,6 @@ def test_kernel_names_count_as_shading_not_traversal():
     # as the profiler names them: in an anonymous namespace
     assert not traversal_ms.is_traversal(
         "(anonymous namespace)::shade_kernel(ShadeArgs)")
-
-
-_C_DTYPES = {"int64_t": torch.int64, "float": torch.float32,
-             "int32_t": torch.int32, "bool": torch.bool,
-             "long long": torch.int64}
-
-
-def _c_fields(struct: str):
-    """(C type, name, is pointer) of each field of ``struct`` in
-    csrc/shade.cu, in order."""
-    body = re.search(r"struct %s \{(.*?)\};" % struct, _source(), re.S)[1]
-    body = re.sub(r"//[^\n]*", "", body)
-    out = []
-    for decl in body.split(";"):
-        decl = " ".join(decl.split())
-        if not decl:
-            continue
-        m = re.match(r"(const )?([\w ]+?)\s*(\*)?\s*(\w+(?:, \w+)*)$", decl)
-        assert m, decl
-        for name in m[4].split(", "):
-            out.append((m[2], name, m[3] is not None))
-    return out
-
-
-@pytest.mark.parametrize("struct,tensors,ints,cls", [
-    ("ShadeArgs", shade.SHADE_TENSORS, shade.SHADE_INTS, shade.ShadeArgs),
-    ("ResolveArgs", shade.RESOLVE_TENSORS, shade.RESOLVE_INTS,
-     shade.ResolveArgs),
-])
-def test_structs_match_the_c_declarations(struct, tensors, ints, cls):
-    fields = _c_fields(struct)
-    assert [f[1] for f in fields] == list(tensors) + list(ints)
-    assert [f[0] for f in cls._fields_] == [f[1] for f in fields]
-    for ctype, name, ptr in fields:
-        if name in tensors:
-            assert ptr and _C_DTYPES[ctype] == tensors[name], name
-        else:
-            assert not ptr and ctype == ("unsigned" if name in ("key0", "key1")
-                                         else "int"), name
-    # pointers first, 8 bytes each, then 4-byte integers: no padding
-    assert ctypes.sizeof(cls) == 8 * len(tensors) + 4 * len(ints)
 
 
 def test_record_layout_matches_the_source():

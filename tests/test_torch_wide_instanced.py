@@ -64,6 +64,7 @@ from torch_blas_fields import (
     pyramid_tris,
     spread_children,
 )
+from torch_stand_in_kernels import stand_in_kernels  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
@@ -248,10 +249,11 @@ def test_plain_walks_match_jax_with_empty_groups_between_children(arity,
     assert 0 < occ.sum() < len(occ)
 
 
-def test_wrappers_take_wide_two_level_tables():
+def test_wrappers_take_wide_two_level_tables(stand_in_kernels):
     """No layout of the compiled ones is refused for a two-level table: on
-    CPU tensors the wrappers run the plain versions, and a launch would
-    be counted under the layout's instantiation."""
+    CPU tensors the wrappers run the plain versions, and a launch (into a
+    stand-in library) counts under the layout's instantiation."""
+    stand_in_kernels.structs["fov_traverse"] = traverse.TraverseArgs
     for arity, leaf in WIDE:
         _, pb = _tables(_leaf_field(leaf), arity, leaf)
         o, d = _rays_grid(256, seed=1, extent=12.0)
@@ -270,16 +272,14 @@ def test_wrappers_take_wide_two_level_tables():
                            traverse.occluded_plain(*args, **kw))
         assert kernel_build.LAUNCHES == before  # CPU tensors: no launch
         traverse._kernel_layout(args[0], 256, arity, leaf)
-        for k in kernel_build.INSTANCED_KERNELS:
-            name = kernel_build.layout_name(k, arity, leaf)
+        for k in traverse.INSTANCED_KERNELS:
+            name = traverse.layout_name(k, arity, leaf)
             assert name == f"{k}_a{arity}_l{leaf}"
-            saved = dict(kernel_build.LAUNCHES)
-            try:
-                traverse._count(k, arity, leaf)
-                assert kernel_build.LAUNCHES[name] == saved[name] + 1
-                assert kernel_build.LAUNCHES[k] == saved[k] + 1
-            finally:
-                kernel_build.LAUNCHES.update(saved)
+            saved = kernel_build.LAUNCHES.copy()
+            traverse._launch(k, traverse.TraverseArgs(), *args)
+            assert kernel_build.LAUNCHES[name] == saved[name] + 1
+            assert kernel_build.LAUNCHES[k] == saved[k] + 1
+            assert stand_in_kernels.calls[-1][2].which == traverse.WHICH[k]
     with pytest.raises(ValueError, match="layout"):
         traverse._kernel_layout(torch.zeros((4, 64)), 10, 16, 4)
 
@@ -309,7 +309,7 @@ def test_field_rays_at_the_wide_layouts_on_cpu():
                                                                   leaf))
         assert not any(mism.values()), mism
         # one geometry in three tables: the same hits and occlusion
-        tag = kernel_build.layout_name("", arity, leaf)
+        tag = traverse.layout_name("", arity, leaf)
         for k in ("hit", "t", "tri_id", "inst"):
             assert torch.equal(out["ik1_primary" + tag][k],
                                out["ik1_primary"][k]), k

@@ -58,6 +58,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.ops.rng import prng_key
 from fovpathtracing_optixcodelatest_tpu_torch.render import film
 from fovpathtracing_optixcodelatest_tpu_torch.render.renderer import render_frame
 from torch_blas_fields import _translate, leaf_slots, pyramid_tris, twin_tris
+from torch_stand_in_kernels import stand_in_kernels  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
@@ -288,23 +289,22 @@ def test_kernel_layout_takes_the_compiled_layouts(arity, leaf, width):
             traverse._kernel_layout(table, 10, *bad)
 
 
-def test_wide_launch_counters():
+def test_wide_launch_counters(stand_in_kernels):
     # a wide layout's launches are counted beside the kernel's own count
-    assert set(kernel_build.LAYOUT_KERNELS) <= set(kernel_build.LAUNCHES)
-    for lay in kernel_build.WIDE_LAYOUTS:
-        for k in kernel_build.LAYOUT_KERNELS:
-            assert kernel_build.layout_name(k, *lay) in kernel_build.LAUNCHES
-    saved = dict(kernel_build.LAUNCHES)
-    try:
-        traverse._count("closest_hit", 32, 12)
-        traverse._count("occluded", 16, 6)
-        assert kernel_build.LAUNCHES["closest_hit"] == saved["closest_hit"] + 1
-        assert kernel_build.LAUNCHES["closest_hit_a32_l12"] == \
-            saved["closest_hit_a32_l12"] + 1
-        assert kernel_build.LAUNCHES["occluded"] == saved["occluded"] + 1
-        assert kernel_build.LAUNCHES["occluded_a32_l12"] == \
-            saved["occluded_a32_l12"]
-        kernel_build.reset_launches()
-        assert not any(kernel_build.LAUNCHES.values())
-    finally:
-        kernel_build.LAUNCHES.update(saved)
+    stand_in_kernels.structs["fov_traverse"] = traverse.TraverseArgs
+    for lay in traverse.WIDE_LAYOUTS:
+        for k in traverse.LAYOUT_KERNELS:  # none launched: each reads 0
+            assert kernel_build.LAUNCHES[traverse.layout_name(k, *lay)] == 0
+    rays = (torch.zeros((4, 128)), torch.zeros((3, 3)), torch.ones((3, 3)),
+            torch.ones(3, dtype=torch.bool), 0.0, 1.0, 8)
+    traverse._launch("closest_hit", traverse.TraverseArgs(), *rays, 32, 12)
+    traverse._launch("occluded", traverse.TraverseArgs(), *rays, 16, 6)
+    assert kernel_build.LAUNCHES == {"closest_hit": 1,
+                                     "closest_hit_a32_l12": 1, "occluded": 1}
+    assert kernel_build.LAUNCHES["occluded_a32_l12"] == 0
+    # the struct names the kernel and the layout
+    got = [c[2] for c in stand_in_kernels.calls]
+    assert [(a.which, a.arity, a.leaf, a.n) for a in got] == [
+        (0, 32, 12, 3), (1, 16, 6, 3)]
+    kernel_build.reset_launches()
+    assert not any(kernel_build.LAUNCHES.values())
