@@ -32,7 +32,13 @@ n=24, seed 0, gradient sky probe: 6,924 triangles), then:
    (rays, rings, canvas and uint8 frame bit for bit, over subframes 0, 1
    and 7, on slot values of six decades and on the frame's own traced
    values) and timed there beside their byte bounds
-   (``tools/frame_check.py`` ``check_size``);
+   (``tools/frame_check.py`` ``check_size``); each wavefront keeps its
+   live lanes on the card (``csrc/lanes.cu``'s compaction, one launch a
+   bounce but the last and one of ray generation's mask), held to
+   ``torch.nonzero`` / ``idx[alive]`` and the gathers bit for bit on the
+   frame's lanes and timed there, and the kernel path to the same kernels
+   over host lane lists bit for bit, without a sync
+   (``tools/lanes_check.py``);
 4. renders a small frame on the GPU and on the CPU (the plain versions) and
    requires 99% of the pixels within 1 LSB;
 
@@ -548,6 +554,19 @@ def frame_phase(scene, config, rays: dict) -> dict:
                                  config.height, kernel_times.REPS)
     out["resources"] = fo.resources()
     return out
+
+
+def lanes_phase(scene, config, rays: dict) -> dict:
+    """(6d) The live-lane compaction (``csrc/lanes.cu``) against
+    ``torch.nonzero`` / ``idx[alive]`` and the gathers on the bench frame's
+    primary lanes and bounce 0's survivors and at ragged lengths, bit for
+    bit, timed on the survivors beside its byte bound; and ``trace_paths``'
+    kernel path against the same kernels over host lane lists (radiance,
+    alpha, normal, albedo, ``traces`` bit for bit, the lanes a depth), one
+    wavefront of it without a sync (``tools/lanes_check.py``)."""
+    from fovpathtracing_optixcodelatest_tpu_torch.tools import lanes_check
+
+    return lanes_check.check_frame(scene, config, rays)
 
 
 def textured_phase(untextured_scene, n: int, schedule, width: int,
@@ -2916,12 +2935,18 @@ def _viewer_client(port: int, width: int, height: int, swapped, seen: dict,
                           "no full-resolution accumulation")
         seen["subframe_before"] = before["subframe"]
         gx, gy = width // 3, height // 3
+        sent = stats()["frames"]  # frames rendered before the inputs
         for q in (f"gx={gx}&gy={gy}", "dx=30&dy=8", "zoom=1"):
             get(f"/input?{q}")
-        after = wait_for(lambda s: s["subframe"] <= 2
-                         and s["gaze"] == [gx, height - 1 - gy],
+        # a restart at a frame rendered after the inputs were sent leaves
+        # the subframe at most the frames rendered since; without one it
+        # would exceed them by the subframe before (at least 3), however
+        # fast the frames come
+        after = wait_for(lambda s: s["gaze"] == [gx, height - 1 - gy]
+                         and s["subframe"] <= s["frames"] - sent,
                          "the orbit did not restart the accumulation")
         seen["subframe_after"] = after["subframe"]
+        seen["frames_since_input"] = after["frames"] - sent
         get("/input?view=denoised")
         wait_for(lambda s: s["view"] == "denoised", "no denoised view")
         get("/input?view=color")
@@ -3673,8 +3698,10 @@ def main() -> int:
     assert launches["shade"] == launches["resolve"] == launches[
         "closest_hit"] > 0, launches
     # one wavefront a mono frame: its rays in one raygen launch, its
-    # composite and tone map in one film launch
+    # composite and tone map in one film launch; its lane lists on the card,
+    # one compaction a bounce but the last and one of ray generation's mask
     assert launches["raygen"] == launches["film"] == FRAMES, launches
+    assert launches["compact"] == FRAMES * config.max_depth, launches
 
     # -- phase 6b: the bounce's shading kernels against the plain bounce -------
     results["shade"] = shade_phase(scene, config, rays)
@@ -3697,6 +3724,16 @@ def main() -> int:
           f"{json.dumps(fr['resources'])}")
     assert fr["exact"], \
         "the frame's raygen or film kernel disagrees with its plain version"
+
+    # -- phase 6d: the lane lists on the card --------------------------------
+    lc = results["lanes"] = lanes_phase(scene, config, rays)
+    _line(f"compaction against nonzero/idx[alive] and the gathers: "
+          f"{json.dumps(lc['compaction'])}")
+    _line(f"kernel path against host lane lists: {json.dumps(lc['paths'])}")
+    assert lc["compaction"]["exact"], \
+        "the compaction disagrees with nonzero / idx[alive]"
+    assert lc["paths"]["exact"], \
+        "the kernel path's lane lists change the wavefront, or it waits"
 
     if args.profile:
         _profile_frames(renderer, args.profile, results)
@@ -4018,14 +4055,15 @@ def main() -> int:
           f"page {vw.get('page')}, stream JPEGs {vw.get('jpeg_sizes')}; "
           f"swapped to full resolution {vw['swapped']}; subframe "
           f"{vw.get('subframe_before')} -> {vw.get('subframe_after')} after "
-          f"the orbit; stats {vw.get('final')}; full-resolution render ms "
+          f"the orbit ({vw.get('frames_since_input')} frames after the "
+          f"inputs); stats {vw.get('final')}; full-resolution render ms "
           f"min {rms[0] if rms else None}, median "
           f"{rms[len(rms) // 2] if rms else None}, max "
           f"{rms[-1] if rms else None} ({len(rms)} readings); launches "
           f"{vw['launches']}")
     assert "error" not in vw, vw["error"]
     assert vw["page"] and vw["jpeg_sizes"] == [(w, h)] * 2 and vw["swapped"]
-    assert vw["subframe_after"] < vw["subframe_before"]
+    assert vw["subframe_after"] <= vw["frames_since_input"]
     assert vw["final"]["fps"] > 0 and vw["final"]["render_ms"] > 0
     for k in PATH_KERNELS:
         assert vw["launches"][k] > 0, f"the viewer never launched {k}"
@@ -4188,10 +4226,19 @@ def main() -> int:
            "library_ms": None, **fr["resources"][k]}
           for k, replaces in (("raygen", "raygen.py:111"),
                               ("film", "film.py:68"))],
+        # the live-lane compaction at bounce 0's survivors (phase 6d); it
+        # replaces the host's narrowing, no JAX kernel
+        {"name": "compact", "route": "cuda", "source": KERNEL_SRC + "lanes.cu",
+         "replaces": None, "launches": launches["compact"],
+         "max_abs_err": 0.0, "ms": lc["compaction"]["compact_ms"],
+         "plain_ms": None, "bound_ms": lc["compaction"]["bound_ms"],
+         "bound_by": "bytes",
+         "least_bytes": lc["compaction"]["least_bytes"]["depth1"],
+         "library_ms": None, **lc["compaction"]["resources"]["compact"]},
     ]
     for k in kernels:
         k["main_path"] = k["name"] in (PATH_KERNELS + INSTANCED_KERNELS
-                                       + ("raygen", "film"))
+                                       + ("raygen", "film", "compact"))
     results.update(
         kernels=kernels, frame_ms=frame_ms, traces=traces, mrays_s=mrays,
         peak_bytes=peak, launches_per_frame={k: per_frame(k) for k in launches},

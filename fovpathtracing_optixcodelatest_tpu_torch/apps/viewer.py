@@ -9,8 +9,8 @@ that binds loopback unless told otherwise:
 - ``/stream``  MJPEG (multipart/x-mixed-replace) of the frames, one JPEG
                (Pillow) a frame;
 - ``/input``   the input events, applied to the render loop's state;
-- ``/stats``   JSON: fps, render ms, gaze, subframe, warm-up, view,
-               schedule.
+- ``/stats``   JSON: fps, render ms, gaze, subframe, frames rendered,
+               warm-up, view, schedule.
 
 ``serve`` runs the render loop in the calling thread: input, render,
 JPEG, stats; an orbit or zoom restarts the accumulation
@@ -92,7 +92,7 @@ class ViewerState:
         self.frame_jpeg: bytes | None = None
         self.frame_event = threading.Event()
         self.stats = {"fps": 0.0, "render_ms": 0.0, "gaze": self.gaze,
-                      "subframe": 0}
+                      "subframe": 0, "frames": 0}
         self.view = "color"  # color | normal | albedo | denoised
         self.sched_ticks = 0  # 'cycle schedule' requests (coalesced)
         self.running = True
@@ -346,6 +346,7 @@ def serve(renderer, trackball, port: int = 8000, max_frames: int | None = None,
                     "render_ms": render_ms,
                     "gaze": list(gaze),
                     "subframe": active.subframe,
+                    "frames": frames,
                     "warmup": scale > 1,
                     "view": view,
                     "schedule": sched_names[sched_i],

@@ -158,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) occluded_packets_kernel(
   bool drained = false;
   int packets = 0, node_rows = 0, leaf_rows = 0;
   while (true) {
-    fill_queue(active, n, counter, queue, head, queued, drained, 32,
+    fill_queue(active, n, nullptr, counter, queue, head, queued, drained, 32,
                [&](int i) { occ_out[i] = false; });
     __syncwarp();
     if (queued == 0) break;

@@ -5,13 +5,16 @@
 // A warp takes 32 lanes at a time from a zeroed int32 counter, writes the
 // answer of the inactive ones and compacts the active ones with
 // __ballot_sync/__popc into its queue in shared memory, so no thread ever
-// walks an inactive lane and the host never synchronises.
+// walks an inactive lane and the host never synchronises. The lanes handed
+// out stop at n, or at a count read on the device (lanes.cuh).
 // The grid is the SMs times the resident blocks, from the occupancy API.
 #pragma once
 
 #include <cstddef>
 #include <mutex>
 #include <cuda_runtime.h>
+
+#include "lanes.cuh"
 
 namespace {
 
@@ -20,16 +23,20 @@ constexpr int kQueue = 64;       // a warp's ray queue; holds at most 63
 constexpr int kMaxDevices = 64;  // devices the launch-grid cache tells apart
 
 // Take chunks of 32 lanes from *counter until the warp's `queue` holds at
-// least `want` rays past `head` or the lanes run out (`drained`). Called by
-// the 32 lanes of a warp alike; miss(i) answers each inactive lane i.
-// `queued` and `drained` stay uniform across the warp.
+// least `want` rays past `head` or the lanes run out (`drained`): the first
+// n, or lane_count(n, count). Called by the 32 lanes of a warp alike;
+// miss(i) answers each inactive lane i. `queued` and `drained` stay uniform
+// across the warp. The limit is read here, a call at a time, so no
+// register holds it through the walk (n and count are kernel arguments).
 template <class Miss>
 __device__ __forceinline__ void fill_queue(
-    const unsigned char* __restrict__ active, int n, int* __restrict__ counter,
+    const unsigned char* __restrict__ active, int n,
+    const int* __restrict__ count, int* __restrict__ counter,
     int* __restrict__ queue, int head, int& queued, bool& drained, int want,
     Miss miss) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
+  n = lane_count(n, count);
   while (queued < want && !drained) {
     int base = 0;
     if (lane == 0) base = atomicAdd(counter, 32);

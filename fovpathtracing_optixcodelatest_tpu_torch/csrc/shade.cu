@@ -20,6 +20,11 @@
 //   state arrays at the lane's index; the bounce's occlusion queries and
 //   its lanes are added to `traces` on the device.
 //
+// Over a wavefront's lane list (render/integrator.py trace_paths on the
+// card) both kernels take the list's length from the device (`count`,
+// written by csrc/lanes.cu's compaction) and their grids are sized for the
+// list's capacity n, the record's row stride; lanes past the count return.
+//
 // Same arithmetic: every expression is written in the order of
 // ops/bsdf.py, ops/sampling.py, ops/probe_sampling.py, ops/rng.py and
 // models/texture.py, one IEEE float32 operation for each PyTorch op (the
@@ -42,6 +47,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lanes.cuh"
 #include "rng.cuh"
 #include "vec.cuh"
 
@@ -346,6 +352,7 @@ struct ShadeArgs {
   float* wi_out;            // (n, 3) K2's directions
   bool* query;              // (n,) K2's mask
   float* rec;               // (kRec, n)
+  const int32_t* count;     // () the lanes to shade, at most n; null: n
   int n, rec_rows, tri_cols, table_cols, inst_base;
   int tex_count, tex_h, tex_w, probe_w, probe_h;
   unsigned key0, key1;
@@ -371,6 +378,7 @@ struct ResolveArgs {
   float* albedo;
   bool* alive;         // (n,) out
   long long* traces;   // () int64, added to
+  const int32_t* count;  // () the lanes to resolve, at most n; null: n
   int n, rec_rows, primary, has_catcher;
 };
 
@@ -379,8 +387,8 @@ namespace {
 __global__ void __launch_bounds__(kThreads, 2)
     shade_kernel(const ShadeArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const int n = a.n;
+  if (i >= lane_count(a.n, a.count)) return;
+  const int n = a.n;  // the record's row stride
   float* rec = a.rec;
   const int64_t j = a.idx[i];
   const V3 o = {a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2]};
@@ -586,16 +594,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 __global__ void __launch_bounds__(kThreads, 2)
     resolve_kernel(const ResolveArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool q = i < a.n && a.query[i];
+  const int lanes = lane_count(a.n, a.count);
+  const bool q = i < lanes && a.query[i];
   // the bounce's occlusion queries, and its lanes once, into traces
   const unsigned queries = __popc(__ballot_sync(0xFFFFFFFFu, q));
   if ((threadIdx.x & 31) == 0) {
     unsigned long long add = queries;
-    if (i == 0) add += (unsigned long long)a.n;
+    if (i == 0) add += (unsigned long long)lanes;
     if (add) atomicAdd((unsigned long long*)a.traces, add);
   }
-  if (i >= a.n) return;
-  const int n = a.n;
+  if (i >= lanes) return;
+  const int n = a.n;  // the record's row stride
   const float* rec = a.rec;
   const int64_t j = a.idx[i];
   const int flags = __float_as_int(rec[kFlags * n + i]);

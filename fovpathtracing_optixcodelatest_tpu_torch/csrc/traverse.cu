@@ -65,7 +65,10 @@
 //   K2's lockstep loop at the wide layouts), and kK1RefillIdle (32, the
 //   whole warp) in K1 and its two-level variant, which lose their
 //   coherence and 20-35% of their speed when part of a warp refills (at 16
-//   or 8 idle lanes; 18% at 16 in the A32/L24 lockstep K1).
+//   or 8 idle lanes; 18% at 16 in the A32/L24 lockstep K1). A launch over
+//   a wavefront's lane list takes its length from the device (the
+//   `count` argument: csrc/lanes.cu's compaction writes it) and hands out
+//   lanes up to it; its grid is sized for the list's capacity n.
 // - K1 computes its children's keys in registers and sorts them there with
 //   a bitonic network (over 4, 8 or 16 keys, as far as the node's children
 //   reach) before pushing the hits.
@@ -955,7 +958,8 @@ struct ClosestWalk {
 template <int REFILL_IDLE, class Walk>
 __device__ __forceinline__ void walk_rays(Walk& w,
                                           const unsigned char* __restrict__ active,
-                                          int n, int* __restrict__ counter,
+                                          int n, const int* __restrict__ count,
+                                          int* __restrict__ counter,
                                           int* __restrict__ queue) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -966,7 +970,7 @@ __device__ __forceinline__ void walk_rays(Walk& w,
     // fetch chunks of 32 lanes until every idle lane has a ray waiting
     const unsigned idle = __ballot_sync(kFull, mine < 0);
     const int want = __popc(idle);
-    fill_queue(active, n, counter, queue, head, queued, drained, want,
+    fill_queue(active, n, count, counter, queue, head, queued, drained, want,
                [&](int i) { w.miss(i); });
     __syncwarp();
     if (mine < 0) {
@@ -1024,7 +1028,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int G, class Walk, int REFILL_IDLE = kGroupRefillIdle>
 __device__ __forceinline__ void walk_group_rays(
     Walk& w, const unsigned char* __restrict__ active, int n,
-    int* __restrict__ counter, int* __restrict__ queue) {
+    const int* __restrict__ count, int* __restrict__ counter,
+    int* __restrict__ queue) {
   constexpr int kGroups = 32 / G;
   constexpr unsigned kLeaders = group_leaders(G);
   const int lane = threadIdx.x & 31;
@@ -1038,7 +1043,7 @@ __device__ __forceinline__ void walk_group_rays(
     // fetch chunks of 32 lanes until every idle group has a ray waiting
     const unsigned idle = __ballot_sync(kFull, mine < 0) & kLeaders;
     const int want = __popc(idle);
-    fill_queue(active, n, counter, queue, head, queued, drained, want,
+    fill_queue(active, n, count, counter, queue, head, queued, drained, want,
                [&](int i) { w.miss(i); });
     __syncwarp();
     if (mine < 0) {
@@ -1093,7 +1098,8 @@ __global__ void __launch_bounds__(
     closest_hit_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
-    int n, float tmin, float tmax, int depth, unsigned int lowmask,
+    int n, const int* __restrict__ count, float tmin, float tmax, int depth,
+    unsigned int lowmask,
     float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ counter) {
@@ -1114,10 +1120,10 @@ __global__ void __launch_bounds__(
   w.stk.init(smem, depth, stack);
   int* queue = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue;
   if constexpr (decltype(w)::kLockstep)  // lockstep steps, a lane a ray
-    walk_group_rays<1, decltype(w), kK1RefillIdle>(w, active, n, counter,
-                                                   queue);
+    walk_group_rays<1, decltype(w), kK1RefillIdle>(w, active, n, count,
+                                                   counter, queue);
   else
-    walk_rays<kK1RefillIdle>(w, active, n, counter, queue);
+    walk_rays<kK1RefillIdle>(w, active, n, count, counter, queue);
 }
 
 // The single-level K2 of both kernels below.
@@ -1125,7 +1131,8 @@ template <int ARITY, int LEAF, bool CULL>
 __device__ __forceinline__ void occluded_walk(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
-    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int n, const int* __restrict__ count, float tmin, float tmax, int depth,
+    bool* __restrict__ occ_out,
     int* __restrict__ counter) {
   extern __shared__ uint32_t smem[];
   OccludedWalk<ARITY, LEAF, false, CULL> w;
@@ -1141,9 +1148,9 @@ __device__ __forceinline__ void occluded_walk(
   int* queue = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue;
   if constexpr (decltype(w)::kLockstep)  // lockstep steps, a lane a ray
     walk_group_rays<1, decltype(w), kWideK2RefillIdle>(w, active, n,
-                                                       counter, queue);
+                                                       count, counter, queue);
   else
-    walk_rays<kK2RefillIdle>(w, active, n, counter, queue);
+    walk_rays<kK2RefillIdle>(w, active, n, count, counter, queue);
 }
 
 template <int ARITY, int LEAF>
@@ -1152,10 +1159,11 @@ __global__ void __launch_bounds__(
     occluded_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
-    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int n, const int* __restrict__ count, float tmin, float tmax, int depth,
+    bool* __restrict__ occ_out,
     int* __restrict__ counter) {
-  occluded_walk<ARITY, LEAF, true>(table, orig, dir, active, n, tmin, tmax,
-                                   depth, occ_out, counter);
+  occluded_walk<ARITY, LEAF, true>(table, orig, dir, active, n, count, tmin,
+                                   tmax, depth, occ_out, counter);
 }
 
 template <int ARITY, int LEAF>
@@ -1164,10 +1172,11 @@ __global__ void __launch_bounds__(
     occluded_nocull_kernel(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
-    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int n, const int* __restrict__ count, float tmin, float tmax, int depth,
+    bool* __restrict__ occ_out,
     int* __restrict__ counter) {
-  occluded_walk<ARITY, LEAF, false>(table, orig, dir, active, n, tmin, tmax,
-                                    depth, occ_out, counter);
+  occluded_walk<ARITY, LEAF, false>(table, orig, dir, active, n, count, tmin,
+                                    tmax, depth, occ_out, counter);
 }
 
 template <int ARITY, int LEAF>
@@ -1176,8 +1185,9 @@ __global__ void __launch_bounds__(
     closest_hit_instanced_kernel(
         const uint4* __restrict__ table, const float* __restrict__ orig,
         const float* __restrict__ dir,
-        const unsigned char* __restrict__ active, int n, float tmin,
-        float tmax, int depth, unsigned int lowmask,
+        const unsigned char* __restrict__ active, int n,
+        const int* __restrict__ count, float tmin, float tmax, int depth,
+        unsigned int lowmask,
         float* __restrict__ t_out, int* __restrict__ tri_out,
         float* __restrict__ u_out, float* __restrict__ v_out,
         int* __restrict__ counter, int inst_base, int blas_base,
@@ -1201,7 +1211,7 @@ __global__ void __launch_bounds__(
   w.in.blas_base = blas_base;
   w.inst_out = inst_out;
   walk_rays<kK1RefillIdle>(
-      w, active, n, counter,
+      w, active, n, count, counter,
       reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue);
 }
 
@@ -1590,7 +1600,8 @@ template <int ARITY, int LEAF, bool CULL>
 __device__ __forceinline__ void occluded_instanced_walk(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
-    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int n, const int* __restrict__ count, float tmin, float tmax, int depth,
+    bool* __restrict__ occ_out,
     int* __restrict__ counter, int inst_base, int blas_base) {
   extern __shared__ uint32_t smem[];
   OccludedWalk<ARITY, LEAF, true, CULL, kIK2StagedRow> w;
@@ -1608,9 +1619,9 @@ __device__ __forceinline__ void occluded_instanced_walk(
   int* queue = reinterpret_cast<int*>(smem) + (threadIdx.x >> 5) * kQueue;
   if constexpr (Layout<ARITY, LEAF>::kWide)  // lockstep steps, a lane a ray
     walk_group_rays<1, decltype(w), kWideK2RefillIdle>(w, active, n,
-                                                       counter, queue);
+                                                       count, counter, queue);
   else
-    walk_rays<kIK2RefillIdle>(w, active, n, counter, queue);
+    walk_rays<kIK2RefillIdle>(w, active, n, count, counter, queue);
 }
 
 template <int ARITY, int LEAF>
@@ -1619,11 +1630,12 @@ __global__ void __launch_bounds__(
     occluded_instanced_kernel(
         const uint4* __restrict__ table, const float* __restrict__ orig,
         const float* __restrict__ dir,
-        const unsigned char* __restrict__ active, int n, float tmin,
-        float tmax, int depth, bool* __restrict__ occ_out,
+        const unsigned char* __restrict__ active, int n,
+        const int* __restrict__ count, float tmin, float tmax, int depth,
+        bool* __restrict__ occ_out,
         int* __restrict__ counter, int inst_base, int blas_base) {
   occluded_instanced_walk<ARITY, LEAF, true>(table, orig, dir, active, n,
-                                             tmin, tmax, depth, occ_out,
+                                             count, tmin, tmax, depth, occ_out,
                                              counter, inst_base, blas_base);
 }
 
@@ -1635,11 +1647,12 @@ __global__ void __launch_bounds__(
     occluded_nocull_instanced_kernel(
         const uint4* __restrict__ table, const float* __restrict__ orig,
         const float* __restrict__ dir,
-        const unsigned char* __restrict__ active, int n, float tmin,
-        float tmax, int depth, bool* __restrict__ occ_out,
+        const unsigned char* __restrict__ active, int n,
+        const int* __restrict__ count, float tmin, float tmax, int depth,
+        bool* __restrict__ occ_out,
         int* __restrict__ counter, int inst_base, int blas_base) {
   occluded_instanced_walk<ARITY, LEAF, false>(table, orig, dir, active, n,
-                                              tmin, tmax, depth, occ_out,
+                                              count, tmin, tmax, depth, occ_out,
                                               counter, inst_base, blas_base);
 }
 
@@ -1649,8 +1662,9 @@ __global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
     closest_hit_group_kernel(
         const uint4* __restrict__ table, const float* __restrict__ orig,
         const float* __restrict__ dir,
-        const unsigned char* __restrict__ active, int n, float tmin,
-        float tmax, int depth, unsigned int lowmask,
+        const unsigned char* __restrict__ active, int n,
+        const int* __restrict__ count, float tmin, float tmax, int depth,
+        unsigned int lowmask,
         float* __restrict__ t_out, int* __restrict__ tri_out,
         float* __restrict__ u_out, float* __restrict__ v_out,
         int* __restrict__ counter, uint32_t* __restrict__ stack) {
@@ -1669,7 +1683,7 @@ __global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
   w.lowmask = lowmask;
   w.init(group_smem, stack);
   walk_group_rays<decltype(w)::G>(
-      w, active, n, counter,
+      w, active, n, count, counter,
       reinterpret_cast<int*>(group_smem) + (threadIdx.x >> 5) * kQueue);
 }
 
@@ -1678,7 +1692,8 @@ template <int ARITY, int LEAF, bool CULL>
 __device__ __forceinline__ void occluded_group_walk(
     const uint4* __restrict__ table, const float* __restrict__ orig,
     const float* __restrict__ dir, const unsigned char* __restrict__ active,
-    int n, float tmin, float tmax, int depth, bool* __restrict__ occ_out,
+    int n, const int* __restrict__ count, float tmin, float tmax, int depth,
+    bool* __restrict__ occ_out,
     int* __restrict__ counter) {
   extern __shared__ __align__(16) uint32_t group_smem[];
   OccludedGroupWalk<ARITY, LEAF, CULL> w;
@@ -1691,7 +1706,7 @@ __device__ __forceinline__ void occluded_group_walk(
   w.depth = depth;
   w.init(group_smem, nullptr);
   walk_group_rays<decltype(w)::G>(
-      w, active, n, counter,
+      w, active, n, count, counter,
       reinterpret_cast<int*>(group_smem) + (threadIdx.x >> 5) * kQueue);
 }
 
@@ -1701,11 +1716,12 @@ __global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
                           const float* __restrict__ orig,
                           const float* __restrict__ dir,
                           const unsigned char* __restrict__ active, int n,
+                          const int* __restrict__ count,
                           float tmin, float tmax, int depth,
                           bool* __restrict__ occ_out,
                           int* __restrict__ counter) {
-  occluded_group_walk<ARITY, LEAF, true>(table, orig, dir, active, n, tmin,
-                                         tmax, depth, occ_out, counter);
+  occluded_group_walk<ARITY, LEAF, true>(table, orig, dir, active, n, count,
+                                         tmin, tmax, depth, occ_out, counter);
 }
 
 template <int ARITY, int LEAF>
@@ -1714,11 +1730,12 @@ __global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
                                  const float* __restrict__ orig,
                                  const float* __restrict__ dir,
                                  const unsigned char* __restrict__ active,
-                                 int n, float tmin, float tmax, int depth,
+                                 int n, const int* __restrict__ count,
+                                 float tmin, float tmax, int depth,
                                  bool* __restrict__ occ_out,
                                  int* __restrict__ counter) {
   occluded_group_walk<ARITY, LEAF, false>(table, orig, dir, active, n,
-                                          tmin, tmax, depth, occ_out,
+                                          count, tmin, tmax, depth, occ_out,
                                           counter);
 }
 
@@ -1897,6 +1914,9 @@ struct TraverseArgs {
   // a null pointer, at the layouts whose stacks lie in shared or local
   // memory)
   unsigned int* stack;
+  // the lanes to walk, read on the device (a wavefront's live lanes, which
+  // csrc/lanes.cu's compaction counted; at most n); null: all n
+  const int* count;
   int which;
   int n;
   float tmin;
@@ -1928,21 +1948,21 @@ extern "C" int fov_traverse(const TraverseArgs* a, cudaStream_t stream) {
         case 0:
           if constexpr (kGrouped<A, L>)
             closest_hit_group_kernel<A, L><<<blocks, kThreads, smem, stream>>>(
-                t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
-                a->stack_depth, a->lowmask, a->t_out, a->tri_out, a->u_out,
-                a->v_out, a->counter, a->stack);
+                t, a->orig, a->dir, a->active, a->n, a->count, a->tmin,
+                a->tmax, a->stack_depth, a->lowmask, a->t_out, a->tri_out,
+                a->u_out, a->v_out, a->counter, a->stack);
           else
             closest_hit_kernel<A, L><<<blocks, kThreads, smem, stream>>>(
-                t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
-                a->stack_depth, a->lowmask, a->t_out, a->tri_out, a->u_out,
-                a->v_out, a->counter);
+                t, a->orig, a->dir, a->active, a->n, a->count, a->tmin,
+                a->tmax, a->stack_depth, a->lowmask, a->t_out, a->tri_out,
+                a->u_out, a->v_out, a->counter);
           break;
         case 2:
           closest_hit_instanced_kernel<A, L>
               <<<blocks, kThreads, smem, stream>>>(
-                  t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
-                  a->stack_depth, a->lowmask, a->t_out, a->tri_out, a->u_out,
-                  a->v_out, a->counter, a->inst_base, a->blas_base,
+                  t, a->orig, a->dir, a->active, a->n, a->count, a->tmin,
+                  a->tmax, a->stack_depth, a->lowmask, a->t_out, a->tri_out,
+                  a->u_out, a->v_out, a->counter, a->inst_base, a->blas_base,
                   a->inst_out);
           break;
         case 3:
@@ -1951,8 +1971,8 @@ extern "C" int fov_traverse(const TraverseArgs* a, cudaStream_t stream) {
                                   ? occluded_instanced_kernel<A, L>
                                   : occluded_nocull_instanced_kernel<A, L>;
           kernel<<<blocks, kThreads, smem, stream>>>(
-              t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
-              a->stack_depth, a->occ_out, a->counter, a->inst_base,
+              t, a->orig, a->dir, a->active, a->n, a->count, a->tmin,
+              a->tmax, a->stack_depth, a->occ_out, a->counter, a->inst_base,
               a->blas_base);
           break;
         }
@@ -1960,8 +1980,8 @@ extern "C" int fov_traverse(const TraverseArgs* a, cudaStream_t stream) {
           const auto kernel = a->which == 1 ? occluded_kernel_at<A, L, true>()
                                             : occluded_kernel_at<A, L, false>();
           kernel<<<blocks, kThreads, smem, stream>>>(
-              t, a->orig, a->dir, a->active, a->n, a->tmin, a->tmax,
-              a->stack_depth, a->occ_out, a->counter);
+              t, a->orig, a->dir, a->active, a->n, a->count, a->tmin,
+              a->tmax, a->stack_depth, a->occ_out, a->counter);
         }
       }
       return 0;

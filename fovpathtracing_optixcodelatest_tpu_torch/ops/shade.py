@@ -20,6 +20,13 @@ The C interface takes one struct a kernel (``ShadeArgs``,
 ``csrc/shade.cu`` declares them. ``shade_inputs`` / ``resolve_inputs``
 name every tensor and integer that goes into them; ``pack`` checks each
 tensor's dtype, contiguity and device and builds the struct.
+
+Over a wavefront's lane list (``render/integrator.py`` ``trace_paths`` on
+the card) both take ``count``, the list's length as a (1,) int32 tensor
+the device holds (``ops/lanes.py``), and their outputs (``out`` of
+``shade_outputs``, ``alive``) from the caller, which allocates them once
+a wavefront at the list's capacity: the kernels run over the capacity and
+return past the count.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ SHADE_TENSORS = {
     "tex_data": _F32, "tex_sizes": _I64, "probe_rows": _F32,
     "alias_prob": _F32, "alias_idx": _I64, "pdf_flat": _F32,
     "probe_data": _F32, "p_out": _F32, "wi_out": _F32, "query": _BOOL,
-    "rec": _F32,
+    "rec": _F32, "count": _I32,
 }
 SHADE_INTS = ("n", "rec_rows", "tri_cols", "table_cols", "inst_base",
               "tex_count", "tex_h", "tex_w", "probe_w", "probe_h", "key0",
@@ -68,7 +75,7 @@ RESOLVE_TENSORS = {
     "idx": _I64, "rec": _F32, "p": _F32, "occ": _BOOL, "query": _BOOL,
     "o": _F32, "d": _F32, "throughput": _F32, "eta": _F32,
     "radiance": _F32, "alpha": _F32, "normal": _F32, "albedo": _F32,
-    "alive": _BOOL, "traces": _I64,
+    "alive": _BOOL, "traces": _I64, "count": _I32,
 }
 RESOLVE_INTS = ("n", "rec_rows", "primary", "has_catcher")
 _UNSIGNED = ("key0", "key1")
@@ -96,11 +103,23 @@ def material_columns() -> dict:
     return {f: cols[f] for f in SHADE_FIELDS}
 
 
-def shade_inputs(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool):
+def shade_outputs(k: int, device) -> dict:
+    """Fresh tensors for shade's outputs over k lanes (``p_out``,
+    ``wi_out``, ``query``, ``rec``)."""
+    return {"p_out": torch.empty((k, 3), dtype=_F32, device=device),
+            "wi_out": torch.empty((k, 3), dtype=_F32, device=device),
+            "query": torch.empty((k,), dtype=_BOOL, device=device),
+            "rec": torch.empty((REC_ROWS, k), dtype=_F32, device=device)}
+
+
+def shade_inputs(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool,
+                 count=None, out=None):
     """The shade kernel's arguments for the K lanes ``idx`` of the state
     arrays (``eta``, ``ray_ids``, full size), their
     gathered rays ``o``, ``d`` (K, 3) and K1's answer ``hit`` -> (tensors,
-    integers), each by its struct name; the outputs are allocated here."""
+    integers), each by its struct name; the outputs are ``out``
+    (``shade_outputs``), or allocated here. ``count`` (None: K) is the
+    lanes' number as the device holds it."""
     k, dev = idx.shape[0], o.device
     probe, tex, bvh = scene.probe, scene.textures, scene.bvh
     rows = probe.sample_rows
@@ -118,10 +137,8 @@ def shade_inputs(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool):
         "alias_idx": probe.alias_idx if rows is None else None,
         "pdf_flat": probe.pdf_flat if rows is None else None,
         "probe_data": probe.data,
-        "p_out": torch.empty((k, 3), dtype=_F32, device=dev),
-        "wi_out": torch.empty((k, 3), dtype=_F32, device=dev),
-        "query": torch.empty((k,), dtype=_BOOL, device=dev),
-        "rec": torch.empty((REC_ROWS, k), dtype=_F32, device=dev),
+        **(shade_outputs(k, dev) if out is None else out),
+        "count": count,
     }
     key0, key1 = key_words(key)
     ints = {
@@ -142,18 +159,20 @@ def shade_inputs(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool):
 
 
 def resolve_inputs(idx, rec, p, occ, query, state, primary: bool,
-                   has_catcher: bool):
+                   has_catcher: bool, count=None, alive=None):
     """The resolve kernel's arguments: ``shade``'s outputs, K2's answer
     ``occ`` and the full-size state arrays of ``state`` (an
-    ``integrator.PathState``) -> (tensors, integers)."""
+    ``integrator.PathState``) -> (tensors, integers). The alive mask is
+    ``alive``, or allocated here; ``count`` as ``shade_inputs``'."""
     k = idx.shape[0]
     tensors = {
         "idx": idx, "rec": rec, "p": p, "occ": occ, "query": query,
         "o": state.o, "d": state.d, "throughput": state.throughput,
         "eta": state.eta, "radiance": state.radiance, "alpha": state.alpha,
         "normal": state.normal, "albedo": state.albedo,
-        "alive": torch.empty((k,), dtype=_BOOL, device=idx.device),
-        "traces": state.traces,
+        "alive": torch.empty((k,), dtype=_BOOL, device=idx.device)
+        if alive is None else alive,
+        "traces": state.traces, "count": count,
     }
     ints = {"n": k, "rec_rows": REC_ROWS, "primary": int(primary),
             "has_catcher": int(has_catcher)}
@@ -168,11 +187,13 @@ def pack(cls, dtypes: dict, tensors: dict, ints: dict):
                              tensors)
 
 
-def shade(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool):
-    """Launch ``shade_kernel`` over the lanes ``idx`` -> (p (K, 3), wi (K,
-    3), query (K,), rec (REC_ROWS, K))."""
+def shade(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool,
+          count=None, out=None):
+    """Launch ``shade_kernel`` over the lanes ``idx`` (its first ``count``
+    where given) -> (p (K, 3), wi (K, 3), query (K,), rec (REC_ROWS, K)),
+    ``out``'s tensors where given."""
     tensors, ints = shade_inputs(scene, idx, o, d, hit, eta, ray_ids, key,
-                                 primary)
+                                 primary, count, out)
     args = pack(ShadeArgs, SHADE_TENSORS, tensors, ints)
     if ints["n"]:
         kernel_build.launch("shade", "fov_shade", "shade", args)
@@ -181,11 +202,12 @@ def shade(scene, idx, o, d, hit, eta, ray_ids, key, primary: bool):
 
 
 def resolve(idx, rec, p, occ, query, state, primary: bool,
-            has_catcher: bool) -> torch.Tensor:
-    """Launch ``resolve_kernel`` over the lanes ``idx``: update ``state``
-    in place -> the lanes' (K,) alive mask."""
+            has_catcher: bool, count=None, alive=None) -> torch.Tensor:
+    """Launch ``resolve_kernel`` over the lanes ``idx`` (its first
+    ``count`` where given): update ``state`` in place -> the lanes' (K,)
+    alive mask, ``alive`` where given."""
     tensors, ints = resolve_inputs(idx, rec, p, occ, query, state, primary,
-                                   has_catcher)
+                                   has_catcher, count, alive)
     args = pack(ResolveArgs, RESOLVE_TENSORS, tensors, ints)
     if ints["n"]:
         kernel_build.launch("shade", "fov_resolve", "resolve", args)

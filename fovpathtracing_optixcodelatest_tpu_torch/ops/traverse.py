@@ -45,6 +45,13 @@ K2's (``NOCULL_INSTANCED``), each compiled for every layout.
 All six kernels launch through one entry, ``fov_traverse``, which takes a
 ``TraverseArgs`` whose ``which`` names the kernel (``WHICH``).
 
+Over a wavefront's lane list (``render/integrator.py`` ``trace_paths`` on
+the card) the wrappers take ``count``, the list's length as a (1,) int32
+tensor the device holds (``ops/lanes.py``): the kernel walks the lanes
+below it, its grid sized for all N, and the outputs past it are left as
+they were. ``counter`` gives the kernel's zeroed lane counter and ``out``
+its output tensors, so such a caller allocates them once a wavefront.
+
 ``ops/traverse8.py`` gives these walks under the JAX package's names and
 signatures. Each call of ``closest_hit`` or ``occluded``, on either
 device, is the span ``fov.k1`` or ``fov.k2`` (``utils/tracing.py``).
@@ -266,6 +273,9 @@ def _real_triangles(lrows: torch.Tensor, leaf_size: int) -> int:
 # the rays' and the table's fields of ``TraverseArgs`` and ``PacketArgs``
 RAYS = {"table": torch.float32, "orig": torch.float32, "dir": torch.float32,
         "active": torch.bool}
+# the tensors ``_launch`` fills in: the rays, the table, the lane counter
+# and the lane count
+_LAUNCH = {**RAYS, "counter": torch.int32, "count": torch.int32}
 
 
 class TraverseArgs(ctypes.Structure):
@@ -274,7 +284,7 @@ class TraverseArgs(ctypes.Structure):
     _fields_ = [*((k, ctypes.c_void_p) for k in (
                     "table", "orig", "dir", "active", "t_out", "tri_out",
                     "u_out", "v_out", "inst_out", "occ_out", "counter",
-                    "stack")),
+                    "stack", "count")),
                 ("which", ctypes.c_int), ("n", ctypes.c_int),
                 ("tmin", ctypes.c_float), ("tmax", ctypes.c_float),
                 ("stack_depth", ctypes.c_int), ("lowmask", ctypes.c_uint),
@@ -367,17 +377,18 @@ def _global_stack(arity: int, leaf_size: int, stack_depth: int, n: int,
 
 def _launch(name: str, args: TraverseArgs, table, o, d, active,
             tmin: float, tmax: float, stack_depth: int, arity: int,
-            leaf_size: int) -> None:
+            leaf_size: int, count=None, counter=None) -> None:
     """Launch kernel ``name`` (``WHICH``) over the rays: ``args`` holds its
     outputs and any other fields it takes; this fills in the rays and the
-    table (``kernel_build.fill`` checks them), the kernel and the walk's
-    parameters. Counts the launch, also under its ``layout_name`` at a
-    wide layout."""
+    table (``kernel_build.fill`` checks them), the lane count (None: all)
+    and counter (None: a fresh one), the kernel and the walk's parameters.
+    Counts the launch, also under its ``layout_name`` at a wide layout."""
     dev = table.device
-    kernel_build.fill(args, dev, RAYS, {"table": table, "orig": o, "dir": d,
-                                        "active": active})
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-    args.counter = counter.data_ptr()
+    if counter is None:
+        counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kernel_build.fill(args, dev, _LAUNCH, {
+        "table": table, "orig": o, "dir": d, "active": active,
+        "counter": counter, "count": count})
     args.which = WHICH[name]
     args.n = o.shape[0]
     args.tmin = tmin
@@ -526,19 +537,43 @@ def closest_hit_plain(table, o, d, active, tmin: float, tmax: float,
     return out
 
 
+def _card_only(table, **launch) -> None:
+    """Refuse a lane count, counter or output tensors on the CPU: they
+    are a kernel launch's."""
+    if table.device.type == "cpu" and any(
+            v is not None for v in launch.values()):
+        raise ValueError(f"{sorted(launch)} are a CUDA launch's arguments")
+
+
+def hit_outputs(n: int, device, instanced: bool) -> dict:
+    """Fresh tensors for ``closest_hit``'s answer over n lanes (``t``,
+    ``tri_id``, ``u``, ``v``, ``hit``; ``inst`` on a two-level table)."""
+    t = torch.empty((n,), dtype=torch.float32, device=device)
+    out = {"t": t, "tri_id": torch.empty((n,), dtype=torch.int32,
+                                         device=device),
+           "u": torch.empty_like(t), "v": torch.empty_like(t),
+           "hit": torch.empty((n,), dtype=torch.bool, device=device)}
+    if instanced:
+        out["inst"] = torch.empty_like(out["tri_id"])
+    return out
+
+
 @tracing.spanned(tracing.K1)
 def closest_hit(table, o, d, active, tmin: float, tmax: float,
                 stack_depth: int, arity: int, leaf_size: int, *,
                 num_instances: int = 0, inst_base: int = 0,
-                blas_base: int = 0):
+                blas_base: int = 0, count=None, counter=None, out=None):
     """Closest hit of each active ray: dict(t, tri_id, u, v, hit) of (N,)
     tensors (miss: t = inf, tri_id = -1, u = v = 0), and ``inst`` (-1 on a
     miss) on a two-level table. CUDA tensors launch K1 at the table's
     layout (``KERNEL_LAYOUTS``), or its instanced variant where
-    ``num_instances > 0``; CPU tensors run ``closest_hit_plain``."""
+    ``num_instances > 0``, over the first ``count`` lanes where it is
+    given, into ``out`` (``hit_outputs``) where it is given; CPU tensors
+    run ``closest_hit_plain``."""
     inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
                "blas_base": blas_base}
     _check(table, o, d, active, stack_depth, **inst_kw)
+    _card_only(table, count=count, counter=counter, out=out)
     if table.device.type == "cpu":
         return closest_hit_plain(table, o, d, active, tmin, tmax,
                                  stack_depth, arity, leaf_size, **inst_kw)
@@ -547,13 +582,9 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
     cb = codebits(table.shape[0])
     if cb > 26:
         raise ValueError("table too large for packed tn|code stack entries")
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    tri = torch.empty((n,), dtype=torch.int32, device=dev)
-    out = {"t": t, "tri_id": tri, "u": u, "v": v}
-    if num_instances:
-        out["inst"] = torch.empty_like(tri)
+    if out is None:
+        out = hit_outputs(n, dev, bool(num_instances))
+    t, tri, u, v = out["t"], out["tri_id"], out["u"], out["v"]
     if n > 0:  # else nothing to launch
         args = TraverseArgs()
         args.t_out, args.tri_out = t.data_ptr(), tri.data_ptr()
@@ -569,8 +600,8 @@ def closest_hit(table, o, d, active, tmin: float, tmax: float,
                 args.stack = stack.data_ptr()
             name = "closest_hit"
         _launch(name, args, table, o, d, active, tmin, tmax, stack_depth,
-                arity, leaf_size)
-    out["hit"] = tri >= 0
+                arity, leaf_size, count, counter)
+    torch.ge(tri, 0, out=out["hit"])
     return out
 
 
@@ -653,23 +684,26 @@ def occluded_plain(table, o, d, active, tmin: float, tmax: float,
 def occluded(table, o, d, active, tmin: float, tmax: float,
              stack_depth: int, arity: int, leaf_size: int, *,
              num_instances: int = 0, inst_base: int = 0, blas_base: int = 0,
-             cull_backface: bool = True):
+             cull_backface: bool = True, count=None, counter=None, out=None):
     """Any-hit occlusion with first-hit exit -> (N,) bool; back faces do not
     occlude unless ``cull_backface`` is False. CUDA tensors launch K2 at
-    the table's layout (``KERNEL_LAYOUTS``), walking only the active lanes:
-    its instanced variant where ``num_instances > 0``, its non-culling
-    instantiation where ``cull_backface`` is False (of either, on a
-    two-level table); CPU tensors run ``occluded_plain``."""
+    the table's layout (``KERNEL_LAYOUTS``), walking only the active lanes
+    (of the first ``count`` where it is given; into the (N,) bool ``out``
+    where it is given): its instanced variant where ``num_instances > 0``,
+    its non-culling instantiation where ``cull_backface`` is False (of
+    either, on a two-level table); CPU tensors run ``occluded_plain``."""
     inst_kw = {"num_instances": num_instances, "inst_base": inst_base,
                "blas_base": blas_base}
     _check(table, o, d, active, stack_depth, **inst_kw)
+    _card_only(table, count=count, counter=counter, out=out)
     if table.device.type == "cpu":
         return occluded_plain(table, o, d, active, tmin, tmax, stack_depth,
                               arity, leaf_size, cull_backface=cull_backface,
                               **inst_kw)
     n, dev = o.shape[0], o.device
     _kernel_layout(table, n, arity, leaf_size)
-    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev) if out is None \
+        else out
     if n == 0:  # nothing to launch
         return occ
     args = TraverseArgs()
@@ -677,5 +711,6 @@ def occluded(table, o, d, active, tmin: float, tmax: float,
     if num_instances:
         args.inst_base, args.blas_base = inst_base, blas_base
     _launch(_OCCLUDED[bool(num_instances), bool(cull_backface)], args, table,
-            o, d, active, tmin, tmax, stack_depth, arity, leaf_size)
+            o, d, active, tmin, tmax, stack_depth, arity, leaf_size, count,
+            counter)
     return occ

@@ -66,12 +66,24 @@ in two launches instead of some 1,400 PyTorch ops, on the same arithmetic.
 Everywhere else it is ``plain_bounce`` (``bounce`` and its scatter), the
 kernels' plain version, which the card tests hold them to.
 
+The two paths keep their live lanes apart. The plain bounce's lanes are a
+host list: the live-lane ``nonzero`` and each bounce's narrowing
+``idx[alive]`` wait for the device. On the kernel path they stay on the
+card (``kernel_paths``): ``csrc/lanes.cu``'s compaction (``ops/lanes.py``)
+writes each bounce's lane list, its length and its rays on the device,
+every kernel of the bounce reads the length there, and the lane-sized
+buffers (``CardWave``) are allocated once a wavefront at its capacity, so
+the host queues the whole wavefront without waiting.
+
 ``trace_paths`` is the span ``fov.paths`` and each bounce's loop body the
-span ``fov.bounce.<depth>`` (``utils/tracing.py``); the live-lane
-``nonzero`` and each narrowing, which wait for the device, are the syncs
-``live_lanes`` and ``narrow``, the lanes entering each depth are counted
-under ``lanes``, and each bounce under ``shade``, keyed ``"kernel"`` or
-``"plain"`` by the path it took; each call counts one wavefront.
+span ``fov.bounce.<depth>`` (``utils/tracing.py``); on the plain path the
+live-lane ``nonzero`` and each narrowing are the syncs ``live_lanes`` and
+``narrow``. The lanes entering each depth are counted under ``lanes`` (on
+the kernel path from the device's per-depth counts, which reach the
+counters after the frame's download), each bounce under ``shade`` and
+each wavefront's lane list under ``lane_list``, keyed ``"kernel"`` or
+``"plain"`` and ``"device"`` or ``"host"`` by the path it took; each call
+counts one wavefront.
 """
 
 from __future__ import annotations
@@ -97,6 +109,7 @@ from fovpathtracing_optixcodelatest_tpu_torch.models.texture import (
 )
 from fovpathtracing_optixcodelatest_tpu_torch.ops import bsdf as bsdf_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import intersect
+from fovpathtracing_optixcodelatest_tpu_torch.ops import lanes as lane_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import probe_sampling as probe_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import shade as shade_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import spectrum as sp
@@ -182,7 +195,9 @@ def _oracle_triangles(scene):
     return tp[:, 36:39], tp[:, 39:42], tp[:, 42:45]
 
 
-def _closest(scene, o, d, active, config: RenderConfig):
+def _closest(scene, o, d, active, config: RenderConfig, **launch):
+    """K1 (or the oracle) over the rays; ``launch`` goes to
+    ``traverse.closest_hit`` (a lane count, counter, output tensors)."""
     if config.traversal == "oracle":
         out = intersect.brute_force_closest_hit(
             *_oracle_triangles(scene), o, d, config.tmin, config.tmax)
@@ -192,10 +207,10 @@ def _closest(scene, o, d, active, config: RenderConfig):
     bvh = scene.bvh
     return traverse.closest_hit(bvh.table, o, d, active, config.tmin,
                                 config.tmax, *bvh.walk_args,
-                                **bvh.instance_kwargs)
+                                **bvh.instance_kwargs, **launch)
 
 
-def _occluded(scene, p, wi, query, config: RenderConfig):
+def _occluded(scene, p, wi, query, config: RenderConfig, **launch):
     if config.traversal == "oracle":
         return intersect.brute_force_occluded(
             *_oracle_triangles(scene), p, wi, config.tmin, config.tmax
@@ -203,7 +218,7 @@ def _occluded(scene, p, wi, query, config: RenderConfig):
     bvh = scene.bvh
     return traverse.occluded(bvh.table, p, wi, query, config.tmin,
                              config.tmax, *bvh.walk_args,
-                             **bvh.instance_kwargs)
+                             **bvh.instance_kwargs, **launch)
 
 
 def _world_normal(scene, ng, inst):
@@ -222,17 +237,21 @@ def _world_normal(scene, ng, inst):
                                                       keepdim=True), min=1e-20)
 
 
-def _catcher_passthrough(scene, o, d, hit, config: RenderConfig):
+def _catcher_passthrough(scene, o, d, hit, config: RenderConfig, live=None):
     """``config.catcher_passthrough`` rounds of the catcher pass-through:
     lanes whose closest hit is a catcher re-trace (K1, those lanes only)
     from the hit point along the same direction, and take the new hit.
-    Returns (origin, hit, re-traces walked)."""
+    ``live`` (None: all) masks the lanes of a list whose length the device
+    holds. Returns (origin, hit, re-traces walked)."""
     walked = torch.zeros((), dtype=torch.int64, device=o.device)
     for _ in range(config.catcher_passthrough):
-        tri = torch.clamp(hit["tri_id"], min=0).to(torch.int64)
+        tri_id = hit["tri_id"]
+        if live is not None:  # past the length K1 left stale words
+            tri_id = torch.where(live, tri_id, -1)
+        tri = torch.clamp(tri_id, min=0).to(torch.int64)
         flags = take_tri_pack(scene, tri, 12 + MATERIAL_FLAGS_COL).view(
             torch.int32)
-        thru = hit["hit"] & ((flags & MATERIAL_FLAG_SHADOW_CATCHER) != 0)
+        thru = (tri_id >= 0) & ((flags & MATERIAL_FLAG_SHADOW_CATCHER) != 0)
         o = torch.where(thru[:, None], o + hit["t"][:, None] * d, o)
         o = o.contiguous()
         again = _closest(scene, o, d, thru, config)
@@ -467,23 +486,109 @@ def plain_bounce(scene, st: PathState, idx, ray_ids, key, primary: bool,
     return b["alive"]
 
 
-def kernel_bounce(scene, st: PathState, idx, ray_ids, key, primary: bool,
-                  config: RenderConfig) -> torch.Tensor:
-    """One bounce of the lanes ``idx`` on the card: K1 on their gathered
+class CardWave:
+    """The kernel path's lane-sized buffers for one wavefront of capacity n
+    and ``depths`` bounces, allocated once and used at every depth: the two
+    lane lists the compactions write in turn, the bounce's rays, K1's
+    answer, shade's outputs, K2's answer and the alive mask, the all-true
+    mask K1 walks, and one zeroed int32 workspace holding the per-depth
+    lane counts (int64, ``lanes``), the lists' lengths (``counts``, one a
+    depth), K1's and K2's lane counters and each compaction's scratch."""
+
+    def __init__(self, n: int, depths: int, instanced: bool, device):
+        tiles = lane_ops.tile_words(n)
+        ws = torch.zeros((5 * depths + depths * tiles,), dtype=torch.int32,
+                         device=device)
+        self.n = n
+        self.lanes = ws[:2 * depths].view(torch.int64)
+        self.counts = ws[2 * depths: 3 * depths]
+        self.k1_counters = ws[3 * depths: 4 * depths]
+        self.k2_counters = ws[4 * depths: 5 * depths]
+        self.tiles = ws[5 * depths:].view(depths, tiles)
+        empty = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+            shape, dtype=dtype, device=device)
+        self.idx = [empty(n, dtype=torch.int64), empty(n, dtype=torch.int64)]
+        self.o, self.d = empty(n, 3), empty(n, 3)
+        self.hit = traverse.hit_outputs(n, device, instanced)
+        self.shaded = shade_ops.shade_outputs(n, device)
+        self.occ = empty(n, dtype=torch.bool)
+        self.alive = empty(n, dtype=torch.bool)
+        self.every = torch.ones((n,), dtype=torch.bool, device=device)
+
+    @classmethod
+    def from_indices(cls, idx, st: PathState, instanced: bool):
+        """A wave whose depth-0 list is the host's lane list ``idx``, with
+        its length and its rays gathered from ``st``."""
+        wave = cls(idx.numel(), 1, instanced, idx.device)
+        wave.idx[0] = idx
+        wave.counts.fill_(idx.numel())
+        wave.o, wave.d = st.o[idx], st.d[idx]
+        return wave
+
+    def count(self, depth: int):
+        """Depth ``depth``'s list length as the launches read it: a (1,)
+        int32 view of the device's word."""
+        return self.counts[depth: depth + 1]
+
+    def compact(self, mask, st: PathState, depth: int) -> None:
+        """Write depth ``depth``'s list: depth 0 from ray generation's
+        ``mask`` over the identity, later depths from the last bounce's
+        alive ``mask`` over depth - 1's list (``ops/lanes.py``), with its
+        length, its rays from ``st`` and its count into ``lanes``."""
+        first = depth == 0
+        lane_ops.compact(
+            mask, None if first else self.idx[(depth - 1) % 2],
+            None if first else self.count(depth - 1), st.o, st.d,
+            {"idx_out": self.idx[depth % 2], "count_out": self.count(depth),
+             "o_out": self.o, "d_out": self.d,
+             "lanes": self.lanes[depth: depth + 1],
+             "tiles": self.tiles[depth]})
+
+
+def kernel_bounce(scene, st: PathState, wave: CardWave, depth: int, ray_ids,
+                  key, primary: bool, config: RenderConfig) -> torch.Tensor:
+    """One bounce of ``wave``'s lanes at ``depth`` on the card: K1 on their
     rays, the catcher pass-through, ``shade_kernel``, K2, then
     ``resolve_kernel``, which updates ``st`` in place -> the lanes' alive
-    mask. ``ray_ids`` must be int64. The result is ``plain_bounce``'s."""
-    o, d = st.o[idx], st.d[idx]
-    every = torch.ones((idx.numel(),), dtype=torch.bool, device=o.device)
-    hit = _closest(scene, o, d, every, config)
+    mask (``wave.alive``). Every launch reads the list's length from the
+    device and writes the wave's buffers. ``ray_ids`` must be int64. The
+    result is ``plain_bounce``'s."""
+    idx, count = wave.idx[depth % 2], wave.count(depth)
+    o, d = wave.o, wave.d
+    hit = _closest(scene, o, d, wave.every, config, count=count,
+                   counter=wave.k1_counters[depth: depth + 1], out=wave.hit)
     if scene.has_catcher and not primary and config.catcher_passthrough > 0:
-        o, hit, passthrough = _catcher_passthrough(scene, o, d, hit, config)
+        live = torch.arange(wave.n, dtype=torch.int32, device=o.device) < count
+        o, hit, passthrough = _catcher_passthrough(scene, o, d, hit, config,
+                                                   live)
         st.traces += passthrough
     p, wi, query, rec = shade_ops.shade(scene, idx, o, d, hit, st.eta, ray_ids,
-                                        key, primary)
-    occ = _occluded(scene, p, wi, query, config)
+                                        key, primary, count, wave.shaded)
+    occ = _occluded(scene, p, wi, query, config, count=count,
+                    counter=wave.k2_counters[depth: depth + 1], out=wave.occ)
     return shade_ops.resolve(idx, rec, p, occ, query, st, primary,
-                             scene.has_catcher)
+                             scene.has_catcher, count, wave.alive)
+
+
+def kernel_paths(scene, st: PathState, active, ray_ids, key,
+                 config: RenderConfig) -> None:
+    """Every bounce of a wavefront on the card, its live lanes kept in
+    device memory: one compaction of ray generation's ``active``, then each
+    bounce and, before every bounce but the last, the compaction of its
+    alive mask. Nothing waits for the device; the per-depth lane counts go
+    to the counters with the frame's download (``tracing.count_on_device``).
+    """
+    wave = CardWave(st.o.shape[0], config.max_depth, scene.bvh.instanced,
+                    st.o.device)
+    wave.compact(active, st, 0)
+    for depth in range(config.max_depth):
+        tracing.count("shade", "kernel", 1)
+        with tracing.bounce(depth):
+            alive = kernel_bounce(scene, st, wave, depth, ray_ids,
+                                  fold_in(key, depth), depth == 0, config)
+            if depth + 1 < config.max_depth:
+                wave.compact(alive, st, depth + 1)
+    tracing.count_on_device("lanes", wave.lanes)
 
 
 @tracing.spanned(tracing.PATHS)
@@ -515,29 +620,27 @@ def trace_paths(scene, origin: torch.Tensor, direction: torch.Tensor,
     if scene.demand is not None:
         st.demand_req = torch.zeros((scene.demand.total_pages,),
                                     dtype=torch.uint8, device=dev)
-    kernels = shades_on_kernels(scene, config, dev)
-    if kernels:
-        ray_ids = ray_ids.to(torch.int64).contiguous()
-    with tracing.sync("live_lanes"):
-        idx = torch.nonzero(active).squeeze(1)
-    for depth in range(config.max_depth):
-        # the lanes entering this bounce, every depth counted: idx's length,
-        # which the host knows since the last narrowing
-        tracing.count("lanes", depth, idx.numel())
-        if idx.numel() == 0:
-            continue
-        tracing.count("shade", "kernel" if kernels else "plain", 1)
-        with tracing.bounce(depth):
-            if kernels:
-                alive = kernel_bounce(scene, st, idx, ray_ids,
-                                      fold_in(key, depth), depth == 0,
-                                      config)
-            else:
+    if shades_on_kernels(scene, config, dev):
+        tracing.count("lane_list", "device", 1)
+        kernel_paths(scene, st, active.contiguous(),
+                     ray_ids.to(torch.int64).contiguous(), key, config)
+    else:
+        tracing.count("lane_list", "host", 1)
+        with tracing.sync("live_lanes"):
+            idx = torch.nonzero(active).squeeze(1)
+        for depth in range(config.max_depth):
+            # the lanes entering this bounce, every depth counted: idx's
+            # length, which the host knows since the last narrowing
+            tracing.count("lanes", depth, idx.numel())
+            if idx.numel() == 0:
+                continue
+            tracing.count("shade", "plain", 1)
+            with tracing.bounce(depth):
                 alive = plain_bounce(scene, st, idx, ray_ids,
-                                     fold_in(key, depth), depth == 0,
-                                     config, lam)
-            with tracing.sync("narrow"):
-                idx = idx[alive]
+                                     fold_in(key, depth), depth == 0, config,
+                                     lam)
+                with tracing.sync("narrow"):
+                    idx = idx[alive]
     out = {"radiance": st.radiance, "alpha": st.alpha, "normal": st.normal,
            "albedo": st.albedo, "traces": st.traces}
     if scene.demand is not None:

@@ -23,7 +23,8 @@ subframe), jitter key = fold_in(frame key, 0), path key = fold_in(frame
 key, 1) (``ops.rng``).
 
 Spans (``utils/tracing.py``): a ``Renderer`` frame is ``fov.frame`` and
-counts one displayed frame, its download the sync ``download``; ray
+counts one displayed frame, its download the sync ``download``, after
+which the device's counts of the frame are folded in; ray
 generation with the passes' merge is ``fov.raygen``, the film
 ``fov.film`` (the plain path's tone map ``fov.tonemap``). Each wavefront's
 ray generation counts under ``raygen`` and each frame's film under
@@ -465,7 +466,9 @@ class Renderer:
             self.subframe += 1
             self.last_frame = frame
             with tracing.sync("download"):
-                return frame.cpu().numpy()
+                pixels = frame.cpu().numpy()
+            tracing.fold()
+            return pixels
 
     def _sharded_frame(self, *args):
         from fovpathtracing_optixcodelatest_tpu_torch.parallel import (
@@ -490,7 +493,9 @@ class Renderer:
             self.subframe += 1
             self.last_frame = frame
             with tracing.sync("download"):
-                return frame.cpu().numpy(), aovs
+                pixels = frame.cpu().numpy()
+            tracing.fold()
+            return pixels, aovs
 
     def download_pixels(self) -> np.ndarray:
         if self.last_frame is None:

@@ -86,8 +86,9 @@ def bounce_both(scene, config, st, idx, ray_ids, key, primary: bool):
     try:
         alive_p = integrator.plain_bounce(scene, sp, idx, ray_ids, key,
                                           primary, config)
+        wave = integrator.CardWave.from_indices(idx, sk, scene.bvh.instanced)
         alive_k = integrator.kernel_bounce(
-            scene, sk, idx, ray_ids.to(torch.int64).contiguous(), key,
+            scene, sk, wave, 0, ray_ids.to(torch.int64).contiguous(), key,
             primary, config)
     finally:
         integrator.bounce, shade_ops.shade = real_bounce, real_shade

@@ -11,22 +11,30 @@ records is read once, when the outermost span opens (a frame's
 ``fov.frame``), and holds for every span inside it.
 
 ``sync(site)`` is the span ``fov.sync.<site>`` around a call that waits
-for the device (the live-lane ``nonzero``, a bounce's boolean narrowing,
-the frame's download) and counts one sync under ``"syncs"``. ``count``
-adds to an integer counter, such as ``"lanes"`` (the lanes that enter each
-bounce, keyed by depth), ``"shade"`` (the bounces shaded, keyed
-``"kernel"`` or ``"plain"`` by the path ``trace_paths`` took), and
+for the device (on the plain bounce's path the live-lane ``nonzero`` and a
+bounce's boolean narrowing; the frame's download) and counts one sync
+under ``"syncs"``. ``count`` adds to an integer counter, such as
+``"lanes"`` (the lanes that enter each bounce, keyed by depth),
+``"shade"`` (the bounces shaded, keyed ``"kernel"`` or ``"plain"`` by the
+path ``trace_paths`` took), ``"lane_list"`` (a wavefront's live lanes,
+keyed ``"device"`` where they stay on the card or ``"host"``), and
 ``"raygen"`` and ``"film"`` (a wavefront's ray generation and a frame's
 film and tone map, keyed so by the path ``render/renderer.py`` took).
+``count_on_device`` adds counts that only the device knows (the kernel
+path's lanes a depth): it copies them without waiting into page-locked
+memory, and ``fold`` adds those that have arrived, which
+``Renderer.render`` and ``StereoRenderer.render`` call after their
+download's sync; ``snapshot`` waits for any still on their way.
 ``frame()`` is the span ``fov.frame`` and counts one displayed frame under
 ``"frames"``; ``wavefront()`` counts one ``trace_paths`` call under
 ``"wavefronts"`` (a mono frame makes one, a stereo pair two, a
 multi-device frame one a slice).
 
-Nothing here reads a tensor: a count that only the device knows is never
-read on the frame path, so the tracing adds no sync. With the profiler off
-a span costs two clock reads and a few integer additions under a lock.
-Each thread keeps its own stack of open spans; the counters are shared.
+Nothing here waits for the device on the frame path: a count that only
+the device knows is read there only once it has arrived, so the tracing
+adds no sync. With the profiler off a span costs two clock reads and a few
+integer additions under a lock. Each thread keeps its own stack of open
+spans; the counters are shared.
 
 ``snapshot()`` copies ``COUNTERS``; ``diff(a, b)`` is what happened
 between two snapshots.
@@ -38,8 +46,9 @@ their merge in ``frame_wavefront``), ``fov.paths`` (``trace_paths``),
 ``fov.bounce.<depth>`` (a bounce of its loop), ``fov.k1`` and ``fov.k2``
 (the traversal wrappers), ``fov.film`` (``plain_composite_passes``, or
 on the kernel path the film's one launch, which tone-maps too),
-``fov.tonemap`` (``film.finalize``, the plain path's tone map); its syncs ``live_lanes``, ``narrow``, ``download``
-and, for a stereo pair, ``traces``.
+``fov.tonemap`` (``film.finalize``, the plain path's tone map); its syncs
+``download`` and, for a stereo pair, ``traces``, and on the plain bounce's
+path ``live_lanes`` and ``narrow``.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import functools
 import threading
 import time
 
+import torch
 import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import record_function
 
@@ -64,11 +74,14 @@ EYE_PREFIX = "fov.eye."
 SYNC_PREFIX = "fov.sync."
 
 SCALARS = ("frames", "wavefronts")
-GROUPS = ("ns", "ns_total", "syncs", "lanes", "shade", "raygen", "film")
+GROUPS = ("ns", "ns_total", "syncs", "lanes", "shade", "lane_list",
+          "raygen", "film")
 COUNTERS: dict = {**{s: 0 for s in SCALARS}, **{g: {} for g in GROUPS}}
 
 _lock = threading.Lock()  # COUNTERS' updates (the viewer renders on two
 # threads at once)
+# device counts on their way: (group, page-locked host copy, its event)
+_pending: list = []
 
 
 class _Thread(threading.local):
@@ -162,9 +175,8 @@ def frame() -> _Span:
 
 
 def wavefront() -> None:
-    """Count one ``trace_paths`` wavefront. (Each call also makes one
-    ``live_lanes`` sync today; the count is kept apart from it so that it
-    still reads when that sync goes.)"""
+    """Count one ``trace_paths`` wavefront (apart from its syncs: the
+    kernel path makes none)."""
     with _lock:
         # a table made from ``GROUPS`` and ``"frames"`` alone, as callers
         # that restart the counters have made it, lacks the key
@@ -177,8 +189,40 @@ def count(group: str, key, n: int) -> None:
         _add(group, key, n)
 
 
+def count_on_device(group: str, counts: torch.Tensor) -> None:
+    """Add the 1-D int64 CUDA tensor ``counts`` to ``group``, entry ``k``
+    to key ``k``, once it reaches the host: copied now, without waiting,
+    into page-locked memory behind the work queued before it; ``fold``
+    adds it. Folds what has arrived first, so a caller that never folds
+    (a process rendering without ``Renderer``) keeps only the copies still
+    on their way."""
+    fold()
+    host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(counts.device))
+    with _lock:
+        _pending.append((group, host, done))
+
+
+def fold(wait: bool = False) -> None:
+    """Add the device counts that have reached the host to ``COUNTERS``;
+    with ``wait``, every one, waiting for those still on their way."""
+    with _lock:
+        ready = [p for p in _pending if wait or p[2].query()]
+        for p in ready:
+            _pending.remove(p)
+    for group, host, done in ready:
+        if wait:
+            done.synchronize()
+        with _lock:
+            for k, n in enumerate(host.tolist()):
+                _add(group, k, n)
+
+
 def snapshot() -> dict:
-    """A copy of ``COUNTERS``."""
+    """A copy of ``COUNTERS``, with every device count folded in."""
+    fold(wait=True)
     with _lock:
         return copy.deepcopy(COUNTERS)
 

@@ -793,7 +793,7 @@ def test_rehearse_viewer_phase(no_card):
                                  cycle=("sealed/8", sealed), warmup_scale=2)
     assert "error" not in vw, vw["error"]
     assert vw["page"] and vw["jpeg_sizes"] == [(w, h)] * 2 and vw["swapped"]
-    assert vw["subframe_after"] < vw["subframe_before"]
+    assert vw["subframe_after"] <= vw["frames_since_input"]
     assert vw["final"]["schedule"] == "sealed/8"
     assert vw["final"]["fps"] > 0 and vw["render_ms"]
     assert vw["frames"] > 5

@@ -18,9 +18,11 @@ import torch
 
 from fovpathtracing_optixcodelatest_tpu_torch.ops import frame as frame_ops
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+from fovpathtracing_optixcodelatest_tpu_torch.ops import lanes
 from fovpathtracing_optixcodelatest_tpu_torch.ops import packet_traverse
 from fovpathtracing_optixcodelatest_tpu_torch.ops import shade
 from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+from torch_stand_in_kernels import STRUCTS
 from torch_stand_in_kernels import stand_in_kernels  # noqa: F401 (a fixture)
 
 
@@ -58,7 +60,7 @@ _LENGTHS = {"kMaxPasses": frame_ops.MAX_PASSES}
 # the tensor dtype a pointer's C type points to
 _C_DTYPES = {"int64_t": torch.int64, "float": torch.float32,
              "int32_t": torch.int32, "bool": torch.bool,
-             "long long": torch.int64}
+             "long long": torch.int64, "unsigned": torch.int32}
 
 
 @pytest.mark.parametrize("sources,name,cls,dtypes", [
@@ -72,6 +74,7 @@ _C_DTYPES = {"int64_t": torch.int64, "float": torch.float32,
     (("traverse.cu",), "TraverseArgs", traverse.TraverseArgs, None),
     (("packet_traverse.cu",), "PacketArgs", packet_traverse.PacketArgs,
      None),
+    (("lanes.cu",), "CompactArgs", lanes.CompactArgs, lanes.COMPACT_TENSORS),
 ], ids=lambda x: x if isinstance(x, str) else "")
 def test_structs_match_the_c_declarations(sources, name, cls, dtypes):
     fields = _c_struct(_read(*sources), name)
@@ -118,3 +121,25 @@ def test_launch_passes_the_struct_and_the_stream(stand_in_kernels):
         kernel_build.launch("traverse", "fov_traverse", "occluded_instanced",
                             args)
     assert kernel_build.LAUNCHES == {"occluded_instanced": 2}
+
+
+def test_every_launch_entry_has_its_struct():
+    """The stand-in records every launch entry's struct: each
+    ``extern "C" int fov_<entry>(const <Struct>* a, cudaStream_t)`` of
+    ``csrc/`` names the struct its ctypes twin declares."""
+    src = _read(*(f"{s}.cu" for s in kernel_build.SOURCES))
+    entries = dict(re.findall(
+        r'extern "C" int (fov_\w+)\(const (\w+)\* a, cudaStream_t', src))
+    assert entries.keys() == STRUCTS.keys()
+    for entry, struct in entries.items():
+        assert STRUCTS[entry].__name__ == struct, entry
+
+
+def test_lane_counts_go_to_the_kernels_as_pointers():
+    """The traversal and shading structs carry the lane count the device
+    holds as a pointer after their other tensors, before the integers."""
+    for cls, last in ((traverse.TraverseArgs, "which"),
+                      (shade.ShadeArgs, "n"), (shade.ResolveArgs, "n")):
+        names = [f[0] for f in cls._fields_]
+        assert names[names.index(last) - 1] == "count", cls.__name__
+        assert dict(cls._fields_)["count"] is ctypes.c_void_p

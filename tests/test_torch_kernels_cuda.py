@@ -216,7 +216,9 @@ def test_a_frame_shades_each_bounce_in_two_launches(city):
     ``shade`` and ``resolve`` (``csrc/shade.cu``) and K2 once each, and
     counts under ``shade`` / ``"kernel"`` (no catcher, so no re-trace); the
     frame's ray generation and film are one launch each
-    (``csrc/frame.cu``)."""
+    (``csrc/frame.cu``), and its lane lists one compaction a bounce
+    (``csrc/lanes.cu``: ray generation's mask, then every bounce but the
+    last)."""
     config = RenderConfig(width=96, height=54, max_depth=4)
     r = Renderer(city, config, FoveationSchedule.uniform(2), seed=0,
                  device="cuda")
@@ -230,7 +232,7 @@ def test_a_frame_shades_each_bounce_in_two_launches(city):
     b = config.max_depth
     assert kernel_build.LAUNCHES == _launched(closest_hit=b, occluded=b,
                                               shade=b, resolve=b, raygen=1,
-                                              film=1)
+                                              film=1, compact=b)
 
 
 # ---------------------------------------------------------------------------

@@ -105,6 +105,7 @@ def test_a_frame_counts_its_syncs_and_lanes(monkeypatch):
     assert len(seen) == DEPTH and seen[0] > 0
     assert got["syncs"] == {"live_lanes": 1, "narrow": len(seen),
                             "download": 1}
+    assert got["lane_list"] == {"host": 1}
     assert got["lanes"] == dict(enumerate(seen))
     assert seen[1:] == alive[:-1]
     # self times tile the frame: their sum is its whole duration, of which
@@ -174,6 +175,7 @@ def test_a_stereo_pair_is_one_frame():
     narrow = got["syncs"]["narrow"]
     assert got["syncs"] == {"live_lanes": 2, "narrow": narrow,
                             "download": 1, "traces": 1}
+    assert got["lane_list"] == {"host": 2}
     # both eyes walk every depth
     assert got["lanes"].keys() == set(range(DEPTH)) and narrow == 2 * DEPTH
 
@@ -185,8 +187,8 @@ def test_diff_keeps_what_changed():
          "lanes": {0: 7}}
     assert tracing.diff(a, b) == {
         "frames": 1, "ns": {"x": 4, "y": 1}, "ns_total": {},
-        "syncs": {"d": 1}, "lanes": {0: 7}, "shade": {}, "raygen": {},
-        "film": {}}
+        "syncs": {"d": 1}, "lanes": {0: 7}, "shade": {}, "lane_list": {},
+        "raygen": {}, "film": {}}
 
 
 def test_a_span_keeps_its_self_time_apart_from_its_children():
@@ -273,15 +275,18 @@ def test_on_the_card_syncs_are_spans_and_device_work_is_spanned(card,
     by_corr = {e["args"]["correlation"]: e for e in host
                if "correlation" in e.get("args", {})}
     device = [e for e in events if e.get("cat") in DEVICE_CATS]
-    # copies the host waits on: device to host
+    # copies the host waits on: device to pageable host memory (the lane
+    # counts' copy into page-locked memory waits for nothing)
     dtoh = {e["args"]["correlation"] for e in device
-            if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]}
+            if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]
+            and "Pinned" not in e["name"]}
 
     waits = [e for e in host if e["name"] in WAITS or (
         e["name"] == "cudaMemcpyAsync"
         and e.get("args", {}).get("correlation") in dtoh)]
     syncs = [s for s in inside if s[2].startswith("fov.sync.")]
-    assert len(syncs) == 2 + DEPTH
+    # the download alone: the lane lists stay on the card
+    assert [s[2] for s in syncs] == ["fov.sync.download"]
     holder = {}
     for w in waits:
         s = _innermost(inside, w["ts"])
@@ -302,10 +307,10 @@ def test_on_the_card_syncs_are_spans_and_device_work_is_spanned(card,
         assert s is not None, (e["name"], launch["name"])
         launched += 1
     # ray generation and the film (one launch each), each bounce's K1,
-    # shading kernels and K2, and the state's set-up and narrowing (about
-    # 80 launches a frame)
-    assert launched > 50
-    for kernel in ("shade_kernel", "resolve_kernel"):
+    # shading kernels and K2, the compactions and the state's set-up
+    # (about 40 launches a frame)
+    assert launched > 30
+    for kernel in ("shade_kernel", "resolve_kernel", "compact_kernel"):
         assert sum(kernel in e["name"] for e in device) == DEPTH, kernel
     for kernel in ("raygen_kernel", "film_kernel"):
         assert sum(kernel in e["name"] for e in device) == 1, kernel

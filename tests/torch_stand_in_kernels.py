@@ -1,15 +1,28 @@
 """A stand-in for the port's CUDA libraries, for the CPU tests of the
 kernel binding seam: the ``stand_in_kernels`` fixture replaces
 ``kernel_build``'s libraries by one ``StandInLibrary``, its stream by
-0x5712 and its launch counts by a fresh Counter. A test file that uses it
-imports the fixture by name."""
+0x5712 and its launch counts by a fresh Counter. Each launch entry's call
+is recorded with a copy of its argument struct (``STRUCTS``). A test file
+that uses it imports the fixture by name."""
 
 import collections
 import ctypes
 
 import pytest
 
+from fovpathtracing_optixcodelatest_tpu_torch.ops import frame
 from fovpathtracing_optixcodelatest_tpu_torch.ops import kernel_build
+from fovpathtracing_optixcodelatest_tpu_torch.ops import lanes
+from fovpathtracing_optixcodelatest_tpu_torch.ops import packet_traverse
+from fovpathtracing_optixcodelatest_tpu_torch.ops import shade
+from fovpathtracing_optixcodelatest_tpu_torch.ops import traverse
+
+# every launch entry's argument struct
+STRUCTS = {"fov_traverse": traverse.TraverseArgs,
+           "fov_occluded_packets": packet_traverse.PacketArgs,
+           "fov_shade": shade.ShadeArgs, "fov_resolve": shade.ResolveArgs,
+           "fov_compact": lanes.CompactArgs, "fov_raygen": frame.RaygenArgs,
+           "fov_film": frame.FilmArgs}
 
 
 class StandInEntry:
@@ -31,12 +44,13 @@ class StandInEntry:
 
 class StandInLibrary:
     """Every entry returns ``rc`` and records (entry, arguments), with a
-    copy of the argument struct where ``structs`` names its class."""
+    copy of the argument struct where ``structs`` names its class (each
+    launch entry's, ``STRUCTS``)."""
 
     def __init__(self):
         self.rc = 0
         self.calls = []
-        self.structs = {}
+        self.structs = dict(STRUCTS)
 
     def __getattr__(self, entry):
         if entry.startswith("__"):
