@@ -6,11 +6,16 @@ names a configuration (``configs/<config>.json``) and a traffic mix
 (``traffic/<mix>.json``); its per-layer metrics are ``metrics/<name>.py``
 and its limits ``limits/<cell>.json``. The port is imported inside
 ``run_cell``, so that this module loads where the port is absent.
+
+A generator may return an instance table (``fovbench/instances.py``):
+the program then builds its unique meshes two-level
+(``build_scene_instanced``) and the reference renders the flattened world.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib
 import importlib.util
@@ -23,7 +28,8 @@ import time
 import numpy as np
 import torch
 
-from fovbench import check, peaks, traffic as traffic_mod
+from fovbench import check, instances as instances_mod, peaks, \
+    traffic as traffic_mod
 from fovbench.trace import FRAME_SPAN, Trace
 
 # top-level modules no run may hold once its window has closed
@@ -39,7 +45,7 @@ class Context:
     frame_s: float  # the untraced window's seconds a displayed frame
     spans: dict
     traced_traces: float | None  # ``traces`` summed over the traced frames
-    triangles: int
+    triangles: int  # the table's: an instanced scene's unique meshes'
     eyes: int
     peaks: dict
 
@@ -79,17 +85,28 @@ def config_of(root: str, bench: dict, name: str) -> dict:
     raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
 
 
-def generate_scene(cfg: dict):
-    """(meshes, camera, texture images, probe image) from the frozen
-    generators the configuration names."""
+def generate_with_table(cfg: dict):
+    """(meshes, camera, texture images, probe image, instance table) from
+    the frozen generators the configuration names. A generator that returns
+    a table returns its unique object-space meshes; a flat one returns the
+    world's meshes and no table (None)."""
     geo = dict(cfg["geometry"])
     gen = importlib.import_module(f"fovbench.scenes.{geo.pop('generator')}")
     tex = cfg["textures"]
-    meshes, camera, images = gen.generate(
+    meshes, camera, images, *table = gen.generate(
         **geo, texture_size=tex["size"] if tex else None)
     pr = dict(cfg["probe"])
     probe = importlib.import_module(
         f"fovbench.scenes.{pr.pop('generator')}").generate(**pr)
+    return meshes, camera, images, probe, table[0] if table else None
+
+
+def generate_scene(cfg: dict):
+    """(world meshes, camera, texture images, probe image): the world that
+    the reference renders, an instance table flattened."""
+    meshes, camera, images, probe, table = generate_with_table(cfg)
+    if table is not None:
+        meshes = instances_mod.flatten(meshes, table)
     return meshes, camera, images, probe
 
 
@@ -124,7 +141,7 @@ class _Program:
     """The port, driven through its public entry points."""
 
     def __init__(self, cfg, tr, meshes, camera, images, probe_image, seed,
-                 device):
+                 device, instances=None):
         from fovpathtracing_optixcodelatest_tpu_torch.config import (
             FoveationPass, FoveationSchedule, RenderConfig)
         from fovpathtracing_optixcodelatest_tpu_torch.models.camera import Camera
@@ -133,19 +150,34 @@ class _Program:
         from fovpathtracing_optixcodelatest_tpu_torch.models.mesh import HostMesh
         from fovpathtracing_optixcodelatest_tpu_torch.models.probe import build_cdf
         from fovpathtracing_optixcodelatest_tpu_torch.models.scene import (
-            build_scene)
+            build_scene, build_scene_instanced)
 
         host = [HostMesh(vertex=m["vertex"], index=m["index"],
                          normal=m["normal"], texcoord=m["texcoord"],
                          material=Material(**m["material"]),
                          diffuse_texture_id=m["texture_id"]) for m in meshes]
         probe = build_cdf(probe_image)
+        if instances is None:
+            build = functools.partial(build_scene, host,
+                                      leaf_size=cfg["bvh"]["leaf_size"],
+                                      arity=cfg["bvh"]["arity"])
+        else:
+            from fovpathtracing_optixcodelatest_tpu_torch.models.instance import (
+                Instance, InstancedScene)
+
+            if (cfg["bvh"]["leaf_size"], cfg["bvh"]["arity"]) != (None, None):
+                raise ValueError("an instanced scene is built at the port's "
+                                 "default table; name no BVH layout")
+            build = functools.partial(build_scene_instanced, InstancedScene(
+                unique=host, textures=list(images),
+                instances=[Instance(mesh_ids=tuple(i["mesh_ids"]),
+                                    transform=np.asarray(i["transform"],
+                                                         np.float64))
+                           for i in instances]))
         t = time.perf_counter()
         with torch.profiler.record_function("fovbench.build_scene"):
-            self.scene = build_scene(host, probe=probe,
-                                     texture_images=images or None,
-                                     leaf_size=cfg["bvh"]["leaf_size"],
-                                     arity=cfg["bvh"]["arity"], device=device)
+            self.scene = build(probe=probe, texture_images=images or None,
+                               device=device)
         self.build_s = time.perf_counter() - t
         r = cfg["render"]
         config = RenderConfig(
@@ -245,9 +277,10 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
 
-    meshes, camera, images, probe_image = generate_scene(cfg)
+    meshes, camera, images, probe_image, table = generate_with_table(cfg)
     tr = traffic_of(root, cfg, cell["traffic"], seed, camera)
-    prog = _Program(cfg, tr, meshes, camera, images, probe_image, seed, dev)
+    prog = _Program(cfg, tr, meshes, camera, images, probe_image, seed, dev,
+                    table)
     for f in range(tr.warmup):
         prog.render(f)
     setup_s = time.perf_counter() - t0
@@ -302,11 +335,12 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
     from fovbench.reference.render import Reference
 
     t_ref = time.perf_counter()
+    world = meshes if table is None else instances_mod.flatten(meshes, table)
     kept = keep.frames()
     checks = check.draw(cfg, tr, seed, kept, limits["sample"])
     prog_px = np.stack([kept[s][e, y, x] for e, s, x, y in checks])
     cams, fov = cameras_of(cfg, tr, camera)
-    ref = Reference(cfg, meshes, images, probe_image, cams, fov, dev)
+    ref = Reference(cfg, world, images, probe_image, cams, fov, dev)
     ref_px = check.reference_pixels(ref, cfg, tr, seed, checks)
     numbers = check.compare(prog_px, ref_px)
     lim = limits["limits"]
@@ -364,6 +398,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
         "frame_ms_p95": metrics["frame_ms_p95"], "setup_s": setup_s,
         "traced_frame_ms": traced_ms, "window_cpu": cpu,
         "scene_build_s": build_s, "triangles": triangles,
+        "world_triangles": sum(len(m["index"]) for m in world),
+        "instances": 0 if table is None else len(table),
         "traces_per_frame": window_traces, "eyes": tr.eyes,
         "checked_pixels": len(checks), "checked_frames": len(by_frame),
         "reference_s": ref_s, "memory_peak_bytes": int(peak),

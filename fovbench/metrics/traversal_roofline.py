@@ -5,8 +5,11 @@ The least time is a memory bound, from what the frame's queries need and
 not from what a table makes a kernel visit, so that a new layout or kernel
 leaves the yardstick where it is: each traced ray read once (origin,
 direction, extent), each result written once (t, u, v, triangle,
-instance), and the scene's triangles read once an eye (v0, e1, e2), at
-the card's peak bandwidth. The rays are the frame's ``traces``."""
+instance), and the table's triangles read once an eye (v0, e1, e2), at
+the card's peak bandwidth. The rays are the frame's ``traces``; the
+triangles are ``ctx.triangles``, those that lie on the card: a flat
+scene's world triangles, an instanced scene's unique ones (each instance
+walks the same unique triangles)."""
 
 from fovbench.metrics.traversal_ms import is_traversal
 
